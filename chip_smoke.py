@@ -68,14 +68,19 @@ def time_ms(fn, iters: int, flush=None) -> float:
 
 
 def max_err(got, want, tol: float):
+    """Elementwise |got - want| <= tol * (|want| + rms(want)): relative to
+    each element, with a floor set by the tensor's typical size (not its
+    largest value). Returns max|Δ| and the worst |Δ| over its limit, which
+    must be at most 1."""
     import torch
 
     got, want = got.to(torch.float32), want.to(torch.float32)
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("kernel output is not finite")
-    err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
-    return err, tol * scale
+    diff = (got - want).abs()
+    rms = float(want.square().mean().sqrt())
+    limit = tol * (want.abs() + rms)
+    return float(diff.max()), float((diff / limit).max())
 
 
 def check_kernel(results, name, module, replaces, run_kernel, run_plain, run_library,
@@ -83,19 +88,20 @@ def check_kernel(results, name, module, replaces, run_kernel, run_plain, run_lib
     got, want = run_kernel(), run_plain()
     if select is not None:
         got, want = select(got), select(want)
-    err, limit = max_err(got, want, tol)
+    err, ratio = max_err(got, want, tol)
     ms = time_ms(run_kernel, iters, flush)
     plain_ms = time_ms(run_plain, max(2, iters // 10), flush)
     lib_ms = time_ms(run_library, iters, flush) if run_library else None
     b_ms, b_by = bound(nbytes, ops, peak)
     res = {"name": name, "route": "cuda", "source": module.SOURCE, "replaces": replaces,
-           "launches": None, "max_abs_err": err, "max_abs_diff": err, "tol": limit,
+           "launches": None, "max_abs_err": err, "max_abs_diff": err, "tol": tol,
+           "err_over_limit": ratio,
            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": b_ms, "bound_by": b_by}
-    print(f"[kernel] {name}: max|Δ| {err:.3g} (tol {limit:.3g}) kernel {ms:.4f} ms "
+    print(f"[kernel] {name}: max|Δ| {err:.3g}, {ratio:.3g} of the limit (tol {tol}) kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms library {lib_ms} ms bound {b_ms:.4f} ms ({b_by})",
           flush=True)
-    if not err <= limit:
+    if not ratio <= 1.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     results.append((module, res))
 
@@ -127,7 +133,10 @@ def reference_phase():
 
     gpu = to(cpu, "cuda")
     prompt = torch.randint(1, cfg.vocab_size, (1, 160), generator=torch.Generator().manual_seed(3))
-    worst = 0.0
+    # a model-level check, as tests/test_torch_model.py holds the port to the
+    # JAX package: bf16 rounding differences compound over the layers, so
+    # the limit is 2e-2 of the larger of 1 and the largest logit
+    worst, worst_rel = 0.0, 0.0
     for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
         cache = init_cache(cfg, quant, 1, 512, dev)
         logits = [forward(params, prompt.to(dev), torch.tensor([160], dtype=torch.int32, device=dev),
@@ -140,12 +149,17 @@ def reference_phase():
             ref = [x.clone() for x in logits]
         else:
             for step, (g, r) in enumerate(zip(logits, ref)):
-                err, limit = max_err(g.cpu(), r, 2e-2)
+                g, r = g.cpu().to(torch.float32), r.to(torch.float32)
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"tiny model step {step}: non-finite logits")
+                err = float((g - r).abs().max())
+                limit = 2e-2 * max(1.0, float(r.abs().max()))
                 worst = max(worst, err)
+                worst_rel = max(worst_rel, err / float(r.square().mean().sqrt()))
                 if not err <= limit:
                     raise AssertionError(f"tiny model step {step}: card vs CPU {err} > {limit}")
-    print(f"[reference] tiny V2-Lite on the card vs the CPU plain path: max|Δ| logits {worst:.3g}",
-          flush=True)
+    print(f"[reference] tiny V2-Lite on the card vs the CPU plain path: max|Δ| logits {worst:.3g} "
+          f"({worst_rel:.3g} of their rms)", flush=True)
 
 
 def kernel_phase(params, cfg, results, dev="cuda"):
@@ -182,15 +196,17 @@ def kernel_phase(params, cfg, results, dev="cuda"):
     Dp = 640
     scale = yarn_softmax_scale((cfg.qk_nope_head_dim + DR) ** -0.5, cfg.rope_scaling)
     cache = torch.zeros((1, 1, 4096, Dp), dtype=torch.bfloat16, device=dev)
-    cache[..., :L + DR] = (0.3 * torch.randn((1, 1, 4096, L + DR), generator=g, device=dev)
-                           ).to(torch.bfloat16)
+    # unit-scale rows, as the normed latents are: the scores are peaked and
+    # the outputs O(1), so a masking fault moves them well past the limit
+    cache[..., :L + DR] = torch.randn((1, 1, 4096, L + DR), generator=g, device=dev
+                                      ).to(torch.bfloat16)
     for name, sq, q_off, kv_len, replaces in (
             ("attention:prefill_2048", 2048, 0, 2048, fa.REPLACES),
             ("attention:chunk_452_at_2048", 452, 2048, 2500, fa.REPLACES),
             ("attention:decode_kv_2560", 1, 2559, 2560, fa.REPLACES_DECODE)):
         q = torch.zeros((1, sq, H, Dp), dtype=torch.bfloat16, device=dev)
-        q[..., :L + DR] = (0.3 * torch.randn((1, sq, H, L + DR), generator=g, device=dev)
-                           ).to(torch.bfloat16)
+        q[..., :L + DR] = torch.randn((1, sq, H, L + DR), generator=g, device=dev
+                                      ).to(torch.bfloat16)
         kv = cache[:, :, :kv_len]
         qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
         kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
@@ -200,14 +216,23 @@ def kernel_phase(params, cfg, results, dev="cuda"):
         pos = q_off + torch.arange(sq, device=dev)
         mask = torch.arange(kv_len, device=dev)[None, :] <= pos[:, None]
         visible = int(mask.sum())
-        nbytes = q.numel() * 2 + kv_len * Dp * 2 + sq * H * L * 2
-        ops = 2 * H * visible * (Dp + L)
+        # the function needs the L + DR real lanes; the zero pad to Dp is not work
+        nbytes = (sq * H + kv_len) * (L + DR) * 2 + sq * H * L * 2
+        ops = 2 * H * visible * (L + DR + L)
         check_kernel(results, name, fa, replaces,
                      lambda: fa.flash_attention(q, kv, qo, kl, scale, L),
                      lambda: fa.flash_attention_plain(q, kv, qo, kl, scale, L),
                      lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                             scale=scale),
                      2e-2, nbytes, ops, PEAK_BF16, 20 if sq > 1 else 50, flush)
+        if sq > 1:
+            # the same check must refuse a kernel that dropped the causal mask
+            _, fault = max_err(fa.flash_attention_plain(q, kv, kl - 1, kl, scale, L),
+                               fa.flash_attention_plain(q, kv, qo, kl, scale, L), 2e-2)
+            print(f"[kernel] {name}: without the causal mask the check reads "
+                  f"{fault:.3g} of the limit", flush=True)
+            if not fault > 1.0:
+                raise AssertionError(f"{name}: the check cannot see a dropped causal mask")
 
     # K3 — W4A8 decode MoE: 6 routed picks of 64 plus the 2 folded shared experts
     moe_layers = [lp for lp in params["layers"] if "w13" in lp]

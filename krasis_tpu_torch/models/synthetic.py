@@ -24,11 +24,10 @@ def tiny_config(preset: str = "deepseek-v2-lite", **overrides) -> ModelConfig:
 
 
 def build_synthetic_engine(cfg: ModelConfig, quant: Optional[QuantConfig] = None,
-                           max_len: int = 4096, batch_size: int = 1, seed: int = 0,
+                           max_len: int = 4096, seed: int = 0,
                            device=None) -> Engine:
     """Random weights made on the card (or on `device`) from `seed`."""
     quant = quant or QuantConfig()
     dev = resolve_device(device)
     params = init_synthetic_params(cfg, quant, seed=seed, device=dev)
-    return Engine(cfg, quant, params, max_len=max_len, batch_size=batch_size,
-                  device=dev)
+    return Engine(cfg, quant, params, max_len=max_len, device=dev)

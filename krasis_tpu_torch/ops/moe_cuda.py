@@ -17,7 +17,7 @@ from ..quant import QTensor, unpack
 
 SOURCE = "krasis_tpu_torch/csrc/moe_decode.cu"
 REPLACES = "krasis_tpu/ops/moe_pallas.py:391"
-launches = 0          # wrapper calls (two kernel launches each) since reset
+launches = 0          # kernel launches since the caller last set it to 0
 
 
 def quantize_activations(x: torch.Tensor, gs: int):
@@ -115,6 +115,7 @@ def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
               w13.scales.data_ptr(), a.data_ptr(), P, k, H, I, w13.bits,
               w13.group_size, w13.q.stride(0), w13.scales.stride(0), stream)
     build.check(err, "moe_w13")
+    launches += 1
     err = f2(a.data_ptr(), idx.data_ptr(), wt.data_ptr(), w2.q.data_ptr(),
              w2.scales.data_ptr(), o.data_ptr(), P, H, I, w2.bits, w2.group_size,
              w2.q.stride(0), w2.scales.stride(0), stream)

@@ -58,27 +58,25 @@ class GenerationResult:
 
 
 class Engine:
-    """Single-sequence inference engine (batch slot 0)."""
+    """Single-sequence inference engine (one cache slot)."""
 
     def __init__(self, cfg: ModelConfig, quant: QuantConfig, params: Dict[str, Any],
-                 max_len: int = 4096, batch_size: int = 1, device=None):
+                 max_len: int = 4096, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.quant = quant = resolve_kv_quant(cfg, quant, batch_size, max_len)
+        self.quant = quant = resolve_kv_quant(cfg, quant, 1, max_len)
         if quant.fold_shared_decode:
             params = fold_shared_experts(params, cfg, quant)
         self.params = params
         self.max_len = max_len
-        self.batch_size = batch_size
         self.decode_block = 8       # tokens per host synchronisation
         self.chunk = CHUNK
         self._cache_len = max_len
-        self.cache = init_cache(cfg, quant, batch_size, max_len, self.device)
+        self.cache = init_cache(cfg, quant, 1, max_len, self.device)
 
     def reset(self, cache_len: Optional[int] = None):
         self._cache_len = cache_len or self.max_len
-        self.cache = init_cache(self.cfg, self.quant, self.batch_size,
-                                self._cache_len, self.device)
+        self.cache = init_cache(self.cfg, self.quant, 1, self._cache_len, self.device)
 
     def _forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
                  prefill: bool) -> torch.Tensor:
@@ -88,15 +86,13 @@ class Engine:
     def _prefill_prompt(self, prompt_ids: Sequence[int]) -> torch.Tensor:
         """Prefill in chunks of self.chunk; returns last-position logits."""
         n = len(prompt_ids)
-        B = self.batch_size
         pos = 0
         logits = None
         while pos < n:
             m = min(self.chunk, n - pos)
-            tokens = torch.zeros((B, max(m, MIN_PREFILL_ROWS)), dtype=torch.int64)
+            tokens = torch.zeros((1, max(m, MIN_PREFILL_ROWS)), dtype=torch.int64)
             tokens[0, :m] = torch.tensor(prompt_ids[pos:pos + m], dtype=torch.int64)
-            seq_lens = torch.zeros((B,), dtype=torch.int32)
-            seq_lens[0] = m
+            seq_lens = torch.tensor([m], dtype=torch.int32)
             logits = self._forward(tokens.to(self.device), seq_lens.to(self.device),
                                    prefill=True)
             pos += m
@@ -123,13 +119,11 @@ class Engine:
                                   self.max_len))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        B = self.batch_size
-        seen = torch.zeros((B, self.cfg.vocab_size), dtype=torch.bool, device=self.device)
-        rows = torch.arange(B, device=self.device)
+        seen = torch.zeros((1, self.cfg.vocab_size), dtype=torch.bool, device=self.device)
 
         def step_sample(logits):
             tok = sample(logits, sampling, gen, seen)
-            seen[rows, tok] = True
+            seen[0, tok] = True
             return tok
 
         self._sync()
@@ -149,7 +143,7 @@ class Engine:
                 stopped = True
 
         t2 = time.perf_counter()
-        ones = torch.ones((B,), dtype=torch.int32, device=self.device)
+        ones = torch.ones((1,), dtype=torch.int32, device=self.device)
         while not stopped and len(out_tokens) < max_new_tokens:
             block = []
             for _ in range(self.decode_block):

@@ -9,7 +9,6 @@ reference returns a new cache that XLA aliases through donation).
 
 from __future__ import annotations
 
-import os
 from dataclasses import replace
 from typing import Any, Dict
 
@@ -38,13 +37,11 @@ def kv_bytes_per_token(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
 
 def resolve_kv_quant(cfg: ModelConfig, quant: QuantConfig, batch: int,
                      max_len: int) -> QuantConfig:
-    """"auto" → bf16 when the full cache fits the budget (KRASIS_TPU_KV_BYTES,
-    default 4 GiB), else fp8."""
+    """"auto" → bf16 when the full cache fits DEFAULT_KV_BUDGET, else fp8."""
     if quant.kv_cache_dtype != "auto":
         return quant
-    budget = int(os.environ.get("KRASIS_TPU_KV_BYTES", DEFAULT_KV_BUDGET))
     need = batch * max_len * kv_bytes_per_token(cfg, 2)
-    return replace(quant, kv_cache_dtype="bf16" if need <= budget else "fp8")
+    return replace(quant, kv_cache_dtype="bf16" if need <= DEFAULT_KV_BUDGET else "fp8")
 
 
 def init_cache(cfg: ModelConfig, quant: QuantConfig, batch: int, max_len: int,

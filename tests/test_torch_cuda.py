@@ -33,10 +33,12 @@ def _gen(dev, seed):
 
 
 def _close(got, want, tol):
+    """|got - want| <= tol * (|want| + rms(want)), element by element."""
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
-    err = float((got - want).abs().max())
-    assert err <= tol * max(1.0, float(want.abs().max())), err
+    diff = (got - want).abs()
+    limit = tol * (want.abs() + want.square().mean().sqrt())
+    assert bool((diff <= limit).all()), float((diff / limit).max())
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -53,8 +55,8 @@ def test_qmm_kernel(dev, bits, T):
 def test_attention_kernel(dev, sq, q_off, kv_len):
     g = _gen(dev, sq)
     H, D, L = 4, 640, 512
-    q = (0.3 * torch.randn((1, sq, H, D), generator=g, device=dev)).to(torch.bfloat16)
-    kv = (0.3 * torch.randn((1, 1, 512, D), generator=g, device=dev)).to(torch.bfloat16)
+    q = torch.randn((1, sq, H, D), generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn((1, 1, 512, D), generator=g, device=dev).to(torch.bfloat16)
     qo = torch.tensor([q_off], device=dev)
     kl = torch.tensor([kv_len], device=dev)
     _close(fa.flash_attention(q, kv, qo, kl, 0.07, L),
