@@ -7,18 +7,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. card and toolchain: the card's name and power limit, torch and CUDA
    versions; TF32 off;
-2. build: the four CUDA kernels from krasis_tpu_torch/csrc with nvcc;
-3. reference: a tiny DeepSeek-V2-Lite run on the card through the kernels
-   against the same model on the CPU through their plain versions;
-4. each kernel against its plain PyTorch version at main-path shapes, on
-   the full-width model's own weights, with kernel, plain, library-call
-   and bound times;
-5. main path: full-width DeepSeek-V2-Lite Q4 (random weights from a seed)
-   answers three greedy requests through Engine.generate; every logit must
-   be finite and every kernel must have been launched.
+2. build: the CUDA sources of krasis_tpu_torch/csrc with nvcc, in parallel;
+3. reference: a tiny DeepSeek-V2-Lite and a tiny Qwen3-Coder-Next hybrid
+   run on the card through the kernels against the same models on the CPU
+   through their plain versions;
+4. DeepSeek-V2-Lite Q4 at full width (MLA, 27 layers, random weights from a
+   seed): each of its kernels (K1 qmm, K2 attention with V inside K, K3
+   W4A8 decode MoE, K4 grouped GEMM) against its plain PyTorch version at
+   main-path shapes on the model's own weights, with kernel, plain,
+   library-call and bound times; then three greedy requests through
+   Engine.generate and a profile of one prefill and one decode;
+5. Qwen3-Coder-Next at full width (48 layers: 36 Gated DeltaNet + 12 GQA,
+   512 experts top-10 + 1 shared, int8 projections): the same for the
+   kernels this path adds or reshapes (K1s stacked qmm, K2 with a separate
+   V, K5 bf16 decode MoE, and K1, K3, K4 at this model's shapes); three
+   requests with int8 expert activations, one with bf16, and the profile.
 
-The last two lines are the card's name and power limit and the JSON
-result; the line before them lists the kernels.
+In both families every logit must be finite and every kernel of the path
+must have been launched by the requests. The last two lines are the card's
+name and power limit and the JSON result; the line before them lists the
+kernels.
 """
 
 from __future__ import annotations
@@ -83,8 +91,12 @@ def max_err(got, want, tol: float):
     return float(diff.max()), float((diff / limit).max())
 
 
-def check_kernel(results, name, module, replaces, run_kernel, run_plain, run_library,
+def check_kernel(results, name, counter, replaces, run_kernel, run_plain, run_library,
                  tol, nbytes, ops, peak, iters, flush, select=None):
+    """Hold one kernel to its plain version and time both. `counter` is the
+    (module, attribute) of the wrapper's launch count, filled in later from
+    the main path's run."""
+    module = counter[0]
     got, want = run_kernel(), run_plain()
     if select is not None:
         got, want = select(got), select(want)
@@ -103,25 +115,19 @@ def check_kernel(results, name, module, replaces, run_kernel, run_plain, run_lib
           flush=True)
     if not ratio <= 1.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    results.append((module, res))
+    results.append((counter, res))
 
 
-def reference_phase():
-    """Tiny model: kernels on the card against plain versions on the CPU."""
+def reference_phase(label, cfg, quant, tol):
+    """A tiny model: kernels on the card against plain versions on the CPU.
+    A model-level check, as the CPU tests hold the port to the JAX package:
+    bf16 rounding differences compound over the layers, so the limit is
+    `tol` of the larger of 1 and the largest logit."""
     import torch
-    from krasis_tpu_torch.config import QuantConfig
     from krasis_tpu_torch.models.model import forward
     from krasis_tpu_torch.models.params import init_synthetic_params
-    from krasis_tpu_torch.models.synthetic import tiny_config
     from krasis_tpu_torch.runtime.kv_cache import init_cache
 
-    # every token picks all 8 routed experts: with random tiny routers a
-    # top-k choice can sit on a near-tie that the two devices' summation
-    # orders break differently; picking all experts keeps the comparison
-    # about the arithmetic
-    cfg = tiny_config("deepseek-v2-lite", moe_intermediate_size=128, num_hidden_layers=4,
-                      num_experts_per_tok=8)
-    quant = QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16")
     cpu = init_synthetic_params(cfg, quant, seed=1, device="cpu")
 
     def to(tree, dev):
@@ -129,13 +135,10 @@ def reference_phase():
             return {k: to(v, dev) for k, v in tree.items()}
         if isinstance(tree, list):
             return [to(v, dev) for v in tree]
-        return tree.to(dev)
+        return tree.to(dev) if hasattr(tree, "to") else tree
 
     gpu = to(cpu, "cuda")
     prompt = torch.randint(1, cfg.vocab_size, (1, 160), generator=torch.Generator().manual_seed(3))
-    # a model-level check, as tests/test_torch_model.py holds the port to the
-    # JAX package: bf16 rounding differences compound over the layers, so
-    # the limit is 2e-2 of the larger of 1 and the largest logit
     worst, worst_rel = 0.0, 0.0
     for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
         cache = init_cache(cfg, quant, 1, 512, dev)
@@ -151,128 +154,229 @@ def reference_phase():
             for step, (g, r) in enumerate(zip(logits, ref)):
                 g, r = g.cpu().to(torch.float32), r.to(torch.float32)
                 if not bool(torch.isfinite(g).all()):
-                    raise AssertionError(f"tiny model step {step}: non-finite logits")
+                    raise AssertionError(f"{label} step {step}: non-finite logits")
                 err = float((g - r).abs().max())
-                limit = 2e-2 * max(1.0, float(r.abs().max()))
+                limit = tol * max(1.0, float(r.abs().max()))
                 worst = max(worst, err)
                 worst_rel = max(worst_rel, err / float(r.square().mean().sqrt()))
                 if not err <= limit:
-                    raise AssertionError(f"tiny model step {step}: card vs CPU {err} > {limit}")
-    print(f"[reference] tiny V2-Lite on the card vs the CPU plain path: max|Δ| logits {worst:.3g} "
-          f"({worst_rel:.3g} of their rms)", flush=True)
+                    raise AssertionError(f"{label} step {step}: card vs CPU {err} > {limit}")
+    print(f"[reference] {label} on the card vs the CPU plain path: max|Δ| logits {worst:.3g} "
+          f"({worst_rel:.3g} of their rms, limit {tol})", flush=True)
 
 
-def kernel_phase(params, cfg, results, dev="cuda"):
+def reference_phases():
+    from krasis_tpu_torch.config import QuantConfig
+    from krasis_tpu_torch.models.synthetic import tiny_config
+
+    # every token picks all 8 routed experts: with random tiny routers a
+    # top-k choice can sit on a near-tie that the two devices' summation
+    # orders break differently; picking all experts keeps the comparison
+    # about the arithmetic
+    reference_phase(
+        "tiny V2-Lite",
+        tiny_config("deepseek-v2-lite", moe_intermediate_size=128, num_hidden_layers=4,
+                    num_experts_per_tok=8),
+        QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16"), 2e-2)
+    # the hybrid's limit is the one tests/test_torch_hybrid.py states. With
+    # every expert picked, decode too takes the grouped kernel (T·k ≥ 0.75·E):
+    # the gathered decode kernels are held at full shapes in the kernel phases
+    reference_phase(
+        "tiny Qwen3-Coder-Next hybrid",
+        tiny_config("qwen3-coder-next", num_experts_per_tok=8),
+        QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16", attention="int8"),
+        5e-2)
+
+
+def counters():
+    """The launch count of each kernel: (module, attribute)."""
+    from krasis_tpu_torch.ops import flash_attention, gmm_cuda, moe_cuda, qmm_cuda
+    return {"K1": (qmm_cuda, "launches"), "K1s": (qmm_cuda, "launches_stacked"),
+            "K2": (flash_attention, "launches"), "K3": (moe_cuda, "launches"),
+            "K4": (gmm_cuda, "launches"), "K5": (moe_cuda, "launches_bf16")}
+
+
+def qmm_checks(results, prefix, cases, g, flush):
+    """K1 / K1s at T = 1. cases: (name, weight, layer or None, out dtype)."""
     import torch
-    import torch.nn.functional as F
-    from krasis_tpu_torch.ops import flash_attention as fa
-    from krasis_tpu_torch.ops import gmm_cuda, moe_cuda, qmm_cuda
-    from krasis_tpu_torch.ops.rope import yarn_softmax_scale
+    from krasis_tpu_torch.ops import qmm_cuda
     from krasis_tpu_torch.quant import dequantize, qtensor_bytes
 
-    dev = torch.device(dev)
-    g = torch.Generator(device=dev)
-    g.manual_seed(1234)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-
-    # K1 — qmm at T = 1: the int8 lm_head and the decode dense MLP
-    layer0 = params["layers"][0]
-    for name, qt, out_dtype in (("qmm:lm_head", params["lm_head"], torch.float32),
-                                ("qmm:mlp_w13", layer0["mlp_w13"], torch.bfloat16),
-                                ("qmm:mlp_w2", layer0["mlp_w2"], torch.bfloat16)):
+    C = counters()
+    for name, qt, layer, out_dtype in cases:
         K, N = qt.k_dim, qt.n_dim
-        x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
-        w = dequantize(qt, torch.bfloat16)
-        nbytes = qtensor_bytes(qt) + x.numel() * 2 + N * (4 if out_dtype == torch.float32 else 2)
-        check_kernel(results, name, qmm_cuda, qmm_cuda.REPLACES,
-                     lambda: qmm_cuda.qmm(x, qt, out_dtype),
-                     lambda: qmm_cuda.qmm_plain(x, qt, out_dtype),
+        x = torch.randn((1, K), generator=g, device=qt.q.device).to(torch.bfloat16)
+        one = qt if layer is None else qt[layer]
+        w = dequantize(one, torch.bfloat16)
+        nbytes = qtensor_bytes(one) + x.numel() * 2 + N * (4 if out_dtype == torch.float32 else 2)
+        if layer is None:
+            run, counter, replaces = (lambda: qmm_cuda.qmm(x, qt, out_dtype)), C["K1"], qmm_cuda.REPLACES
+        else:
+            run = lambda: qmm_cuda.qmm_stacked(x, qt, layer, out_dtype)
+            counter, replaces = C["K1s"], qmm_cuda.REPLACES_STACKED
+        check_kernel(results, prefix + name, counter, replaces, run,
+                     lambda: qmm_cuda.qmm_plain(x, one, out_dtype),
                      lambda: torch.matmul(x, w),
                      2e-2, nbytes, 2 * K * N, PEAK_BF16, 50, flush)
         del w
 
-    # K2 — attention over the MLA cache: prefill, chunk, decode
-    H, L, DR = cfg.num_attention_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    Dp = 640
-    scale = yarn_softmax_scale((cfg.qk_nope_head_dim + DR) ** -0.5, cfg.rope_scaling)
-    cache = torch.zeros((1, 1, 4096, Dp), dtype=torch.bfloat16, device=dev)
-    # unit-scale rows, as the normed latents are: the scores are peaked and
-    # the outputs O(1), so a masking fault moves them well past the limit
-    cache[..., :L + DR] = torch.randn((1, 1, 4096, L + DR), generator=g, device=dev
-                                      ).to(torch.bfloat16)
+
+def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, scale, q_std,
+                     g, flush):
+    """K2 at the main path's three shapes: a 2048-row prefill, a 452-row
+    chunk over 2048 rows of history, and decode at kv_len 2560. `lanes` of
+    the Dp-wide rows are real, the rest zero pad. Keys and values are
+    unit-scale rows, as normed keys are, and queries have std `q_std`,
+    chosen so that the scores' std is about 3: the softmax is then peaked
+    and the outputs O(1), so a masking fault moves them well past the
+    limit. With flat scores the outputs are sums that nearly cancel, and
+    the bf16 rounding of p alone (taken against the running maximum in the
+    kernel, the final one in the plain version) reaches the limit."""
+    import torch
+    import torch.nn.functional as F
+    from krasis_tpu_torch.ops import flash_attention as fa
+
+    dev = flush.device
+    G = Hq // Hkv
+
+    def rows(shape, std=1.0):
+        t = torch.zeros(shape[:-1] + (Dp,), dtype=torch.bfloat16, device=dev)
+        t[..., :lanes] = (std * torch.randn(shape[:-1] + (lanes,), generator=g, device=dev)
+                          ).to(torch.bfloat16)
+        return t
+
+    k_cache = rows((1, Hkv, 4096, lanes))
+    v_cache = rows((1, Hkv, 4096, lanes)) if separate_v else None
     for name, sq, q_off, kv_len, replaces in (
             ("attention:prefill_2048", 2048, 0, 2048, fa.REPLACES),
             ("attention:chunk_452_at_2048", 452, 2048, 2500, fa.REPLACES),
             ("attention:decode_kv_2560", 1, 2559, 2560, fa.REPLACES_DECODE)):
-        q = torch.zeros((1, sq, H, Dp), dtype=torch.bfloat16, device=dev)
-        q[..., :L + DR] = torch.randn((1, sq, H, L + DR), generator=g, device=dev
-                                      ).to(torch.bfloat16)
-        kv = cache[:, :, :kv_len]
+        q = rows((1, sq, Hq, lanes), q_std)
+        kv = k_cache[:, :, :kv_len]
+        v = v_cache[:, :, :kv_len] if separate_v else None
         qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
         kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
-        qh = q.transpose(1, 2)
-        kh = kv.expand(1, H, kv_len, Dp)
-        vh = kh[..., :L]
+
+        def per_q_head(t):                                   # [1, Hkv, S, D] → [1, Hq, S, D]
+            return t[:, :, None].expand(1, Hkv, G, kv_len, t.shape[-1]).reshape(
+                1, Hq, kv_len, t.shape[-1])
+
+        qh, kh = q.transpose(1, 2), per_q_head(kv)
+        vh = per_q_head(kv if v is None else v)[..., :v_dim]
         pos = q_off + torch.arange(sq, device=dev)
         mask = torch.arange(kv_len, device=dev)[None, :] <= pos[:, None]
         visible = int(mask.sum())
-        # the function needs the L + DR real lanes; the zero pad to Dp is not work
-        nbytes = (sq * H + kv_len) * (L + DR) * 2 + sq * H * L * 2
-        ops = 2 * H * visible * (L + DR + L)
-        check_kernel(results, name, fa, replaces,
-                     lambda: fa.flash_attention(q, kv, qo, kl, scale, L),
-                     lambda: fa.flash_attention_plain(q, kv, qo, kl, scale, L),
+        # the function needs the real lanes; the zero pad to Dp is not work
+        nbytes = (sq * Hq + kv_len * Hkv) * lanes * 2 + sq * Hq * v_dim * 2
+        if separate_v:
+            nbytes += kv_len * Hkv * v_dim * 2
+        ops = 2 * Hq * visible * (lanes + v_dim)
+        check_kernel(results, prefix + name, counters()["K2"], replaces,
+                     lambda: fa.flash_attention(q, kv, qo, kl, scale, v_dim, v=v),
+                     lambda: fa.flash_attention_plain(q, kv, qo, kl, scale, v_dim, v=v),
                      lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                             scale=scale),
                      2e-2, nbytes, ops, PEAK_BF16, 20 if sq > 1 else 50, flush)
         if sq > 1:
             # the same check must refuse a kernel that dropped the causal mask
-            _, fault = max_err(fa.flash_attention_plain(q, kv, kl - 1, kl, scale, L),
-                               fa.flash_attention_plain(q, kv, qo, kl, scale, L), 2e-2)
-            print(f"[kernel] {name}: without the causal mask the check reads "
+            _, fault = max_err(fa.flash_attention_plain(q, kv, kl - 1, kl, scale, v_dim, v=v),
+                               fa.flash_attention_plain(q, kv, qo, kl, scale, v_dim, v=v), 2e-2)
+            print(f"[kernel] {prefix}{name}: without the causal mask the check reads "
                   f"{fault:.3g} of the limit", flush=True)
             if not fault > 1.0:
-                raise AssertionError(f"{name}: the check cannot see a dropped causal mask")
+                raise AssertionError(f"{prefix}{name}: the check cannot see a dropped causal mask")
 
-    # K3 — W4A8 decode MoE: 6 routed picks of 64 plus the 2 folded shared experts
-    moe_layers = [lp for lp in params["layers"] if "w13" in lp]
-    w13, w2 = moe_layers[0]["w13"], moe_layers[0]["w2"]
-    E_r = cfg.n_routed_experts
-    x = torch.randn((1, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
-    routed = torch.randperm(E_r, generator=g, device=dev)[:cfg.num_experts_per_tok]
-    idx = torch.cat([routed, torch.arange(E_r, w13.q.shape[0], device=dev)])[None].to(torch.int32)
-    wts = torch.cat([torch.rand((cfg.num_experts_per_tok,), generator=g, device=dev) * 0.3,
-                     torch.ones(idx.shape[1] - cfg.num_experts_per_tok, device=dev)])[None]
+
+def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
+    """K3 (and K5) at T = 1 with the routed picks plus the folded shared
+    experts; K4 at T = 2048 over the whole stack."""
+    import torch
+    from krasis_tpu_torch.ops import gmm_cuda, moe_cuda
+    from krasis_tpu_torch.quant import qtensor_bytes
+
+    dev = flush.device
+    C = counters()
+    E_r, E_all, k = cfg.n_routed_experts, w13.q.shape[0], cfg.num_experts_per_tok
+    Hd, I = cfg.hidden_size, cfg.moe_intermediate_size
+    x = torch.randn((1, Hd), generator=g, device=dev).to(torch.bfloat16)
+    routed = torch.randperm(E_r, generator=g, device=dev)[:k]
+    idx = torch.cat([routed, torch.arange(E_r, E_all, device=dev)])[None].to(torch.int32)
+    wts = torch.cat([torch.rand((k,), generator=g, device=dev) * 0.3,
+                     torch.ones(E_all - E_r, device=dev)])[None]
     P = idx.shape[1]
-    per_pick = (qtensor_bytes(w13) + qtensor_bytes(w2)) // w13.q.shape[0]
-    I = cfg.moe_intermediate_size
-    Hd = cfg.hidden_size
-    check_kernel(results, "moe_decode", moe_cuda, moe_cuda.REPLACES,
+    per_pick = (qtensor_bytes(w13) + qtensor_bytes(w2)) // E_all
+    decode_ops = 2 * P * (Hd * 2 * I + I * Hd)
+    check_kernel(results, prefix + "moe_decode", C["K3"], moe_cuda.REPLACES,
                  lambda: moe_cuda.moe_w4a8(x, w13, w2, idx, wts),
                  lambda: moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts),
-                 None, 3e-2, P * per_pick + Hd * 4, 2 * P * (Hd * 2 * I + I * Hd),
-                 PEAK_INT8, 50, flush)
+                 None, 3e-2, P * per_pick + Hd * 4, decode_ops, PEAK_INT8, 50, flush)
+    if bf16_too:
+        check_kernel(results, prefix + "moe_decode_bf16", C["K5"], moe_cuda.REPLACES_BF16,
+                     lambda: moe_cuda.moe_bf16(x, w13, w2, idx, wts),
+                     lambda: moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts),
+                     None, 3e-2, P * per_pick + Hd * 4, decode_ops, PEAK_BF16, 50, flush)
 
-    # K4 — grouped GEMM at T = 2048, 6 picks over the 66-expert stack
-    T, k = 2048, cfg.num_experts_per_tok
+    T = 2048
     x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
     topk = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
-    plan = gmm_cuda.plan_tiles(topk, w13.q.shape[0])
+    plan = gmm_cuda.plan_tiles(topk, E_all)
     real = plan.row_src >= 0
-    hit = int((torch.bincount(topk.reshape(-1).long(), minlength=w13.q.shape[0]) > 0).sum())
-    E_all = w13.q.shape[0]
+    hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E_all) > 0).sum())
     M = T * k
     a_plain = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True)
-    check_kernel(results, "gmm:w13_swiglu", gmm_cuda, gmm_cuda.REPLACES,
+    check_kernel(results, prefix + "gmm:w13_swiglu", C["K4"], gmm_cuda.REPLACES,
                  lambda: gmm_cuda.gmm(x, plan.row_src, w13, plan, True),
                  lambda: gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True),
                  None, 3e-2, hit * qtensor_bytes(w13) / E_all + T * Hd * 2 + M * I * 2,
                  2 * M * Hd * 2 * I, PEAK_BF16, 10, None, select=lambda o: o[real])
-    check_kernel(results, "gmm:w2_f32", gmm_cuda, gmm_cuda.REPLACES_W2,
+    check_kernel(results, prefix + "gmm:w2_f32", C["K4"], gmm_cuda.REPLACES_W2,
                  lambda: gmm_cuda.gmm(a_plain, None, w2, plan, False),
                  lambda: gmm_cuda.gmm_plain(a_plain, None, w2, plan, False),
                  None, 3e-2, hit * qtensor_bytes(w2) / E_all + M * I * 2 + M * Hd * 4,
                  2 * M * I * Hd, PEAK_BF16, 10, None, select=lambda o: o[real])
+
+
+def v2lite_kernel_phase(params, cfg, results, g, flush):
+    import torch
+    from krasis_tpu_torch.ops.rope import yarn_softmax_scale
+
+    # K1 — qmm at T = 1: the int8 lm_head and the decode dense MLP
+    layer0 = params["layers"][0]
+    qmm_checks(results, "", (("qmm:lm_head", params["lm_head"], None, torch.float32),
+                             ("qmm:mlp_w13", layer0["mlp_w13"], None, torch.bfloat16),
+                             ("qmm:mlp_w2", layer0["mlp_w2"], None, torch.bfloat16)), g, flush)
+    # K2 — attention over the MLA cache: 16 heads on one [ckv; kpe] row
+    L, DR = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    scale = yarn_softmax_scale((cfg.qk_nope_head_dim + DR) ** -0.5, cfg.rope_scaling)
+    # score std = scale * sqrt(576) = 3.2 at unit-scale queries
+    attention_checks(results, "", cfg.num_attention_heads, 1, L + DR, 640, L, False, scale,
+                     1.0, g, flush)
+    # K3, K4 — 6 routed picks of 64 plus the 2 folded shared experts
+    moe = next(lp for lp in params["layers"] if "w13" in lp)
+    moe_checks(results, "", moe["w13"], moe["w2"], cfg, g, flush, bf16_too=False)
+
+
+def hybrid_kernel_phase(params, cfg, results, g, flush):
+    import torch
+
+    la, gqa = params["layers"][0], params["layers"][3]
+    layer = la["qkvz_proj"].q.shape[0] - 1                   # the last layer of each stack
+    # K1 — the int8 lm_head; K1s — every stacked int8 projection of a decode step
+    qmm_checks(results, "qcn/", (
+        ("qmm:lm_head", params["lm_head"], None, torch.float32),
+        ("qmm_stacked:qkvz_proj", la["qkvz_proj"], layer, torch.bfloat16),
+        ("qmm_stacked:ba_proj", la["ba_proj"], layer, torch.bfloat16),
+        ("qmm_stacked:la_out_proj", la["la_out_proj"], layer, torch.bfloat16),
+        ("qmm_stacked:q_proj", gqa["q_proj"], layer, torch.bfloat16),
+        ("qmm_stacked:k_proj", gqa["k_proj"], layer, torch.bfloat16),
+        ("qmm_stacked:o_proj", gqa["o_proj"], layer, torch.bfloat16)), g, flush)
+    # K2 — GQA: 16 query heads on 2 kv heads of 256, K and V in two buffers
+    d = cfg.qk_head_dim
+    # score std = d^-0.5 * sqrt(d) * q_std = 3
+    attention_checks(results, "qcn/", cfg.num_attention_heads, cfg.num_key_value_heads, d, d, d,
+                     True, d ** -0.5, 3.0, g, flush)
+    # K3, K5, K4 — 10 routed picks of 512 plus the folded shared expert
+    moe_checks(results, "qcn/", la["w13"], la["w2"], cfg, g, flush, bf16_too=True)
 
 
 def profile_phase(eng, prompt, new: int):
@@ -293,9 +397,84 @@ def profile_phase(eng, prompt, new: int):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"[profile] prompt {len(prompt)} + {new} tokens: wall {wall_ms:.1f} ms unprofiled, "
-          f"device kernels {busy:.1f} ms ({100 * busy / wall_ms:.1f}% busy)")
+          f"device kernels {busy:.1f} ms ({100 * busy / wall_ms:.1f}% busy), "
+          f"{sum(r[2] for r in rows)} launches")
     for key, ms, count in rows[:12]:
         print(f"[profile]   {ms:9.2f} ms {count:6d}x  {key[:90]}")
+
+
+def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
+               profile_decode):
+    """One model family at full width: build the engine, hold its kernels to
+    their plain versions, answer `requests` ((prompt tokens, new tokens,
+    expert activation)) with the launch counts set to 0 just before and read
+    just after, then profile one prefill and one decode. Fills the launch
+    counts into this family's entries of `results`."""
+    import gc
+    from dataclasses import replace
+
+    import torch
+    from krasis_tpu_torch.config import preset_config
+    from krasis_tpu_torch.models.synthetic import build_synthetic_engine
+    from krasis_tpu_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg = preset_config(preset)
+    eng = build_synthetic_engine(cfg, quant, seed=0)
+    torch.cuda.synchronize()
+    print(f"[engine] {label}: {cfg.num_hidden_layers} layers at full width built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+
+    first = len(results)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1234)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernel_phase(eng.params, cfg, results, g, flush)
+    del flush
+    torch.cuda.empty_cache()
+
+    # the same weights under the other expert activation, where a request asks
+    engines = {eng.quant.expert_activation: eng}
+    for _, _, act in requests:
+        if act not in engines:
+            engines[act] = Engine(cfg, replace(eng.quant, expert_activation=act), eng.params,
+                                  max_len=eng.max_len)
+    C = counters()
+    eng.generate(rng.integers(100, cfg.vocab_size - 100, 256).tolist(), max_new_tokens=8,
+                 stop_ids={-1})                          # warm-up: cuBLAS, allocator
+    for m, attr in C.values():
+        setattr(m, attr, 0)
+    for n, new, act in requests:
+        before = {name: getattr(m, attr) for name, (m, attr) in C.items()}
+        prompt = rng.integers(100, cfg.vocab_size - 100, n).tolist()
+        res = engines[act].generate(prompt, max_new_tokens=new, stop_ids={-1})
+        if not res.finite:
+            raise AssertionError(f"{label}: non-finite logits in the {n}-token request")
+        if len(res.tokens) != new:
+            raise AssertionError(f"{label}: {n}-token request gave {len(res.tokens)} tokens")
+        print("[request] " + json.dumps({
+            "model": preset, "expert_activation": act,
+            "prompt": n, "tokens": len(res.tokens), "prefill_tok_s": res.prefill_tok_s,
+            "decode_tok_s": res.decode_tok_s, "prefill_s": res.prefill_s,
+            "decode_s": res.decode_s,
+            "launches": {name: getattr(m, attr) - before[name]
+                         for name, (m, attr) in C.items()}}), flush=True)
+    counts = {name: getattr(m, attr) for name, (m, attr) in C.items()}
+    print(f"[launches] {label}: {json.dumps(counts)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+    for name in on_path:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: {name} was never launched on the main path")
+    by_counter = {C[name]: n for name, n in counts.items()}
+    for counter, res in results[first:]:
+        res["launches"] = by_counter[counter]
+
+    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1)   # prefill
+    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode)
+    del eng, engines
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -306,11 +485,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from krasis_tpu_torch import build
-    from krasis_tpu_torch.config import QuantConfig, preset_config
+    from krasis_tpu_torch.config import QuantConfig
     from krasis_tpu_torch.device import set_exact_matmul_flags
-    from krasis_tpu_torch.models.synthetic import build_synthetic_engine
-    from krasis_tpu_torch.ops import flash_attention, gmm_cuda, moe_cuda, qmm_cuda
 
+    t_start = time.perf_counter()
     card = card_line()
     set_exact_matmul_flags()
     print(f"[card] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
@@ -324,48 +502,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
-    reference_phase()
-
-    t0 = time.perf_counter()
-    cfg = preset_config("deepseek-v2-lite")
-    eng = build_synthetic_engine(cfg, QuantConfig(expert_bits=4, group_size=128), seed=0)
-    torch.cuda.synchronize()
-    print(f"[engine] full-width V2-Lite Q4 built in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+    reference_phases()
 
     results = []
-    kernel_phase(eng.params, cfg, results)
-    torch.cuda.empty_cache()
-
-    modules = (qmm_cuda, flash_attention, moe_cuda, gmm_cuda)
     rng = np.random.default_rng(0)
-    eng.generate(rng.integers(100, cfg.vocab_size - 100, 256).tolist(), max_new_tokens=8,
-                 stop_ids={-1})                          # warm-up: cuBLAS, allocator
-    for m in modules:
-        m.launches = 0
-    for n, new in ((2048, 128), (2500, 32), (40, 32)):
-        before = [m.launches for m in modules]
-        prompt = rng.integers(100, cfg.vocab_size - 100, n).tolist()
-        res = eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
-        if not res.finite:
-            raise AssertionError(f"non-finite logits in the {n}-token request")
-        if len(res.tokens) != new:
-            raise AssertionError(f"{n}-token request gave {len(res.tokens)} tokens")
-        print("[request] " + json.dumps({
-            "prompt": n, "tokens": len(res.tokens), "prefill_tok_s": res.prefill_tok_s,
-            "decode_tok_s": res.decode_tok_s, "prefill_s": res.prefill_s,
-            "decode_s": res.decode_s,
-            "launches": {m.__name__.rsplit(".", 1)[1]: m.launches - b
-                         for m, b in zip(modules, before)}}), flush=True)
-    counts = {m: m.launches for m in modules}
-    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1)   # prefill
-    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), 64)    # decode
-    for m, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"{m.__name__} was never launched on the main path")
+    run_family("DeepSeek-V2-Lite Q4", "deepseek-v2-lite",
+               QuantConfig(expert_bits=4, group_size=128), v2lite_kernel_phase,
+               ((2048, 128, "int8"), (2500, 32, "int8"), (40, 32, "int8")),
+               ("K1", "K2", "K3", "K4"), results, rng, profile_decode=64)
+    run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
+               QuantConfig(expert_bits=4, group_size=128, attention="int8"),
+               hybrid_kernel_phase,
+               ((2048, 64, "int8"), (2500, 32, "int8"), (40, 32, "int8"), (40, 16, "bf16")),
+               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=32)
 
-    for m, res in results:
-        res["launches"] = counts[m]
+    print(f"[time] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [r for _, r in results]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """Model / quantization configuration for the PyTorch port.
 
-A copy of the parts of ``krasis_tpu.config`` that the DeepSeek-V2-Lite
-main path reads: ``QuantConfig``, the ``ModelConfig`` fields and derived
-properties, and the ``deepseek-v2-lite`` preset. Field names and defaults
-are identical, so one configuration describes both packages. Parsing of
+A copy of the parts of ``krasis_tpu.config`` that the ported paths read:
+``QuantConfig``, the ``ModelConfig`` fields and derived properties, and
+the presets of the ported families (MLA × MoE: ``deepseek-v2-lite``;
+GQA × MoE: ``qwen3-moe``; hybrid Gated DeltaNet + GQA: ``qwen3-coder-next``
+and its 64-expert cut ``qcn-1chip``). Field names and defaults are
+identical, so one configuration describes both packages. Parsing of
 checkpoint ``config.json`` files arrives with the loader in a later slice.
 """
 
@@ -109,6 +111,10 @@ class ModelConfig:
         return "mla" if self.kv_lora_rank is not None else "gqa"
 
     @property
+    def is_hybrid(self) -> bool:
+        return any(t == "linear_attention" for t in self.layer_types or [])
+
+    @property
     def is_moe(self) -> bool:
         return self.n_routed_experts > 0
 
@@ -146,7 +152,39 @@ _PRESETS: Dict[str, Dict[str, Any]] = {
         ),
         max_position_embeddings=163840,
     ),
+    # Qwen3-30B-A3B-style GQA MoE.
+    "qwen3-moe": dict(
+        model_type="qwen3_moe",
+        hidden_size=2048, intermediate_size=6144, moe_intermediate_size=768,
+        num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4,
+        vocab_size=151936, head_dim=128, qk_norm=True,
+        n_routed_experts=128, num_experts_per_tok=8,
+        norm_topk_prob=True, rms_norm_eps=1e-6, rope_theta=1000000.0,
+    ),
+    # Qwen3-Coder-Next-80B: hybrid 36 DeltaNet + 12 GQA, 512 experts top-10.
+    "qwen3-coder-next": dict(
+        model_type="qwen3_next",
+        hidden_size=2048, intermediate_size=5120, moe_intermediate_size=512,
+        num_hidden_layers=48, num_attention_heads=16, num_key_value_heads=2,
+        vocab_size=151936, head_dim=256, qk_norm=True, norm_plus_one=True,
+        full_attention_interval=4,
+        layer_types=[
+            "full_attention" if (i + 1) % 4 == 0 else "linear_attention"
+            for i in range(48)
+        ],
+        linear_conv_kernel_dim=4, linear_key_head_dim=128,
+        linear_num_key_heads=16, linear_value_head_dim=128,
+        linear_num_value_heads=32,
+        n_routed_experts=512, num_experts_per_tok=10, n_shared_experts=1,
+        shared_expert_intermediate_size=512,
+        norm_topk_prob=True, rms_norm_eps=1e-6, rope_theta=10000000.0,
+        partial_rotary_factor=0.25,
+    ),
 }
+# The same architecture with 64 of the 512 experts: per-layer shapes are
+# those of the full model, the expert stacks are an eighth of its size.
+_PRESETS["qcn-1chip"] = dict(_PRESETS["qwen3-coder-next"],
+                             n_routed_experts=64, num_experts_per_tok=10)
 
 
 def preset_config(name: str, **overrides: Any) -> ModelConfig:

@@ -10,8 +10,10 @@
 // Numerics of the reference kernels: bf16 q and k; scores in f32 from the
 // bf16 dot, scaled after the dot; masked scores set to NEG_INF = -1e30 with
 // the fully-masked-row guards (m_safe, alpha); p summed in f32 and rounded
-// to bf16 before the PV product; the final divide guards l == 0. V is the
-// first Dv lanes of the K row (MLA's [ckv; kpe] cache, v_from_k).
+// to bf16 before the PV product; the final divide guards l == 0. V is
+// either the first Dv lanes of the K row (no V pointer: MLA's [ckv; kpe]
+// cache, the reference's v_from_k) or a tensor of its own with its own
+// strides (GQA's separate K and V buffers), staged beside the K block.
 //
 // What bounds it on the H100: for MLA prefill, operations (Sq*G rows share
 // every K row, ~900 flops per cache byte); for decode, bytes (each cache
@@ -43,6 +45,7 @@ constexpr int LDP = BK + 8;   // p, bf16
 struct Smem {
   __nv_bfloat16* q;  // [BQ][D + 8]
   __nv_bfloat16* k;  // [BK][D + 8]
+  __nv_bfloat16* v;  // [BK][Dv + 8], separate V only
   float* s;          // [BQ][LDS]
   __nv_bfloat16* p;  // [BQ][LDP]
   float* o;          // [BQ][Dv + 4]
@@ -51,14 +54,16 @@ struct Smem {
   int* pos;          // [BQ] absolute position of each row, -1 = no row
 };
 
-__host__ __device__ inline size_t smem_bytes(int D, int Dv) {
-  return (size_t)BQ * (D + 8) * 2 + (size_t)BK * (D + 8) * 2 + BQ * LDS * 4 +
+__host__ __device__ inline size_t smem_bytes(int D, int Dv, bool separate_v) {
+  return (size_t)BQ * (D + 8) * 2 + (size_t)BK * (D + 8) * 2 +
+         (separate_v ? (size_t)BK * (Dv + 8) * 2 : 0) + BQ * LDS * 4 +
          BQ * LDP * 2 + (size_t)BQ * (Dv + 4) * 4 + BQ * 4 * 3;
 }
 
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const __nv_bfloat16* __restrict__ q, long qsb, long qss, long qsh,
                  const __nv_bfloat16* __restrict__ kv, long ksb, long ksh, long kss,
+                 const __nv_bfloat16* __restrict__ vsep, long vsb, long vsh, long vss,
                  __nv_bfloat16* __restrict__ out, const int* __restrict__ q_off,
                  const int* __restrict__ kv_len, float scale, int Sq, int Hq, int Hkv,
                  int S, int D, int Dv) {
@@ -66,8 +71,11 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, long qsb, long qss, long q
   Smem sm;
   unsigned char* ptr = smem_raw;
   const int LDQ = D + 8, LDO = Dv + 4;
+  const int LDV = vsep ? Dv + 8 : LDQ;
   sm.q = (__nv_bfloat16*)ptr; ptr += (size_t)BQ * LDQ * 2;
   sm.k = (__nv_bfloat16*)ptr; ptr += (size_t)BK * LDQ * 2;
+  sm.v = sm.k;
+  if (vsep) { sm.v = (__nv_bfloat16*)ptr; ptr += (size_t)BK * LDV * 2; }
   sm.s = (float*)ptr;         ptr += BQ * LDS * 4;
   sm.p = (__nv_bfloat16*)ptr; ptr += BQ * LDP * 2;
   sm.o = (float*)ptr;         ptr += (size_t)BQ * LDO * 4;
@@ -110,14 +118,25 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, long qsb, long qss, long q
   __syncthreads();
 
   const __nv_bfloat16* kbase = kv + b * ksb + hk * ksh;
+  const __nv_bfloat16* vbase = vsep ? vsep + b * vsb + hk * vsh : nullptr;
+  const int Dv8 = Dv / 8;
   for (int j = 0; j < nblk; ++j) {
     const int kb = j * BK;
     for (int i = tid; i < BK * D8; i += THREADS) {
       const int r = i / D8, c = (i % D8) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
+      uint4 w = make_uint4(0, 0, 0, 0);
       if (kb + r < kv_end && kb + r < S)
-        v = *reinterpret_cast<const uint4*>(kbase + (long)(kb + r) * kss + c);
-      *reinterpret_cast<uint4*>(sm.k + r * LDQ + c) = v;
+        w = *reinterpret_cast<const uint4*>(kbase + (long)(kb + r) * kss + c);
+      *reinterpret_cast<uint4*>(sm.k + r * LDQ + c) = w;
+    }
+    if (vsep) {
+      for (int i = tid; i < BK * Dv8; i += THREADS) {
+        const int r = i / Dv8, c = (i % Dv8) * 8;
+        uint4 w = make_uint4(0, 0, 0, 0);
+        if (kb + r < kv_end && kb + r < S)
+          w = *reinterpret_cast<const uint4*>(vbase + (long)(kb + r) * vss + c);
+        *reinterpret_cast<uint4*>(sm.v + r * LDV + c) = w;
+      }
     }
     __syncthreads();
 
@@ -177,7 +196,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, long qsb, long qss, long q
     }
     __syncthreads();
 
-    // O += P V with V = the first Dv lanes of the K block
+    // O += P V with V = its own block, or the first Dv lanes of the K block
     {
       const int ctn = Dv / 16;
       for (int t = warp; t < (BQ / 16) * ctn; t += THREADS / 32) {
@@ -190,7 +209,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, long qsb, long qss, long q
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
           wmma::load_matrix_sync(fa, sm.p + rt * 16 * LDP + kk, LDP);
-          wmma::load_matrix_sync(fb, sm.k + kk * LDQ + ct * 16, LDQ);
+          wmma::load_matrix_sync(fb, sm.v + kk * LDV + ct * 16, LDV);
           wmma::mma_sync(acc, fa, fb, acc);
         }
         wmma::store_matrix_sync(optr, acc, LDO, wmma::mem_row_major);
@@ -215,11 +234,12 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, long qsb, long qss, long q
 }  // namespace
 
 extern "C" int attention_launch(const void* q, long qsb, long qss, long qsh,
-                                const void* kv, long ksb, long ksh, long kss, void* out,
+                                const void* kv, long ksb, long ksh, long kss,
+                                const void* v, long vsb, long vsh, long vss, void* out,
                                 const void* q_off, const void* kv_len, float scale,
                                 int B, int Sq, int Hq, int Hkv, int S, int D, int Dv,
                                 void* stream) {
-  const size_t bytes = smem_bytes(D, Dv);
+  const size_t bytes = smem_bytes(D, Dv, v != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -227,7 +247,7 @@ extern "C" int attention_launch(const void* q, long qsb, long qss, long qsh,
   dim3 grid((R + BQ - 1) / BQ, Hkv, B);
   attention_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, qsb, qss, qsh, (const __nv_bfloat16*)kv, ksb, ksh, kss,
-      (__nv_bfloat16*)out, (const int*)q_off, (const int*)kv_len, scale, Sq, Hq, Hkv, S,
+      (const __nv_bfloat16*)v, vsb, vsh, vss, (__nv_bfloat16*)out, (const int*)q_off, (const int*)kv_len, scale, Sq, Hq, Hkv, S,
       D, Dv);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,14 @@
 // with W int4 (split-half packed [K/2, N]) or int8 ([K, N]) and bf16 group
 // scales [K/gs, N]. The wrapper sums the split partials.
 //
+// K1s, the stacked entry, is the same kernel over one layer of a
+// [L, K(/2), N] stack: it is handed the base pointers of the q and scales
+// stacks, their layer strides and the layer index, and offsets inside the
+// kernel, so a layer is read in place and no per-layer copy exists.
+//
 // Replaces: krasis_tpu/ops/qmm_pallas.py qmm_pallas (_kernel_int4 and
-// _kernel_int8). Numerics as there: each weight is dequantized in f32,
+// _kernel_int8) and qmm_stacked_pallas (_kernel_int4_st, _kernel_int8_st).
+// Numerics as there: each weight is dequantized in f32,
 // rounded to bf16, and multiplied by the bf16 activation with f32
 // accumulation.
 //
@@ -29,7 +35,10 @@ constexpr int TT = 8;      // rows of x per block
 __global__ void __launch_bounds__(WARPS * 32)
 qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
            const __nv_bfloat16* __restrict__ s, float* __restrict__ part,
-           int T, int K, int N, int bits, int gs, int k_per_split) {
+           int T, int K, int N, int bits, int gs, int k_per_split,
+           long q_lstride, long s_lstride, int layer) {
+  q += layer * q_lstride;
+  s += layer * s_lstride;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n0 = blockIdx.x * COLS;
@@ -85,13 +94,17 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
 
 }  // namespace
 
-extern "C" int qmm_launch(const void* x, const void* q, const void* s, void* part,
-                          int T, int K, int N, int bits, int gs, int ksplit,
-                          void* stream) {
+// q and s are the bases of [L, K(/2), N] and [L, K/gs, N] stacks with the
+// given element strides between layers; `layer` picks the one to read. A
+// single [K, N] weight is the stack of one layer.
+extern "C" int qmm_stacked_launch(const void* x, const void* q, const void* s, void* part,
+                                  int T, int K, int N, int bits, int gs, int ksplit,
+                                  long q_lstride, long s_lstride, int layer,
+                                  void* stream) {
   const int k_per_split = (K + ksplit - 1) / ksplit;
   dim3 grid((N + COLS - 1) / COLS, (T + TT - 1) / TT, ksplit);
   qmm_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const int8_t*)q, (const __nv_bfloat16*)s,
-      (float*)part, T, K, N, bits, gs, k_per_split);
+      (float*)part, T, K, N, bits, gs, k_per_split, q_lstride, s_lstride, layer);
   return (int)cudaGetLastError();
 }

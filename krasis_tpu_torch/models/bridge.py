@@ -6,6 +6,14 @@ leaf already a numpy array and every QTensor given as a dict
 ``{q, scales, bits, group_size}``, and returns the port's parameters, so
 both packages compute from the same values. It imports neither jax nor the
 reference package: the caller does the jax → numpy step.
+
+The reference's layout is ``prefix_layers`` plus ``pattern`` entries whose
+leaves carry a leading ``reps`` dim; the port's ``layers`` list holds
+prefix layers, then pattern × reps in the order of ``pattern_layer_index``.
+Expert stacks and dense leaves become per-layer views. A quantized
+attention / DeltaNet projection stack (``STACKED_PROJECTIONS``) stays
+whole: each layer of its pattern position holds the same stack and its own
+``_layer_idx``, as ``init_synthetic_params`` builds them.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 from ..quant import QTensor
+from .params import STACKED_PROJECTIONS
 
 
 def to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -44,7 +53,12 @@ def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         reps = pattern[0]["input_norm"].shape[0]
         for r in range(reps):
             for lp in pattern:
-                layers.append({k: v[r] for k, v in lp.items()})  # views
+                whole = {k for k, v in lp.items()
+                         if k in STACKED_PROJECTIONS and isinstance(v, QTensor)}
+                layer = {k: (v if k in whole else v[r]) for k, v in lp.items()}  # views
+                if whole:
+                    layer["_layer_idx"] = r
+                layers.append(layer)
     return {
         "embed": to_torch(tree["embed"], device),
         "final_norm": to_torch(tree["final_norm"], device),

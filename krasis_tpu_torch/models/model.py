@@ -1,11 +1,13 @@
-"""Full-model forward for MLA × (dense | MoE) models: prefill and decode.
+"""Full-model forward: prefill and decode.
 
 Layer graph (the reference's ``krasis_tpu/models/model.py``):
     h += attn(rms_norm(h));  h += mlp(rms_norm(h))
-with MLA attention in absorbed form and a dense or routed-MoE MLP. The
-reference's prefix layers and scanned pattern stack are one Python loop
-over ``params["layers"]`` here. ``forward`` updates the cache in place
-and returns the logits.
+with attn ∈ {MLA in absorbed form, GQA (qk-norm, gated output, partial
+rotary), Gated DeltaNet} and mlp ∈ {routed MoE + shared expert, dense MLP}.
+The reference's prefix layers and scanned pattern stack are one Python
+loop over ``params["layers"]`` here, each layer's kind read from
+``layer_specs``. ``forward`` updates the cache in place and returns the
+logits. Sliding windows and attention sinks are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,12 +18,114 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig, QuantConfig
+from ..ops.deltanet import (DeltaNetDims, causal_conv, fix_qkvz_ordering,
+                            gated_delta_rule_chunked, gated_delta_rule_recurrent)
 from ..ops.flash_attention import flash_attention
 from ..ops.moe import mlp_forward, moe_forward
-from ..ops.norm import rms_norm
+from ..ops.norm import gated_rms_norm, rms_norm
 from ..ops.qmm import linear
 from ..ops.rope import apply_rope, rope_cos_sin, yarn_softmax_scale
 from ..ops.routing import compute_routing
+from .params import GATED_ATTENTION_TYPES, layer_specs
+
+
+def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
+                   positions: torch.Tensor, kv_len: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    B, S, _ = x.shape
+    d = cfg.qk_head_dim
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    li = lp.get("_layer_idx")
+
+    q = linear(x, lp["q_proj"], layer_idx=li)
+    if "q_bias" in lp:
+        q = q + lp["q_bias"].to(q.dtype)
+    gate = None
+    if cfg.model_type in GATED_ATTENTION_TYPES:
+        q = q.reshape(B, S, hq, 2 * d)
+        q, gate = q[..., :d], q[..., d:].reshape(B, S, hq * d)
+    else:
+        q = q.reshape(B, S, hq, d)
+    k = linear(x, lp["k_proj"], layer_idx=li)
+    v = linear(x, lp["v_proj"], layer_idx=li)
+    if "k_bias" in lp:
+        k = k + lp["k_bias"].to(k.dtype)
+        v = v + lp["v_bias"].to(v.dtype)
+    k = k.reshape(B, S, hkv, d)
+    v = v.reshape(B, S, hkv, d)
+
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
+    rot = int(d * cfg.partial_rotary_factor)
+    cos, sin = rope_cos_sin(positions, rot, cfg.rope_theta, cfg.rope_scaling)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    # caches are [B, Hkv, Smax, Dp] with the feature dim lane-padded
+    Dp = lc["k"].shape[-1]
+    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)
+    # padding rows past the cache end are dropped, as XLA drops them
+    keep = positions < lc["k"].shape[2]
+    for name, new in (("k", k), ("v", v)):
+        rows = F.pad(new, (0, Dp - d)).to(lc[name].dtype)
+        lc[name][bidx[keep], :, positions[keep]] = rows[keep]
+
+    out = flash_attention(F.pad(q, (0, Dp - d)), lc["k"], positions[:, 0], kv_len,
+                          d ** -0.5, v_dim=d, v=lc["v"])
+    out = out.reshape(B, S, hq * d)
+    if gate is not None:
+        out = out * torch.sigmoid(gate.to(torch.float32)).to(out.dtype)
+    o = linear(out, lp["o_proj"], layer_idx=li)
+    if "o_bias" in lp:
+        o = o + lp["o_bias"].to(o.dtype)
+    return o
+
+
+def _la_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
+                  valid: torch.Tensor, cfg: ModelConfig, prefill: bool) -> torch.Tensor:
+    """Gated DeltaNet layer; `valid` [B, S] masks padded query positions,
+    which must neither enter the conv window nor advance the recurrence."""
+    B, S, _ = x.shape
+    dims = DeltaNetDims(cfg.linear_num_key_heads, cfg.linear_num_value_heads,
+                        cfg.linear_key_head_dim, cfg.linear_value_head_dim,
+                        cfg.linear_conv_kernel_dim)
+    li = lp.get("_layer_idx")
+    qkvz = linear(x, lp["qkvz_proj"], layer_idx=li)
+    ba = linear(x, lp["ba_proj"], layer_idx=li)
+    q, k, v, z, b, a = fix_qkvz_ordering(qkvz, ba, dims)
+
+    mixed = torch.cat([q.reshape(B, S, -1), k.reshape(B, S, -1), v.reshape(B, S, -1)],
+                      dim=-1)
+    mixed = torch.where(valid[..., None], mixed, torch.zeros((), dtype=mixed.dtype,
+                                                             device=mixed.device))
+    conv_out, _ = causal_conv(mixed, lp["conv_w"], lc["conv"])
+    # new conv window = the last K-1 *valid* inputs of each row
+    Kc = dims.conv_kernel
+    hist = torch.cat([lc["conv"].to(mixed.dtype), mixed], dim=1)
+    take = valid.sum(dim=-1)[:, None] + torch.arange(Kc - 1, device=x.device)
+    lc["conv"] = hist[torch.arange(B, device=x.device)[:, None], take].to(lc["conv"].dtype)
+
+    kd = dims.key_dim
+    qc = conv_out[..., :kd].reshape(B, S, dims.num_k_heads, dims.head_k_dim)
+    kc = conv_out[..., kd:2 * kd].reshape(B, S, dims.num_k_heads, dims.head_k_dim)
+    vc = conv_out[..., 2 * kd:].reshape(B, S, dims.num_v_heads, dims.head_v_dim)
+
+    beta = torch.sigmoid(b.to(torch.float32))
+    g = -torch.exp(lp["a_log"]) * F.softplus(a.to(torch.float32) + lp["dt_bias"])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    beta = torch.where(valid[..., None], beta, zero)         # no write
+    g = torch.where(valid[..., None], g, zero)               # no decay
+
+    if prefill:
+        # fast=True: the numerics the reference runs on its accelerator
+        core, lc["state"] = gated_delta_rule_chunked(qc, kc, vc, g, beta, lc["state"],
+                                                     fast=True)
+    else:
+        core, lc["state"] = gated_delta_rule_recurrent(qc, kc, vc, g, beta, lc["state"])
+    core = gated_rms_norm(core.to(x.dtype), z, lp["la_norm"], cfg.rms_norm_eps,
+                          plus_one=False)
+    return linear(core.reshape(B, S, -1), lp["la_out_proj"], layer_idx=li)
 
 
 def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
@@ -32,9 +136,10 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     L = cfg.kv_lora_rank
 
-    q = linear(x, lp["q_proj"]).reshape(B, S, hq, dn + dr)
+    li = lp.get("_layer_idx")
+    q = linear(x, lp["q_proj"], layer_idx=li).reshape(B, S, hq, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
-    kv_a = linear(x, lp["kv_a_proj"])                        # [B, S, L + dr]
+    kv_a = linear(x, lp["kv_a_proj"], layer_idx=li)          # [B, S, L + dr]
     ckv = rms_norm(kv_a[..., :L], lp["kv_a_norm"], cfg.rms_norm_eps)
     kpe = kv_a[..., L:]
 
@@ -63,7 +168,13 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     ctx = flash_attention(q_cat, cache, positions[:, 0], kv_len, scale, v_dim=L)
     out = torch.einsum("bshl,hlv->bshv", ctx.to(torch.float32),
                        lp["w_vc"].to(torch.float32)).to(x.dtype)
-    return linear(out.reshape(B, S, -1), lp["o_proj"])
+    return linear(out.reshape(B, S, -1), lp["o_proj"], layer_idx=li)
+
+
+def _shared_gate(lp: Dict[str, Any], x2d: torch.Tensor) -> torch.Tensor:
+    """sigmoid(x @ shared_gate_w) [T, 1] f32: the per-token weight of the
+    shared expert in the Qwen3-Next family."""
+    return torch.sigmoid(linear(x2d, lp["shared_gate_w"]).to(torch.float32))
 
 
 def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
@@ -75,11 +186,15 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
     n_virt = E_stack - cfg.n_routed_experts
     if n_virt > 0 and not prefill:
         # decode: the folded shared experts are always-picked virtual
-        # experts with weight 1, computed in the same kernel as the routed
+        # experts, computed in the same kernel as the routed, with weight 1
+        # or the layer's per-token shared gate
         T = x2d.shape[0]
         sh_idx = torch.arange(cfg.n_routed_experts, E_stack, dtype=torch.int32,
                               device=x2d.device).expand(T, n_virt)
-        sh_w = torch.ones((T, n_virt), dtype=torch.float32, device=x2d.device)
+        if "shared_gate_w" in lp:
+            sh_w = _shared_gate(lp, x2d).expand(T, n_virt)
+        else:
+            sh_w = torch.ones((T, n_virt), dtype=torch.float32, device=x2d.device)
         return moe_forward(x2d, lp["w13"], lp["w2"],
                            torch.cat([routing.topk_idx, sh_idx], dim=1),
                            torch.cat([routing.topk_weights, sh_w], dim=1),
@@ -89,7 +204,10 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
     if "shared_w13" in lp:
         # prefill: shared experts as one dense product, from the same
         # values the virtual experts were sliced from
-        out = out + mlp_forward(x2d, lp["shared_w13"], lp["shared_w2"])
+        shared = mlp_forward(x2d, lp["shared_w13"], lp["shared_w2"])
+        if "shared_gate_w" in lp:
+            shared = shared * _shared_gate(lp, x2d).to(shared.dtype)
+        out = out + shared
     return out
 
 
@@ -102,15 +220,25 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
     token."""
     B, S = tokens.shape
     length = cache["length"]
-    positions = length.to(torch.int64)[:, None] + torch.arange(S, device=tokens.device)
+    steps = torch.arange(S, device=tokens.device)
+    positions = length.to(torch.int64)[:, None] + steps
+    valid = steps[None, :] < seq_lens[:, None]
     kv_len = length + seq_lens.to(length.dtype)
     # prefill MoE stays bf16: the int8-activation numerics belong to decode
     activation = "bf16" if prefill else quant.expert_activation
 
     x = params["embed"][tokens]
-    for lp, lc in zip(params["layers"], cache["layers"]):
+    for lp, lc, spec in zip(params["layers"], cache["layers"], layer_specs(cfg)):
         normed = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
-        x = x + _mla_attention(lp, lc, normed, positions, kv_len, cfg, prefill)
+        if spec.sliding:
+            raise NotImplementedError("sliding-window attention is not ported yet")
+        if spec.attn_kind == "gqa":
+            attn = _gqa_attention(lp, lc, normed, positions, kv_len, cfg)
+        elif spec.attn_kind == "mla":
+            attn = _mla_attention(lp, lc, normed, positions, kv_len, cfg, prefill)
+        else:
+            attn = _la_attention(lp, lc, normed, valid, cfg, prefill)
+        x = x + attn
         normed = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
         x = x + _mlp(lp, normed.reshape(B * S, -1), cfg, prefill,
                      activation).reshape(B, S, -1)

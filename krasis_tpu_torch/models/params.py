@@ -4,7 +4,12 @@ Parameters are a dict: ``embed``, ``final_norm``, ``lm_head`` and
 ``layers``, a list with one dict per layer. The reference keeps repeated
 layers stacked along a leading ``reps`` axis so XLA can scan over them;
 here ``stack[l]`` is a free view, so each layer simply holds its own
-tensors. Key names inside a layer are the reference's.
+tensors. Key names inside a layer are the reference's. The one exception
+are the quantized attention / DeltaNet projections of the repeated layer
+pattern (``STACKED_PROJECTIONS``): each stays one ``[reps, K(/2), N]``
+QTensor per pattern position, shared by the layers of that position, and
+each such layer carries its ``_layer_idx`` into the stack, which the
+stacked qmm kernel reads in place.
 
 ``init_synthetic_params`` builds a random-weight model directly in
 quantized form on the target device from an explicit ``torch.Generator``,
@@ -20,6 +25,10 @@ import torch
 from ..config import ModelConfig, QuantConfig
 from ..quant import (QTensor, cat_leading, dequantize, quantize, random_qtensor,
                      slice_k, slice_n, stack_leading)
+
+
+# Qwen3-Next family: gated attention output and a gated shared expert.
+GATED_ATTENTION_TYPES = ("qwen3_next", "qwen3_5_moe_text")
 
 
 class LayerSpec(NamedTuple):
@@ -71,6 +80,35 @@ def pattern_info(cfg: ModelConfig) -> PatternInfo:
     return best if best.reps else PatternInfo(L, 0, 0)
 
 
+def pattern_layer_index(info: PatternInfo, t: int, r: int) -> int:
+    """Global layer index of pattern position t at repetition r."""
+    return info.prefix_n + r * info.period + t
+
+
+# Quantized projections that stay whole as [reps, K(/2), N] stacks.
+STACKED_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "kv_a_proj",
+                       "qkvz_proj", "ba_proj", "la_out_proj")
+
+
+def stack_pattern_projections(layers: List[Dict[str, Any]],
+                              cfg: ModelConfig) -> List[Dict[str, Any]]:
+    """Join the per-layer quantized projections of each pattern position
+    into one stack; every layer of the position then holds the stack and
+    its own ``_layer_idx``."""
+    info = pattern_info(cfg)
+    for t in range(info.period):
+        group = [layers[pattern_layer_index(info, t, r)] for r in range(info.reps)]
+        names = [n for n in STACKED_PROJECTIONS if isinstance(group[0].get(n), QTensor)]
+        for name in names:
+            stack = stack_leading([lp.pop(name) for lp in group], 0)
+            for lp in group:
+                lp[name] = stack
+        if names:
+            for r, lp in enumerate(group):
+                lp["_layer_idx"] = r
+    return layers
+
+
 def _maybe_quant(w: torch.Tensor, mode: str, group_size: int):
     if mode == "bf16":
         return w.to(torch.bfloat16)
@@ -101,31 +139,66 @@ def _n_virtual(cfg: ModelConfig, quant: QuantConfig, Is: int) -> int:
 
 def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
                 g: torch.Generator, device: torch.device) -> Dict[str, Any]:
-    if spec.attn_kind != "mla":
-        raise NotImplementedError(f"{spec.attn_kind} attention is not ported yet")
+    if spec.sliding or cfg.model_type == "gpt_oss":
+        raise NotImplementedError("sliding-window attention and sinks are not ported yet")
     H, gs = cfg.hidden_size, quant.group_size
 
     def rnd(shape, dtype=torch.bfloat16, scale=0.02):
         return (torch.randn(shape, generator=g, device=device,
                             dtype=torch.float32) * scale).to(dtype)
 
-    def ones(n):
-        return torch.ones(n, dtype=torch.bfloat16, device=device)
+    def plain_ones(n, dtype=torch.bfloat16):
+        return torch.ones(n, dtype=dtype, device=device)
 
+    def ones(n):
+        # (1 + w)·x norms store their weights near zero
+        if cfg.norm_plus_one:
+            return torch.zeros(n, dtype=torch.bfloat16, device=device)
+        return plain_ones(n)
+
+    def attn_w(shape, mode=quant.attention):
+        return _maybe_quant(rnd(shape, torch.float32), mode, gs)
+
+    # the latent and recurrent paths compound weight noise: int8 floor
+    floor8 = "int8" if quant.attention == "int4" else quant.attention
     hq = cfg.num_attention_heads
-    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    L, dv = cfg.kv_lora_rank, cfg.v_head_dim
-    if cfg.q_lora_rank:
-        raise NotImplementedError("q-LoRA MLA is not ported yet")
     lp: Dict[str, Any] = {"input_norm": ones(H), "post_norm": ones(H)}
-    lp["q_proj"] = _maybe_quant(rnd((H, hq * (dn + dr)), torch.float32), quant.attention, gs)
-    lp["kv_a_proj"] = _maybe_quant(
-        rnd((H, L + dr), torch.float32),
-        "int8" if quant.attention == "int4" else quant.attention, gs)
-    lp["kv_a_norm"] = ones(L)
-    lp["w_kc"] = rnd((hq, dn, L))
-    lp["w_vc"] = rnd((hq, L, dv))
-    lp["o_proj"] = _maybe_quant(rnd((hq * dv, H), torch.float32), quant.attention, gs)
+    if spec.attn_kind == "gqa":
+        d, hkv = cfg.qk_head_dim, cfg.num_key_value_heads
+        gated = cfg.model_type in GATED_ATTENTION_TYPES
+        qn = hq * d * (2 if gated else 1)
+        lp["q_proj"] = attn_w((H, qn))
+        lp["k_proj"] = attn_w((H, hkv * d))
+        lp["v_proj"] = attn_w((H, hkv * d))
+        lp["o_proj"] = attn_w((hq * d, H))
+        if cfg.attention_bias:
+            for name, n in (("q_bias", qn), ("k_bias", hkv * d), ("v_bias", hkv * d),
+                            ("o_bias", H)):
+                lp[name] = torch.zeros(n, dtype=torch.bfloat16, device=device)
+        if cfg.qk_norm:
+            lp["q_norm"], lp["k_norm"] = ones(d), ones(d)
+    elif spec.attn_kind == "mla":
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        L, dv = cfg.kv_lora_rank, cfg.v_head_dim
+        if cfg.q_lora_rank:
+            raise NotImplementedError("q-LoRA MLA is not ported yet")
+        lp["q_proj"] = attn_w((H, hq * (dn + dr)))
+        lp["kv_a_proj"] = attn_w((H, L + dr), floor8)
+        lp["kv_a_norm"] = plain_ones(L)
+        lp["w_kc"] = rnd((hq, dn, L))
+        lp["w_vc"] = rnd((hq, L, dv))
+        lp["o_proj"] = attn_w((hq * dv, H))
+    else:                                                    # linear_attention
+        hk, hv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
+        dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
+        key_dim, value_dim = hk * dk, hv * dv
+        lp["qkvz_proj"] = attn_w((H, 2 * key_dim + 2 * value_dim), floor8)
+        lp["ba_proj"] = attn_w((H, 2 * hv), floor8)
+        lp["conv_w"] = rnd((2 * key_dim + value_dim, cfg.linear_conv_kernel_dim), scale=0.2)
+        lp["dt_bias"] = plain_ones(hv, torch.float32)
+        lp["a_log"] = torch.zeros(hv, dtype=torch.float32, device=device)
+        lp["la_norm"] = plain_ones(dv)                       # gated norm: plain weight
+        lp["la_out_proj"] = attn_w((value_dim, H), floor8)
 
     if spec.mlp_kind == "dense":
         I = cfg.intermediate_size
@@ -141,6 +214,8 @@ def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
         src13, src2 = rnd((H, 2 * Is), torch.float32), rnd((Is, H), torch.float32)
         lp["shared_w13"] = _maybe_quant(src13, quant.shared_expert, gs)
         lp["shared_w2"] = _maybe_quant(src2, quant.shared_expert, gs)
+        if cfg.model_type in GATED_ATTENTION_TYPES:
+            lp["shared_gate_w"] = rnd((H, 1))
     n_virt = _n_virtual(cfg, quant, Is)
     bits = quant.expert_bits
     lp["w13"] = random_qtensor((E + n_virt, H, 2 * I), bits, gs, g, device)
@@ -173,12 +248,13 @@ def init_synthetic_params(cfg: ModelConfig, quant: QuantConfig, seed: int = 0,
                      dtype=torch.float32) * 0.02
     params: Dict[str, Any] = {
         "embed": embed,
-        "final_norm": torch.ones(H, dtype=torch.bfloat16, device=device),
+        "final_norm": (torch.zeros if cfg.norm_plus_one else torch.ones)(
+            H, dtype=torch.bfloat16, device=device),
         "lm_head": _maybe_quant(lm, quant.lm_head, quant.group_size),
     }
     del lm
-    params["layers"] = [_init_layer(cfg, quant, spec, g, device)
-                        for spec in layer_specs(cfg)]
+    params["layers"] = stack_pattern_projections(
+        [_init_layer(cfg, quant, spec, g, device) for spec in layer_specs(cfg)], cfg)
     return params
 
 

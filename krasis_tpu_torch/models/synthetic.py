@@ -17,8 +17,22 @@ TINY_OVERRIDES = dict(
 )
 
 
+# A hybrid needs its layer pattern and DeltaNet widths cut as well: two
+# repetitions of [DeltaNet, DeltaNet, DeltaNet, GQA], widths that the
+# grouped and gathered MoE kernels accept (H, I multiples of 128).
+TINY_HYBRID_OVERRIDES = dict(
+    moe_intermediate_size=128, shared_expert_intermediate_size=128,
+    num_hidden_layers=8, head_dim=32,
+    layer_types=(["linear_attention"] * 3 + ["full_attention"]) * 2,
+    linear_num_key_heads=2, linear_num_value_heads=4,
+    linear_key_head_dim=32, linear_value_head_dim=32,
+)
+
+
 def tiny_config(preset: str = "deepseek-v2-lite", **overrides) -> ModelConfig:
     kw = dict(TINY_OVERRIDES)
+    if preset_config(preset).is_hybrid:
+        kw.update(TINY_HYBRID_OVERRIDES)
     kw.update(overrides)
     return preset_config(preset, **kw)
 

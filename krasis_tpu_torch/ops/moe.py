@@ -2,8 +2,9 @@
 
 ``moe_forward`` picks the regime by batch size with the reference's
 predicate (``krasis_tpu/ops/moe.py`` ``use_grouped_path``): many rows go
-through the grouped K4 kernel with bf16 activations, few rows through the
-gathered W4A8 K3 kernel.
+through the grouped K4 kernel with bf16 activations, few rows through a
+gathered kernel: W4A8 (K3) under ``expert_activation="int8"``, bf16
+activations (K5) under ``"bf16"``.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ def moe_forward(x: torch.Tensor, w13: QTensor, w2: QTensor,
         return gmm_cuda.moe_prefill(x, w13, w2, topk_idx, topk_weights)
     if activation == "int8":
         return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights)
-    raise NotImplementedError(
-        "the bf16-activation gathered MoE (moe_gathered_pallas) is not ported yet")
+    if activation == "bf16":
+        return moe_cuda.moe_bf16(x, w13, w2, topk_idx, topk_weights)
+    raise ValueError(f"unknown expert activation {activation!r}")
 
 
 def mlp_forward(x: torch.Tensor, w13: Weight, w2: Weight) -> torch.Tensor:

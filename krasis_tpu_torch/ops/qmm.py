@@ -5,6 +5,10 @@ full precision) or a ``QTensor``. Few-row products of a quantized weight
 go through the K1 kernel (``qmm_cuda``); many-row products dequantize and
 use one matrix product, as the reference leaves them to XLA
 (``krasis_tpu/ops/qmm.py`` ``qmm_ref``). Both compute the same function.
+A ``QTensor`` with a leading stack dim ``[L, K(/2), N]`` (the projections
+of a repeated layer pattern) is read at ``layer_idx``: by the stacked
+kernel, which offsets into the stack itself, for few rows, and through a
+view of that layer for many.
 """
 
 from __future__ import annotations
@@ -40,19 +44,24 @@ def qmm_ref(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(out_dtype)
 
 
-def qmm(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
+def qmm(x: torch.Tensor, qt: QTensor, out_dtype=None, layer_idx=None) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
+    if qt.q.dim() == 3:
+        li = 0 if layer_idx is None else layer_idx
+        if x.shape[0] <= QMM_MAX_T:
+            return qmm_cuda.qmm_stacked(x, qt, li, out_dtype)
+        qt = qt[li]                                  # a view of that layer
     if x.shape[0] <= QMM_MAX_T:
         return qmm_cuda.qmm(x, qt, out_dtype)
     return qmm_ref(x, qt, out_dtype)
 
 
-def linear(x: torch.Tensor, w: Weight, out_dtype=None) -> torch.Tensor:
-    """x[..., K] @ w[K, N]."""
+def linear(x: torch.Tensor, w: Weight, out_dtype=None, layer_idx=None) -> torch.Tensor:
+    """x[..., K] @ w[K, N]; `layer_idx` picks the layer of a stacked QTensor."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QTensor):
-        y = qmm(x2, w, out_dtype)
+        y = qmm(x2, w, out_dtype, layer_idx)
     elif out_dtype in (None, torch.bfloat16):
         y = matmul_bf16(x2, w.to(torch.bfloat16))
     else:

@@ -22,7 +22,9 @@ import torch
 @dataclasses.dataclass
 class QTensor:
     """q: int8 ``[..., K, N]`` (int8) or ``[..., K/2, N]`` (packed int4);
-    scales: bf16 ``[..., K/gs, N]``."""
+    scales: bf16 ``[..., K/gs, N]``. Leading dims stack layers
+    (``[L, K(/2), N]`` projections) or experts (``[E, K(/2), N]``);
+    ``k_dim``, ``n_dim``, indexing and ``dequantize`` read the last two."""
 
     q: torch.Tensor
     scales: torch.Tensor

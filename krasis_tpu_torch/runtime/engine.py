@@ -1,7 +1,9 @@
 """Generation engine: chunked prefill, then a decode loop (PyTorch).
 
 The port of ``krasis_tpu/runtime/engine.py`` ``Engine.generate`` for the
-vanilla path: a prompt is prefilled in ``CHUNK``-token chunks that attend
+vanilla path, over any cache ``init_cache`` builds (KV buffers, and the
+DeltaNet state and conv window of a hybrid, which a later chunk picks up
+where the earlier one left them): a prompt is prefilled in ``CHUNK``-token chunks that attend
 to the cache written by the earlier ones, then tokens are decoded one
 forward at a time, with one host synchronisation per ``decode_block``
 tokens. Prefill chunks are not padded to the reference's compile buckets
@@ -109,7 +111,9 @@ class Engine:
         stop_ids = stop_ids or {self.cfg.eos_token_id, *self.cfg.extra_stop_token_ids}
         n = len(prompt_ids)
         # decode may run a whole block past max_new_tokens: keep that
-        # overshoot inside the cache
+        # overshoot inside the cache. A hybrid's DeltaNet state advances
+        # with the overshoot too, which is harmless because every request
+        # starts from reset()
         room = self.max_len - n - 1 - self.decode_block
         if room < 1:
             raise ValueError(f"prompt ({n} tokens) leaves no room to generate "

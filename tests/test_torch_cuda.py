@@ -13,7 +13,7 @@ from krasis_tpu_torch.device import set_exact_matmul_flags
 from krasis_tpu_torch.models.synthetic import build_synthetic_engine, tiny_config
 from krasis_tpu_torch.ops import flash_attention as fa
 from krasis_tpu_torch.ops import gmm_cuda, moe_cuda, qmm_cuda
-from krasis_tpu_torch.quant import quantize, random_qtensor
+from krasis_tpu_torch.quant import quantize, random_qtensor, stack_leading
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +50,41 @@ def test_qmm_kernel(dev, bits, T):
     _close(qmm_cuda.qmm(x, qt, torch.float32), qmm_cuda.qmm_plain(x, qt, torch.float32), 2e-2)
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("T,N", [(1, 384), (5, 384), (1, 64)])
+def test_qmm_stacked_kernel(dev, bits, T, N):
+    """Every layer of a [3, K(/2), N] stack, read in place; N = 64 is the
+    narrow ba_proj case (half a block of columns)."""
+    g = _gen(dev, 7 * T + bits + N)
+    stack = stack_leading([quantize(torch.randn((512, N), generator=g, device=dev) * 0.05,
+                                    bits, 128) for _ in range(3)], 0)
+    x = torch.randn((T, 512), generator=g, device=dev).to(torch.bfloat16)
+    before = qmm_cuda.launches_stacked
+    for layer in range(3):
+        _close(qmm_cuda.qmm_stacked(x, stack, layer, torch.float32),
+               qmm_cuda.qmm_plain(x, stack[layer], torch.float32), 2e-2)
+    assert qmm_cuda.launches_stacked == before + 3
+
+
+@pytest.mark.parametrize("sq,q_off,kv_len", [(200, 0, 200), (100, 128, 228), (1, 300, 301),
+                                             (40, 0, 17)])
+@pytest.mark.parametrize("d,dp", [(256, 256), (32, 128)])
+def test_attention_kernel_separate_v(dev, sq, q_off, kv_len, d, dp):
+    """GQA: 8 query heads on 2 kv heads, K and V in two lane-padded buffers."""
+    g = _gen(dev, sq + d)
+    Hq, Hkv = 8, 2
+    q = torch.zeros((1, sq, Hq, dp), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, Hkv, 512, dp), dtype=torch.bfloat16, device=dev)
+    v = torch.zeros_like(k)
+    q[..., :d] = torch.randn((1, sq, Hq, d), generator=g, device=dev).to(torch.bfloat16)
+    k[..., :d] = torch.randn((1, Hkv, 512, d), generator=g, device=dev).to(torch.bfloat16)
+    v[..., :d] = torch.randn((1, Hkv, 512, d), generator=g, device=dev).to(torch.bfloat16)
+    qo = torch.tensor([q_off], device=dev)
+    kl = torch.tensor([kv_len], device=dev)
+    _close(fa.flash_attention(q, k, qo, kl, d ** -0.5, d, v=v),
+           fa.flash_attention_plain(q, k, qo, kl, d ** -0.5, d, v=v), 2e-2)
+
+
 @pytest.mark.parametrize("sq,q_off,kv_len", [(200, 0, 200), (100, 128, 228), (1, 300, 301),
                                              (40, 0, 17)])
 def test_attention_kernel(dev, sq, q_off, kv_len):
@@ -78,6 +113,20 @@ def test_moe_decode_kernel(dev):
            moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts), 3e-2)
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_moe_bf16_kernel(dev, bits):
+    g = _gen(dev, 3 + bits)
+    w13 = random_qtensor((10, 256, 256), bits, 128, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((10, 128, 256), bits, 128, g, dev, scale_mag=0.03)
+    x = torch.randn((2, 256), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.tensor([[0, 3, 5, 8, 9], [7, 1, 2, 8, 9]], dtype=torch.int32, device=dev)
+    wts = torch.rand((2, 5), generator=g, device=dev)
+    before = moe_cuda.launches_bf16
+    _close(moe_cuda.moe_bf16(x, w13, w2, idx, wts),
+           moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts), 3e-2)
+    assert moe_cuda.launches_bf16 == before + 2
+
+
 def test_grouped_moe_kernel(dev):
     w13, w2, g = _experts(dev, 8, 256, 128, 2)
     T, k = 100, 2
@@ -96,3 +145,22 @@ def test_tiny_engine_generates_on_card(dev):
     eng = build_synthetic_engine(cfg, QuantConfig(expert_bits=4, group_size=128), seed=0)
     res = eng.generate(list(range(3, 203)), max_new_tokens=12, stop_ids={-1})
     assert res.finite and len(res.tokens) == 12
+
+
+@pytest.mark.parametrize("attention,activation", [("int8", "int8"), ("int8", "bf16"),
+                                                  ("bf16", "int8"), ("int4", "int8")])
+def test_tiny_hybrid_generates_on_card(dev, attention, activation):
+    cfg = tiny_config("qwen3-coder-next")
+    quant = QuantConfig(expert_bits=4, group_size=128, attention=attention,
+                        expert_activation=activation)
+    eng = build_synthetic_engine(cfg, quant, seed=0)
+    eng.chunk = 128
+    counters = [(qmm_cuda, "launches_stacked"), (fa, "launches"),
+                (moe_cuda, "launches" if activation == "int8" else "launches_bf16")]
+    before = [getattr(m, name) for m, name in counters]
+    res = eng.generate(list(range(3, 203)), max_new_tokens=12, stop_ids={-1})
+    assert res.finite and len(res.tokens) == 12
+    for (m, name), b in zip(counters, before):
+        if name == "launches_stacked" and attention == "bf16":
+            continue
+        assert getattr(m, name) > b, name

@@ -12,13 +12,13 @@ import torch
 
 from krasis_tpu.ops import flash_attention as jfa
 from krasis_tpu.ops.gmm_pallas import gmm_fused_supported, moe_prefill_pallas
-from krasis_tpu.ops.moe_pallas import moe_gathered_w4a8_pallas
+from krasis_tpu.ops.moe_pallas import moe_gathered_pallas, moe_gathered_w4a8_pallas
 from krasis_tpu.ops.qmm_pallas import qmm_pallas
 from krasis_tpu.quant import quantize as jquantize
 from krasis_tpu.quant import random_qtensor as jrandom_qtensor
 from krasis_tpu_torch.ops import flash_attention as tfa
 from krasis_tpu_torch.ops.gmm_cuda import moe_prefill
-from krasis_tpu_torch.ops.moe_cuda import moe_w4a8
+from krasis_tpu_torch.ops.moe_cuda import moe_bf16, moe_w4a8
 from krasis_tpu_torch.ops.qmm_cuda import qmm
 
 from torch_port_util import f32, t, tq
@@ -123,6 +123,24 @@ def test_moe_w4a8_plain_matches_pallas_with_virtual_experts():
     wts = jnp.asarray(wts, jnp.float32)
     want = moe_gathered_w4a8_pallas(x, w13, w2, idx, wts, interpret=True)
     got = moe_w4a8(t(x), tq(w13), tq(w2), t(idx), t(wts))
+    np.testing.assert_allclose(f32(got), f32(want), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_moe_bf16_plain_matches_pallas_with_virtual_expert(bits):
+    """K5: 3 picks per token, 2 routed of 8 experts plus the folded shared
+    expert (stack row 8) weighted by a per-token gate."""
+    rng = np.random.default_rng(7 + bits)
+    E, Hd, I, T = 9, 256, 128, 2
+    w13, w2 = _experts(7, E, Hd, I, bits)
+    x = _bf16(rng.standard_normal((T, Hd)) * 0.5)
+    routed = np.stack([rng.permutation(8)[:2] for _ in range(T)])
+    idx = jnp.asarray(np.concatenate([routed, np.full((T, 1), 8)], 1), jnp.int32)
+    wts = jnp.asarray(np.concatenate([rng.uniform(0.2, 0.8, (T, 2)),
+                                      rng.uniform(0.3, 0.7, (T, 1))], 1), jnp.float32)
+    want = moe_gathered_pallas(x, w13, w2, idx, wts, interpret=True)
+    got = moe_bf16(t(x), tq(w13), tq(w2), t(idx), t(wts))
+    assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(f32(got), f32(want), rtol=3e-2, atol=3e-2)
 
 

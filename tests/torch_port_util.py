@@ -4,8 +4,12 @@ moving JAX arrays, QTensors and parameter trees into the port via numpy."""
 import numpy as np
 import torch
 
+from krasis_tpu.config import QuantConfig as JaxQuantConfig
+from krasis_tpu.config import preset_config as jax_preset_config
 from krasis_tpu.quant import QTensor as JaxQTensor
+from krasis_tpu_torch.config import QuantConfig
 from krasis_tpu_torch.models.bridge import params_from_numpy, to_torch
+from krasis_tpu_torch.models.synthetic import tiny_config
 from krasis_tpu_torch.quant import QTensor
 
 
@@ -38,3 +42,36 @@ def f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to(torch.float32).numpy()
     return np.asarray(x, np.float32)
+
+
+def hybrid_cfgs(**kw):
+    """(JAX config, port config) of the tiny Qwen3-Coder-Next hybrid: two
+    repetitions of [DeltaNet, DeltaNet, DeltaNet, GQA] unless overridden."""
+    cfg = tiny_config("qwen3-coder-next", **kw)
+    over = {k: getattr(cfg, k) for k in (
+        "hidden_size", "intermediate_size", "moe_intermediate_size", "num_hidden_layers",
+        "num_attention_heads", "num_key_value_heads", "vocab_size", "head_dim", "layer_types",
+        "linear_num_key_heads", "linear_num_value_heads", "linear_key_head_dim",
+        "linear_value_head_dim", "n_routed_experts", "num_experts_per_tok",
+        "shared_expert_intermediate_size")}
+    return jax_preset_config("qwen3-coder-next", **over), cfg
+
+
+def hybrid_quants(attention="int8", activation="int8"):
+    kw = dict(expert_bits=4, group_size=128, kv_cache_dtype="bf16", attention=attention,
+              expert_activation=activation)
+    return JaxQuantConfig(**kw), QuantConfig(**kw)
+
+
+def calm_experts(jparams, factor=0.125):
+    """Synthetic expert stacks put out values ~60x those of the attention
+    and DeltaNet layers, so the MoE drowns every other layer, and its random
+    router sits on near-ties that rounding noise breaks differently on the
+    two sides (a different expert then moves the logits by 0.3 and more).
+    Scale the experts' group scales by a power of two: exact in bf16, and
+    the same on both sides, since the port is bridged from this tree."""
+    def scale(qt):
+        return JaxQTensor(qt.q, qt.scales * factor, qt.bits, qt.group_size)
+    pattern = [{k: (scale(v) if k in ("w13", "w2", "shared_w13", "shared_w2") else v)
+                for k, v in lp.items()} for lp in jparams["pattern"]]
+    return {**jparams, "pattern": pattern}
