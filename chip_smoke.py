@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card and toolchain: the card's name and power limit, torch and CUDA
    versions; TF32 off;
 2. build: the CUDA sources of krasis_tpu_torch/csrc with nvcc, in parallel;
-3. reference: a tiny DeepSeek-V2-Lite and a tiny Qwen3-Coder-Next hybrid
-   run on the card through the kernels against the same models on the CPU
-   through their plain versions;
+3. reference: a tiny DeepSeek-V2-Lite (int4 experts, and int8 experts in
+   the two-stage class) and a tiny Qwen3-Coder-Next hybrid run on the card
+   through the kernels against the same models on the CPU through their
+   plain versions;
 4. DeepSeek-V2-Lite Q4 at full width (MLA, 27 layers, random weights from a
    seed): each of its kernels (K1 qmm, K2 attention with V inside K, K3
    W4A8 decode MoE, K4 grouped GEMM) against its plain PyTorch version at
@@ -21,9 +22,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    512 experts top-10 + 1 shared, int8 projections): the same for the
    kernels this path adds or reshapes (K1s stacked qmm, K2 with a separate
    V, K5 bf16 decode MoE, and K1, K3, K4 at this model's shapes); three
-   requests with int8 expert activations, one with bf16, and the profile.
+   requests with int8 expert activations, one with bf16, and the profile;
+6. DeepSeek-V2-Lite Q8 at full width and depth (int8 experts of 8.65 MB a
+   pick: the two-stage expert class): K6 / K6a gathered products on w13 and
+   w2 with 8 picks of 66, once under a pick_valid mask; K7 two-stage grouped
+   GEMM at both call shapes, and K7 + SwiGLU + K7 equal bit for bit to K4's
+   fused result on the same plan; K7a int8 grouped GEMM stage by stage and
+   through moe_prefill(activation="int8"); the fused kernels timed at the
+   same shapes for the class boundary; then requests with int8 and bf16
+   activations, one with top_logprobs=5, the perplexity entry point over
+   4096 token ids (window 2048, stride 1024), the int8 prefill A/B entry,
+   and the profile. Its routed experts must not launch K3, K4 or K5.
 
-In both families every logit must be finite and every kernel of the path
+In every family every logit must be finite and every kernel of the path
 must have been launched by the requests. The last two lines are the card's
 name and power limit and the JSON result; the line before them lists the
 kernels.
@@ -178,6 +189,20 @@ def reference_phases():
         tiny_config("deepseek-v2-lite", moe_intermediate_size=128, num_hidden_layers=4,
                     num_experts_per_tok=8),
         QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16"), 2e-2)
+    # int8 experts in the two-stage class: the limits that sort full-size
+    # experts are shrunk for the tiny ones, so prefill and decode (grouped
+    # too, with every expert picked) go through K7
+    from krasis_tpu_torch.ops import expert_class
+    limits = expert_class.MAX_FUSED_PICK_BYTES, expert_class.MAX_FUSED_BLOCK_BYTES
+    expert_class.MAX_FUSED_PICK_BYTES = expert_class.MAX_FUSED_BLOCK_BYTES = 1024
+    try:
+        reference_phase(
+            "tiny V2-Lite, int8 experts, two-stage class",
+            tiny_config("deepseek-v2-lite", moe_intermediate_size=128, num_hidden_layers=4,
+                        num_experts_per_tok=8),
+            QuantConfig(expert_bits=8, group_size=128, kv_cache_dtype="bf16"), 2e-2)
+    finally:
+        expert_class.MAX_FUSED_PICK_BYTES, expert_class.MAX_FUSED_BLOCK_BYTES = limits
     # the hybrid's limit is the one tests/test_torch_hybrid.py states. With
     # every expert picked, decode too takes the grouped kernel (T·k ≥ 0.75·E):
     # the gathered decode kernels are held at full shapes in the kernel phases
@@ -193,7 +218,9 @@ def counters():
     from krasis_tpu_torch.ops import flash_attention, gmm_cuda, moe_cuda, qmm_cuda
     return {"K1": (qmm_cuda, "launches"), "K1s": (qmm_cuda, "launches_stacked"),
             "K2": (flash_attention, "launches"), "K3": (moe_cuda, "launches"),
-            "K4": (gmm_cuda, "launches"), "K5": (moe_cuda, "launches_bf16")}
+            "K4": (gmm_cuda, "launches"), "K5": (moe_cuda, "launches_bf16"),
+            "K6": (moe_cuda, "launches_gq"), "K6a": (moe_cuda, "launches_gq_a8"),
+            "K7": (gmm_cuda, "launches_two_stage"), "K7a": (gmm_cuda, "launches_a8")}
 
 
 def qmm_checks(results, prefix, cases, g, flush):
@@ -379,6 +406,211 @@ def hybrid_kernel_phase(params, cfg, results, g, flush):
     moe_checks(results, "qcn/", la["w13"], la["w2"], cfg, g, flush, bf16_too=True)
 
 
+def q8_kernel_phase(params, cfg, results, g, flush):
+    """The two-stage expert class at DeepSeek-V2-Lite's int8-expert shapes:
+    K6 / K6a at T = 1 with the 6 routed picks plus the 2 folded shared
+    experts, K7 / K7a at T = 2048 over the whole stack, and the fused
+    kernels at the same shapes for the class boundary."""
+    import torch
+    from krasis_tpu_torch.ops import gmm_cuda, moe_cuda
+    from krasis_tpu_torch.ops.activations import swiglu
+    from krasis_tpu_torch.quant import qtensor_bytes
+
+    dev = flush.device
+    C = counters()
+    moe = next(lp for lp in params["layers"] if "w13" in lp)
+    w13, w2 = moe["w13"], moe["w2"]
+    E_r, E_all, k = cfg.n_routed_experts, w13.q.shape[0], cfg.num_experts_per_tok
+    Hd, I = cfg.hidden_size, cfg.moe_intermediate_size
+    bf16 = torch.bfloat16
+
+    def held(name, got, want, tol):
+        err, ratio = max_err(got, want, tol)
+        print(f"[kernel] {name}: max|Δ| {err:.3g}, {ratio:.3g} of the limit (tol {tol})",
+              flush=True)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+
+    # --- decode: K6 (bf16 rows) and K6a (int8 rows) on w13 and on w2
+    x = torch.randn((1, Hd), generator=g, device=dev).to(bf16)
+    routed = torch.randperm(E_r, generator=g, device=dev)[:k]
+    idx = torch.cat([routed, torch.arange(E_r, E_all, device=dev)]).to(torch.int32)
+    P = idx.shape[0]
+    wts = torch.cat([torch.rand((k,), generator=g, device=dev) * 0.3,
+                     torch.ones(E_all - E_r, device=dev)])[None]
+    mask = torch.ones(P, dtype=torch.int32, device=dev)
+    mask[[1, P - 2]] = 0
+    x_rows = x.expand(P, Hd).contiguous()
+    xq, sx = moe_cuda.quantize_activations(x_rows, w13.group_size)
+    a = swiglu(moe_cuda.gathered_qmm_plain(x_rows, w13, idx).to(bf16))
+    aq, sa = moe_cuda.quantize_activations(
+        swiglu(moe_cuda.gathered_qmm_a8_plain(xq, sx, w13, idx)), w2.group_size)
+    for name, w, rows, rq, rs in (("w13", w13, x_rows, xq, sx), ("w2", w2, a, aq, sa)):
+        one = qtensor_bytes(w) // E_all
+        K, N = w.k_dim, w.n_dim
+        check_kernel(results, f"q8/gathered_qmm:{name}", C["K6"], moe_cuda.REPLACES_GQ,
+                     lambda: moe_cuda.gathered_qmm(rows, w, idx),
+                     lambda: moe_cuda.gathered_qmm_plain(rows, w, idx), None, 2e-2,
+                     P * one + P * K * 2 + P * N * 4, 2 * P * K * N, PEAK_BF16, 50, flush)
+        check_kernel(results, f"q8/gathered_qmm_a8:{name}", C["K6a"], moe_cuda.REPLACES_GQ_A8,
+                     lambda: moe_cuda.gathered_qmm_a8(rq, rs, w, idx),
+                     lambda: moe_cuda.gathered_qmm_a8_plain(rq, rs, w, idx), None, 3e-2,
+                     P * one + P * K + P * (K // w.group_size) * 4 + P * N * 4,
+                     2 * P * K * N, PEAK_INT8, 50, flush)
+        # under a pick_valid mask: the skipped picks read back zero
+        for label, got, want, tol in (
+                ("gathered_qmm", moe_cuda.gathered_qmm(rows, w, idx, mask),
+                 moe_cuda.gathered_qmm_plain(rows, w, idx, mask), 2e-2),
+                ("gathered_qmm_a8", moe_cuda.gathered_qmm_a8(rq, rs, w, idx, mask),
+                 moe_cuda.gathered_qmm_a8_plain(rq, rs, w, idx, mask), 3e-2)):
+            held(f"q8/{label}:{name} with pick_valid", got, want, tol)
+            if bool(got[mask == 0].any()) or not bool(got[mask == 1].any()):
+                raise AssertionError(f"q8/{label}:{name}: skipped picks must read back zero")
+
+    # --- prefill: K7 at both call shapes
+    T = 2048
+    xs = torch.randn((T, Hd), generator=g, device=dev).to(bf16)
+    topk = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    pw = torch.rand((T, k), generator=g, device=dev)
+    plan = gmm_cuda.plan_tiles(topk, E_all)
+    real = plan.row_src >= 0
+    computed = plan.tile_valid.to(torch.bool).repeat_interleave(gmm_cuda.TM)
+    hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E_all) > 0).sum())
+    M = T * k
+    e13, e2 = qtensor_bytes(w13) / E_all, qtensor_bytes(w2) / E_all
+    a_plain = swiglu(gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, False).to(bf16))
+    check_kernel(results, "q8/gmm_two_stage:w13", C["K7"], gmm_cuda.REPLACES_TWO_STAGE,
+                 lambda: gmm_cuda.gmm_two_stage(xs, plan.row_src, w13, plan),
+                 lambda: gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, False), None, 2e-2,
+                 hit * e13 + T * Hd * 2 + M * 2 * I * 4, 2 * M * Hd * 2 * I, PEAK_BF16, 10,
+                 None, select=lambda o: o[real])
+    check_kernel(results, "q8/gmm_two_stage:w2", C["K7"], gmm_cuda.REPLACES_TWO_STAGE,
+                 lambda: gmm_cuda.gmm_two_stage(a_plain, None, w2, plan),
+                 lambda: gmm_cuda.gmm_plain(a_plain, None, w2, plan, False), None, 2e-2,
+                 hit * e2 + M * I * 2 + M * Hd * 4, 2 * M * I * Hd, PEAK_BF16, 10,
+                 None, select=lambda o: o[real])
+
+    # K7 + SwiGLU + K7 against K4's fused epilogue on the same plan: equal
+    def fused():
+        return gmm_cuda.gmm(gmm_cuda.gmm(xs, plan.row_src, w13, plan, True), None, w2, plan,
+                            False)
+
+    def two_stage():
+        h = gmm_cuda.gmm_two_stage(xs, plan.row_src, w13, plan)
+        return gmm_cuda.gmm_two_stage(swiglu(h.to(bf16)), None, w2, plan)
+
+    a4 = gmm_cuda.gmm(xs, plan.row_src, w13, plan, True)
+    a7 = swiglu(gmm_cuda.gmm_two_stage(xs, plan.row_src, w13, plan).to(bf16))
+    d_a = float((a4[computed].float() - a7[computed].float()).abs().max())
+    d_o = float((fused()[computed] - two_stage()[computed]).abs().max())
+    print(f"[kernel] q8/gmm_two_stage: K7 + SwiGLU + K7 against K4 fused on one plan: "
+          f"max|Δ| hidden {d_a}, output {d_o}", flush=True)
+    if d_a != 0.0 or d_o != 0.0:
+        raise AssertionError("the two-stage grouped form must equal the fused one bit for bit")
+
+    # --- K7a: each stage, then the whole int8 entry
+    gs13, gs2 = w13.group_size, w2.group_size
+    xsq, xss = moe_cuda.quantize_activations(xs, gs13)
+    h8 = gmm_cuda.gmm_a8_plain(xsq, xss, plan.row_src, w13, plan)
+    a8q, a8s = moe_cuda.quantize_activations(swiglu(h8), gs2)
+    check_kernel(results, "q8/gmm_a8:w13", C["K7a"], gmm_cuda.REPLACES_A8,
+                 lambda: gmm_cuda.gmm_a8(xsq, xss, plan.row_src, w13, plan),
+                 lambda: gmm_cuda.gmm_a8_plain(xsq, xss, plan.row_src, w13, plan), None, 3e-2,
+                 hit * e13 + T * Hd + T * (Hd // gs13) * 4 + M * 2 * I * 4,
+                 2 * M * Hd * 2 * I, PEAK_INT8, 10, None, select=lambda o: o[real])
+    check_kernel(results, "q8/gmm_a8:w2", C["K7a"], gmm_cuda.REPLACES_A8,
+                 lambda: gmm_cuda.gmm_a8(a8q, a8s, None, w2, plan),
+                 lambda: gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan), None, 3e-2,
+                 hit * e2 + M * I + M * (I // gs2) * 4 + M * Hd * 4, 2 * M * I * Hd,
+                 PEAK_INT8, 10, None, select=lambda o: o[real])
+    o8 = gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan)
+    want = (o8[plan.dest].reshape(T, k, Hd) * pw[..., None]).sum(dim=1).to(bf16)
+    held('q8/moe_prefill(activation="int8")',
+         gmm_cuda.moe_prefill(xs, w13, w2, topk, pw, activation="int8"), want, 3e-2)
+
+    # --- the fused kernels at the same shapes, for a later look at the class
+    # boundary on this card (the port keeps the reference's boundary)
+    one_idx = idx[None]
+    times = {
+        "decode_int8_two_stage_K6a_ms": time_ms(lambda: moe_cuda.moe_gathered_tiled(
+            x, w13, w2, one_idx, wts, activation="int8"), 50, flush),
+        "decode_int8_fused_K3_ms": time_ms(lambda: moe_cuda.moe_w4a8(
+            x, w13, w2, one_idx, wts), 50, flush),
+        "decode_bf16_two_stage_K6_ms": time_ms(lambda: moe_cuda.moe_gathered_tiled(
+            x, w13, w2, one_idx, wts), 50, flush),
+        "decode_bf16_fused_K5_ms": time_ms(lambda: moe_cuda.moe_bf16(
+            x, w13, w2, one_idx, wts), 50, flush),
+        "prefill_two_stage_K7_swiglu_K7_ms": time_ms(two_stage, 10),
+        "prefill_fused_K4_K4_ms": time_ms(fused, 10),
+    }
+    print("[class] " + json.dumps({"model": "deepseek-v2-lite int8 experts",
+                                   "decode": f"T=1, {P} picks of {E_all}",
+                                   "prefill": f"T={T}, k={k}, E={E_all}", **times}),
+          flush=True)
+
+
+def q8_entry_points(eng, rng):
+    """This path's other entry points, inside the counted run: perplexity
+    over 4096 token ids, forward_all_logits against the prefill's own last
+    logits, and the int8 grouped form through moe_prefill(activation="int8")
+    on a layer's own stacks and router."""
+    import math
+
+    import torch
+    from krasis_tpu_torch.models.model import forward
+    from krasis_tpu_torch.ops.gmm_cuda import moe_prefill
+    from krasis_tpu_torch.ops.routing import compute_routing
+    from krasis_tpu_torch.perplexity import evaluate_perplexity, sliding_windows
+
+    cfg, dev = eng.cfg, eng.device
+    ids = rng.integers(100, cfg.vocab_size - 100, 4096).tolist()
+    out = evaluate_perplexity(eng, ids, window=2048, stride=1024, log_every=0)
+    expect = sum(max(0, end - start - 1 - s0)
+                 for start, end, s0 in sliding_windows(len(ids), 2048, 1024))
+    print("[perplexity] " + json.dumps({k: out[k] for k in (
+        "ppl", "bits_per_token", "tokens_scored", "windows", "elapsed_s")}), flush=True)
+    if not (math.isfinite(out["ppl"]) and out["ppl"] > 1.0 and out["tokens_scored"] == expect):
+        raise AssertionError(f"perplexity: {out['ppl']} over {out['tokens_scored']} tokens, "
+                             f"expected {expect} scored")
+
+    window = ids[:2048]
+    all_logits = eng.forward_all_logits(window)
+    if tuple(all_logits.shape) != (2048, cfg.vocab_size) or not bool(
+            torch.isfinite(all_logits).all()):
+        raise AssertionError("forward_all_logits: wrong shape or non-finite logits")
+    last_row = all_logits[-1].clone()
+    del all_logits
+    eng.reset()
+    with torch.inference_mode():
+        last = forward(eng.params, torch.tensor([window], device=dev),
+                       torch.tensor([2048], dtype=torch.int32, device=dev), eng.cache, cfg,
+                       eng.quant, prefill=True)[0]
+    rms = float(last.square().mean().sqrt())
+    err = float((last_row - last).abs().max())
+    print(f"[perplexity] forward_all_logits[-1] vs the prefill's last logits: max|Δ| {err:.3g} "
+          f"({err / rms:.3g} of their rms, limit 0.02)", flush=True)
+    if not err <= 2e-2 * rms:
+        raise AssertionError("forward_all_logits disagrees with the prefill's last logits")
+
+    lp = next(lp for lp in eng.params["layers"] if "w13" in lp)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    x = torch.randn((2048, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    routing = compute_routing(x, lp["gate_w"], cfg)
+    outs, ms = {}, {}
+    for act in ("bf16", "int8"):
+        run = lambda: moe_prefill(x, lp["w13"], lp["w2"], routing.topk_idx,
+                                  routing.topk_weights, activation=act)
+        outs[act] = run().to(torch.float32)
+        ms[act] = time_ms(run, 5)
+    rel = float((outs["int8"] - outs["bf16"]).square().mean().sqrt()
+                / outs["bf16"].square().mean().sqrt())
+    print(f"[entry] moe_prefill on one layer, T = 2048: bf16 rows {ms['bf16']:.3f} ms, int8 rows "
+          f"{ms['int8']:.3f} ms, rms difference {rel:.3g} of the output's rms", flush=True)
+    if not (math.isfinite(rel) and rel < 5e-2):
+        raise AssertionError("moe_prefill(activation='int8') strays from the bf16 form")
+
+
 def profile_phase(eng, prompt, new: int):
     """Device time by kernel over one request, against the wall time of the
     same request run without the profiler."""
@@ -404,11 +636,13 @@ def profile_phase(eng, prompt, new: int):
 
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
-               profile_decode):
+               profile_decode, off_path=(), entry_points=None):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
-    expert activation)) with the launch counts set to 0 just before and read
-    just after, then profile one prefill and one decode. Fills the launch
+    expert activation[, top_logprobs])) and run `entry_points` with the
+    launch counts set to 0 just before and read just after, then profile one
+    prefill and one decode. Kernels named in `on_path` must have been
+    launched in that run, those in `off_path` must not. Fills the launch
     counts into this family's entries of `results`."""
     import gc
     from dataclasses import replace
@@ -419,6 +653,7 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     from krasis_tpu_torch.runtime.engine import Engine
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     cfg = preset_config(preset)
     eng = build_synthetic_engine(cfg, quant, seed=0)
     torch.cuda.synchronize()
@@ -433,10 +668,11 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     kernel_phase(eng.params, cfg, results, g, flush)
     del flush
     torch.cuda.empty_cache()
+    t_kernels = time.perf_counter()
 
     # the same weights under the other expert activation, where a request asks
     engines = {eng.quant.expert_activation: eng}
-    for _, _, act in requests:
+    for _, _, act, *_ in requests:
         if act not in engines:
             engines[act] = Engine(cfg, replace(eng.quant, expert_activation=act), eng.params,
                                   max_len=eng.max_len)
@@ -445,33 +681,55 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
                  stop_ids={-1})                          # warm-up: cuBLAS, allocator
     for m, attr in C.values():
         setattr(m, attr, 0)
-    for n, new, act in requests:
+    for n, new, act, *rest in requests:
+        top = rest[0] if rest else 0
         before = {name: getattr(m, attr) for name, (m, attr) in C.items()}
         prompt = rng.integers(100, cfg.vocab_size - 100, n).tolist()
-        res = engines[act].generate(prompt, max_new_tokens=new, stop_ids={-1})
+        res = engines[act].generate(prompt, max_new_tokens=new, stop_ids={-1},
+                                    top_logprobs=top)
         if not res.finite:
             raise AssertionError(f"{label}: non-finite logits in the {n}-token request")
         if len(res.tokens) != new:
             raise AssertionError(f"{label}: {n}-token request gave {len(res.tokens)} tokens")
+        if not all(lp == lp and -1e30 < lp <= 0.0 for lp in res.logprobs):
+            raise AssertionError(f"{label}: logprobs must be finite and at most 0")
+        if top:
+            # greedy: the chosen token leads its step's top-N, with its logprob
+            for tok, lp, alts in zip(res.tokens, res.logprobs, res.top_logprobs):
+                if (len(alts) != top or alts[0][0] != tok or abs(alts[0][1] - lp) > 1e-6
+                        or not all(-1e30 < v <= 0.0 for _, v in alts)):
+                    raise AssertionError(f"{label}: top_logprobs of token {tok}: {alts}")
         print("[request] " + json.dumps({
-            "model": preset, "expert_activation": act,
+            "model": preset, "expert_activation": act, "top_logprobs": top,
             "prompt": n, "tokens": len(res.tokens), "prefill_tok_s": res.prefill_tok_s,
             "decode_tok_s": res.decode_tok_s, "prefill_s": res.prefill_s,
             "decode_s": res.decode_s,
             "launches": {name: getattr(m, attr) - before[name]
                          for name, (m, attr) in C.items()}}), flush=True)
+    t_requests = time.perf_counter()
+    if entry_points is not None:
+        entry_points(eng, rng)
     counts = {name: getattr(m, attr) for name, (m, attr) in C.items()}
     print(f"[launches] {label}: {json.dumps(counts)}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
     for name in on_path:
         if counts[name] <= 0:
             raise AssertionError(f"{label}: {name} was never launched on the main path")
+    for name in off_path:
+        if counts[name] != 0:
+            raise AssertionError(f"{label}: {name} was launched {counts[name]} times, but "
+                                 "this model's experts belong to the other class")
     by_counter = {C[name]: n for name, n in counts.items()}
     for counter, res in results[first:]:
         res["launches"] = by_counter[counter]
 
+    t_entries = time.perf_counter()
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1)   # prefill
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode)
+    print(f"[time] {label}: kernel checks {t_kernels - t0:.1f} s (engine build included), "
+          f"requests {t_requests - t_kernels:.1f} s, other entry points "
+          f"{t_entries - t_requests:.1f} s, profiles {time.perf_counter() - t_entries:.1f} s",
+          flush=True)
     del eng, engines
     gc.collect()
     torch.cuda.empty_cache()
@@ -508,13 +766,19 @@ def main() -> int:
     rng = np.random.default_rng(0)
     run_family("DeepSeek-V2-Lite Q4", "deepseek-v2-lite",
                QuantConfig(expert_bits=4, group_size=128), v2lite_kernel_phase,
-               ((2048, 128, "int8"), (2500, 32, "int8"), (40, 32, "int8")),
-               ("K1", "K2", "K3", "K4"), results, rng, profile_decode=64)
+               ((2048, 64, "int8"), (2500, 32, "int8"), (40, 32, "int8")),
+               ("K1", "K2", "K3", "K4"), results, rng, profile_decode=32)
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
-               ((2048, 64, "int8"), (2500, 32, "int8"), (40, 32, "int8"), (40, 16, "bf16")),
-               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=32)
+               ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"), (40, 16, "bf16")),
+               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=16)
+
+    run_family("DeepSeek-V2-Lite Q8 (two-stage expert class)", "deepseek-v2-lite",
+               QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,
+               ((2048, 128, "int8"), (40, 32, "int8", 5), (40, 16, "bf16")),
+               ("K1", "K2", "K6", "K6a", "K7", "K7a"), results, rng, profile_decode=32,
+               off_path=("K3", "K4", "K5"), entry_points=q8_entry_points)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [r for _, r in results]}))

@@ -21,6 +21,24 @@
 // w13 the CTA's columns are 64 gate columns and their 64 up columns, so the
 // SwiGLU epilogue is local and the f32 h never reaches device memory.
 // wgmma, TMA and a pipelined weight stream are later work.
+//
+// K7 — the two-stage grouped GEMM (krasis_tpu/ops/gmm_pallas.py gmm, which
+// moe_prefill_pallas runs twice with SwiGLU between when one expert's block
+// is too large for its fused kernels) is this kernel's f32 epilogue at both
+// call shapes: w13 with gathered token rows to f32 [Mp, 2I], and w2. The
+// accumulators are the fused epilogue's, so rounding the f32 h to bf16 and
+// applying SwiGLU outside gives the fused result bit for bit.
+//
+// K7a — gmm_a8_kernel, the same tiles with int8 rows (gmm_pallas.py gmm_a8,
+// _gmm_kernel_a8): out[r, :] = Σ_g (xq[r, g] · W[e, g]) * sx[r, g] * sw[g, :],
+// the weights unpacked to int8 with no scale, one exact int32 dot per
+// K-group, folded into the f32 sum at each group boundary, groups in order
+// (d * sx first, then * sw, then the add, each rounded, as the reference
+// writes it). Bound by bytes at int8's tensor-core peak; this first version
+// does not use the tensor cores: each thread keeps an 8 x 4 block of int32
+// dots with dp4a, reading the rows' 4-byte k-quads from shared memory by
+// broadcast and the weights repacked k-major, 4 k values of a column in one
+// word. A padding row (row_src < 0) reads as zeros and gives zeros.
 #include <mma.h>
 
 #include "int4.cuh"
@@ -130,7 +148,117 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
   }
 }
 
+constexpr int A8_BK = 32;           // k rows per step; the group size is a multiple
+
+__global__ void __launch_bounds__(THREADS)
+gmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+              const int* __restrict__ row_src, const int8_t* __restrict__ q,
+              const __nv_bfloat16* __restrict__ s, const int* __restrict__ tile_e,
+              const int* __restrict__ tile_valid, float* __restrict__ out, int K, int N,
+              int bits, int gs, long q_estride, long s_estride) {
+  const int tile = blockIdx.x;
+  if (!tile_valid[tile]) return;
+  const int e = tile_e[tile];
+  const int tid = threadIdx.x;
+  const int ty = tid >> 5, tx = tid & 31;       // 8 rows x 4 columns per thread
+  const int n0 = blockIdx.y * BN;
+  const int8_t* qe = q + e * q_estride;
+  const __nv_bfloat16* se = s + e * s_estride;
+  const int G = K / gs;
+
+  __shared__ __align__(16) uint32_t As[TM][A8_BK / 4 + 1];   // [row][k-quad]
+  __shared__ __align__(16) uint32_t Bp[A8_BK / 4][BN];        // [k-quad][column]
+  __shared__ int srcs[TM];
+  if (tid < TM) {
+    const int grow = tile * TM + tid;
+    srcs[tid] = row_src ? row_src[grow] : grow;
+  }
+  __syncthreads();
+
+  // loads of this thread: one 8-byte piece of one A row, and the 4 x 4 block
+  // of weights (4 k rows, 4 columns) that it repacks into 4 k-major words
+  const int ar = tid >> 2, ac = (tid & 3) * 8;
+  const int asrc = srcs[ar];
+  const int bq = tid >> 5, bc = (tid & 31) * 4;
+
+  int d[8][4];
+  float acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      d[r][c] = 0;
+      acc[r][c] = 0.f;
+    }
+
+  for (int k0 = 0; k0 < K; k0 += A8_BK) {
+    uint2 av = make_uint2(0u, 0u);
+    if (asrc >= 0) av = *reinterpret_cast<const uint2*>(xq + (long)asrc * K + k0 + ac);
+    As[ar][ac / 4] = av.x;
+    As[ar][ac / 4 + 1] = av.y;
+    uint32_t packed[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int w[4];
+      ktt::load_w4cols(qe, bits, K, N, k0 + bq * 4 + i, n0 + bc, w);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) packed[c] |= ((uint32_t)w[c] & 0xFFu) << (8 * i);
+    }
+    *reinterpret_cast<uint4*>(&Bp[bq][bc]) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    __syncthreads();
+#pragma unroll
+    for (int kq = 0; kq < A8_BK / 4; ++kq) {
+      const uint4 b = *reinterpret_cast<const uint4*>(&Bp[kq][tx * 4]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int a = (int)As[ty * 8 + r][kq];
+        d[r][0] = __dp4a(a, (int)b.x, d[r][0]);
+        d[r][1] = __dp4a(a, (int)b.y, d[r][1]);
+        d[r][2] = __dp4a(a, (int)b.z, d[r][2]);
+        d[r][3] = __dp4a(a, (int)b.w, d[r][3]);
+      }
+    }
+    __syncthreads();
+    if ((k0 + A8_BK) % gs == 0) {
+      const int g = k0 / gs;
+      float sw[4];
+      ktt::load_s4cols(se, N, g, n0 + tx * 4, sw);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int src = srcs[ty * 8 + r];
+        const float sxr = src >= 0 ? sx[(long)src * G + g] : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[r][c] = __fadd_rn(acc[r][c],
+                                __fmul_rn(__fmul_rn((float)d[r][c], sxr), sw[c]));
+          d[r][c] = 0;
+        }
+      }
+    }
+  }
+
+  const long row0 = (long)tile * TM + ty * 8;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    *reinterpret_cast<float4*>(out + (row0 + r) * N + n0 + tx * 4) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+}
+
 }  // namespace
+
+extern "C" int gmm_a8_launch(const void* xq, const void* sx, const void* row_src,
+                             const void* q, const void* s, const void* tile_e,
+                             const void* tile_valid, void* out, int n_tiles, int K, int N,
+                             int bits, int gs, long q_estride, long s_estride,
+                             void* stream) {
+  dim3 grid(n_tiles, N / BN);
+  gmm_a8_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)xq, (const float*)sx, (const int*)row_src, (const int8_t*)q,
+      (const __nv_bfloat16*)s, (const int*)tile_e, (const int*)tile_valid, (float*)out, K,
+      N, bits, gs, q_estride, s_estride);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int gmm_launch(const void* x, const void* row_src, const void* q,
                           const void* s, const void* tile_e, const void* tile_valid,

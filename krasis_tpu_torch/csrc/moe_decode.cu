@@ -33,6 +33,24 @@
 // scaled by the routing weight and the wrapper sums the picks in f32 in
 // pick order. Bound by bytes like K3: the packed expert weights are read
 // once per pick, at 2 operations per weight element.
+//
+// K6 and K6a — one gathered product per launch, for experts of any size:
+//   K6  (gq_bf16_kernel): out[p, :] = x[p] · dequant(W[e[p]])     bf16 x
+//   K6a (gq_a8_kernel):   out[p, :] = Σ_g (xq[p, g] · W[e[p], g]) * sx[p, g] * sw[g, :]
+// both to f32 [P, N], with picks whose valid[p] == 0 skipped: they read no
+// weight and write zeros, so the caller never sees stale memory.
+// Replaces: krasis_tpu/ops/moe_pallas.py gathered_qmm_pallas (_gq_kernel)
+// and gathered_qmm_a8_pallas (_gq_kernel_a8), which moe_gathered_tiled
+// composes with SwiGLU between two calls. There the N axis is tiled
+// because one expert does not fit the fast memory and every step runs all
+// P rows under a row mask; here a CTA owns one pick and 128 columns and
+// reads its one row. Numerics: K6 as K5's products (weights dequantized in
+// f32, rounded to bf16, f32 accumulation); K6a takes the int8 rows and
+// their scales from the caller, each group dot is exact in int32, and the
+// f32 terms d * sx * sw are summed per warp over the groups warp, warp + 8,
+// ... and then over the warps 0..7 (the reference adds groups 0..G-1 in
+// order: both are f32 sums of the same terms). Bound by bytes: one
+// expert's packed [K, N] block per pick.
 #include "int4.cuh"
 
 namespace {
@@ -219,7 +237,86 @@ w2_bf16_kernel(const __nv_bfloat16* __restrict__ a_in, const int* __restrict__ i
   }
 }
 
+// The CTA's 128 columns: the warps' partials summed in warp order.
+__device__ __forceinline__ void sum_partials(const float acc[4], int warp, int lane,
+                                             float* __restrict__ o) {
+  __shared__ float red[WARPS][128];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) red[warp][lane * 4 + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) v += red[w][threadIdx.x];
+    o[threadIdx.x] = v;
+  }
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+gq_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx,
+               const int* __restrict__ valid, const int8_t* __restrict__ q,
+               const __nv_bfloat16* __restrict__ s, float* __restrict__ out, int K, int N,
+               int bits, int gs, long q_estride, long s_estride) {
+  const int p = blockIdx.x;
+  float* o = out + (long)p * N + blockIdx.y * 128;
+  if (valid != nullptr && valid[p] == 0) {
+    if (threadIdx.x < 128) o[threadIdx.x] = 0.f;
+    return;
+  }
+  const int e = idx[p];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.y * 128 + lane * 4;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  bf16_dots(x + (long)p * K, q + e * q_estride, s + e * s_estride, bits, K, N, gs, n, warp,
+            acc);
+  sum_partials(acc, warp, lane, o);
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+gq_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+             const int* __restrict__ idx, const int* __restrict__ valid,
+             const int8_t* __restrict__ q, const __nv_bfloat16* __restrict__ s,
+             float* __restrict__ out, int K, int N, int bits, int gs, long q_estride,
+             long s_estride) {
+  const int p = blockIdx.x;
+  float* o = out + (long)p * N + blockIdx.y * 128;
+  if (valid != nullptr && valid[p] == 0) {
+    if (threadIdx.x < 128) o[threadIdx.x] = 0.f;
+    return;
+  }
+  const int e = idx[p];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.y * 128 + lane * 4;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  group_dots(xq + (long)p * K, sx + (long)p * (K / gs), q + e * q_estride,
+             s + e * s_estride, bits, K, N, gs, n, warp, acc);
+  sum_partials(acc, warp, lane, o);
+}
+
 }  // namespace
+
+extern "C" int gathered_qmm_launch(const void* x, const void* idx, const void* valid,
+                                   const void* q, const void* s, void* out, int P, int K,
+                                   int N, int bits, int gs, long q_estride, long s_estride,
+                                   void* stream) {
+  dim3 grid(P, N / 128);
+  gq_bf16_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const int*)idx, (const int*)valid, (const int8_t*)q,
+      (const __nv_bfloat16*)s, (float*)out, K, N, bits, gs, q_estride, s_estride);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gathered_qmm_a8_launch(const void* xq, const void* sx, const void* idx,
+                                      const void* valid, const void* q, const void* s,
+                                      void* out, int P, int K, int N, int bits, int gs,
+                                      long q_estride, long s_estride, void* stream) {
+  dim3 grid(P, N / 128);
+  gq_a8_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)xq, (const float*)sx, (const int*)idx, (const int*)valid,
+      (const int8_t*)q, (const __nv_bfloat16*)s, (float*)out, K, N, bits, gs, q_estride,
+      s_estride);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int moe_w13_bf16_launch(const void* x, const void* idx, const void* q13,
                                    const void* s13, void* a_out, int P, int k, int H,

@@ -179,12 +179,14 @@ def _shared_gate(lp: Dict[str, Any], x2d: torch.Tensor) -> torch.Tensor:
 
 def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
          prefill: bool, activation: str) -> torch.Tensor:
+    gpt_oss = cfg.model_type == "gpt_oss"
+    act = dict(swiglu_limit=cfg.swiglu_limit, gpt_oss=gpt_oss)
     if "mlp_w13" in lp:
-        return mlp_forward(x2d, lp["mlp_w13"], lp["mlp_w2"])
+        return mlp_forward(x2d, lp["mlp_w13"], lp["mlp_w2"], **act)
     routing = compute_routing(x2d, lp["gate_w"], cfg)
     E_stack = lp["w13"].q.shape[0]
     n_virt = E_stack - cfg.n_routed_experts
-    if n_virt > 0 and not prefill:
+    if n_virt > 0 and not prefill and not gpt_oss:
         # decode: the folded shared experts are always-picked virtual
         # experts, computed in the same kernel as the routed, with weight 1
         # or the layer's per-token shared gate
@@ -198,9 +200,10 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
         return moe_forward(x2d, lp["w13"], lp["w2"],
                            torch.cat([routing.topk_idx, sh_idx], dim=1),
                            torch.cat([routing.topk_weights, sh_w], dim=1),
-                           activation=activation)
+                           activation=activation, **act)
     out = moe_forward(x2d, lp["w13"], lp["w2"], routing.topk_idx,
-                      routing.topk_weights, activation=activation)
+                      routing.topk_weights, w13_bias=lp.get("w13_bias"),
+                      w2_bias=lp.get("w2_bias"), activation=activation, **act)
     if "shared_w13" in lp:
         # prefill: shared experts as one dense product, from the same
         # values the virtual experts were sliced from
@@ -213,11 +216,12 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor,
             cache: Dict[str, Any], cfg: ModelConfig, quant: QuantConfig,
-            prefill: bool) -> torch.Tensor:
+            prefill: bool, return_all_logits: bool = False) -> torch.Tensor:
     """One pass over tokens [B, S] with seq_lens [B] valid tokens per row,
     after cache["length"] cached ones. Writes the new cache rows, advances
     cache["length"], and returns f32 logits [B, V] at each row's last valid
-    token."""
+    token, or [B, S, V] at every position with return_all_logits (the
+    perplexity path)."""
     B, S = tokens.shape
     length = cache["length"]
     steps = torch.arange(S, device=tokens.device)
@@ -243,7 +247,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
         x = x + _mlp(lp, normed.reshape(B * S, -1), cfg, prefill,
                      activation).reshape(B, S, -1)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
-    last = torch.clamp(seq_lens.to(torch.int64) - 1, min=0)
-    x = x[torch.arange(B, device=x.device), last]
+    if not return_all_logits:
+        last = torch.clamp(seq_lens.to(torch.int64) - 1, min=0)
+        x = x[torch.arange(B, device=x.device), last]
     cache["length"] = kv_len
     return linear(x, params["lm_head"], out_dtype=torch.float32)

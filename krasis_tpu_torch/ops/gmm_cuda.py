@@ -1,12 +1,18 @@
-"""K4: grouped expert GEMM over expert-sorted row tiles (``csrc/gmm.cu``),
-and the prefill MoE built on it.
+"""K4, K7 and K7a: grouped expert GEMMs over expert-sorted row tiles
+(``csrc/gmm.cu``), and the prefill MoE built on them.
 
-Replaces ``krasis_tpu/ops/gmm_pallas.py`` ``gmm13_fused`` (SwiGLU epilogue)
-and ``gmm2_fused`` (f32 epilogue), with the glue of ``moe_prefill_pallas``.
-The tile plan differs from ``_plan_tiles``: tiles are 64 rows, there is no
-spare trash tile, and the w13 launch gathers token rows itself; every
-row's result is the same. ``gmm`` launches the CUDA kernel for tensors on
-the card and runs ``gmm_plain`` for tensors on the CPU.
+``gmm`` (K4) replaces ``krasis_tpu/ops/gmm_pallas.py`` ``gmm13_fused``
+(SwiGLU epilogue) and ``gmm2_fused`` (f32 epilogue). ``gmm_two_stage`` (K7)
+replaces ``gmm``, the grouped GEMM that the reference runs twice with
+SwiGLU between for experts too large for its fused kernels: it is K4's f32
+entry at both call shapes, under its own launch count. ``gmm_a8`` (K7a)
+replaces ``gmm_a8``: the same tiles with int8 rows and per-group scales.
+``moe_prefill`` has the glue and the three branches of
+``moe_prefill_pallas``. The tile plan differs from ``_plan_tiles``: tiles
+are 64 rows, there is no spare trash tile, and the w13 launches gather
+token rows themselves; every row's result is the same. Each wrapper
+launches its CUDA kernel for tensors on the card and runs its plain version
+for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -17,51 +23,74 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import build
-from ..quant import QTensor, dequantize
+from ..quant import QTensor, dequantize, unpack
+from . import expert_class
+from .activations import swiglu as swiglu_fn
+from .moe_cuda import quantize_activations
 
 SOURCE = "krasis_tpu_torch/csrc/gmm.cu"
 REPLACES = "krasis_tpu/ops/gmm_pallas.py:365"
 REPLACES_W2 = "krasis_tpu/ops/gmm_pallas.py:411"
-launches = 0          # kernel launches since the caller last set it to 0
+REPLACES_TWO_STAGE = "krasis_tpu/ops/gmm_pallas.py:119"
+REPLACES_A8 = "krasis_tpu/ops/gmm_pallas.py:205"
+launches = 0              # K4 kernel launches since the caller last set it to 0
+launches_two_stage = 0    # K7, likewise
+launches_a8 = 0           # K7a
 
 TM = 64
 
 
 class TilePlan(NamedTuple):
     row_src: torch.Tensor     # [Mp] int32 token row of each tile row, -1 = padding
-    dest: torch.Tensor        # [T*k] tile row of each (token, pick)
+    dest: torch.Tensor        # [T*k] tile row of each (token, pick); Mp = in no tile
     tile_e: torch.Tensor      # [n_tiles] int32 expert of each tile
     tile_valid: torch.Tensor  # [n_tiles] int32 1 = compute
     n_tiles: int
 
 
-def plan_tiles(topk_idx: torch.Tensor, E: int, tm: int = TM) -> TilePlan:
+def plan_tiles(topk_idx: torch.Tensor, E: int, tm: int = TM,
+               pick_valid: Optional[torch.Tensor] = None) -> TilePlan:
     """Sort the T*k picks by expert and give each expert whole tm-row tiles.
-    n_tiles is a static bound (no host sync): Σ ceil(c_e / tm) ≤ M/tm + E."""
+    n_tiles is a static bound (no host sync): Σ ceil(c_e / tm) ≤ M/tm + E.
+    A pick with pick_valid == 0 belongs to no tile: it is left out of the
+    counts and its dest is Mp, one past the tile rows."""
     T, k = topk_idx.shape
     M = T * k
     dev = topk_idx.device
     flat = topk_idx.reshape(-1).to(torch.int64)
+    if pick_valid is not None:
+        flat = torch.where(pick_valid.reshape(-1) != 0, flat, E)
     order = torch.argsort(flat, stable=True)
     sorted_e = flat[order]
-    counts = torch.bincount(flat, minlength=E)
+    counts = torch.bincount(flat, minlength=E + 1)[:E]
     padded = (counts + tm - 1) // tm * tm
     cum_padded = torch.cumsum(padded, 0)
     pad_off = cum_padded - padded
     raw_off = torch.cumsum(counts, 0) - counts
-    ranks = torch.arange(M, device=dev) - raw_off[sorted_e]
-    sorted_dest = pad_off[sorted_e] + ranks
     n_tiles = M // tm + E + 1
     Mp = n_tiles * tm
-    row_src = torch.full((Mp,), -1, dtype=torch.int32, device=dev)
-    row_src[sorted_dest] = (order // k).to(torch.int32)
+    live = sorted_e < E
+    se = sorted_e.clamp(max=E - 1)
+    ranks = torch.arange(M, device=dev) - raw_off[se]
+    sorted_dest = torch.where(live, pad_off[se] + ranks, Mp)
+    row_src = torch.full((Mp + 1,), -1, dtype=torch.int32, device=dev)
+    row_src[sorted_dest] = torch.where(live, order // k, -1).to(torch.int32)
     dest = torch.empty_like(sorted_dest)
     dest[order] = sorted_dest
     starts = torch.arange(n_tiles, device=dev) * tm
     tile_e = torch.searchsorted(cum_padded, starts, right=True).clamp(max=E - 1)
     tile_valid = starts < cum_padded[-1]
-    return TilePlan(row_src, dest, tile_e.to(torch.int32),
+    return TilePlan(row_src[:Mp], dest, tile_e.to(torch.int32),
                     tile_valid.to(torch.int32), n_tiles)
+
+
+def _tile_rows(x: torch.Tensor, row_src: Optional[torch.Tensor]) -> torch.Tensor:
+    """The tile rows of x: gathered through row_src, padding rows zero."""
+    if row_src is None:
+        return x
+    src = row_src.to(torch.int64)
+    return torch.where((src >= 0)[:, None], x[src.clamp(min=0)],
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def gmm_plain(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
@@ -71,12 +100,7 @@ def gmm_plain(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
     [Mp, N/2], else f32 [Mp, N]. Skipped tiles are left at zero."""
     Mp = plan.n_tiles * TM
     N = w.n_dim
-    if row_src is not None:
-        src = row_src.to(torch.int64)
-        rows = torch.where((src >= 0)[:, None], x[src.clamp(min=0)],
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    else:
-        rows = x
+    rows = _tile_rows(x, row_src)
     h = torch.zeros((Mp, N), dtype=torch.float32, device=x.device)
     valid = plan.tile_valid.to(torch.bool).tolist()
     experts = plan.tile_e.tolist()
@@ -93,57 +117,176 @@ def gmm_plain(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
     return (g * torch.sigmoid(g) * u).to(torch.bfloat16)
 
 
-def _lib():
-    fn = build.load("gmm").gmm_launch
+def gmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Tensor],
+                 w: QTensor, plan: TilePlan) -> torch.Tensor:
+    """K7a's function: per valid tile and K-group, the exact integer dot of
+    the int8 rows with the unscaled integer weights, then
+    acc += d * sx[:, g] * sw[g] in f32, groups in order. f32 [Mp, N];
+    skipped tiles are left at zero."""
+    Mp = plan.n_tiles * TM
+    N, gs = w.n_dim, w.group_size
+    G = w.k_dim // gs
+    rows = _tile_rows(xq, row_src).to(torch.float32).reshape(Mp, G, gs)
+    scales = _tile_rows(sx.to(torch.float32), row_src)
+    out = torch.zeros((Mp, N), dtype=torch.float32, device=xq.device)
+    valid = plan.tile_valid.to(torch.bool).tolist()
+    experts = plan.tile_e.tolist()
+    for t in range(plan.n_tiles):
+        if not valid[t]:
+            continue
+        we = w[experts[t]]
+        wi = unpack(we).to(torch.float32).reshape(G, gs, N)
+        sw = we.scales.to(torch.float32)
+        sl = slice(t * TM, (t + 1) * TM)
+        d = torch.einsum("mgk,gkn->mgn", rows[sl], wi)       # exact: |d| < 2^24
+        acc = torch.zeros((TM, N), dtype=torch.float32, device=xq.device)
+        for g in range(G):
+            acc = acc + d[:, g] * scales[sl, g:g + 1] * sw[g]
+        out[sl] = acc
+    return out
+
+
+def _fns():
+    lib = build.load("gmm")
+    fn, fa = lib.gmm_launch, lib.gmm_a8_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_long] * 2 + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+        fa.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_long] * 2 + [ctypes.c_void_p])
+        fn.restype = fa.restype = ctypes.c_int
+    return fn, fa
 
 
-def gmm(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
-        plan: TilePlan, swiglu: bool) -> torch.Tensor:
-    """x [rows, K] bf16; row_src gathers tile rows from x (None: x is
-    already tile-aligned [Mp, K]); w [E, K(/2), N]."""
-    if x.device.type == "cpu":
-        return gmm_plain(x, row_src, w, plan, swiglu)
-    global launches
-    K, N = w.k_dim, w.n_dim
-    Mp = plan.n_tiles * TM
+def _check_rows(name: str, x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
+                plan: TilePlan, dtype: torch.dtype) -> None:
+    K = w.k_dim
     if x.shape[-1] != K or K % 32 or w.bits not in (4, 8):
-        raise ValueError(f"gmm: x {tuple(x.shape)} vs weight {tuple(w.q.shape)}")
-    if (swiglu and (N // 2) % 64) or (not swiglu and N % 128):
-        raise ValueError(f"gmm: unsupported output width {N}")
-    if row_src is None and x.shape[0] != Mp:
-        raise ValueError("gmm: x must hold the tile rows when row_src is None")
-    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("gmm: x must be contiguous, aligned bf16")
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs weight {tuple(w.q.shape)}")
+    if row_src is None and x.shape[0] != plan.n_tiles * TM:
+        raise ValueError(f"{name}: x must hold the tile rows when row_src is None")
+    if x.dtype != dtype or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be contiguous, aligned {dtype}")
     for t in (w.q, w.scales):
         if not (t.is_cuda and t.is_contiguous()):
-            raise ValueError("gmm: expert stacks must be contiguous on the card")
+            raise ValueError(f"{name}: expert stacks must be contiguous on the card")
+
+
+def _launch(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
+            plan: TilePlan, swiglu: bool) -> torch.Tensor:
+    """One launch of gmm_kernel with either epilogue."""
+    K, N = w.k_dim, w.n_dim
+    Mp = plan.n_tiles * TM
+    _check_rows("gmm", x, row_src, w, plan, torch.bfloat16)
+    if (swiglu and (N // 2) % 64) or (not swiglu and N % 128):
+        raise ValueError(f"gmm: unsupported output width {N}")
     if swiglu:
         out = torch.empty((Mp, N // 2), dtype=torch.bfloat16, device=x.device)
     else:
         out = torch.empty((Mp, N), dtype=torch.float32, device=x.device)
-    err = _lib()(x.data_ptr(), 0 if row_src is None else row_src.data_ptr(),
-                 w.q.data_ptr(), w.scales.data_ptr(), plan.tile_e.data_ptr(),
-                 plan.tile_valid.data_ptr(), out.data_ptr(), plan.n_tiles, K, N,
-                 w.bits, w.group_size, w.q.stride(0), w.scales.stride(0), int(swiglu),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = _fns()[0](x.data_ptr(), 0 if row_src is None else row_src.data_ptr(),
+                    w.q.data_ptr(), w.scales.data_ptr(), plan.tile_e.data_ptr(),
+                    plan.tile_valid.data_ptr(), out.data_ptr(), plan.n_tiles, K, N,
+                    w.bits, w.group_size, w.q.stride(0), w.scales.stride(0), int(swiglu),
+                    torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "gmm")
+    return out
+
+
+def gmm(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
+        plan: TilePlan, swiglu: bool) -> torch.Tensor:
+    """K4. x [rows, K] bf16; row_src gathers tile rows from x (None: x is
+    already tile-aligned [Mp, K]); w [E, K(/2), N]."""
+    if x.device.type == "cpu":
+        return gmm_plain(x, row_src, w, plan, swiglu)
+    global launches
+    out = _launch(x, row_src, w, plan, swiglu)
     launches += 1
     return out
 
 
+def gmm_two_stage(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
+                  plan: TilePlan) -> torch.Tensor:
+    """K7: one stage of the two-stage form, f32 [Mp, N] at either call
+    shape (w13 with row_src, w2 on tile-aligned rows)."""
+    if x.device.type == "cpu":
+        return gmm_plain(x, row_src, w, plan, False)
+    global launches_two_stage
+    out = _launch(x, row_src, w, plan, False)
+    launches_two_stage += 1
+    return out
+
+
+def gmm_a8_supported(w: QTensor) -> bool:
+    """int8 rows group along K: K a whole number of groups, and a group a
+    whole number of the kernel's 32-row steps."""
+    return (w.bits in (4, 8) and w.k_dim % w.group_size == 0 and w.group_size % 32 == 0
+            and w.n_dim % 128 == 0)
+
+
+def gmm_a8(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Tensor],
+           w: QTensor, plan: TilePlan) -> torch.Tensor:
+    """K7a. xq [rows, K] int8 with f32 scales sx [rows, K/gs]; row_src
+    gathers the tile rows of both (None: they are tile-aligned) → f32
+    [Mp, N]."""
+    if xq.device.type == "cpu":
+        return gmm_a8_plain(xq, sx, row_src, w, plan)
+    global launches_a8
+    if not gmm_a8_supported(w):
+        raise ValueError(f"gmm_a8: unsupported stack {tuple(w.q.shape)}, bits {w.bits}, "
+                         f"group {w.group_size}")
+    _check_rows("gmm_a8", xq, row_src, w, plan, torch.int8)
+    sx = sx.to(torch.float32).contiguous()
+    if tuple(sx.shape) != (xq.shape[0], w.k_dim // w.group_size) or not sx.is_cuda:
+        raise ValueError(f"gmm_a8: scales {tuple(sx.shape)} for rows {tuple(xq.shape)}")
+    out = torch.empty((plan.n_tiles * TM, w.n_dim), dtype=torch.float32, device=xq.device)
+    err = _fns()[1](xq.data_ptr(), sx.data_ptr(),
+                    0 if row_src is None else row_src.data_ptr(), w.q.data_ptr(),
+                    w.scales.data_ptr(), plan.tile_e.data_ptr(), plan.tile_valid.data_ptr(),
+                    out.data_ptr(), plan.n_tiles, w.k_dim, w.n_dim, w.bits, w.group_size,
+                    w.q.stride(0), w.scales.stride(0),
+                    torch.cuda.current_stream(xq.device).cuda_stream)
+    build.check(err, "gmm_a8")
+    launches_a8 += 1
+    return out
+
+
 def moe_prefill(x: torch.Tensor, w13: QTensor, w2: QTensor,
-                topk_idx: torch.Tensor, topk_weights: torch.Tensor) -> torch.Tensor:
-    """Grouped MoE: w13 GEMM + SwiGLU, w2 GEMM, then the f32 weighted
-    combine of each token's k picks, cast to x.dtype."""
+                topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+                swiglu_limit: float = 0.0, gpt_oss: bool = False,
+                pick_valid: Optional[torch.Tensor] = None,
+                activation: str = "bf16") -> torch.Tensor:
+    """Grouped MoE: w13 GEMM, SwiGLU, w2 GEMM, then the f32 weighted combine
+    of each token's k picks, cast to x.dtype. Three forms, as the
+    reference's ``moe_prefill_pallas``: int8 rows (K7a) when asked for; the
+    fused SwiGLU epilogue (K4) for experts of the fused class; else two
+    f32 stages (K7) with the h rounded to bf16 before SwiGLU. A pick with
+    pick_valid == 0 is in no tile and adds nothing."""
     T, H = x.shape
     k = topk_idx.shape[1]
-    plan = plan_tiles(topk_idx, w13.q.shape[0])
-    a = gmm(x.contiguous(), plan.row_src, w13, plan, swiglu=True)
-    o = gmm(a, None, w2, plan, swiglu=False)
-    o_rep = o[plan.dest].reshape(T, k, H)
+    plan = plan_tiles(topk_idx, w13.q.shape[0], pick_valid=pick_valid)
+    Mp = plan.n_tiles * TM
+    x = x.contiguous()
+    if activation == "int8" and gmm_a8_supported(w13) and gmm_a8_supported(w2):
+        xq, sx = quantize_activations(x.to(torch.bfloat16), w13.group_size)
+        h = gmm_a8(xq, sx, plan.row_src, w13, plan)
+        a = swiglu_fn(h, swiglu_limit, gpt_oss)
+        aq, sa = quantize_activations(a, w2.group_size)
+        o = gmm_a8(aq, sa, None, w2, plan)
+    elif expert_class.prefill_fused(w13, w2):
+        if gpt_oss:
+            raise NotImplementedError("the fused grouped kernel has no GPT-OSS activation yet")
+        a = gmm(x, plan.row_src, w13, plan, swiglu=True)
+        o = gmm(a, None, w2, plan, swiglu=False)
+    else:
+        h = gmm_two_stage(x, plan.row_src, w13, plan)
+        a = swiglu_fn(h.to(torch.bfloat16), swiglu_limit, gpt_oss)
+        o = gmm_two_stage(a, None, w2, plan)
+    if pick_valid is None:
+        o_rep = o[plan.dest]
+    else:
+        o_rep = torch.where((plan.dest < Mp)[:, None], o[plan.dest.clamp(max=Mp - 1)],
+                            torch.zeros((), dtype=o.dtype, device=o.device))
+    o_rep = o_rep.reshape(T, k, H)
     return (o_rep * topk_weights[..., None].to(torch.float32)).sum(dim=1).to(x.dtype)
+

@@ -1,18 +1,23 @@
 """MoE expert forward and the dense MLP.
 
-``moe_forward`` picks the regime by batch size with the reference's
-predicate (``krasis_tpu/ops/moe.py`` ``use_grouped_path``): many rows go
-through the grouped K4 kernel with bf16 activations, few rows through a
-gathered kernel: W4A8 (K3) under ``expert_activation="int8"``, bf16
-activations (K5) under ``"bf16"``.
+``moe_forward`` dispatches as the reference's (``krasis_tpu/ops/moe.py``):
+first by batch size (``use_grouped_path``): many rows take a grouped form
+with bf16 activations, few rows a gathered one; then by the size of one
+expert (``ops/expert_class.py``): the fused kernels (K4; K3 under
+``expert_activation="int8"``, K5 under ``"bf16"``) or their two-stage forms
+(K7; K6a, K6) with SwiGLU between the launches. Biased experts and stacks
+the kernels decline take ``moe_forward_ragged`` / ``moe_forward_gathered``,
+plain PyTorch as they are plain XLA in the reference.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..quant import QTensor
-from . import gmm_cuda, moe_cuda
+from ..quant import QTensor, dequantize
+from . import expert_class, gmm_cuda, moe_cuda
 from .activations import swiglu
 from .qmm import Weight, linear
 
@@ -23,24 +28,132 @@ def use_grouped_path(T: int, k: int, E: int) -> bool:
     return 4 * T * k >= 3 * E or T >= 64
 
 
-def moe_forward(x: torch.Tensor, w13: QTensor, w2: QTensor,
-                topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+def _deq_stack(w, dtype) -> torch.Tensor:
+    """An expert stack [E, K, N] (QTensor or plain tensor) in `dtype`; above
+    8 experts one at a time, so the f32 transient stays one expert's size."""
+    if not isinstance(w, QTensor):
+        return w.to(dtype)
+    if w.q.dim() >= 3 and w.q.shape[0] > 8:
+        return torch.stack([dequantize(w[e], dtype) for e in range(w.q.shape[0])])
+    return dequantize(w, dtype)
+
+
+def _f32_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b on values already rounded to their dtype, accumulated in f32."""
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def moe_forward_ragged(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
+                       topk_weights: torch.Tensor, swiglu_limit: float = 0.0,
+                       gpt_oss: bool = False, w13_bias: Optional[torch.Tensor] = None,
+                       w2_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain grouped path: picks sorted by expert, one product per expert
+    that was hit over its rows, on the dequantized stacks. w13_bias [E, 2I]
+    and w2_bias [E, H] are added per pick."""
+    T, H = x.shape
+    k = topk_idx.shape[-1]
+    flat = topk_idx.reshape(-1).to(torch.int64)
+    order = torch.argsort(flat, stable=True)
+    sorted_e = flat[order]
+    x_sorted = x[order // k]
+    w13_d, w2_d = _deq_stack(w13, x.dtype), _deq_stack(w2, x.dtype)
+    E = w13_d.shape[0]
+    bounds = [0] + torch.cumsum(torch.bincount(flat, minlength=E), 0).tolist()
+
+    def ragged(rows, stack):
+        out = torch.zeros((rows.shape[0], stack.shape[-1]), dtype=torch.float32,
+                          device=rows.device)
+        for e in range(E):
+            lo, hi = bounds[e], bounds[e + 1]
+            if hi > lo:
+                out[lo:hi] = _f32_dot(rows[lo:hi], stack[e])
+        return out
+
+    h = ragged(x_sorted, w13_d).to(x.dtype)
+    if w13_bias is not None:
+        h = h + w13_bias[sorted_e].to(h.dtype)
+    a = swiglu(h, swiglu_limit, gpt_oss)
+    out_sorted = ragged(a, w2_d)
+    if w2_bias is not None:
+        out_sorted = out_sorted + w2_bias[sorted_e].to(out_sorted.dtype)
+    out_rep = torch.empty_like(out_sorted)
+    out_rep[order] = out_sorted
+    out = (out_rep.reshape(T, k, H) * topk_weights[..., None].to(torch.float32)).sum(dim=1)
+    return out.to(x.dtype)
+
+
+def moe_forward_gathered(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
+                         topk_weights: torch.Tensor, swiglu_limit: float = 0.0,
+                         gpt_oss: bool = False, w13_bias: Optional[torch.Tensor] = None,
+                         w2_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain gathered path: only the picked experts are dequantized, one
+    small product per (token, pick)."""
+    idx = topk_idx.to(torch.int64)
+    w13_g = _deq_stack(w13[idx], x.dtype)                     # [T, k, H, 2I]
+    w2_g = _deq_stack(w2[idx], x.dtype)                       # [T, k, I, H]
+    h = torch.einsum("th,tkhi->tki", x.to(torch.float32), w13_g.to(torch.float32))
+    h = h.to(x.dtype)
+    if w13_bias is not None:
+        h = h + w13_bias[idx].to(h.dtype)
+    a = swiglu(h, swiglu_limit, gpt_oss)
+    out = torch.einsum("tki,tkih->tkh", a.to(torch.float32), w2_g.to(torch.float32))
+    if w2_bias is not None:
+        out = out + w2_bias[idx].to(out.dtype)
+    out = (out * topk_weights[..., None].to(out.dtype)).sum(dim=1)
+    return out.to(x.dtype)
+
+
+def _fused_only(gpt_oss: bool) -> None:
+    if gpt_oss:
+        raise NotImplementedError("the fused decode kernels have no GPT-OSS activation yet")
+
+
+def moe_forward(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
+                topk_weights: torch.Tensor, swiglu_limit: float = 0.0,
+                gpt_oss: bool = False, w13_bias: Optional[torch.Tensor] = None,
+                w2_bias: Optional[torch.Tensor] = None,
+                pick_valid: Optional[torch.Tensor] = None,
                 activation: str = "bf16") -> torch.Tensor:
     """x [T, H] through the experts topk_idx [T, k] of the stacks
-    w13 [E, H(/2), 2I] and w2 [E, I(/2), H], weighted by topk_weights."""
+    w13 [E, H(/2), 2I] and w2 [E, I(/2), H], weighted by topk_weights.
+    `pick_valid` [T, k] marks the picks to compute; a pick that is not
+    valid carries weight 0, so every form is right without it, and the
+    two-stage forms also skip its work."""
+    if activation not in ("bf16", "int8"):
+        raise ValueError(f"unknown expert activation {activation!r}")
     T = x.shape[0]
     k = topk_idx.shape[-1]
-    E = w13.q.shape[0]
+    E = w13.q.shape[0] if isinstance(w13, QTensor) else w13.shape[0]
+    plain = dict(swiglu_limit=swiglu_limit, gpt_oss=gpt_oss, w13_bias=w13_bias,
+                 w2_bias=w2_bias)
+    kernels = (w13_bias is None and w2_bias is None and isinstance(w13, QTensor)
+               and isinstance(w2, QTensor) and moe_cuda.gathered_qmm_supported(w13)
+               and moe_cuda.gathered_qmm_supported(w2))
     if use_grouped_path(T, k, E):
-        # the grouped regime runs bf16 activations whatever `activation` says
-        return gmm_cuda.moe_prefill(x, w13, w2, topk_idx, topk_weights)
-    if activation == "int8":
-        return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights)
-    if activation == "bf16":
-        return moe_cuda.moe_bf16(x, w13, w2, topk_idx, topk_weights)
-    raise ValueError(f"unknown expert activation {activation!r}")
+        if kernels:
+            # the grouped regime runs bf16 activations whatever `activation`
+            # says; its int8 form stays an A/B entry of moe_prefill
+            return gmm_cuda.moe_prefill(x, w13, w2, topk_idx, topk_weights,
+                                        swiglu_limit, gpt_oss, pick_valid)
+        return moe_forward_ragged(x, w13, w2, topk_idx, topk_weights, **plain)
+    if kernels:
+        if activation == "int8":
+            if expert_class.decode_fused_int8(w13, w2):
+                _fused_only(gpt_oss)
+                return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights)
+            if (moe_cuda.gathered_qmm_a8_supported(w13)
+                    and moe_cuda.gathered_qmm_a8_supported(w2)):
+                return moe_cuda.moe_gathered_tiled(x, w13, w2, topk_idx, topk_weights,
+                                                   swiglu_limit, gpt_oss, pick_valid, "int8")
+        if expert_class.decode_fused(w13, w2):
+            _fused_only(gpt_oss)
+            return moe_cuda.moe_bf16(x, w13, w2, topk_idx, topk_weights)
+        return moe_cuda.moe_gathered_tiled(x, w13, w2, topk_idx, topk_weights,
+                                           swiglu_limit, gpt_oss, pick_valid)
+    return moe_forward_gathered(x, w13, w2, topk_idx, topk_weights, **plain)
 
 
-def mlp_forward(x: torch.Tensor, w13: Weight, w2: Weight) -> torch.Tensor:
+def mlp_forward(x: torch.Tensor, w13: Weight, w2: Weight, swiglu_limit: float = 0.0,
+                gpt_oss: bool = False) -> torch.Tensor:
     """Dense MLP / shared expert: swiglu(x @ w13) @ w2."""
-    return linear(swiglu(linear(x, w13)), w2)
+    return linear(swiglu(linear(x, w13), swiglu_limit, gpt_oss), w2)

@@ -1,26 +1,37 @@
-"""K3 and K5: the gathered expert MLP for decode (``csrc/moe_decode.cu``).
+"""K3, K5, K6 and K6a: the gathered expert kernels for decode
+(``csrc/moe_decode.cu``).
 
 ``moe_w4a8`` (K3, int8 activations) replaces ``krasis_tpu/ops/moe_pallas.py``
 ``moe_gathered_w4a8_pallas``; ``moe_bf16`` (K5, bf16 activations) replaces
-``moe_gathered_pallas``. Each launches its two CUDA stages for tensors on
-the card and runs its plain version — the same function in plain PyTorch —
-for tensors on the CPU.
+``moe_gathered_pallas``: the fused expert MLP of one pick, two CUDA stages
+each. ``gathered_qmm`` (K6) and ``gathered_qmm_a8`` (K6a) replace
+``gathered_qmm_pallas`` and ``gathered_qmm_a8_pallas``: one gathered product
+per launch, which ``moe_gathered_tiled`` composes with SwiGLU between for
+the experts the fused kernels do not take (``ops/expert_class.py``). Each
+wrapper launches its kernel for tensors on the card and runs its plain
+version — the same function in plain PyTorch — for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from .. import build
 from ..quant import QTensor, dequantize, unpack
+from .activations import swiglu
 
 SOURCE = "krasis_tpu_torch/csrc/moe_decode.cu"
 REPLACES = "krasis_tpu/ops/moe_pallas.py:391"
 REPLACES_BF16 = "krasis_tpu/ops/moe_pallas.py:226"
+REPLACES_GQ = "krasis_tpu/ops/moe_pallas.py:517"
+REPLACES_GQ_A8 = "krasis_tpu/ops/moe_pallas.py:605"
 launches = 0          # K3 kernel launches since the caller last set it to 0
 launches_bf16 = 0     # K5 kernel launches, likewise
+launches_gq = 0       # K6
+launches_gq_a8 = 0    # K6a
 
 
 def quantize_activations(x: torch.Tensor, gs: int):
@@ -184,3 +195,157 @@ def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
     build.check(err, "moe_w2_bf16")
     launches_bf16 += 1
     return o.reshape(T, k, H).sum(dim=1).to(x.dtype)
+
+
+def gathered_qmm_supported(w: QTensor) -> bool:
+    """Stacks K6 takes: int4 / int8 experts whose width fills whole
+    128-column blocks. The reference's extra bound on K·tile bytes
+    (``moe_pallas.gathered_qmm_supported``) is a limit of its fast memory
+    that no supported model reaches; it is not carried over."""
+    return (isinstance(w, QTensor) and w.q.dim() == 3 and w.bits in (4, 8)
+            and w.n_dim % 128 == 0)
+
+
+def gathered_qmm_a8_supported(w: QTensor) -> bool:
+    """K6a: the activation groups run along K, so K is a whole number of
+    groups."""
+    return gathered_qmm_supported(w) and w.k_dim % w.group_size == 0
+
+
+def _skip_invalid(out: torch.Tensor, pick_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    if pick_valid is None:
+        return out
+    return torch.where(pick_valid.reshape(-1, 1) != 0, out, torch.zeros_like(out))
+
+
+def gathered_qmm_plain(x_rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
+                       pick_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6's function: out[p] = bf16(x[p]) @ bf16(dequant(W[e[p]])) in f32,
+    zeros for the picks with pick_valid[p] == 0."""
+    e = expert_ids.reshape(-1).to(torch.int64)
+    xf = x_rows.to(torch.bfloat16).to(torch.float32)
+    out = torch.einsum("pk,pkn->pn", xf, dequantize(w[e], torch.bfloat16).to(torch.float32))
+    return _skip_invalid(out, pick_valid)
+
+
+def gathered_qmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, w: QTensor,
+                          expert_ids: torch.Tensor,
+                          pick_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6a's function: per K-group int32 dots of the int8 rows xq [P, K]
+    with the unscaled integer weights, acc += d * sx * sw in f32, groups in
+    order; zeros for the picks with pick_valid[p] == 0."""
+    e = expert_ids.reshape(-1).to(torch.int64)
+    out = _grouped_dot_plain(xq, sx.to(torch.float32), unpack(w[e]), w.scales[e],
+                             w.group_size)
+    return _skip_invalid(out, pick_valid)
+
+
+def _gq_fns():
+    lib = build.load("moe_decode")
+    fb, fa = lib.gathered_qmm_launch, lib.gathered_qmm_a8_launch
+    if fb.argtypes is None:
+        fb.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2
+                       + [ctypes.c_void_p])
+        fa.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2
+                       + [ctypes.c_void_p])
+        fb.restype = fa.restype = ctypes.c_int
+    return fb, fa
+
+
+def _gq_args(name: str, rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
+             pick_valid: Optional[torch.Tensor], ok: bool):
+    """Checked launch operands shared by K6 and K6a: (idx, valid, out)."""
+    P, K = rows.shape
+    if not ok or K != w.k_dim:
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} vs stack {tuple(w.q.shape)} "
+                         f"(bits {w.bits}, group {w.group_size})")
+    for t in (rows, w.q, w.scales):
+        if not (t.is_cuda and t.is_contiguous()):
+            raise ValueError(f"{name}: rows and expert stacks must be contiguous on the card")
+    idx = expert_ids.reshape(-1).to(torch.int32).contiguous()
+    if idx.shape[0] != P:
+        raise ValueError(f"{name}: {idx.shape[0]} expert ids for {P} rows")
+    valid = None
+    if pick_valid is not None:
+        valid = pick_valid.reshape(-1).to(torch.int32).contiguous()
+        if valid.shape[0] != P:
+            raise ValueError(f"{name}: {valid.shape[0]} pick_valid flags for {P} rows")
+    out = torch.empty((P, w.n_dim), dtype=torch.float32, device=rows.device)
+    return idx, valid, out
+
+
+def gathered_qmm(x_rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
+                 pick_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6. x_rows [P, K] bf16, stack w [E, K(/2), N] read in place at
+    expert_ids [P], pick_valid [P] (1 = compute) → f32 [P, N]."""
+    if x_rows.device.type == "cpu":
+        return gathered_qmm_plain(x_rows, w, expert_ids, pick_valid)
+    global launches_gq
+    xb = x_rows.to(torch.bfloat16).contiguous()
+    idx, valid, out = _gq_args("gathered_qmm", xb, w, expert_ids, pick_valid,
+                               gathered_qmm_supported(w))
+    err = _gq_fns()[0](xb.data_ptr(), idx.data_ptr(),
+                       0 if valid is None else valid.data_ptr(), w.q.data_ptr(),
+                       w.scales.data_ptr(), out.data_ptr(), xb.shape[0], w.k_dim, w.n_dim,
+                       w.bits, w.group_size, w.q.stride(0), w.scales.stride(0),
+                       torch.cuda.current_stream(xb.device).cuda_stream)
+    build.check(err, "gathered_qmm")
+    launches_gq += 1
+    return out
+
+
+def gathered_qmm_a8(xq: torch.Tensor, sx: torch.Tensor, w: QTensor,
+                    expert_ids: torch.Tensor,
+                    pick_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6a. xq [P, K] int8 with f32 scales sx [P, K/gs] (per row and
+    K-group, ``quantize_activations``) → f32 [P, N]."""
+    if xq.device.type == "cpu":
+        return gathered_qmm_a8_plain(xq, sx, w, expert_ids, pick_valid)
+    global launches_gq_a8
+    if xq.dtype != torch.int8:
+        raise ValueError(f"gathered_qmm_a8: rows must be int8, got {xq.dtype}")
+    xq = xq.contiguous()
+    idx, valid, out = _gq_args("gathered_qmm_a8", xq, w, expert_ids, pick_valid,
+                               gathered_qmm_a8_supported(w))
+    sx = sx.to(torch.float32).contiguous()
+    if tuple(sx.shape) != (xq.shape[0], w.k_dim // w.group_size) or not sx.is_cuda:
+        raise ValueError(f"gathered_qmm_a8: scales {tuple(sx.shape)} for rows "
+                         f"{tuple(xq.shape)}, group {w.group_size}")
+    err = _gq_fns()[1](xq.data_ptr(), sx.data_ptr(), idx.data_ptr(),
+                       0 if valid is None else valid.data_ptr(), w.q.data_ptr(),
+                       w.scales.data_ptr(), out.data_ptr(), xq.shape[0], w.k_dim, w.n_dim,
+                       w.bits, w.group_size, w.q.stride(0), w.scales.stride(0),
+                       torch.cuda.current_stream(xq.device).cuda_stream)
+    build.check(err, "gathered_qmm_a8")
+    launches_gq_a8 += 1
+    return out
+
+
+def moe_gathered_tiled(x: torch.Tensor, w13: QTensor, w2: QTensor,
+                       topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+                       swiglu_limit: float = 0.0, gpt_oss: bool = False,
+                       pick_valid: Optional[torch.Tensor] = None,
+                       activation: str = "bf16") -> torch.Tensor:
+    """Decode MoE as two gathered products with SwiGLU between: the form of
+    experts too large for the fused kernels, at the rounding points of the
+    reference's ``moe_gathered_tiled``. int8: rows quantized per K-group,
+    SwiGLU on the f32 h, the hidden requantized; bf16: the f32 h rounded to
+    bf16 before SwiGLU. x [T, H], picks [T, k], pick_valid [T, k] → [T, H]."""
+    T, H = x.shape
+    k = topk_idx.shape[-1]
+    eids = topk_idx.reshape(-1)
+    pv = None if pick_valid is None else pick_valid.reshape(-1)
+    if (activation == "int8" and gathered_qmm_a8_supported(w13)
+            and gathered_qmm_a8_supported(w2)):
+        xq, sx = quantize_activations(x.to(torch.bfloat16), w13.group_size)
+        h = gathered_qmm_a8(xq.repeat_interleave(k, dim=0), sx.repeat_interleave(k, dim=0),
+                            w13, eids, pv)
+        a = swiglu(h, swiglu_limit, gpt_oss)
+        aq, sa = quantize_activations(a, w2.group_size)
+        o = gathered_qmm_a8(aq, sa, w2, eids, pv)
+    else:
+        h = gathered_qmm(x.repeat_interleave(k, dim=0), w13, eids, pv)
+        a = swiglu(h.to(torch.bfloat16), swiglu_limit, gpt_oss)
+        o = gathered_qmm(a, w2, eids, pv)
+    o = o.reshape(T, k, H) * topk_weights[..., None].to(torch.float32)
+    return o.sum(dim=1).to(x.dtype)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,6 +47,7 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     logprobs: Optional[List[float]] = None
+    top_logprobs: Optional[List[List[Tuple[int, float]]]] = None
     finite: bool = True       # every logit of the run was finite
 
     @property
@@ -81,32 +82,53 @@ class Engine:
         self.cache = init_cache(self.cfg, self.quant, 1, self._cache_len, self.device)
 
     def _forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
-                 prefill: bool) -> torch.Tensor:
+                 prefill: bool, return_all_logits: bool = False) -> torch.Tensor:
         return forward(self.params, tokens, seq_lens, self.cache, self.cfg,
-                       self.quant, prefill)
+                       self.quant, prefill, return_all_logits)
+
+    def _prefill_rows(self, ids: Sequence[int], return_all_logits: bool = False) -> torch.Tensor:
+        """One prefill forward over `ids`, padded to at least MIN_PREFILL_ROWS
+        rows so that it takes the grouped MoE regime."""
+        m = len(ids)
+        tokens = torch.zeros((1, max(m, MIN_PREFILL_ROWS)), dtype=torch.int64)
+        tokens[0, :m] = torch.tensor(ids, dtype=torch.int64)
+        seq_lens = torch.tensor([m], dtype=torch.int32)
+        return self._forward(tokens.to(self.device), seq_lens.to(self.device),
+                             prefill=True, return_all_logits=return_all_logits)
 
     def _prefill_prompt(self, prompt_ids: Sequence[int]) -> torch.Tensor:
         """Prefill in chunks of self.chunk; returns last-position logits."""
-        n = len(prompt_ids)
-        pos = 0
         logits = None
-        while pos < n:
-            m = min(self.chunk, n - pos)
-            tokens = torch.zeros((1, max(m, MIN_PREFILL_ROWS)), dtype=torch.int64)
-            tokens[0, :m] = torch.tensor(prompt_ids[pos:pos + m], dtype=torch.int64)
-            seq_lens = torch.tensor([m], dtype=torch.int32)
-            logits = self._forward(tokens.to(self.device), seq_lens.to(self.device),
-                                   prefill=True)
-            pos += m
+        for pos in range(0, len(prompt_ids), self.chunk):
+            logits = self._prefill_rows(prompt_ids[pos:pos + self.chunk])
         return logits
+
+    @torch.inference_mode()
+    def forward_all_logits(self, prompt_ids: Sequence[int]) -> torch.Tensor:
+        """f32 logits [n, V] at every position of the prompt, through the
+        serving prefill path in one forward over the whole window (the
+        perplexity path)."""
+        self.reset()
+        n = len(prompt_ids)
+        if not 0 < n <= self.max_len:
+            raise ValueError(f"window of {n} tokens does not fit max_len={self.max_len}")
+        return self._prefill_rows(prompt_ids, return_all_logits=True)[0, :n]
 
     @torch.inference_mode()
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int = 64,
                  sampling: Optional[SamplingParams] = None,
                  stop_ids: Optional[set] = None, seed: int = 0,
-                 on_token=None) -> GenerationResult:
+                 on_token=None, on_token_lp=None, top_logprobs: int = 0,
+                 want_logprobs: bool = True) -> GenerationResult:
         """Generate up to max_new_tokens after the prompt (slot 0).
-        `on_token(tok)` raising StopIteration cancels cleanly."""
+        `on_token(tok)` raising StopIteration cancels cleanly;
+        `on_token_lp(tok, logprob)` is its variant with the logprob, and both
+        may be set (on_token fires first). `result.logprobs` holds the
+        logprob of each chosen token under the raw model distribution (f32
+        log_softmax of the logits, before temperature and penalty);
+        `want_logprobs=False` skips that math in decode and returns zeros
+        there. `top_logprobs=N` forces it on and also returns the N most
+        likely (token, logprob) pairs of each step."""
         sampling = sampling or SamplingParams(temperature=0.0)
         stop_ids = stop_ids or {self.cfg.eos_token_id, *self.cfg.extra_stop_token_ids}
         n = len(prompt_ids)
@@ -124,11 +146,57 @@ class Engine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         seen = torch.zeros((1, self.cfg.vocab_size), dtype=torch.bool, device=self.device)
+        need_lp = want_logprobs or top_logprobs > 0
 
-        def step_sample(logits):
+        def step(logits, with_lp):
+            """Sample one token; its logprob (zero unless with_lp) and, when
+            asked for, the top-N of the step, all left on the device."""
             tok = sample(logits, sampling, gen, seen)
             seen[0, tok] = True
-            return tok
+            top = None
+            if with_lp:
+                lsm = torch.log_softmax(logits.to(torch.float32), dim=-1)
+                lp = lsm[0, tok[0]]
+                if top_logprobs > 0:
+                    top = torch.topk(lsm[0], top_logprobs)
+            else:
+                lp = torch.zeros((), dtype=torch.float32, device=self.device)
+            return tok, lp, top
+
+        out_tokens: List[int] = []
+        out_lps: List[float] = []
+        out_top: List[List[Tuple[int, float]]] = []
+        stopped = False
+
+        def commit(steps) -> None:
+            """Read one block of steps back (one host sync) and hand the
+            tokens out until a stop."""
+            nonlocal stopped
+            cols = [torch.stack([t[0] for t, _, _ in steps])[:, None],
+                    torch.stack([lp for _, lp, _ in steps])[:, None]]
+            if top_logprobs > 0:
+                cols += [torch.stack([top.indices for _, _, top in steps]),
+                         torch.stack([top.values for _, _, top in steps])]
+            # f64 holds token ids and f32 logprobs exactly: one readback
+            rows = torch.cat([c.to(torch.float64) for c in cols], dim=1).tolist()
+            for row in rows:
+                tok, lp = int(row[0]), row[1]
+                out_tokens.append(tok)
+                out_lps.append(lp)
+                if top_logprobs > 0:
+                    out_top.append([(int(i), v) for i, v in
+                                    zip(row[2:2 + top_logprobs], row[2 + top_logprobs:])])
+                try:
+                    if on_token is not None:
+                        on_token(tok)
+                    if on_token_lp is not None:
+                        on_token_lp(tok, lp)
+                except StopIteration:
+                    stopped = True
+                if tok in stop_ids or len(out_tokens) >= max_new_tokens:
+                    stopped = True
+                if stopped:
+                    break
 
         self._sync()
         t0 = time.perf_counter()
@@ -137,39 +205,27 @@ class Engine:
         t1 = time.perf_counter()
 
         finite = torch.isfinite(logits).all()
-        next_tok = step_sample(logits)
-        out_tokens: List[int] = [int(next_tok[0])]
-        stopped = out_tokens[0] in stop_ids
-        if on_token is not None:
-            try:
-                on_token(out_tokens[0])
-            except StopIteration:
-                stopped = True
+        # the first token's logprob is always taken, as the reference does
+        first = step(logits, True)
+        next_tok = first[0]
+        commit([first])
 
         t2 = time.perf_counter()
         ones = torch.ones((1,), dtype=torch.int32, device=self.device)
-        while not stopped and len(out_tokens) < max_new_tokens:
+        while not stopped:
             block = []
             for _ in range(self.decode_block):
                 logits = self._forward(next_tok[:, None], ones, prefill=False)
                 finite &= torch.isfinite(logits).all()
-                next_tok = step_sample(logits)
-                block.append(next_tok[0])
-            for tok in torch.stack(block).tolist():     # one sync per block
-                out_tokens.append(tok)
-                if on_token is not None:
-                    try:
-                        on_token(tok)
-                    except StopIteration:
-                        stopped = True
-                        break
-                if tok in stop_ids or len(out_tokens) >= max_new_tokens:
-                    stopped = True
-                    break
+                block.append(step(logits, need_lp))
+                next_tok = block[-1][0]
+            commit(block)
         self._sync()
         t3 = time.perf_counter()
         return GenerationResult(tokens=out_tokens, prompt_len=n, prefill_s=t1 - t0,
-                                decode_s=t3 - t2, finite=bool(finite))
+                                decode_s=t3 - t2, logprobs=out_lps,
+                                top_logprobs=out_top if top_logprobs > 0 else None,
+                                finite=bool(finite))
 
     def _sync(self):
         if self.device.type == "cuda":

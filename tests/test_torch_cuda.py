@@ -12,7 +12,7 @@ from krasis_tpu_torch.config import QuantConfig
 from krasis_tpu_torch.device import set_exact_matmul_flags
 from krasis_tpu_torch.models.synthetic import build_synthetic_engine, tiny_config
 from krasis_tpu_torch.ops import flash_attention as fa
-from krasis_tpu_torch.ops import gmm_cuda, moe_cuda, qmm_cuda
+from krasis_tpu_torch.ops import expert_class, gmm_cuda, moe_cuda, qmm_cuda
 from krasis_tpu_torch.quant import quantize, random_qtensor, stack_leading
 
 pytestmark = pytest.mark.cuda
@@ -138,6 +138,151 @@ def test_grouped_moe_kernel(dev):
     _close(gmm_cuda.gmm(x, plan.row_src, w13, plan, True)[real], a[real], 3e-2)
     _close(gmm_cuda.gmm(a, None, w2, plan, False)[real],
            gmm_cuda.gmm_plain(a, None, w2, plan, False)[real], 3e-2)
+
+
+def _picks(dev, g, P, E, masked):
+    eids = torch.randint(0, E, (P,), generator=g, device=dev).to(torch.int32)
+    valid = None
+    if masked:
+        valid = torch.ones(P, dtype=torch.int32, device=dev)
+        valid[[1, P - 1]] = 0
+    return eids, valid
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K,N", [(256, 384), (384, 256)])
+def test_gathered_qmm_kernel(dev, K, N, bits, masked):
+    """K6: rows against experts read in place; skipped picks read back 0."""
+    g = _gen(dev, K + bits)
+    w = random_qtensor((10, K, N), bits, 128, g, dev, scale_mag=0.03)
+    x = torch.randn((7, K), generator=g, device=dev).to(torch.bfloat16)
+    eids, valid = _picks(dev, g, 7, 10, masked)
+    before = moe_cuda.launches_gq
+    got = moe_cuda.gathered_qmm(x, w, eids, valid)
+    assert moe_cuda.launches_gq == before + 1
+    _close(got, moe_cuda.gathered_qmm_plain(x, w, eids, valid), 2e-2)
+    if masked:
+        assert not got[[1, 6]].any() and got[0].any()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K,N", [(256, 384), (384, 256)])
+def test_gathered_qmm_a8_kernel(dev, K, N, bits, masked):
+    """K6a: int8 rows with per-group scales; K = 384 is 3 groups, fewer
+    than the kernel's 8 warps."""
+    g = _gen(dev, K + bits + 1)
+    w = random_qtensor((10, K, N), bits, 128, g, dev, scale_mag=0.03)
+    x = torch.randn((7, K), generator=g, device=dev).to(torch.bfloat16)
+    xq, sx = moe_cuda.quantize_activations(x, 128)
+    eids, valid = _picks(dev, g, 7, 10, masked)
+    before = moe_cuda.launches_gq_a8
+    got = moe_cuda.gathered_qmm_a8(xq, sx, w, eids, valid)
+    assert moe_cuda.launches_gq_a8 == before + 1
+    _close(got, moe_cuda.gathered_qmm_a8_plain(xq, sx, w, eids, valid), 3e-2)
+    if masked:
+        assert not got[[1, 6]].any() and got[0].any()
+
+
+@pytest.mark.parametrize("activation,tol", [("bf16", 2e-2), ("int8", 3e-2)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_moe_gathered_tiled_on_card(dev, bits, activation, tol):
+    g = _gen(dev, 11 + bits)
+    w13 = random_qtensor((10, 256, 256), bits, 128, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((10, 128, 256), bits, 128, g, dev, scale_mag=0.03)
+    x = torch.randn((2, 256), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.tensor([[0, 3, 5, 8, 9], [7, 1, 2, 8, 9]], dtype=torch.int32, device=dev)
+    wts = torch.rand((2, 5), generator=g, device=dev)
+    pv = torch.ones((2, 5), dtype=torch.bool, device=dev)
+    pv[1, 2] = False
+    got = moe_cuda.moe_gathered_tiled(x, w13, w2, idx, wts, pick_valid=pv, activation=activation)
+    want = moe_cuda.moe_gathered_tiled(x.cpu(), w13.to("cpu"), w2.to("cpu"), idx.cpu(),
+                                       wts.cpu(), pick_valid=pv.cpu(), activation=activation)
+    _close(got.cpu(), want, tol)
+
+
+def _grouped_case(dev, bits, seed, masked):
+    g = _gen(dev, seed)
+    w13 = random_qtensor((8, 256, 256), bits, 128, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((8, 128, 256), bits, 128, g, dev, scale_mag=0.03)
+    T, k = 100, 2
+    x = torch.randn((T, 256), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((T, 8), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    wts = torch.rand((T, k), generator=g, device=dev)
+    pv = None
+    if masked:
+        pv = torch.rand((T, k), generator=g, device=dev) > 0.2
+    return w13, w2, x, idx, wts, pv
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_two_stage_grouped_kernel(dev, monkeypatch, bits, masked):
+    """K7 at both call shapes through moe_prefill, equal bit for bit to the
+    fused form (K4) on the same plan, and within tolerance of the plain
+    versions."""
+    w13, w2, x, idx, wts, pv = _grouped_case(dev, bits, 20 + bits, masked)
+    plan = gmm_cuda.plan_tiles(idx, 8, pick_valid=pv)
+    real = plan.row_src >= 0
+    _close(gmm_cuda.gmm_two_stage(x, plan.row_src, w13, plan)[real],
+           gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)[real], 2e-2)
+    fused = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, pick_valid=pv)
+    before = gmm_cuda.launches_two_stage
+    monkeypatch.setattr(expert_class, "MAX_FUSED_BLOCK_BYTES", 0)
+    two_stage = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, pick_valid=pv)
+    assert gmm_cuda.launches_two_stage == before + 2
+    assert torch.equal(two_stage, fused)
+    want = gmm_cuda.moe_prefill(x.cpu(), w13.to("cpu"), w2.to("cpu"), idx.cpu(), wts.cpu(),
+                                pick_valid=None if pv is None else pv.cpu())
+    _close(two_stage.cpu(), want, 2e-2)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_grouped_a8_kernel(dev, bits, masked):
+    """K7a: each stage against its plain version, and through
+    moe_prefill(activation="int8")."""
+    w13, w2, x, idx, wts, pv = _grouped_case(dev, bits, 30 + bits, masked)
+    plan = gmm_cuda.plan_tiles(idx, 8, pick_valid=pv)
+    real = plan.row_src >= 0
+    xq, sx = moe_cuda.quantize_activations(x, 128)
+    before = gmm_cuda.launches_a8
+    h = gmm_cuda.gmm_a8(xq, sx, plan.row_src, w13, plan)
+    assert gmm_cuda.launches_a8 == before + 1
+    _close(h[real], gmm_cuda.gmm_a8_plain(xq, sx, plan.row_src, w13, plan)[real], 3e-2)
+    assert not h[(~real) & plan.tile_valid.bool().repeat_interleave(gmm_cuda.TM)].any()
+    got = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, pick_valid=pv, activation="int8")
+    want = gmm_cuda.moe_prefill(x.cpu(), w13.to("cpu"), w2.to("cpu"), idx.cpu(), wts.cpu(),
+                                pick_valid=None if pv is None else pv.cpu(), activation="int8")
+    _close(got.cpu(), want, 3e-2)
+
+
+@pytest.mark.parametrize("activation", ["int8", "bf16"])
+def test_tiny_q8_engine_takes_the_two_stage_kernels(dev, monkeypatch, activation):
+    """With the class limits shrunk for its tiny experts, an int8-expert
+    V2-Lite goes through K7 in prefill and K6a or K6 in decode, answers
+    with logprobs, and gives a finite perplexity."""
+    from krasis_tpu_torch.perplexity import evaluate_perplexity
+
+    monkeypatch.setattr(expert_class, "MAX_FUSED_PICK_BYTES", 1024)
+    monkeypatch.setattr(expert_class, "MAX_FUSED_BLOCK_BYTES", 1024)
+    cfg = tiny_config("deepseek-v2-lite", moe_intermediate_size=128, num_hidden_layers=3)
+    quant = QuantConfig(expert_bits=8, group_size=128, expert_activation=activation)
+    eng = build_synthetic_engine(cfg, quant, seed=0, max_len=1024)
+    decode = "launches_gq_a8" if activation == "int8" else "launches_gq"
+    before = (gmm_cuda.launches_two_stage, getattr(moe_cuda, decode), gmm_cuda.launches,
+              moe_cuda.launches, moe_cuda.launches_bf16)
+    res = eng.generate(list(range(3, 203)), max_new_tokens=12, stop_ids={-1}, top_logprobs=3)
+    assert res.finite and len(res.tokens) == 12
+    assert all(lp <= 0.0 for lp in res.logprobs)
+    assert [top[0][0] for top in res.top_logprobs] == res.tokens
+    after = (gmm_cuda.launches_two_stage, getattr(moe_cuda, decode), gmm_cuda.launches,
+             moe_cuda.launches, moe_cuda.launches_bf16)
+    assert after[0] > before[0] and after[1] > before[1] and after[2:] == before[2:]
+    ids = torch.randint(1, 512, (200,), generator=torch.Generator().manual_seed(0)).tolist()
+    out = evaluate_perplexity(eng, ids, window=64, stride=32, log_every=0)
+    assert out["tokens_scored"] == 199 and 1.0 < out["ppl"] < float("inf")
 
 
 def test_tiny_engine_generates_on_card(dev):

@@ -6,10 +6,14 @@ import torch
 
 from krasis_tpu.config import QuantConfig as JaxQuantConfig
 from krasis_tpu.config import preset_config as jax_preset_config
+from krasis_tpu.models.synthetic import build_synthetic_engine as jax_build_engine
+from krasis_tpu.models.synthetic import tiny_config as jax_tiny_config
+from krasis_tpu.ops import gmm_pallas, moe_pallas
 from krasis_tpu.quant import QTensor as JaxQTensor
 from krasis_tpu_torch.config import QuantConfig
 from krasis_tpu_torch.models.bridge import params_from_numpy, to_torch
 from krasis_tpu_torch.models.synthetic import tiny_config
+from krasis_tpu_torch.ops import expert_class
 from krasis_tpu_torch.quant import QTensor
 
 
@@ -75,3 +79,36 @@ def calm_experts(jparams, factor=0.125):
     pattern = [{k: (scale(v) if k in ("w13", "w2", "shared_w13", "shared_w2") else v)
                 for k, v in lp.items()} for lp in jparams["pattern"]]
     return {**jparams, "pattern": pattern}
+
+
+Q8_OVERRIDES = dict(moe_intermediate_size=128, num_hidden_layers=3)
+
+
+def q8_engines(monkeypatch, activation, max_len=1024):
+    """(JAX engine, port engine, calls) of a tiny DeepSeek-V2-Lite with int8
+    experts on the same weights, both built with the fused-class limits of
+    both packages shrunk so that the tiny experts are in the two-stage
+    class, as the full-size model's int8 experts are. `calls` counts the
+    reference's traces through moe_gathered_tiled and gmm."""
+    from krasis_tpu_torch.runtime.engine import Engine
+
+    monkeypatch.setenv("KRASIS_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(moe_pallas, "_MAX_W_BYTES", 1024)
+    monkeypatch.setattr(gmm_pallas, "_MAX_FUSED_BLOCK", 1024)
+    monkeypatch.setattr(expert_class, "MAX_FUSED_PICK_BYTES", 1024)
+    monkeypatch.setattr(expert_class, "MAX_FUSED_BLOCK_BYTES", 1024)
+    calls = {"moe_gathered_tiled": 0, "gmm": 0}
+    for mod, name in ((moe_pallas, "moe_gathered_tiled"), (gmm_pallas, "gmm")):
+        def counted(*a, _f=getattr(mod, name), _n=name, **kw):
+            calls[_n] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    kw = dict(expert_bits=8, group_size=128, kv_cache_dtype="bf16",
+              expert_activation=activation)
+    jeng = jax_build_engine(jax_tiny_config("deepseek-v2-lite", **Q8_OVERRIDES),
+                            JaxQuantConfig(**kw), max_len=max_len, seed=0)
+    # int8 experts made of random bytes put out 16x the values of int4 ones
+    jeng.params = calm_experts(jeng.params, 1 / 16)
+    eng = Engine(tiny_config("deepseek-v2-lite", **Q8_OVERRIDES), QuantConfig(**kw),
+                 port_params(jeng.params), max_len=max_len, device="cpu")
+    return jeng, eng, calls
