@@ -13,11 +13,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the kernels against the same models on the CPU through their
    plain versions;
 4. DeepSeek-V2-Lite Q4 at full width (MLA, 27 layers, random weights from a
-   seed): each of its kernels (K1 qmm, K2 attention with V inside K, K3
-   W4A8 decode MoE, K4 grouped GEMM) against its plain PyTorch version at
+   seed): each of its kernels (K1 qmm, K2 attention with V inside K: a
+   prefill, a chunk, and split-KV decode at kv_len 2560, 2500 and 40 over
+   the engine's 4096-row cache view; K3 W4A8 decode MoE, K4 grouped GEMM on
+   the main path's tile plan) against its plain PyTorch version at
    main-path shapes on the model's own weights, with kernel, plain,
-   library-call and bound times; then three greedy requests through
-   Engine.generate and a profile of one prefill and one decode;
+   library-call (SDPA for K2, grouped_mm on pre-dequantized stacks for the
+   grouped GEMM's products) and bound times; then three greedy requests
+   through Engine.generate and a profile of one prefill and one decode;
 5. Qwen3-Coder-Next at full width (48 layers: 36 Gated DeltaNet + 12 GQA,
    512 experts top-10 + 1 shared, int8 projections): the same for the
    kernels this path adds or reshapes (K1s stacked qmm, K2 with a separate
@@ -250,9 +253,11 @@ def qmm_checks(results, prefix, cases, g, flush):
 
 def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, scale, q_std,
                      g, flush):
-    """K2 at the main path's three shapes: a 2048-row prefill, a 452-row
-    chunk over 2048 rows of history, and decode at kv_len 2560. `lanes` of
-    the Dp-wide rows are real, the rest zero pad. Keys and values are
+    """K2 at the main path's shapes: a 2048-row prefill, a 452-row chunk
+    over 2048 rows of history (one launch each), and decode at kv_len 2560,
+    2500 and 40 over the engine's 4096-row cache view (split-KV: two
+    launches). `lanes` of the Dp-wide rows are real, the rest zero pad, and
+    the scores run over the real lanes as on the main path. Keys and values are
     unit-scale rows, as normed keys are, and queries have std `q_std`,
     chosen so that the scores' std is about 3: the softmax is then peaked
     and the outputs O(1), so a masking fault moves them well past the
@@ -274,13 +279,15 @@ def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, sca
 
     k_cache = rows((1, Hkv, 4096, lanes))
     v_cache = rows((1, Hkv, 4096, lanes)) if separate_v else None
-    for name, sq, q_off, kv_len, replaces in (
-            ("attention:prefill_2048", 2048, 0, 2048, fa.REPLACES),
-            ("attention:chunk_452_at_2048", 452, 2048, 2500, fa.REPLACES),
-            ("attention:decode_kv_2560", 1, 2559, 2560, fa.REPLACES_DECODE)):
+    for name, sq, q_off, kv_len, view, replaces in (
+            ("attention:prefill_2048", 2048, 0, 2048, 2048, fa.REPLACES),
+            ("attention:chunk_452_at_2048", 452, 2048, 2500, 2500, fa.REPLACES),
+            ("attention:decode_kv_2560", 1, 2559, 2560, 4096, fa.REPLACES_DECODE),
+            ("attention:decode_kv_2500", 1, 2499, 2500, 4096, fa.REPLACES_DECODE),
+            ("attention:decode_kv_40", 1, 39, 40, 4096, fa.REPLACES_DECODE)):
         q = rows((1, sq, Hq, lanes), q_std)
-        kv = k_cache[:, :, :kv_len]
-        v = v_cache[:, :, :kv_len] if separate_v else None
+        kv = k_cache[:, :, :view]
+        v = v_cache[:, :, :view] if separate_v else None
         qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
         kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
 
@@ -288,8 +295,8 @@ def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, sca
             return t[:, :, None].expand(1, Hkv, G, kv_len, t.shape[-1]).reshape(
                 1, Hq, kv_len, t.shape[-1])
 
-        qh, kh = q.transpose(1, 2), per_q_head(kv)
-        vh = per_q_head(kv if v is None else v)[..., :v_dim]
+        qh, kh = q.transpose(1, 2), per_q_head(kv[:, :, :kv_len])
+        vh = per_q_head((kv if v is None else v)[:, :, :kv_len])[..., :v_dim]
         pos = q_off + torch.arange(sq, device=dev)
         mask = torch.arange(kv_len, device=dev)[None, :] <= pos[:, None]
         visible = int(mask.sum())
@@ -299,11 +306,27 @@ def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, sca
             nbytes += kv_len * Hkv * v_dim * 2
         ops = 2 * Hq * visible * (lanes + v_dim)
         check_kernel(results, prefix + name, counters()["K2"], replaces,
-                     lambda: fa.flash_attention(q, kv, qo, kl, scale, v_dim, v=v),
-                     lambda: fa.flash_attention_plain(q, kv, qo, kl, scale, v_dim, v=v),
+                     lambda: fa.flash_attention(q, kv, qo, kl, scale, v_dim, v=v, qk_dim=lanes),
+                     lambda: fa.flash_attention_plain(q, kv, qo, kl, scale, v_dim, v, lanes),
                      lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                             scale=scale),
                      2e-2, nbytes, ops, PEAK_BF16, 20 if sq > 1 else 50, flush)
+        if kv_len == 2560:
+            # the same check must refuse a combine that lost the split holding
+            # each row's largest score
+            chunk, n = fa.split_plan(view, Hkv, 1, torch.cuda.get_device_properties(dev)
+                                     .multi_processor_count)
+            o, m, l = fa.decode_split_plain(q, kv, qo, kl, scale, v_dim, chunk, v, lanes)
+            dropped = m.clone().scatter_(2, m.argmax(dim=2, keepdim=True), fa.NEG_INF)
+            _, fault = max_err(fa._unstack(fa.decode_combine_plain(o, dropped, l), 1),
+                               fa.flash_attention_plain(q, kv, qo, kl, scale, v_dim, v, lanes),
+                               2e-2)
+            live = -(-kv_len // chunk)
+            print(f"[kernel] {prefix}{name}: {n} splits of {chunk} rows ({live} before kv_len); "
+                  f"a combine without one split reads {fault:.3g} of the limit; combine bound "
+                  f"{live * Hq * v_dim * 4 / HBM_BYTES_S * 1e3:.5f} ms (bytes)", flush=True)
+            if not fault > 1.0:
+                raise AssertionError(f"{prefix}{name}: the check cannot see a dropped split")
         if sq > 1:
             # the same check must refuse a kernel that dropped the causal mask
             _, fault = max_err(fa.flash_attention_plain(q, kv, kl - 1, kl, scale, v_dim, v=v),
@@ -312,6 +335,44 @@ def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, sca
                   f"{fault:.3g} of the limit", flush=True)
             if not fault > 1.0:
                 raise AssertionError(f"{prefix}{name}: the check cannot see a dropped causal mask")
+
+
+def grouped_mm_library(label, rows, w, plan, out_dtype, want):
+    """The yardstick of a grouped GEMM launch: one PyTorch grouped_mm over
+    the plan's real rows sorted by expert (offs = cumulative counts, int32)
+    on the stack dequantized to bf16 [E, K, N] beforehand, or None when this
+    PyTorch has no such call or refuses the shape (the error is printed).
+    `want` is the plain version's result on the same rows, for a look at
+    whether the call computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    from krasis_tpu_torch.quant import dequantize
+
+    fn = getattr(F, "grouped_mm", None)
+    if fn is None:
+        print(f"[library] {label}: this PyTorch has no grouped_mm", flush=True)
+        return None
+    E = w.q.shape[0]
+    experts = plan.tile_e.repeat_interleave(plan.tm)[plan.row_src >= 0].long()
+    offs = torch.cumsum(torch.bincount(experts, minlength=E), 0).to(torch.int32)
+    stack = torch.stack([dequantize(w[e], torch.bfloat16) for e in range(E)])
+    a = rows.to(torch.bfloat16).contiguous()
+
+    def run():
+        return fn(a, stack, offs=offs, out_dtype=out_dtype)
+
+    try:
+        got = run()
+        torch.cuda.synchronize()
+    except Exception as err:                     # noqa: BLE001 — the refusal is the finding
+        print(f"[library] {label}: grouped_mm refused: {type(err).__name__}: "
+              f"{str(err).splitlines()[0][:300]}", flush=True)
+        return None
+    diff, ratio = max_err(got, want, 3e-2)
+    print(f"[library] {label}: torch.nn.functional.grouped_mm over "
+          f"{a.shape[0]} sorted rows, out {out_dtype}: max|Δ| {diff:.3g} from the plain "
+          f"version, {ratio:.3g} of the 3e-2 limit", flush=True)
+    return run
 
 
 def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
@@ -346,20 +407,29 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
     T = 2048
     x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
     topk = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
-    plan = gmm_cuda.plan_tiles(topk, E_all)
+    M = T * k
+    plan = gmm_cuda.plan_tiles(topk, E_all, gmm_cuda.choose_tm(M, E_all))   # the main path's
     real = plan.row_src >= 0
     hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E_all) > 0).sum())
-    M = T * k
+    print(f"[kernel] {prefix}gmm: {plan.tm}-row tiles, {int(plan.tile_valid.sum())} of "
+          f"{plan.n_tiles} computed", flush=True)
     a_plain = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True)
+    h_plain = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)[real]
+    lib13 = grouped_mm_library(prefix + "gmm:w13 (product alone, no SwiGLU)",
+                               x[plan.row_src[real].long()], w13, plan, torch.bfloat16, h_plain)
+    del h_plain
     check_kernel(results, prefix + "gmm:w13_swiglu", C["K4"], gmm_cuda.REPLACES,
                  lambda: gmm_cuda.gmm(x, plan.row_src, w13, plan, True),
                  lambda: gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True),
-                 None, 3e-2, hit * qtensor_bytes(w13) / E_all + T * Hd * 2 + M * I * 2,
+                 lib13, 3e-2, hit * qtensor_bytes(w13) / E_all + T * Hd * 2 + M * I * 2,
                  2 * M * Hd * 2 * I, PEAK_BF16, 10, None, select=lambda o: o[real])
+    o_plain = gmm_cuda.gmm_plain(a_plain, None, w2, plan, False)
+    lib2 = grouped_mm_library(prefix + "gmm:w2", a_plain[real], w2, plan, torch.float32,
+                              o_plain[real])
     check_kernel(results, prefix + "gmm:w2_f32", C["K4"], gmm_cuda.REPLACES_W2,
                  lambda: gmm_cuda.gmm(a_plain, None, w2, plan, False),
                  lambda: gmm_cuda.gmm_plain(a_plain, None, w2, plan, False),
-                 None, 3e-2, hit * qtensor_bytes(w2) / E_all + M * I * 2 + M * Hd * 4,
+                 lib2, 3e-2, hit * qtensor_bytes(w2) / E_all + M * I * 2 + M * Hd * 4,
                  2 * M * I * Hd, PEAK_BF16, 10, None, select=lambda o: o[real])
 
 
@@ -472,21 +542,27 @@ def q8_kernel_phase(params, cfg, results, g, flush):
     xs = torch.randn((T, Hd), generator=g, device=dev).to(bf16)
     topk = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
     pw = torch.rand((T, k), generator=g, device=dev)
-    plan = gmm_cuda.plan_tiles(topk, E_all)
-    real = plan.row_src >= 0
-    computed = plan.tile_valid.to(torch.bool).repeat_interleave(gmm_cuda.TM)
-    hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E_all) > 0).sum())
     M = T * k
+    plan = gmm_cuda.plan_tiles(topk, E_all, gmm_cuda.choose_tm(M, E_all))   # the main path's
+    real = plan.row_src >= 0
+    computed = plan.tile_valid.to(torch.bool).repeat_interleave(plan.tm)
+    hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E_all) > 0).sum())
     e13, e2 = qtensor_bytes(w13) / E_all, qtensor_bytes(w2) / E_all
-    a_plain = swiglu(gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, False).to(bf16))
+    h_plain = gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, False)
+    a_plain = swiglu(h_plain.to(bf16))
+    lib13 = grouped_mm_library("q8/gmm_two_stage:w13", xs[plan.row_src[real].long()], w13, plan,
+                               torch.float32, h_plain[real])
+    del h_plain
     check_kernel(results, "q8/gmm_two_stage:w13", C["K7"], gmm_cuda.REPLACES_TWO_STAGE,
                  lambda: gmm_cuda.gmm_two_stage(xs, plan.row_src, w13, plan),
-                 lambda: gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, False), None, 2e-2,
+                 lambda: gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, False), lib13, 2e-2,
                  hit * e13 + T * Hd * 2 + M * 2 * I * 4, 2 * M * Hd * 2 * I, PEAK_BF16, 10,
                  None, select=lambda o: o[real])
+    lib2 = grouped_mm_library("q8/gmm_two_stage:w2", a_plain[real], w2, plan, torch.float32,
+                              gmm_cuda.gmm_plain(a_plain, None, w2, plan, False)[real])
     check_kernel(results, "q8/gmm_two_stage:w2", C["K7"], gmm_cuda.REPLACES_TWO_STAGE,
                  lambda: gmm_cuda.gmm_two_stage(a_plain, None, w2, plan),
-                 lambda: gmm_cuda.gmm_plain(a_plain, None, w2, plan, False), None, 2e-2,
+                 lambda: gmm_cuda.gmm_plain(a_plain, None, w2, plan, False), lib2, 2e-2,
                  hit * e2 + M * I * 2 + M * Hd * 4, 2 * M * I * Hd, PEAK_BF16, 10,
                  None, select=lambda o: o[real])
 
@@ -508,23 +584,26 @@ def q8_kernel_phase(params, cfg, results, g, flush):
     if d_a != 0.0 or d_o != 0.0:
         raise AssertionError("the two-stage grouped form must equal the fused one bit for bit")
 
-    # --- K7a: each stage, then the whole int8 entry
+    # --- K7a: each stage, then the whole int8 entry, on the 64-row plan
+    # that moe_prefill gives its int8 rows
+    plan8 = gmm_cuda.plan_tiles(topk, E_all)
+    real8 = plan8.row_src >= 0
     gs13, gs2 = w13.group_size, w2.group_size
     xsq, xss = moe_cuda.quantize_activations(xs, gs13)
-    h8 = gmm_cuda.gmm_a8_plain(xsq, xss, plan.row_src, w13, plan)
+    h8 = gmm_cuda.gmm_a8_plain(xsq, xss, plan8.row_src, w13, plan8)
     a8q, a8s = moe_cuda.quantize_activations(swiglu(h8), gs2)
     check_kernel(results, "q8/gmm_a8:w13", C["K7a"], gmm_cuda.REPLACES_A8,
-                 lambda: gmm_cuda.gmm_a8(xsq, xss, plan.row_src, w13, plan),
-                 lambda: gmm_cuda.gmm_a8_plain(xsq, xss, plan.row_src, w13, plan), None, 3e-2,
+                 lambda: gmm_cuda.gmm_a8(xsq, xss, plan8.row_src, w13, plan8),
+                 lambda: gmm_cuda.gmm_a8_plain(xsq, xss, plan8.row_src, w13, plan8), None, 3e-2,
                  hit * e13 + T * Hd + T * (Hd // gs13) * 4 + M * 2 * I * 4,
-                 2 * M * Hd * 2 * I, PEAK_INT8, 10, None, select=lambda o: o[real])
+                 2 * M * Hd * 2 * I, PEAK_INT8, 10, None, select=lambda o: o[real8])
     check_kernel(results, "q8/gmm_a8:w2", C["K7a"], gmm_cuda.REPLACES_A8,
-                 lambda: gmm_cuda.gmm_a8(a8q, a8s, None, w2, plan),
-                 lambda: gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan), None, 3e-2,
+                 lambda: gmm_cuda.gmm_a8(a8q, a8s, None, w2, plan8),
+                 lambda: gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan8), None, 3e-2,
                  hit * e2 + M * I + M * (I // gs2) * 4 + M * Hd * 4, 2 * M * I * Hd,
-                 PEAK_INT8, 10, None, select=lambda o: o[real])
-    o8 = gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan)
-    want = (o8[plan.dest].reshape(T, k, Hd) * pw[..., None]).sum(dim=1).to(bf16)
+                 PEAK_INT8, 10, None, select=lambda o: o[real8])
+    o8 = gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan8)
+    want = (o8[plan8.dest].reshape(T, k, Hd) * pw[..., None]).sum(dim=1).to(bf16)
     held('q8/moe_prefill(activation="int8")',
          gmm_cuda.moe_prefill(xs, w13, w2, topk, pw, activation="int8"), want, 3e-2)
 
@@ -633,6 +712,10 @@ def profile_phase(eng, prompt, new: int):
           f"{sum(r[2] for r in rows)} launches")
     for key, ms, count in rows[:12]:
         print(f"[profile]   {ms:9.2f} ms {count:6d}x  {key[:90]}")
+    for key, ms, count in rows:                       # K2's launches, each form
+        if "attention_kernel" in key or "combine_kernel" in key:
+            name = key.split("((")[0].replace("void (anonymous namespace)::", "")
+            print(f"[profile]   K2 {name}: {count} launches, {1e3 * ms / count:.2f} us each")
 
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
@@ -767,7 +850,7 @@ def main() -> int:
     run_family("DeepSeek-V2-Lite Q4", "deepseek-v2-lite",
                QuantConfig(expert_bits=4, group_size=128), v2lite_kernel_phase,
                ((2048, 64, "int8"), (2500, 32, "int8"), (40, 32, "int8")),
-               ("K1", "K2", "K3", "K4"), results, rng, profile_decode=32)
+               ("K1", "K2", "K3", "K4"), results, rng, profile_decode=16)
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
@@ -777,7 +860,7 @@ def main() -> int:
     run_family("DeepSeek-V2-Lite Q8 (two-stage expert class)", "deepseek-v2-lite",
                QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,
                ((2048, 128, "int8"), (40, 32, "int8", 5), (40, 16, "bf16")),
-               ("K1", "K2", "K6", "K6a", "K7", "K7a"), results, rng, profile_decode=32,
+               ("K1", "K2", "K6", "K6a", "K7", "K7a"), results, rng, profile_decode=16,
                off_path=("K3", "K4", "K5"), entry_points=q8_entry_points)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all")

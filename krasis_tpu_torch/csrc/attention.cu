@@ -1,253 +1,522 @@
-// K2 — causal online-softmax attention over a bf16 KV cache, one kernel for
-// prefill, chunked prefill and decode.
+// K2 — causal online-softmax attention over a bf16 KV cache: prefill,
+// chunked prefill and decode.
 //
 // Replaces: krasis_tpu/ops/flash_attention.py flash_attention (_kernel) and
-// decode_attention (_decode_kernel). Decode is the same function: the Sq*G
-// query rows of one kv head are stacked as rows (row r is query s = r / G,
-// head hkv*G + r % G) and query s sits at position q_off + s, where decode
-// passes q_off = kv_len - Sq.
+// decode_attention (_decode_kernel). The Sq*G query rows of one kv head are
+// stacked as rows (row r is query s = r / G, head hkv*G + r % G) and query
+// s sits at position q_off + s; decode passes q_off = kv_len - Sq.
 //
 // Numerics of the reference kernels: bf16 q and k; scores in f32 from the
-// bf16 dot, scaled after the dot; masked scores set to NEG_INF = -1e30 with
-// the fully-masked-row guards (m_safe, alpha); p summed in f32 and rounded
-// to bf16 before the PV product; the final divide guards l == 0. V is
-// either the first Dv lanes of the K row (no V pointer: MLA's [ckv; kpe]
-// cache, the reference's v_from_k) or a tensor of its own with its own
-// strides (GQA's separate K and V buffers), staged beside the K block.
+// bf16 dot over the first DQK lanes (the lane pad beyond is zero), scaled
+// after the dot; masked scores set to NEG_INF = -1e30 with the fully-masked
+// row guards (m_safe, alpha); p summed in f32 and rounded to bf16 before the
+// PV product; the final divide guards l == 0. V is either the first DV
+// lanes of the K row (no V pointer: MLA's [ckv; kpe] cache, the reference's
+// v_from_k) or a tensor of its own with its own strides (GQA's separate K
+// and V buffers).
 //
-// What bounds it on the H100: for MLA prefill, operations (Sq*G rows share
-// every K row, ~900 flops per cache byte); for decode, bytes (each cache
-// row is read once for all G heads). Design: a CTA owns BQ = 32 stacked
-// query rows of one (batch, kv head) and walks BK = 64-row kv blocks only
-// up to its tile's causal and kv_len frontier. The MLA widths (D = 640,
-// Dv = 512) put the f32 output tile at 64 KB, beyond registers, so Q, the
-// K block, the scores, p and the output accumulator all live in shared
-// memory and the eight warps run the two products as 16x16x16 bf16 tensor
-// core tiles (WMMA, f32 accumulation). Decode of one sequence runs on one
-// CTA and is latency-bound; split-KV is later work.
-#include <mma.h>
-
-#include "int4.cuh"
+// What bounds it on the H100: prefill, operations (Sq*G rows share every K
+// row); decode, bytes (each cache row is read once for all G heads).
+//
+// Design (FA2 shape on mma.sync m16n8k16, nothing large in shared memory):
+// a CTA of WM x SPLIT warps owns BM = 16*WM stacked query rows of one
+// (batch, kv head). Warp (wm, wn) owns rows 16*wm.. and, of each BK-row kv
+// block, the S columns wn*BK/SPLIT.. and the output columns wn*DVW..: S, O,
+// the row max m and the row sum l live in registers. K and V blocks arrive
+// through an NST-stage cp.async ring, so the next blocks load while this
+// one computes; Q stays in shared memory (its 576 MLA lanes would need 144
+// registers a thread). With SPLIT = 1 (GQA, DV ≤ 256) p goes to bf16 in
+// registers and is PV's A operand directly. MLA's DV = 512 makes a 16 x
+// 512 f32 O 256 registers a thread, over the limit, so SPLIT = 2 warps
+// share 16 rows: each computes half the block's scores, they exchange row
+// maxima, and each writes its half of P to shared memory once per block
+// and reads the whole P as A for its half of DV. Masks are evaluated only
+// on blocks that cross the diagonal, kv_len, or the split's end. Heaviest
+// row tiles launch first.
+//
+// Two launch forms (ops/flash_attention.py chooses from shapes):
+//  * one launch (chunk == 0): a CTA walks every kv block up to its tile's
+//    causal and kv_len frontier and writes bf16 O / l;
+//  * split-KV (chunk > 0, Sq*G ≤ 64: decode and verify steps): CTA (split,
+//    kv head, batch) walks rows [split*chunk, (split+1)*chunk) only and
+//    writes an f32 partial O with its m and l to a workspace (a split past
+//    kv_len writes m = NEG_INF, l = 0 and reads nothing); combine_kernel
+//    then merges the splits, m* = max m_i, l = Σ e^(m_i - m*) l_i,
+//    O = Σ e^(m_i - m*) O_i / l, and rounds to bf16 once. Decode thus
+//    runs on ~2 CTAs per SM instead of one CTA per kv head.
+#include "mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BQ = 32;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
-// Shared-memory row pitches padded off multiples of 128 bytes, so the 16
-// rows of a tensor-core tile fall on different banks.
-constexpr int LDS = BK + 4;   // scores, f32
-constexpr int LDP = BK + 8;   // p, bf16
 
-struct Smem {
-  __nv_bfloat16* q;  // [BQ][D + 8]
-  __nv_bfloat16* k;  // [BK][D + 8]
-  __nv_bfloat16* v;  // [BK][Dv + 8], separate V only
-  float* s;          // [BQ][LDS]
-  __nv_bfloat16* p;  // [BQ][LDP]
-  float* o;          // [BQ][Dv + 4]
-  float* m;          // [BQ]
-  float* l;          // [BQ]
-  int* pos;          // [BQ] absolute position of each row, -1 = no row
+struct Args {
+  const __nv_bfloat16* q;
+  long qsb, qss, qsh;
+  const __nv_bfloat16* kv;
+  long ksb, ksh, kss;
+  const __nv_bfloat16* v;  // nullptr: V is the first DV lanes of K
+  long vsb, vsh, vss;
+  __nv_bfloat16* out;
+  const int* q_off;
+  const int* kv_len;
+  float scale;
+  int Sq, Hq, Hkv, D, VW, DQK, DV;
+  int chunk, n_split;  // chunk == 0: one launch
+  float* opart;        // [B, Hkv, n_split, R, DV]
+  float* mpart;        // [B, Hkv, n_split, R]
+  float* lpart;
 };
 
-__host__ __device__ inline size_t smem_bytes(int D, int Dv, bool separate_v) {
-  return (size_t)BQ * (D + 8) * 2 + (size_t)BK * (D + 8) * 2 +
-         (separate_v ? (size_t)BK * (Dv + 8) * 2 : 0) + BQ * LDS * 4 +
-         BQ * LDP * 2 + (size_t)BQ * (Dv + 4) * 4 + BQ * 4 * 3;
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// Lanes of a staged K row: the score lanes, and V's when V lives in K.
+__host__ __device__ inline int k_lanes(int DQK, int DVP, bool vink) {
+  return round16(DQK > (vink ? DVP : 0) ? DQK : DVP);
 }
 
-__global__ void __launch_bounds__(THREADS)
-attention_kernel(const __nv_bfloat16* __restrict__ q, long qsb, long qss, long qsh,
-                 const __nv_bfloat16* __restrict__ kv, long ksb, long ksh, long kss,
-                 const __nv_bfloat16* __restrict__ vsep, long vsb, long vsh, long vss,
-                 __nv_bfloat16* __restrict__ out, const int* __restrict__ q_off,
-                 const int* __restrict__ kv_len, float scale, int Sq, int Hq, int Hkv,
-                 int S, int D, int Dv) {
+__host__ __device__ inline size_t smem_for(int WM, int SPLIT, int BK, int NST, int DVW,
+                                           int DQK, bool vink) {
+  const int BM = WM * 16, DVP = DVW * SPLIT;
+  const int KL = k_lanes(DQK, DVP, vink);
+  const size_t stage = (size_t)BK * (KL + 8) + (vink ? 0 : (size_t)BK * (DVP + 8));
+  return ((size_t)BM * (DQK + 8) + NST * stage + (size_t)BM * (BK + 8)) * 2 +
+         (size_t)SPLIT * BM * 4;
+}
+
+template <int WM, int SPLIT, int BK, int NST, int DVW>
+__global__ void __launch_bounds__(WM * SPLIT * 32, 1) attention_kernel(const Args a) {
+  constexpr int THREADS = WM * SPLIT * 32;
+  constexpr int BM = WM * 16;
+  constexpr int BKW = BK / SPLIT;  // score columns of a warp
+  constexpr int NTS = BKW / 8;     // their n8 tiles
+  constexpr int NTO = DVW / 8;     // n8 tiles of a warp's output columns
+  constexpr int DVP = DVW * SPLIT;
+  constexpr int LDP = BK + 8;
+  static_assert(BKW % 8 == 0 && BK % 16 == 0 && NTO % 2 == 0, "tile shape");
+  static_assert(SPLIT > 1 || NTS % 2 == 0, "register P needs whole k16 chunks");
+
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem sm;
-  unsigned char* ptr = smem_raw;
-  const int LDQ = D + 8, LDO = Dv + 4;
-  const int LDV = vsep ? Dv + 8 : LDQ;
-  sm.q = (__nv_bfloat16*)ptr; ptr += (size_t)BQ * LDQ * 2;
-  sm.k = (__nv_bfloat16*)ptr; ptr += (size_t)BK * LDQ * 2;
-  sm.v = sm.k;
-  if (vsep) { sm.v = (__nv_bfloat16*)ptr; ptr += (size_t)BK * LDV * 2; }
-  sm.s = (float*)ptr;         ptr += BQ * LDS * 4;
-  sm.p = (__nv_bfloat16*)ptr; ptr += BQ * LDP * 2;
-  sm.o = (float*)ptr;         ptr += (size_t)BQ * LDO * 4;
-  sm.m = (float*)ptr;         ptr += BQ * 4;
-  sm.l = (float*)ptr;         ptr += BQ * 4;
-  sm.pos = (int*)ptr;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int b = blockIdx.z;
-  const int hk = blockIdx.y;
-  const int G = Hq / Hkv;
-  const int R = Sq * G;
-  const int r0 = blockIdx.x * BQ;
-  const int qo = q_off[b];
-  const int kl = kv_len[b];
-  const int D8 = D / 8;
-
-  // Q tile: stacked rows (s, g) → head hk*G + g; rows past R are zero.
-  for (int i = tid; i < BQ * D8; i += THREADS) {
-    const int r = i / D8, c = (i % D8) * 8;
-    const int gr = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (gr < R) {
-      const int s = gr / G, h = hk * G + gr % G;
-      v = *reinterpret_cast<const uint4*>(q + b * qsb + s * qss + h * qsh + c);
+  const bool vink = a.v == nullptr;
+  const int G = a.Hq / a.Hkv, R = a.Sq * G;
+  const int b = blockIdx.z, hk = blockIdx.y;
+  const bool split = a.chunk > 0;
+  const int r0 = split ? 0 : (gridDim.x - 1 - blockIdx.x) * BM;
+  const int qo = a.q_off[b], kl = a.kv_len[b];
+  const int last = min(r0 + BM, R) - 1;
+  const int pmin = qo + r0 / G, pmax = qo + last / G;
+  const int kv_end = max(0, min(kl, pmax + 1));
+  int k_lo = 0, k_hi = kv_end;
+  if (split) {
+    k_lo = blockIdx.x * a.chunk;
+    k_hi = min(kv_end, k_lo + a.chunk);
+  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t ws = ((size_t)(b * a.Hkv + hk) * a.n_split + blockIdx.x) * R;
+  if (split && k_lo >= k_hi) {
+    for (int r = tid; r < R; r += THREADS) {
+      a.mpart[ws + r] = NEG_INF;
+      a.lpart[ws + r] = 0.f;
     }
-    *reinterpret_cast<uint4*>(sm.q + r * LDQ + c) = v;
+    return;
   }
-  for (int i = tid; i < BQ * LDO; i += THREADS) sm.o[i] = 0.f;
-  if (tid < BQ) {
-    const int gr = r0 + tid;
-    sm.pos[tid] = gr < R ? qo + gr / G : -1;
-    sm.m[tid] = NEG_INF;
-    sm.l[tid] = 0.f;
-  }
-  const int last = min(r0 + BQ, R) - 1;
-  const int kv_end = min(kl, qo + last / G + 1);
-  const int nblk = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
-  __syncthreads();
 
-  const __nv_bfloat16* kbase = kv + b * ksb + hk * ksh;
-  const __nv_bfloat16* vbase = vsep ? vsep + b * vsb + hk * vsh : nullptr;
-  const int Dv8 = Dv / 8;
+  const int KL = k_lanes(a.DQK, DVP, vink);
+  const int LDQ = a.DQK + 8, LDK = KL + 8, LDV = DVP + 8;
+  const int stage = BK * LDK + (vink ? 0 : BK * LDV);
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sring = sq + BM * LDQ;
+  __nv_bfloat16* sp = sring + NST * stage;
+  float* red = reinterpret_cast<float*>(sp + BM * LDP);  // [SPLIT][BM]
+
+  // Q tile: stacked rows (s, g) → head hk*G + g; rows past R are zero
+  {
+    const int DQ8 = a.DQK / 8;
+    for (int i = tid; i < BM * DQ8; i += THREADS) {
+      const int r = i / DQ8, c = (i % DQ8) * 8, gr = r0 + r;
+      const bool ok = gr < R;
+      const __nv_bfloat16* src = a.q;
+      if (ok) src = a.q + b * a.qsb + (gr / G) * a.qss + (hk * G + gr % G) * a.qsh + c;
+      ktt::cp_async16(sq + r * LDQ + c, src, ok);
+    }
+  }
+  const __nv_bfloat16* kbase = a.kv + b * a.ksb + hk * a.ksh;
+  const __nv_bfloat16* vbase = vink ? nullptr : a.v + b * a.vsb + hk * a.vsh;
+  // one kv block into a ring stage; rows past the walk's end and lanes past
+  // the buffers' width are zero, so masked p = 0 never meets garbage
+  auto load_block = [&](int j, int st) {
+    const int kb = k_lo + j * BK;
+    __nv_bfloat16* sk = sring + st * stage;
+    const int K8 = KL / 8;
+    for (int i = tid; i < BK * K8; i += THREADS) {
+      const int r = i / K8, c = (i % K8) * 8;
+      const bool ok = kb + r < k_hi && c < a.D;
+      ktt::cp_async16(sk + r * LDK + c, ok ? kbase + (long)(kb + r) * a.kss + c : a.kv, ok);
+    }
+    if (!vink) {
+      __nv_bfloat16* sv = sk + BK * LDK;
+      constexpr int V8 = DVP / 8;
+      for (int i = tid; i < BK * V8; i += THREADS) {
+        const int r = i / V8, c = (i % V8) * 8;
+        const bool ok = kb + r < k_hi && c < a.VW;
+        ktt::cp_async16(sv + r * LDV + c, ok ? vbase + (long)(kb + r) * a.vss + c : a.v, ok);
+      }
+    }
+  };
+
+  const int nblk = (k_hi - k_lo + BK - 1) / BK;
+  const int wm = warp / SPLIT, wn = warp % SPLIT;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = wm * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int pos[2] = {r0 + row0 < R ? qo + (r0 + row0) / G : -1,
+                      r0 + row0 + 8 < R ? qo + (r0 + row0 + 8) / G : -1};
+  const bool pad_rows = r0 + BM > R;
+
+  float o[NTO][4];
+#pragma unroll
+  for (int n = 0; n < NTO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int st = 0; st < NST - 1; ++st) {
+    if (st < nblk) load_block(st, st);
+    ktt::cp_commit();
+  }
   for (int j = 0; j < nblk; ++j) {
-    const int kb = j * BK;
-    for (int i = tid; i < BK * D8; i += THREADS) {
-      const int r = i / D8, c = (i % D8) * 8;
-      uint4 w = make_uint4(0, 0, 0, 0);
-      if (kb + r < kv_end && kb + r < S)
-        w = *reinterpret_cast<const uint4*>(kbase + (long)(kb + r) * kss + c);
-      *reinterpret_cast<uint4*>(sm.k + r * LDQ + c) = w;
-    }
-    if (vsep) {
-      for (int i = tid; i < BK * Dv8; i += THREADS) {
-        const int r = i / Dv8, c = (i % Dv8) * 8;
-        uint4 w = make_uint4(0, 0, 0, 0);
-        if (kb + r < kv_end && kb + r < S)
-          w = *reinterpret_cast<const uint4*>(vbase + (long)(kb + r) * vss + c);
-        *reinterpret_cast<uint4*>(sm.v + r * LDV + c) = w;
-      }
-    }
+    ktt::cp_wait<NST - 2>();
     __syncthreads();
+    if (j + NST - 1 < nblk) load_block(j + NST - 1, (j + NST - 1) % NST);
+    ktt::cp_commit();
+    const __nv_bfloat16* sk = sring + (j % NST) * stage;
+    const __nv_bfloat16* sv = vink ? sk : sk + BK * LDK;
+    const int ldv = vink ? LDK : LDV;
+    const int kb = k_lo + j * BK;
 
-    // scores: 2 x 4 tiles of 16x16, one per warp
-    {
-      const int rt = warp / (BK / 16), ct = warp % (BK / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < D; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sm.q + rt * 16 * LDQ + k0, LDQ);
-        wmma::load_matrix_sync(fb, sm.k + ct * 16 * LDQ + k0, LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sm.s + rt * 16 * LDS + ct * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // online softmax: 8 threads per row, 8 columns each
-    {
-      const int row = tid >> 3, part = tid & 7;
-      const int rp = sm.pos[row];
-      float v[8];
-      float mx = NEG_INF;
+    // S = Q K^T over this warp's BKW columns
+    float s[NTS][4];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = part * 8 + c, kp = kb + col;
-        const bool ok = rp >= 0 && kp <= rp && kp < kl;
-        v[c] = ok ? sm.s[row * LDS + col] * scale : NEG_INF;
-        mx = fmaxf(mx, v[c]);
-      }
+    for (int n = 0; n < NTS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const __nv_bfloat16* qrow = sq + (wm * 16 + (lane & 15)) * LDQ + (lane >> 4) * 8;
+#pragma unroll 4
+    for (int k0 = 0; k0 < a.DQK; k0 += 16) {
+      uint32_t af[4];
+      ktt::ldsm_x4(af, qrow + k0);
+      if constexpr (NTS == 1) {
+        uint32_t b0, b1;
+        ktt::ldsm_x2(b0, b1, sk + (wn * BKW + (lane & 7)) * LDK + k0 + ((lane >> 3) & 1) * 8);
+        ktt::mma_bf16(s[0], af, b0, b1);
+      } else {
 #pragma unroll
-      for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = sm.m[row];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = part * 8 + c, kp = kb + col;
-        const bool ok = rp >= 0 && kp <= rp && kp < kl;
-        const float pv = ok ? expf(v[c] - m_safe) : 0.f;
-        psum += pv;
-        sm.p[row * LDP + col] = __float2bfloat16(pv);
-      }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      const float alpha = m_prev <= NEG_INF / 2 ? 0.f : expf(m_prev - m_safe);
-      const float l_prev = sm.l[row];
-      __syncwarp();
-      if (part == 0) {
-        sm.l[row] = l_prev * alpha + psum;
-        sm.m[row] = m_new;
-      }
-      for (int c = part; c < Dv; c += 8) sm.o[row * LDO + c] *= alpha;
-    }
-    __syncthreads();
-
-    // O += P V with V = its own block, or the first Dv lanes of the K block
-    {
-      const int ctn = Dv / 16;
-      for (int t = warp; t < (BQ / 16) * ctn; t += THREADS / 32) {
-        const int rt = t / ctn, ct = t % ctn;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        float* optr = sm.o + rt * 16 * LDO + ct * 16;
-        wmma::load_matrix_sync(acc, optr, LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, sm.p + rt * 16 * LDP + kk, LDP);
-          wmma::load_matrix_sync(fb, sm.v + kk * LDV + ct * 16, LDV);
-          wmma::mma_sync(acc, fa, fb, acc);
+        for (int n = 0; n < NTS; n += 2) {
+          uint32_t bb[4];
+          ktt::ldsm_x4(bb, sk + (wn * BKW + n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LDK +
+                               k0 + ((lane >> 3) & 1) * 8);
+          ktt::mma_bf16(s[n], af, bb[0], bb[1]);
+          ktt::mma_bf16(s[n + 1], af, bb[2], bb[3]);
         }
-        wmma::store_matrix_sync(optr, acc, LDO, wmma::mem_row_major);
       }
     }
-    __syncthreads();
-  }
 
-  // out[b, s, h, :] = O / l  (l == 0: fully masked row → 0)
-  for (int i = tid; i < BQ * Dv; i += THREADS) {
-    const int r = i / Dv, c = i % Dv;
-    const int gr = r0 + r;
-    if (gr < R) {
-      const int s = gr / G, h = hk * G + gr % G;
-      const float l = sm.l[r];
-      const float den = l == 0.f ? 1.f : l;
-      out[(((long)b * Sq + s) * Hq + h) * Dv + c] = __float2bfloat16(sm.o[r * LDO + c] / den);
+    // scale, mask (only blocks that cross a frontier), row max
+    const bool need_mask = pad_rows || kb + BK > pmin + 1 || kb + BK > kl || kb + BK > k_hi;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NTS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[n][e] * a.scale;
+        if (need_mask) {
+          const int kp = kb + wn * BKW + n * 8 + 2 * t + (e & 1);
+          if (!(kp <= pos[e >> 1] && kp < kl && kp < k_hi)) v = NEG_INF;
+        }
+        s[n][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if constexpr (SPLIT > 1) {
+      if (t == 0) {
+        red[wn * BM + row0] = mx[0];
+        red[wn * BM + row0 + 8] = mx[1];
+      }
+      ktt::named_barrier(1 + wm, SPLIT * 32);
+#pragma unroll
+      for (int w = 0; w < SPLIT; ++w) {
+        mx[0] = fmaxf(mx[0], red[w * BM + row0]);
+        mx[1] = fmaxf(mx[1], red[w * BM + row0 + 8]);
+      }
+    }
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      m_safe[h] = m_new <= NEG_INF / 2 ? 0.f : m_new;
+      alpha[h] = m_run[h] <= NEG_INF / 2 ? 0.f : __expf(m_run[h] - m_safe[h]);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NTS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[n][e] <= NEG_INF / 2 ? 0.f : __expf(s[n][e] - m_safe[e >> 1]);
+        l_run[e >> 1] += p;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < NTO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V over this warp's DVW columns. SPLIT == 1: P from the score
+    // registers; else each warp's part of P through shared memory.
+    __nv_bfloat16* pw = sp + wm * 16 * LDP;
+    if constexpr (SPLIT > 1) {
+#pragma unroll
+      for (int n = 0; n < NTS; ++n) {
+        const int c = wn * BKW + n * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(pw + g * LDP + c) = ktt::pack_bf16(s[n][0], s[n][1]);
+        *reinterpret_cast<uint32_t*>(pw + (g + 8) * LDP + c) = ktt::pack_bf16(s[n][2], s[n][3]);
+      }
+      ktt::named_barrier(1 + wm, SPLIT * 32);
+    }
+    const __nv_bfloat16* vrow =
+        sv + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldv + wn * DVW + (lane >> 4) * 8;
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t af[4];
+      if constexpr (SPLIT == 1) {
+        af[0] = ktt::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        af[1] = ktt::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        af[2] = ktt::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        af[3] = ktt::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      } else {
+        ktt::ldsm_x4(af, pw + (lane & 15) * LDP + kc * 16 + (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int n = 0; n < NTO; n += 2) {
+        uint32_t bb[4];
+        ktt::ldsm_x4_t(bb, vrow + kc * 16 * ldv + n * 8);
+        ktt::mma_bf16(o[n], af, bb[0], bb[1]);
+        ktt::mma_bf16(o[n + 1], af, bb[2], bb[3]);
+      }
     }
   }
+  ktt::cp_wait<0>();
+
+  // row sums: over the quad, then over the SPLIT warps of the rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+  if constexpr (SPLIT > 1) {
+    __syncthreads();
+    if (t == 0) {
+      red[wn * BM + row0] = l_run[0];
+      red[wn * BM + row0 + 8] = l_run[1];
+    }
+    __syncthreads();
+    l_run[0] = l_run[1] = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPLIT; ++w) {
+      l_run[0] += red[w * BM + row0];
+      l_run[1] += red[w * BM + row0 + 8];
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = r0 + row0 + 8 * h;
+    if (gr >= R) continue;
+    if (!split) {
+      // out[b, s, h, :] = O / l  (l == 0: a row that sees no key → 0)
+      const float den = l_run[h] == 0.f ? 1.f : l_run[h];
+      __nv_bfloat16* op =
+          a.out + (((long)b * a.Sq + gr / G) * a.Hq + hk * G + gr % G) * a.DV;
+#pragma unroll
+      for (int n = 0; n < NTO; ++n) {
+        const int c = wn * DVW + n * 8 + 2 * t;
+        if (c < a.DV)
+          *reinterpret_cast<uint32_t*>(op + c) =
+              ktt::pack_bf16(o[n][2 * h] / den, o[n][2 * h + 1] / den);
+      }
+    } else {
+      float* op = a.opart + (ws + gr) * a.DV;
+#pragma unroll
+      for (int n = 0; n < NTO; ++n) {
+        const int c = wn * DVW + n * 8 + 2 * t;
+        if (c < a.DV)
+          *reinterpret_cast<float2*>(op + c) = make_float2(o[n][2 * h], o[n][2 * h + 1]);
+      }
+      if (wn == 0 && t == 0) {
+        a.mpart[ws + gr] = m_run[h];
+        a.lpart[ws + gr] = l_run[h];
+      }
+    }
+  }
+}
+
+constexpr int COMBINE_THREADS = 128;
+
+// One CTA per (stacked row, 128 output columns, batch x kv head).
+__global__ void __launch_bounds__(COMBINE_THREADS)
+combine_kernel(const float* __restrict__ opart, const float* __restrict__ mpart,
+               const float* __restrict__ lpart, __nv_bfloat16* __restrict__ out, int Sq,
+               int Hq, int Hkv, int n_split, int DV) {
+  extern __shared__ float wgt[];  // [n_split]
+  __shared__ float red[COMBINE_THREADS / 32];
+  const int G = Hq / Hkv, R = Sq * G;
+  const int r = blockIdx.x, b = blockIdx.z / Hkv, hk = blockIdx.z % Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t base = (size_t)(b * Hkv + hk) * n_split;
+
+  float mx = NEG_INF;
+  for (int i = tid; i < n_split; i += COMBINE_THREADS) mx = fmaxf(mx, mpart[(base + i) * R + r]);
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+  for (int w = 1; w < COMBINE_THREADS / 32; ++w) mx = fmaxf(mx, red[w]);
+  __syncthreads();
+  float l = 0.f;
+  for (int i = tid; i < n_split; i += COMBINE_THREADS) {
+    const float mi = mpart[(base + i) * R + r];
+    const float w = mi <= NEG_INF / 2 ? 0.f : expf(mi - mx);
+    wgt[i] = w;
+    l += w * lpart[(base + i) * R + r];
+  }
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+  if (lane == 0) red[warp] = l;
+  __syncthreads();
+  l = 0.f;
+  for (int w = 0; w < COMBINE_THREADS / 32; ++w) l += red[w];
+
+  const int c = blockIdx.y * COMBINE_THREADS + tid;
+  if (c >= DV) return;
+  // the loads are predicated, not branched over, so eight are in flight
+  float acc = 0.f;
+  const float* op = opart + (base * R + r) * DV + c;
+#pragma unroll 8
+  for (int i = 0; i < n_split; ++i) {
+    const float w = wgt[i];
+    const float v = w != 0.f ? __ldg(op + (size_t)i * R * DV) : 0.f;
+    acc += w * v;
+  }
+  const int s = r / G, h = hk * G + r % G;
+  out[(((long)b * Sq + s) * Hq + h) * DV + c] = __float2bfloat16(l == 0.f ? 0.f : acc / l);
+}
+
+template <int WM, int SPLIT, int BK, int NST, int DVW>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t bytes = smem_for(WM, SPLIT, BK, NST, DVW, a.DQK, a.v == nullptr);
+  auto kern = attention_kernel<WM, SPLIT, BK, NST, DVW>;
+  static size_t allowed = 0;  // the dynamic shared memory this instance may use
+  if (bytes > allowed) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed = bytes;
+  }
+  const int R = a.Sq * (a.Hq / a.Hkv);
+  const int nx = a.chunk > 0 ? a.n_split : (R + WM * 16 - 1) / (WM * 16);
+  kern<<<dim3(nx, a.Hkv, B), WM * SPLIT * 32, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int pow2_at_least(int x, int lo) {
+  int p = lo;
+  while (p < x) p *= 2;
+  return p;
+}
+
+// The launch shape for R stacked rows, DV output lanes and `ctas` one-launch
+// CTAs of 128 rows (kv heads x batch x row tiles):
+//   R ≤ 16 (decode):           1 x 8 warps, 64-row blocks, 2 stages, DVW = DV / 8;
+//   DV ≤ 256, ≥ 132 CTAs:      8 x 1 warps, 32-row blocks, 3 stages, DVW = DV;
+//   DV ≤ 256, fewer (chunks):  4 x 1 warps, the same, 64-row tiles for twice the CTAs;
+//   else (MLA):                4 x 2 warps, 32-row blocks, 3 stages, DVW = DV / 2.
+// DVW is a power of two ≥ 16 (the extra columns are computed from zero or
+// finite lanes and not stored).
+struct Shape {
+  int WM, SPLIT, BK, NST, DVW;
+};
+
+constexpr int SMS = 132;
+
+Shape shape_for(int R, int DV, long ctas128) {
+  if (R <= 16) return {1, 8, 64, 2, pow2_at_least((DV + 7) / 8, 16)};
+  if (DV <= 256) return {ctas128 >= SMS ? 8 : 4, 1, 32, 3, pow2_at_least(DV, 16)};
+  return {4, 2, 32, 3, pow2_at_least((DV + 1) / 2, 16)};
+}
+
+template <int WM>
+int launch_split1(const Args& a, int B, int DVW, cudaStream_t st) {
+  switch (DVW) {
+    case 16: return launch<WM, 1, 32, 3, 16>(a, B, st);
+    case 32: return launch<WM, 1, 32, 3, 32>(a, B, st);
+    case 64: return launch<WM, 1, 32, 3, 64>(a, B, st);
+    case 128: return launch<WM, 1, 32, 3, 128>(a, B, st);
+    case 256: return launch<WM, 1, 32, 3, 256>(a, B, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int attention_launch(const void* q, long qsb, long qss, long qsh,
-                                const void* kv, long ksb, long ksh, long kss,
-                                const void* v, long vsb, long vsh, long vss, void* out,
-                                const void* q_off, const void* kv_len, float scale,
-                                int B, int Sq, int Hq, int Hkv, int S, int D, int Dv,
-                                void* stream) {
-  const size_t bytes = smem_bytes(D, Dv, v != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+extern "C" long attention_smem_bytes(int R, int DQK, int DV, int vink) {
+  long most = 0;
+  const long ctas_cases[2] = {1, SMS};  // either one-launch shape for DV ≤ 256
+  for (long ctas : ctas_cases) {
+    const Shape s = shape_for(R, DV, ctas);
+    const long b = (long)smem_for(s.WM, s.SPLIT, s.BK, s.NST, s.DVW, DQK, vink != 0);
+    most = b > most ? b : most;
+  }
+  return most;
+}
+
+// chunk == 0: one launch. chunk > 0: the split launch, then the combine;
+// `ws` holds the partial O [B, Hkv, n_split, R, DV] and then m and l
+// [B, Hkv, n_split, R], f32.
+extern "C" int attention_launch(const void* q, long qsb, long qss, long qsh, const void* kv,
+                                long ksb, long ksh, long kss, const void* v, long vsb,
+                                long vsh, long vss, void* out, const void* q_off,
+                                const void* kv_len, float scale, int B, int Sq, int Hq,
+                                int Hkv, int D, int VW, int DQK, int DV, int chunk,
+                                int n_split, void* ws, void* stream) {
   const int R = Sq * (Hq / Hkv);
-  dim3 grid((R + BQ - 1) / BQ, Hkv, B);
-  attention_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, qsb, qss, qsh, (const __nv_bfloat16*)kv, ksb, ksh, kss,
-      (const __nv_bfloat16*)v, vsb, vsh, vss, (__nv_bfloat16*)out, (const int*)q_off, (const int*)kv_len, scale, Sq, Hq, Hkv, S,
-      D, Dv);
+  if (chunk > 0 && R > 64) return (int)cudaErrorInvalidValue;
+  const size_t parts = (size_t)B * Hkv * n_split * R;
+  float* opart = (float*)ws;
+  float* mpart = chunk > 0 ? opart + parts * DV : nullptr;
+  float* lpart = chunk > 0 ? mpart + parts : nullptr;
+  Args a{(const __nv_bfloat16*)q, qsb, qss, qsh, (const __nv_bfloat16*)kv, ksb, ksh, kss,
+         (const __nv_bfloat16*)v, vsb, vsh, vss, (__nv_bfloat16*)out, (const int*)q_off,
+         (const int*)kv_len, scale, Sq, Hq, Hkv, D, VW, DQK, DV, chunk, n_split,
+         opart, mpart, lpart};
+  cudaStream_t st = (cudaStream_t)stream;
+  const Shape s = shape_for(R, DV, (long)B * Hkv * ((R + 127) / 128));
+  int err = (int)cudaErrorInvalidValue;
+  if (s.WM == 1) {
+    switch (s.DVW) {
+      case 16: err = launch<1, 8, 64, 2, 16>(a, B, st); break;
+      case 32: err = launch<1, 8, 64, 2, 32>(a, B, st); break;
+      case 64: err = launch<1, 8, 64, 2, 64>(a, B, st); break;
+    }
+  } else if (s.SPLIT == 1) {
+    err = s.WM == 8 ? launch_split1<8>(a, B, s.DVW, st) : launch_split1<4>(a, B, s.DVW, st);
+  } else if (s.DVW == 256) {
+    err = launch<4, 2, 32, 3, 256>(a, B, st);
+  }
+  if (err != 0 || chunk == 0) return err;
+  dim3 grid(R, (DV + COMBINE_THREADS - 1) / COMBINE_THREADS, B * Hkv);
+  combine_kernel<<<grid, COMBINE_THREADS, n_split * sizeof(float), st>>>(
+      opart, mpart, lpart, (__nv_bfloat16*)out, Sq, Hq, Hkv, n_split, DV);
   return (int)cudaGetLastError();
 }

@@ -1,151 +1,277 @@
 // K4 — grouped expert GEMM over expert-sorted row tiles, with two epilogues:
 //   swiglu: out[r, :I] (bf16) = swiglu(bf16(x[src(r)] @ dequant(W13[e])))
-//   f32:    out[r, :N] (f32)  = x[r] @ dequant(W2[e])
+//   f32:    out[r, :N] (f32)  = x[src(r)] @ dequant(W[e])
 // where tile t = rows [t*TM, (t+1)*TM) all belong to expert e = tile_e[t],
-// src(r) = row_src[r] gathers the token row (-1: a padding row, read as 0),
-// and tiles with tile_valid[t] == 0 are skipped.
+// src(r) = row_src[r] gathers the token row (-1: a padding row, read as 0;
+// no row_src: the rows are x's own), and tiles with tile_valid[t] == 0 are
+// skipped. TM is the plan's tile height, 64 or 128.
 //
 // Replaces: krasis_tpu/ops/gmm_pallas.py gmm13_fused (SwiGLU epilogue) and
 // gmm2_fused (f32 epilogue). Numerics as there: each expert weight is
-// dequantized in f32 and rounded to bf16, the products accumulate in f32,
-// and the w13 result is rounded to bf16 before SwiGLU in f32.
+// dequantized as bf16(f32(q) * scale), the products accumulate in f32, and
+// the w13 result is rounded to bf16 before SwiGLU in f32 (or the GPT-OSS
+// form: g = min(g, lim), u = clamp(u, -lim, lim), g·σ(1.702 g)·(u + 1)).
 //
-// What bounds it on the H100: operations. At T = 2048 and 6 picks a
-// V2-Lite w13 layer is ~1.4e11 flops over ~190 MB of packed experts, far
-// above the ~295 flops per byte where the tensor cores bind. Design: a CTA
-// owns a 64-row tile of one expert and 128 output columns and walks K in
-// steps of 32; each step gathers the tile's token rows straight from x (no
-// sorted copy of x is materialised) and dequantizes the expert's 32x128
-// weight block into shared memory, then the 8 warps run 16x16x16 bf16
-// tensor core tiles (WMMA) into f32 accumulators held in registers. For
-// w13 the CTA's columns are 64 gate columns and their 64 up columns, so the
-// SwiGLU epilogue is local and the f32 h never reaches device memory.
-// wgmma, TMA and a pipelined weight stream are later work.
+// What bounds it on the H100: operations at V2-Lite's shapes (~1.4e11
+// flops over ~190 MB of packed experts at T = 2048), bytes where experts
+// get few rows (the hybrid: 513 experts, ~40 rows each). Design:
+//  * a CTA owns a TM-row tile of one expert and 128 output columns (for
+//    w13: 64 gate columns and their 64 up columns, so SwiGLU is local and
+//    the f32 h never reaches device memory); 8 warps as 2 x 4, each
+//    TM/2 rows x 32 columns of f32 accumulators in registers;
+//  * the weights stream through a 4- or 6-stage cp.async ring in steps of
+//    32 packed rows with their scale rows; the loads of the next 3 or 5
+//    steps are in flight while step j computes. For int4 a step uses both nibbles of each byte,
+//    K rows r0.. (low) and K/2 + r0.. (high), with the matching two column
+//    ranges of x and both scale rows, so every packed byte is fetched once;
+//  * token rows are gathered through row_src by cp.async, 16 bytes a
+//    thread, zero-filled for padding rows;
+//  * dequantization happens in registers (Marlin's layout): ldmatrix.trans
+//    of the packed bytes gives each thread, per 16-byte column block, the
+//    k pairs (2t, 2t+1) and (2t+8, 2t+9) of columns 2g and 2g+1, which are
+//    the B fragments of mma.sync m16n8k16 for two n8 tiles (the even and
+//    the odd columns). Two values at a time become exact bf16 integers
+//    (int4: the nibble in the low bits of bf16 128, minus 136; int8: the
+//    byte in the low bits of f32 2^23, minus the bias, packed), and one
+//    bf16 multiply by the scale rounds the exact product once: bf16(float(q)
+//    * scale), as the reference. No bf16 weight tile goes through shared
+//    memory;
+//  * both epilogues read the same accumulators, so K7 + SwiGLU + K7 equals
+//    K4 bit for bit.
 //
 // K7 — the two-stage grouped GEMM (krasis_tpu/ops/gmm_pallas.py gmm, which
 // moe_prefill_pallas runs twice with SwiGLU between when one expert's block
 // is too large for its fused kernels) is this kernel's f32 epilogue at both
-// call shapes: w13 with gathered token rows to f32 [Mp, 2I], and w2. The
-// accumulators are the fused epilogue's, so rounding the f32 h to bf16 and
-// applying SwiGLU outside gives the fused result bit for bit.
+// call shapes: w13 with gathered token rows to f32 [Mp, 2I], and w2.
 //
-// K7a — gmm_a8_kernel, the same tiles with int8 rows (gmm_pallas.py gmm_a8,
-// _gmm_kernel_a8): out[r, :] = Σ_g (xq[r, g] · W[e, g]) * sx[r, g] * sw[g, :],
-// the weights unpacked to int8 with no scale, one exact int32 dot per
-// K-group, folded into the f32 sum at each group boundary, groups in order
-// (d * sx first, then * sw, then the add, each rounded, as the reference
-// writes it). Bound by bytes at int8's tensor-core peak; this first version
-// does not use the tensor cores: each thread keeps an 8 x 4 block of int32
-// dots with dp4a, reading the rows' 4-byte k-quads from shared memory by
-// broadcast and the weights repacked k-major, 4 k values of a column in one
-// word. A padding row (row_src < 0) reads as zeros and gives zeros.
-#include <mma.h>
-
+// K7a — gmm_a8_kernel, the same tiles (TM = 64) with int8 rows
+// (gmm_pallas.py gmm_a8, _gmm_kernel_a8): out[r, :] = Σ_g (xq[r, g] · W[e, g])
+// * sx[r, g] * sw[g, :], the weights unpacked to int8 with no scale, one exact
+// int32 dot per K-group, folded into the f32 sum at each group boundary,
+// groups in order (d * sx first, then * sw, then the add, each rounded, as
+// the reference writes it). Bound by bytes at int8's tensor-core peak; this
+// version does not use the tensor cores: each thread keeps an 8 x 4 block of
+// int32 dots with dp4a, reading the rows' 4-byte k-quads from shared memory
+// by broadcast and the weights repacked k-major, 4 k values of a column in
+// one word. A padding row (row_src < 0) reads as zeros and gives zeros.
 #include "int4.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int TM = 64;
+constexpr int TM = 64;       // K7a's tile rows
 constexpr int BN = 128;
-constexpr int BK = 32;
 constexpr int THREADS = 256;
-constexpr int LDA = BK + 8;
-constexpr int LDB = BN + 8;
 
+// gmm_kernel's ring: PK packed weight rows a step; 6 stages for 64-row
+// tiles (bytes-bound: few rows an expert), 4 for 128-row ones (two CTAs of
+// either fit an SM).
+constexpr int PK = 32;
+__host__ __device__ constexpr int stages(int tm) { return tm == 64 ? 6 : 4; }
+constexpr int LDA = 72;      // bf16 pitch of an A row: 64 k values + 8
+constexpr int LDB = 144;     // byte pitch of a packed weight row: 128 + 16
+
+__host__ __device__ constexpr int stage_bytes(int tm) {
+  return tm * LDA * 2 + PK * LDB + 2 * BN * 2;
+}
+
+// An exact f32 of a small integer: the bits of 2^23 + u, minus the bias.
+__device__ __forceinline__ float magic(uint32_t bits, float bias) {
+  return __uint_as_float(bits) - bias;
+}
+
+template <int TMR>
 __global__ void __launch_bounds__(THREADS)
 gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
            const int8_t* __restrict__ q, const __nv_bfloat16* __restrict__ s,
            const int* __restrict__ tile_e, const int* __restrict__ tile_valid,
            void* __restrict__ out, int K, int N, int bits, int gs, long q_estride,
-           long s_estride, int swiglu) {
+           long s_estride, int swiglu, float limit, int gpt_oss) {
+  constexpr int MI = TMR / 32;  // m16 tiles of a warp
+  constexpr int NST = stages(TMR);
   const int tile = blockIdx.x;
   if (!tile_valid[tile]) return;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int e = tile_e[tile];
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
   const int I = N / 2;
+  const bool is4 = bits == 4;
+  const int rows = is4 ? K / 2 : K;  // packed weight rows
+  const int khalf = K / 2;
+  const int steps = rows / PK;
+  // the CTA's 128 columns: swiglu, 64 gate (n0h..) then their 64 up columns
   const int n0 = swiglu ? blockIdx.y * (BN / 2) : blockIdx.y * BN;
   const int8_t* qe = q + e * q_estride;
   const __nv_bfloat16* se = s + e * s_estride;
 
-  __shared__ __align__(128) unsigned char smem[(TM * LDA + BK * LDB) * 2 + TM * BN * 4];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + TM * LDA;
-  float* Cs = reinterpret_cast<float*>(Bs + BK * LDB);
-
-  // A rows this thread loads: one 16-byte chunk of one row per K step
-  const int ar = tid / 4, ac = (tid % 4) * 8;
-  const int grow = tile * TM + ar;
-  const int src = row_src ? row_src[grow] : grow;
-
-  const int wr = (warp / 4) * 32, wc = (warp % 4) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // A loads of this thread: CPR 16-byte chunks per row, fixed rows
+  const int CPR = is4 ? 8 : 4;
+  constexpr int MAXIT = TMR * 8 / THREADS;
+  const __nv_bfloat16* arow[MAXIT];
+  int a_r[MAXIT];
+  const int a_c = tid % CPR;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    uint4 av = make_uint4(0, 0, 0, 0);
-    if (src >= 0) av = *reinterpret_cast<const uint4*>(x + (long)src * K + k0 + ac);
-    *reinterpret_cast<uint4*>(As + ar * LDA + ac) = av;
-#pragma unroll
-    for (int it = 0; it < (BK * BN / 4) / THREADS; ++it) {
-      const int i = tid + it * THREADS;
-      const int kr = i / (BN / 4), lc = (i % (BN / 4)) * 4;
-      const int gc = swiglu ? (lc < BN / 2 ? n0 + lc : I + n0 + lc - BN / 2) : n0 + lc;
-      int w[4];
-      float sc[4];
-      ktt::load_w4cols(qe, bits, K, N, k0 + kr, gc, w);
-      ktt::load_s4cols(se, N, (k0 + kr) / gs, gc, sc);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        Bs[kr * LDB + lc + c] = __float2bfloat16((float)w[c] * sc[c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wr + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wc + 16 * j, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr + 16 * i) * BN + wc + 16 * j, acc[i][j], BN,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  const long row0 = (long)tile * TM;
-  if (swiglu) {
-    __nv_bfloat16* o = (__nv_bfloat16*)out;
-    for (int i = tid; i < TM * (BN / 2); i += THREADS) {
-      const int r = i / (BN / 2), c = i % (BN / 2);
-      const float g = __bfloat162float(__float2bfloat16(Cs[r * BN + c]));
-      const float u = __bfloat162float(__float2bfloat16(Cs[r * BN + BN / 2 + c]));
-      o[(row0 + r) * I + n0 + c] = __float2bfloat16(g * (1.f / (1.f + expf(-g))) * u);
-    }
-  } else {
-    float* o = (float*)out;
-    for (int i = tid; i < TM * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      o[(row0 + r) * N + n0 + c] = Cs[i];
+  for (int it = 0; it < MAXIT; ++it) {
+    const int r = (tid + it * THREADS) / CPR;
+    a_r[it] = r;
+    arow[it] = nullptr;
+    if (r < TMR) {
+      const int grow = tile * TMR + r;
+      const int src = row_src ? row_src[grow] : grow;
+      if (src >= 0) arow[it] = x + (long)src * K;
     }
   }
+  const int a_kofs = is4 ? (a_c < 4 ? a_c * 8 : khalf + (a_c - 4) * 8) : a_c * 8;
+  // B / scale loads: packed row tid / 8, 16-column chunk tid % 8
+  const int b_r = tid >> 3, b_c = tid & 7;
+  auto gcol = [&](int sc) { return swiglu ? (sc < 64 ? n0 + sc : I + n0 + sc - 64) : n0 + sc; };
+  const int b_gc = gcol(b_c * 16);
+
+  auto load_stage = [&](int j, int st) {
+    unsigned char* base = smem + st * stage_bytes(TMR);
+    __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(base);
+    int8_t* sb = reinterpret_cast<int8_t*>(base + TMR * LDA * 2);
+    __nv_bfloat16* ss = reinterpret_cast<__nv_bfloat16*>(base + TMR * LDA * 2 + PK * LDB);
+    const int p0 = j * PK;
+#pragma unroll
+    for (int it = 0; it < MAXIT; ++it) {
+      if (a_r[it] < TMR) {
+        const __nv_bfloat16* src = arow[it] ? arow[it] + p0 + a_kofs : x;
+        ktt::cp_async16(sa + a_r[it] * LDA + a_c * 8, src, arow[it] != nullptr);
+      }
+    }
+    ktt::cp_async16(sb + b_r * LDB + b_c * 16, qe + (long)(p0 + b_r) * N + b_gc, true);
+    if (tid < 32) {  // scale rows: the low half's group, then the high half's
+      const int h = tid >> 4, c8 = (tid & 15) * 8;
+      const int grp = (h == 0 ? p0 : khalf + p0) / gs;
+      const bool ok = h == 0 || is4;
+      ktt::cp_async16(ss + h * BN + c8, se + (long)grp * N + gcol(c8), ok);
+    }
+  };
+
+  // smem columns of this warp's two 16-column blocks
+  const int cb_col[2] = {swiglu ? wn * 16 : wn * 32, swiglu ? 64 + wn * 16 : wn * 32 + 16};
+  const int ld_col = (lane >> 4) ? cb_col[1] : cb_col[0];
+
+  float acc[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < NST - 1; ++st) {
+    if (st < steps) load_stage(st, st);
+    ktt::cp_commit();
+  }
+  for (int j = 0; j < steps; ++j) {
+    ktt::cp_wait<NST - 2>();
+    __syncthreads();
+    if (j + NST - 1 < steps) load_stage(j + NST - 1, (j + NST - 1) % NST);
+    ktt::cp_commit();
+    const unsigned char* base = smem + (j % NST) * stage_bytes(TMR);
+    const __nv_bfloat16* sa = reinterpret_cast<const __nv_bfloat16*>(base);
+    const int8_t* sb = reinterpret_cast<const int8_t*>(base + TMR * LDA * 2);
+    const __nv_bfloat16* ss =
+        reinterpret_cast<const __nv_bfloat16*>(base + TMR * LDA * 2 + PK * LDB);
+    // scales of this thread's 4 columns (block cb, parity p), both halves,
+    // each as a bf16 pair for the two k rows of a fragment register
+    __nv_bfloat162 sc[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        sc[h][n] = __bfloat162bfloat162(ss[h * BN + cb_col[n >> 1] + 2 * g + (n & 1)]);
+#pragma unroll
+    for (int kk = 0; kk < PK; kk += 16) {
+      uint32_t wr[4];
+      ktt::ldsm_x4_t(wr, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + ld_col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && !is4) break;
+        // B fragments of the 4 n8 tiles (cb, parity) for this half: the
+        // bytes (p, p + 2) of a register are one column's k pair
+        uint32_t bf[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int q2 = 0; q2 < 2; ++q2) {
+            const uint32_t w = wr[(n >> 1) * 2 + q2];
+            const int p = n & 1;
+            __nv_bfloat162 v;
+            if (is4) {
+              // (nibble ^ 8) in the low bits of bf16 128: 128 + u, minus 136
+              const uint32_t m = ((w >> (8 * p + 4 * h)) & 0x000F000Fu) ^ 0x43084308u;
+              v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                          __float2bfloat162_rn(136.f));
+            } else {
+              const uint32_t u = w ^ 0x80808080u;
+              v = __floats2bfloat162_rn(
+                  magic(__byte_perm(u, 0x4B000000u, 0x7440 | p), 8388736.f),
+                  magic(__byte_perm(u, 0x4B000000u, 0x7440 | (p + 2)), 8388736.f));
+            }
+            // exact integers times bf16 scales, rounded once: bf16(f32(q) * s)
+            v = __hmul2(v, sc[h][n]);
+            bf[n][q2] = *reinterpret_cast<uint32_t*>(&v);
+          }
+        }
+        const int acol = h * 32 + kk;
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          uint32_t af[4];
+          ktt::ldsm_x4(af, sa + (wm * (TMR / 2) + i * 16 + (lane & 15)) * LDA + acol +
+                               (lane >> 4) * 8);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) ktt::mma_bf16(acc[i][n], af, bf[n][0], bf[n][1]);
+        }
+      }
+    }
+  }
+  ktt::cp_wait<0>();
+
+  // Thread (g, t) holds, per m16 tile and row (g, g+8), the columns
+  // cb_col[cb] + 4t .. +3 of each block: (even, odd) tiles' c0, c1 are the
+  // columns +0, +2 and +1, +3.
+  const long row0 = (long)tile * TMR + wm * (TMR / 2);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long r = row0 + i * 16 + g + 8 * h;
+      float v[2][4];
+#pragma unroll
+      for (int cb = 0; cb < 2; ++cb) {
+        v[cb][0] = acc[i][2 * cb][2 * h];
+        v[cb][1] = acc[i][2 * cb + 1][2 * h];
+        v[cb][2] = acc[i][2 * cb][2 * h + 1];
+        v[cb][3] = acc[i][2 * cb + 1][2 * h + 1];
+      }
+      if (swiglu) {
+        uint32_t packed[2];
+#pragma unroll
+        for (int c = 0; c < 4; c += 2) {
+          float a2[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            a2[k] = ktt::mlp_act(__bfloat162float(__float2bfloat16(v[0][c + k])),
+                                 __bfloat162float(__float2bfloat16(v[1][c + k])), limit,
+                                 gpt_oss != 0);
+          }
+          packed[c / 2] = ktt::pack_bf16(a2[0], a2[1]);
+        }
+        __nv_bfloat16* o = (__nv_bfloat16*)out;
+        *reinterpret_cast<uint2*>(o + r * I + n0 + wn * 16 + 4 * t) =
+            make_uint2(packed[0], packed[1]);
+      } else {
+        float* o = (float*)out;
+#pragma unroll
+        for (int cb = 0; cb < 2; ++cb)
+          *reinterpret_cast<float4*>(o + r * N + n0 + cb_col[cb] + 4 * t) =
+              make_float4(v[cb][0], v[cb][1], v[cb][2], v[cb][3]);
+      }
+    }
 }
 
 constexpr int A8_BK = 32;           // k rows per step; the group size is a multiple
@@ -260,14 +386,34 @@ extern "C" int gmm_a8_launch(const void* xq, const void* sx, const void* row_src
   return (int)cudaGetLastError();
 }
 
-extern "C" int gmm_launch(const void* x, const void* row_src, const void* q,
-                          const void* s, const void* tile_e, const void* tile_valid,
-                          void* out, int n_tiles, int K, int N, int bits, int gs,
-                          long q_estride, long s_estride, int swiglu, void* stream) {
+template <int TMR>
+int gmm_launch_tm(const void* x, const void* row_src, const void* q, const void* s,
+                  const void* tile_e, const void* tile_valid, void* out, int n_tiles, int K,
+                  int N, int bits, int gs, long q_estride, long s_estride, int swiglu,
+                  float limit, int gpt_oss, cudaStream_t stream) {
+  const int bytes = stages(TMR) * stage_bytes(TMR);
+  cudaError_t err = cudaFuncSetAttribute(gmm_kernel<TMR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(n_tiles, swiglu ? (N / 2) / (BN / 2) : N / BN);
-  gmm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  gmm_kernel<TMR><<<grid, THREADS, bytes, stream>>>(
       (const __nv_bfloat16*)x, (const int*)row_src, (const int8_t*)q,
-      (const __nv_bfloat16*)s, (const int*)tile_e, (const int*)tile_valid, out, K, N,
-      bits, gs, q_estride, s_estride, swiglu);
+      (const __nv_bfloat16*)s, (const int*)tile_e, (const int*)tile_valid, out, K, N, bits,
+      gs, q_estride, s_estride, swiglu, limit, gpt_oss);
   return (int)cudaGetLastError();
+}
+
+extern "C" int gmm_launch(const void* x, const void* row_src, const void* q, const void* s,
+                          const void* tile_e, const void* tile_valid, void* out, int n_tiles,
+                          int tm, int K, int N, int bits, int gs, long q_estride,
+                          long s_estride, int swiglu, float limit, int gpt_oss,
+                          void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tm == 64)
+    return gmm_launch_tm<64>(x, row_src, q, s, tile_e, tile_valid, out, n_tiles, K, N, bits,
+                             gs, q_estride, s_estride, swiglu, limit, gpt_oss, st);
+  if (tm == 128)
+    return gmm_launch_tm<128>(x, row_src, q, s, tile_e, tile_valid, out, n_tiles, K, N, bits,
+                              gs, q_estride, s_estride, swiglu, limit, gpt_oss, st);
+  return (int)cudaErrorInvalidValue;
 }

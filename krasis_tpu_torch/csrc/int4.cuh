@@ -51,4 +51,17 @@ __device__ __forceinline__ float deq_bf16(int q, float scale) {
   return __bfloat162float(__float2bfloat16((float)q * scale));
 }
 
+// The MLP activation on f32 gate g and up u: SwiGLU g·σ(g)·u, or with
+// gpt_oss the clamped GPT-OSS form g = min(g, lim), u = clamp(u, -lim,
+// lim), g·σ(1.702 g)·(u + 1). σ is 1 / (1 + e^-x) in full-precision expf,
+// which gives PyTorch's sigmoid bit for bit.
+__device__ __forceinline__ float mlp_act(float g, float u, float lim, bool gpt_oss) {
+  if (gpt_oss) {
+    g = fminf(g, lim);
+    u = fminf(fmaxf(u, -lim), lim);
+    return g * (1.f / (1.f + expf(-(1.702f * g)))) * (u + 1.f);
+  }
+  return g * (1.f / (1.f + expf(-g))) * u;
+}
+
 }  // namespace ktt

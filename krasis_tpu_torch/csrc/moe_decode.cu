@@ -1,5 +1,5 @@
 // K3 — W4A8 gathered expert MLP for decode, in two launches:
-//   stage 1: a[p, :] = swiglu(h)   with h = xq[t] · W13[e] by int8 group dots
+//   stage 1: a[p, :] = act(h)      with h = xq[t] · W13[e] by int8 group dots
 //   stage 2: o[p, :] = wt[p] * (requant(a[p]) · W2[e])
 // for every pick p = (token t = p / k, expert e = idx[p]); the wrapper sums
 // the k picks of a token in pick order and casts to bf16.
@@ -9,7 +9,8 @@
 // Numerics as there: activations are int8 per row and K-group with scale
 // max|x|/127 clamped at 1e-8, rounded half to even and clipped to ±127;
 // each int8 x int8 group dot is summed in int32, then acc += d * sx * sw in
-// f32; SwiGLU runs on the f32 h with no bf16 rounding; the hidden is
+// f32; the activation (SwiGLU, or GPT-OSS's clamped form when asked:
+// ktt::mlp_act) runs on the f32 h with no bf16 rounding; the hidden is
 // requantized from the f32 activations in stage 2.
 //
 // What bounds it on the H100: bytes. Each pick reads its expert's packed
@@ -24,11 +25,11 @@
 //
 // K5 — the bf16-activation sibling (w13_bf16_kernel, w2_bf16_kernel), with
 // the same two launches and the same CTA shapes:
-//   stage 1: a[p, :] = bf16(swiglu(h))  with h = x[t] · dequant(W13[e]) in f32
+//   stage 1: a[p, :] = bf16(act(h))  with h = x[t] · dequant(W13[e]) in f32
 //   stage 2: o[p, :] = wt[p] * (a[p] · dequant(W2[e]))
 // Replaces: krasis_tpu/ops/moe_pallas.py moe_gathered_pallas (_kernel with
 // _unpack_scale). Numerics as there: each weight is dequantized in f32 and
-// rounded to bf16; x is bf16; h accumulates in f32 and SwiGLU runs on the
+// rounded to bf16; x is bf16; h accumulates in f32 and the activation runs on the
 // f32 h; a is rounded to bf16 before the w2 product; the f32 output is
 // scaled by the routing weight and the wrapper sums the picks in f32 in
 // pick order. Bound by bytes like K3: the packed expert weights are read
@@ -107,7 +108,8 @@ __global__ void __launch_bounds__(WARPS * 32)
 w13_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
            const int* __restrict__ idx, const int8_t* __restrict__ q13,
            const __nv_bfloat16* __restrict__ s13, float* __restrict__ a_out, int k,
-           int H, int I, int bits, int gs, long q_estride, long s_estride) {
+           int H, int I, int bits, int gs, long q_estride, long s_estride, float limit,
+           int gpt_oss) {
   const int p = blockIdx.x;
   const int t = p / k;
   const int e = idx[p];
@@ -130,7 +132,7 @@ w13_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       g += red[w][c];
       u += red[w][64 + c];
     }
-    a_out[(long)p * I + n0 + c] = g * (1.f / (1.f + expf(-g))) * u;
+    a_out[(long)p * I + n0 + c] = ktt::mlp_act(g, u, limit, gpt_oss != 0);
   }
 }
 
@@ -184,7 +186,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 w13_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx,
                 const int8_t* __restrict__ q13, const __nv_bfloat16* __restrict__ s13,
                 __nv_bfloat16* __restrict__ a_out, int k, int H, int I, int bits, int gs,
-                long q_estride, long s_estride) {
+                long q_estride, long s_estride, float limit, int gpt_oss) {
   const int p = blockIdx.x;
   const int t = p / k;
   const int e = idx[p];
@@ -207,7 +209,7 @@ w13_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx
       g += red[w][c];
       u += red[w][64 + c];
     }
-    a_out[(long)p * I + n0 + c] = __float2bfloat16(g * (1.f / (1.f + expf(-g))) * u);
+    a_out[(long)p * I + n0 + c] = __float2bfloat16(ktt::mlp_act(g, u, limit, gpt_oss != 0));
   }
 }
 
@@ -321,12 +323,12 @@ extern "C" int gathered_qmm_a8_launch(const void* xq, const void* sx, const void
 extern "C" int moe_w13_bf16_launch(const void* x, const void* idx, const void* q13,
                                    const void* s13, void* a_out, int P, int k, int H,
                                    int I, int bits, int gs, long q_estride,
-                                   long s_estride, void* stream) {
+                                   long s_estride, float limit, int gpt_oss, void* stream) {
   dim3 grid(P, I / 64);
   w13_bf16_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const int*)idx, (const int8_t*)q13,
       (const __nv_bfloat16*)s13, (__nv_bfloat16*)a_out, k, H, I, bits, gs, q_estride,
-      s_estride);
+      s_estride, limit, gpt_oss);
   return (int)cudaGetLastError();
 }
 
@@ -344,11 +346,12 @@ extern "C" int moe_w2_bf16_launch(const void* a, const void* idx, const void* wt
 extern "C" int moe_w13_launch(const void* xq, const void* sx, const void* idx,
                               const void* q13, const void* s13, void* a_out, int P, int k,
                               int H, int I, int bits, int gs, long q_estride,
-                              long s_estride, void* stream) {
+                              long s_estride, float limit, int gpt_oss, void* stream) {
   dim3 grid(P, I / 64);
   w13_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const int8_t*)xq, (const float*)sx, (const int*)idx, (const int8_t*)q13,
-      (const __nv_bfloat16*)s13, (float*)a_out, k, H, I, bits, gs, q_estride, s_estride);
+      (const __nv_bfloat16*)s13, (float*)a_out, k, H, I, bits, gs, q_estride, s_estride,
+      limit, gpt_oss);
   return (int)cudaGetLastError();
 }
 

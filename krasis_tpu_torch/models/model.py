@@ -72,7 +72,7 @@ def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
         lc[name][bidx[keep], :, positions[keep]] = rows[keep]
 
     out = flash_attention(F.pad(q, (0, Dp - d)), lc["k"], positions[:, 0], kv_len,
-                          d ** -0.5, v_dim=d, v=lc["v"])
+                          d ** -0.5, v_dim=d, v=lc["v"], qk_dim=d)
     out = out.reshape(B, S, hq * d)
     if gate is not None:
         out = out * torch.sigmoid(gate.to(torch.float32)).to(out.dtype)
@@ -165,7 +165,8 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     q_eff = torch.einsum("bshd,hdl->bshl", q_nope.to(torch.float32),
                          lp["w_kc"].to(torch.float32)).to(x.dtype)
     q_cat = F.pad(torch.cat([q_eff, q_pe.to(x.dtype)], dim=-1), (0, Dp - (L + dr)))
-    ctx = flash_attention(q_cat, cache, positions[:, 0], kv_len, scale, v_dim=L)
+    ctx = flash_attention(q_cat, cache, positions[:, 0], kv_len, scale, v_dim=L,
+                          qk_dim=L + dr)
     out = torch.einsum("bshl,hlv->bshv", ctx.to(torch.float32),
                        lp["w_vc"].to(torch.float32)).to(x.dtype)
     return linear(out.reshape(B, S, -1), lp["o_proj"], layer_idx=li)

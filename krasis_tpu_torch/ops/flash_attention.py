@@ -5,17 +5,26 @@ Replaces ``krasis_tpu/ops/flash_attention.py`` ``flash_attention`` and
 ``decode_attention``. The cache arrives in kernel layout ``[B, Hkv, S, D]``.
 V is its first ``v_dim`` lanes (MLA's ``[ckv; kpe]`` rows), or, when ``v`` is
 given, the first ``v_dim`` lanes of that separate ``[B, Hkv, S, Dv]`` tensor
-(GQA's K and V buffers). Query s of
-row b sits at position ``q_offset[b] + s``; ``decode_attention`` is the same
-call with ``q_offset = kv_len - Sq``. ``flash_attention`` launches the CUDA
-kernel for tensors on the card and runs ``flash_attention_plain`` for
-tensors on the CPU.
+(GQA's K and V buffers). The scores use the first ``qk_dim`` lanes (the real
+ones; the lane pad up to D is zero). Query s of row b sits at position
+``q_offset[b] + s``; ``decode_attention`` is the same call with
+``q_offset = kv_len - Sq``.
+
+Two launch forms, chosen from shapes alone. With Sq·G ≤ 64 stacked query
+rows per kv head (decode, verify steps) the cache is cut into splits
+(``split_plan``, from the cache view's length S, never from ``kv_len``,
+which lives on the card): one launch writes an f32 partial output with its
+row max and row sum per split, a second merges them
+(``decode_combine_plain`` is that merge). Longer queries (prefill, chunks)
+take one launch. The wrapper launches the CUDA kernels for tensors on the
+card and runs ``flash_attention_plain`` for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,26 +36,74 @@ REPLACES_DECODE = "krasis_tpu/ops/flash_attention.py:533"
 launches = 0          # kernel launches since the caller last set it to 0
 
 NEG_INF = -1e30
-_BQ, _BK = 32, 64
+MAX_SPLIT_ROWS = 64   # stacked query rows (Sq·G) up to which the split form runs
+SMS = 132             # H100 SXM streaming multiprocessors
 _MAX_SMEM = 232448
+_MAX_DV = 512
 
 
-def smem_bytes(D: int, Dv: int, separate_v: bool = False) -> int:
-    return (_BQ * (D + 8) * 2 + _BK * (D + 8) * 2
-            + (_BK * (Dv + 8) * 2 if separate_v else 0) + _BQ * (_BK + 4) * 4
-            + _BQ * (_BK + 8) * 2 + _BQ * (Dv + 4) * 4 + _BQ * 12)
+def split_plan(S: int, Hkv: int, B: int, sms: int = SMS) -> Tuple[int, int]:
+    """(chunk, n): the S cache rows cut into n splits of `chunk` rows (the
+    last one shorter), chunk a multiple of 64 and at least 64, with n·Hkv·B
+    about twice the card's SM count. Split i covers [i·chunk,
+    min((i + 1)·chunk, S))."""
+    target = max(1, round(2 * sms / max(1, Hkv * B)))
+    per = -(-S // target)
+    chunk = max(64, -(-per // 64) * 64)
+    return chunk, max(1, -(-S // chunk))
+
+
+def _stack_q(q: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """[B, Sq, Hq, D] → [B, Hkv, Sq·G, D]: row r is query r // G, head
+    hk·G + r % G."""
+    B, Sq, Hq, D = q.shape
+    G = Hq // Hkv
+    return q.reshape(B, Sq, Hkv, G, D).transpose(1, 2).reshape(B, Hkv, Sq * G, D)
+
+
+def _unstack(o: torch.Tensor, Sq: int) -> torch.Tensor:
+    """[B, Hkv, Sq·G, Dv] → [B, Sq, Hq, Dv]."""
+    B, Hkv, R, Dv = o.shape
+    G = R // Sq
+    return o.reshape(B, Hkv, Sq, G, Dv).transpose(1, 2).reshape(B, Sq, Hkv * G, Dv)
+
+
+def _scores(q, kv, q_offset, kv_len, scale, qk_dim):
+    """The split form's stacked bf16 scores in f32, scaled after the dot,
+    with the causal and kv_len mask: (s [B, Hkv, R, S], mask [B, 1, R, S])."""
+    B, Sq, Hq, _ = q.shape
+    Hkv, S = kv.shape[1], kv.shape[2]
+    G = Hq // Hkv
+    qf = _stack_q(q[..., :qk_dim].to(torch.bfloat16).to(torch.float32), Hkv)
+    kf = kv[..., :qk_dim].to(torch.bfloat16).to(torch.float32)
+    s = torch.einsum("bhrd,bhkd->bhrk", qf, kf) * scale
+    rows = torch.arange(Sq * G, device=q.device) // G
+    qp = q_offset.to(torch.int64)[:, None] + rows                      # [B, R]
+    kp = torch.arange(S, device=q.device)
+    mask = (kp[None, None, :] <= qp[:, :, None]) & (
+        kp[None, None, :] < kv_len.to(torch.int64)[:, None, None])
+    return s, mask[:, None]
+
+
+def _values(kv: torch.Tensor, v: Optional[torch.Tensor], v_dim: int) -> torch.Tensor:
+    return (kv if v is None else v)[..., :v_dim].to(torch.bfloat16).to(torch.float32)
 
 
 def flash_attention_plain(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Tensor,
                           kv_len: torch.Tensor, scale: float, v_dim: int,
-                          v: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's function at its rounding points: bf16 q and k, f32
-    scores scaled after the dot, p rounded to bf16 for the PV product, f32
-    row sums, and 0 for a row that sees no key."""
+                          v: Optional[torch.Tensor] = None,
+                          qk_dim: Optional[int] = None) -> torch.Tensor:
+    """The one-launch form's function at its rounding points: bf16 q and k,
+    f32 scores scaled after the dot over the first qk_dim lanes (q's lanes
+    past them are zeroed, so the sum keeps its shape), p rounded to bf16
+    for the PV product, f32 row sums, and 0 for a row that sees no key."""
     B, Sq, Hq, D = q.shape
     Hkv, S = kv.shape[1], kv.shape[2]
     G = Hq // Hkv
-    qf = q.to(torch.bfloat16).to(torch.float32).reshape(B, Sq, Hkv, G, D)
+    qf = q.to(torch.bfloat16).to(torch.float32)
+    if qk_dim is not None and qk_dim < D:
+        qf = torch.nn.functional.pad(qf[..., :qk_dim], (0, D - qk_dim))
+    qf = qf.reshape(B, Sq, Hkv, G, D)
     kf = kv.to(torch.bfloat16).to(torch.float32)
     s = torch.einsum("bqhgd,bhkd->bhgqk", qf, kf) * scale
     qp = q_offset.to(torch.int64)[:, None] + torch.arange(Sq, device=q.device)
@@ -59,70 +116,151 @@ def flash_attention_plain(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Ten
     m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.where(mask, torch.exp(s - m_safe), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    vf = kf if v is None else v.to(torch.bfloat16).to(torch.float32)
     o = torch.einsum("bhgqk,bhkd->bhgqd",
-                     p.to(torch.bfloat16).to(torch.float32), vf[..., :v_dim])
+                     p.to(torch.bfloat16).to(torch.float32), _values(kv, v, v_dim))
     o = o / torch.where(l == 0.0, torch.ones_like(l), l)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, v_dim).to(torch.bfloat16)
 
 
+def decode_split_plain(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Tensor,
+                       kv_len: torch.Tensor, scale: float, v_dim: int, chunk: int,
+                       v: Optional[torch.Tensor] = None, qk_dim: Optional[int] = None):
+    """The split launch's function: per split of `chunk` cache rows, the f32
+    output not yet divided by its row sum, p rounded to bf16 against the
+    split's own row max; a split that sees no key has m = NEG_INF, l = 0 and
+    O = 0. Returns O [B, Hkv, n, R, v_dim], m and l [B, Hkv, n, R]."""
+    B, Hkv, S = kv.shape[:3]
+    n = -(-S // chunk)
+    s, mask = _scores(q, kv, q_offset, kv_len, scale, qk_dim or q.shape[-1])
+    R = s.shape[2]
+    pad = n * chunk - S
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(B, Hkv, R, n, chunk).transpose(2, 3)
+    mask = torch.nn.functional.pad(mask, (0, pad)).reshape(B, 1, R, n, chunk).transpose(2, 3)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                                  # [B, Hkv, n, R]
+    m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.where(mask, torch.exp(s - m_safe[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    vf = torch.nn.functional.pad(_values(kv, v, v_dim), (0, 0, 0, pad))
+    o = torch.einsum("bhnrk,bhnkd->bhnrd", p.to(torch.bfloat16).to(torch.float32),
+                     vf.reshape(B, Hkv, n, chunk, v_dim))
+    return o, m, l
+
+
+def decode_combine_plain(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """The combine launch's function: m* = max m_i, weights e^(m_i - m*) (0
+    for a split with m_i ≤ NEG_INF/2), l = Σ w_i l_i, O = Σ w_i O_i / l, 0
+    where l == 0, rounded to bf16 once. O [B, Hkv, n, R, Dv], m and l
+    [B, Hkv, n, R] → [B, Hkv, R, Dv] bf16."""
+    m_star = m.amax(dim=2, keepdim=True)
+    w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), torch.exp(m - m_star))
+    lsum = (w * l).sum(dim=2)
+    # a split of weight 0 is not read: its O may hold anything
+    acc = torch.where(w[..., None] > 0, w[..., None] * o, torch.zeros_like(o)).sum(dim=2)
+    out = torch.where(lsum[..., None] == 0.0, torch.zeros_like(acc),
+                      acc / torch.where(lsum == 0.0, torch.ones_like(lsum), lsum)[..., None])
+    return out.to(torch.bfloat16)
+
+
+_fns = None
+_checked = set()
+
+
 def _lib():
-    fn = build.load("attention").attention_launch
-    if fn.argtypes is None:
+    global _fns
+    if _fns is None:
+        lib = build.load("attention")
+        fn, smem = lib.attention_launch, lib.attention_smem_bytes
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_long] * 3
                        + [ctypes.c_void_p] + [ctypes.c_long] * 3
                        + [ctypes.c_void_p] + [ctypes.c_long] * 3
                        + [ctypes.c_void_p] * 3 + [ctypes.c_float]
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
+        smem.argtypes = [ctypes.c_int] * 4
         fn.restype = ctypes.c_int
-    return fn
+        smem.restype = ctypes.c_long
+        _fns = fn, smem
+    return _fns
 
 
-def flash_attention(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Tensor,
-                    kv_len: torch.Tensor, scale: float, v_dim: int,
-                    v: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B, Sq, Hq, D] over the cache kv [B, Hkv, S, D], with V =
-    kv[..., :v_dim] or, when given, v[..., :v_dim] of v [B, Hkv, S, Dv]
-    → [B, Sq, Hq, v_dim] bf16."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, kv, q_offset, kv_len, scale, v_dim, v)
-    global launches
+@functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check(q, kv, v, v_dim, qk) -> None:
+    """The launch's requirements on shapes, types, layout and device,
+    checked once per distinct signature (decode calls repeat one)."""
     B, Sq, Hq, D = q.shape
-    _, Hkv, S, Dk = kv.shape
+    Hkv, S, Dk = kv.shape[1], kv.shape[2], kv.shape[3]
     v_width = D if v is None else v.shape[-1]
-    if Dk != D or Hq % Hkv or D % 16 or v_dim % 16 or v_dim > v_width:
-        raise ValueError(f"attention: q {tuple(q.shape)} kv {tuple(kv.shape)} v_dim {v_dim}")
+    if (Dk != D or Hq % Hkv or qk % 16 or qk > D or v_dim % 16 or v_dim > v_width
+            or v_dim > _MAX_DV):
+        raise ValueError(f"attention: q {tuple(q.shape)} kv {tuple(kv.shape)} v_dim {v_dim} "
+                         f"qk_dim {qk}")
     if v is not None and tuple(v.shape[:3]) != (B, Hkv, S):
         raise ValueError(f"attention: v {tuple(v.shape)} vs kv {tuple(kv.shape)}")
     tensors = (q, kv) if v is None else (q, kv, v)
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError("attention: q and the cache must be bf16")
-    if smem_bytes(D, v_dim, v is not None) > _MAX_SMEM:
-        raise ValueError(f"attention: D={D}, Dv={v_dim} exceed shared memory")
-    if any(t.stride(-1) != 1 for t in tensors):
-        raise ValueError("attention: the feature dim must be contiguous")
-    for t in tensors:
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
-            raise ValueError("attention: rows must be 16-byte aligned")
+    if any(t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) for t in tensors):
+        raise ValueError("attention: the feature dim must be contiguous, rows 16-byte aligned")
     if any(not t.is_cuda or t.device != q.device for t in tensors):
         raise ValueError("attention: q and the cache must be on one CUDA device")
+    if _lib()[1](Sq * (Hq // Hkv), qk, v_dim, int(v is None)) > _MAX_SMEM:
+        raise ValueError(f"attention: qk_dim {qk}, v_dim {v_dim} exceed shared memory")
+
+
+def flash_attention(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Tensor,
+                    kv_len: torch.Tensor, scale: float, v_dim: int,
+                    v: Optional[torch.Tensor] = None,
+                    qk_dim: Optional[int] = None) -> torch.Tensor:
+    """q [B, Sq, Hq, D] over the cache kv [B, Hkv, S, D], with V =
+    kv[..., :v_dim] or, when given, v[..., :v_dim] of v [B, Hkv, S, Dv];
+    scores over the first qk_dim lanes (default D) → [B, Sq, Hq, v_dim]
+    bf16. On the CPU: ``flash_attention_plain``, the function both launch
+    forms compute (the split form rounds p against each split's maximum,
+    the one-launch form against the running one)."""
+    B, Sq, Hq, D = q.shape
+    Hkv, S = kv.shape[1], kv.shape[2]
+    qk = qk_dim or D
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, kv, q_offset, kv_len, scale, v_dim, v, qk)
+    global launches
+    key = (q.shape, q.stride(), kv.shape, kv.stride(), q.dtype, kv.dtype, q.device,
+           kv.device, v_dim, qk,
+           None if v is None else (v.shape, v.stride(), v.dtype, v.device))
+    if key not in _checked:
+        _check(q, kv, v, v_dim, qk)
+        _checked.add(key)
+    vptr = 0 if v is None else v.data_ptr()
+    if (q.data_ptr() | kv.data_ptr() | vptr) % 16:
+        raise ValueError("attention: q and the cache must be 16-byte aligned")
     qo = q_offset.to(device=q.device, dtype=torch.int32).contiguous()
     kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, Sq, Hq, v_dim), dtype=torch.bfloat16, device=q.device)
+    R = Sq * (Hq // Hkv)
+    ws = 0
+    chunk, n = 0, 0
+    if R <= MAX_SPLIT_ROWS:
+        # one f32 workspace: partial O [B, Hkv, n, R, v_dim], then m and l [B, Hkv, n, R]
+        chunk, n = split_plan(S, Hkv, B, _sms(q.device))
+        part = torch.empty(B * Hkv * n * R * (v_dim + 2), dtype=torch.float32,
+                           device=q.device)
+        ws = part.data_ptr()
     qs, ks = q.stride(), kv.stride()
     vs = (0, 0, 0) if v is None else v.stride()
-    err = _lib()(q.data_ptr(), qs[0], qs[1], qs[2], kv.data_ptr(), ks[0], ks[1], ks[2],
-                 0 if v is None else v.data_ptr(), vs[0], vs[1], vs[2],
-                 out.data_ptr(), qo.data_ptr(), kl.data_ptr(), float(scale),
-                 B, Sq, Hq, Hkv, S, D, v_dim,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    err = _lib()[0](q.data_ptr(), qs[0], qs[1], qs[2], kv.data_ptr(), ks[0], ks[1], ks[2],
+                    vptr, vs[0], vs[1], vs[2], out.data_ptr(), qo.data_ptr(), kl.data_ptr(),
+                    float(scale), B, Sq, Hq, Hkv, D, D if v is None else v.shape[-1], qk,
+                    v_dim, chunk, n, ws, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "attention")
-    launches += 1
+    launches += 2 if chunk else 1
     return out
 
 
 def decode_attention(q: torch.Tensor, kv: torch.Tensor, kv_len: torch.Tensor,
-                     scale: float, v_dim: int,
-                     v: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     scale: float, v_dim: int, v: Optional[torch.Tensor] = None,
+                     qk_dim: Optional[int] = None) -> torch.Tensor:
     """Sq new tokens at positions kv_len - Sq .. kv_len - 1."""
-    return flash_attention(q, kv, kv_len - q.shape[1], kv_len, scale, v_dim, v)
+    return flash_attention(q, kv, kv_len - q.shape[1], kv_len, scale, v_dim, v, qk_dim)

@@ -9,10 +9,10 @@ entry at both call shapes, under its own launch count. ``gmm_a8`` (K7a)
 replaces ``gmm_a8``: the same tiles with int8 rows and per-group scales.
 ``moe_prefill`` has the glue and the three branches of
 ``moe_prefill_pallas``. The tile plan differs from ``_plan_tiles``: tiles
-are 64 rows, there is no spare trash tile, and the w13 launches gather
-token rows themselves; every row's result is the same. Each wrapper
-launches its CUDA kernel for tensors on the card and runs its plain version
-for tensors on the CPU.
+are 64 or 128 rows (``choose_tm``, from shapes alone), there is no spare
+trash tile, and the w13 launches gather token rows themselves; every row's
+result is the same. Each wrapper launches its CUDA kernel for tensors on
+the card and runs its plain version for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ launches = 0              # K4 kernel launches since the caller last set it to 0
 launches_two_stage = 0    # K7, likewise
 launches_a8 = 0           # K7a
 
-TM = 64
+TM = 64                   # tile rows of the default plan, and K7a's only height
+TM_LARGE = 128
 
 
 class TilePlan(NamedTuple):
@@ -46,6 +47,14 @@ class TilePlan(NamedTuple):
     tile_e: torch.Tensor      # [n_tiles] int32 expert of each tile
     tile_valid: torch.Tensor  # [n_tiles] int32 1 = compute
     n_tiles: int
+    tm: int                   # rows of a tile; Mp = n_tiles * tm
+
+
+def choose_tm(M: int, E: int) -> int:
+    """Tile rows for M picks over E experts, from shapes alone: 128 when an
+    expert gets 128 rows on average (its weights then stream once per 128
+    rows instead of per 64), else 64, so few-row experts waste little."""
+    return TM_LARGE if M >= TM_LARGE * E else TM
 
 
 def plan_tiles(topk_idx: torch.Tensor, E: int, tm: int = TM,
@@ -81,7 +90,7 @@ def plan_tiles(topk_idx: torch.Tensor, E: int, tm: int = TM,
     tile_e = torch.searchsorted(cum_padded, starts, right=True).clamp(max=E - 1)
     tile_valid = starts < cum_padded[-1]
     return TilePlan(row_src[:Mp], dest, tile_e.to(torch.int32),
-                    tile_valid.to(torch.int32), n_tiles)
+                    tile_valid.to(torch.int32), n_tiles, tm)
 
 
 def _tile_rows(x: torch.Tensor, row_src: Optional[torch.Tensor]) -> torch.Tensor:
@@ -94,11 +103,14 @@ def _tile_rows(x: torch.Tensor, row_src: Optional[torch.Tensor]) -> torch.Tensor
 
 
 def gmm_plain(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
-              plan: TilePlan, swiglu: bool) -> torch.Tensor:
+              plan: TilePlan, swiglu: bool, swiglu_limit: float = 0.0,
+              gpt_oss: bool = False) -> torch.Tensor:
     """The kernel's function: per valid tile, rows @ bf16-dequantized expert
-    weights with f32 accumulation; swiglu rounds h to bf16 and returns bf16
+    weights with f32 accumulation; swiglu rounds h to bf16, applies the
+    activation (SwiGLU, or GPT-OSS's clamped form) in f32 and returns bf16
     [Mp, N/2], else f32 [Mp, N]. Skipped tiles are left at zero."""
-    Mp = plan.n_tiles * TM
+    tm = plan.tm
+    Mp = plan.n_tiles * tm
     N = w.n_dim
     rows = _tile_rows(x, row_src)
     h = torch.zeros((Mp, N), dtype=torch.float32, device=x.device)
@@ -108,13 +120,12 @@ def gmm_plain(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
         if not valid[t]:
             continue
         wt = dequantize(w[experts[t]], torch.bfloat16).to(torch.float32)
-        sl = slice(t * TM, (t + 1) * TM)
+        sl = slice(t * tm, (t + 1) * tm)
         h[sl] = torch.matmul(rows[sl].to(torch.float32), wt)
     if not swiglu:
         return h
     hb = h.to(torch.bfloat16).to(torch.float32)
-    g, u = hb[:, : N // 2], hb[:, N // 2:]
-    return (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+    return swiglu_fn(hb, swiglu_limit, gpt_oss).to(torch.bfloat16)
 
 
 def gmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Tensor],
@@ -123,7 +134,8 @@ def gmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Ten
     the int8 rows with the unscaled integer weights, then
     acc += d * sx[:, g] * sw[g] in f32, groups in order. f32 [Mp, N];
     skipped tiles are left at zero."""
-    Mp = plan.n_tiles * TM
+    tm = plan.tm
+    Mp = plan.n_tiles * tm
     N, gs = w.n_dim, w.group_size
     G = w.k_dim // gs
     rows = _tile_rows(xq, row_src).to(torch.float32).reshape(Mp, G, gs)
@@ -137,9 +149,9 @@ def gmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Ten
         we = w[experts[t]]
         wi = unpack(we).to(torch.float32).reshape(G, gs, N)
         sw = we.scales.to(torch.float32)
-        sl = slice(t * TM, (t + 1) * TM)
+        sl = slice(t * tm, (t + 1) * tm)
         d = torch.einsum("mgk,gkn->mgn", rows[sl], wi)       # exact: |d| < 2^24
-        acc = torch.zeros((TM, N), dtype=torch.float32, device=xq.device)
+        acc = torch.zeros((tm, N), dtype=torch.float32, device=xq.device)
         for g in range(G):
             acc = acc + d[:, g] * scales[sl, g:g + 1] * sw[g]
         out[sl] = acc
@@ -150,8 +162,9 @@ def _fns():
     lib = build.load("gmm")
     fn, fa = lib.gmm_launch, lib.gmm_a8_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                       + [ctypes.c_long] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_long] * 2
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fa.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_long] * 2 + [ctypes.c_void_p])
         fn.restype = fa.restype = ctypes.c_int
@@ -163,7 +176,7 @@ def _check_rows(name: str, x: torch.Tensor, row_src: Optional[torch.Tensor], w: 
     K = w.k_dim
     if x.shape[-1] != K or K % 32 or w.bits not in (4, 8):
         raise ValueError(f"{name}: x {tuple(x.shape)} vs weight {tuple(w.q.shape)}")
-    if row_src is None and x.shape[0] != plan.n_tiles * TM:
+    if row_src is None and x.shape[0] != plan.n_tiles * plan.tm:
         raise ValueError(f"{name}: x must hold the tile rows when row_src is None")
     if x.dtype != dtype or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be contiguous, aligned {dtype}")
@@ -172,12 +185,25 @@ def _check_rows(name: str, x: torch.Tensor, row_src: Optional[torch.Tensor], w: 
             raise ValueError(f"{name}: expert stacks must be contiguous on the card")
 
 
+def gmm_supported(w: QTensor) -> bool:
+    """Stacks gmm_kernel takes: a step is 32 packed rows within one scale
+    group (for int4 both halves: K/2 a multiple of 32), columns in 16-byte
+    blocks."""
+    packed = w.k_dim // 2 if w.bits == 4 else w.k_dim
+    return (w.bits in (4, 8) and packed % 32 == 0 and w.group_size % 32 == 0
+            and w.k_dim % w.group_size == 0 and w.n_dim % 16 == 0)
+
+
 def _launch(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
-            plan: TilePlan, swiglu: bool) -> torch.Tensor:
+            plan: TilePlan, swiglu: bool, swiglu_limit: float = 0.0,
+            gpt_oss: bool = False) -> torch.Tensor:
     """One launch of gmm_kernel with either epilogue."""
     K, N = w.k_dim, w.n_dim
-    Mp = plan.n_tiles * TM
+    Mp = plan.n_tiles * plan.tm
     _check_rows("gmm", x, row_src, w, plan, torch.bfloat16)
+    if not gmm_supported(w) or plan.tm not in (TM, TM_LARGE):
+        raise ValueError(f"gmm: unsupported stack {tuple(w.q.shape)}, bits {w.bits}, "
+                         f"group {w.group_size}, tile rows {plan.tm}")
     if (swiglu and (N // 2) % 64) or (not swiglu and N % 128):
         raise ValueError(f"gmm: unsupported output width {N}")
     if swiglu:
@@ -186,21 +212,24 @@ def _launch(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
         out = torch.empty((Mp, N), dtype=torch.float32, device=x.device)
     err = _fns()[0](x.data_ptr(), 0 if row_src is None else row_src.data_ptr(),
                     w.q.data_ptr(), w.scales.data_ptr(), plan.tile_e.data_ptr(),
-                    plan.tile_valid.data_ptr(), out.data_ptr(), plan.n_tiles, K, N,
+                    plan.tile_valid.data_ptr(), out.data_ptr(), plan.n_tiles, plan.tm, K, N,
                     w.bits, w.group_size, w.q.stride(0), w.scales.stride(0), int(swiglu),
+                    float(swiglu_limit), int(gpt_oss),
                     torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "gmm")
     return out
 
 
 def gmm(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
-        plan: TilePlan, swiglu: bool) -> torch.Tensor:
+        plan: TilePlan, swiglu: bool, swiglu_limit: float = 0.0,
+        gpt_oss: bool = False) -> torch.Tensor:
     """K4. x [rows, K] bf16; row_src gathers tile rows from x (None: x is
-    already tile-aligned [Mp, K]); w [E, K(/2), N]."""
+    already tile-aligned [Mp, K]); w [E, K(/2), N]. The SwiGLU epilogue
+    takes GPT-OSS's clamped form with gpt_oss."""
     if x.device.type == "cpu":
-        return gmm_plain(x, row_src, w, plan, swiglu)
+        return gmm_plain(x, row_src, w, plan, swiglu, swiglu_limit, gpt_oss)
     global launches
-    out = _launch(x, row_src, w, plan, swiglu)
+    out = _launch(x, row_src, w, plan, swiglu, swiglu_limit, gpt_oss)
     launches += 1
     return out
 
@@ -232,14 +261,15 @@ def gmm_a8(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Tensor],
     if xq.device.type == "cpu":
         return gmm_a8_plain(xq, sx, row_src, w, plan)
     global launches_a8
-    if not gmm_a8_supported(w):
+    if not gmm_a8_supported(w) or plan.tm != TM:
         raise ValueError(f"gmm_a8: unsupported stack {tuple(w.q.shape)}, bits {w.bits}, "
                          f"group {w.group_size}")
     _check_rows("gmm_a8", xq, row_src, w, plan, torch.int8)
     sx = sx.to(torch.float32).contiguous()
     if tuple(sx.shape) != (xq.shape[0], w.k_dim // w.group_size) or not sx.is_cuda:
         raise ValueError(f"gmm_a8: scales {tuple(sx.shape)} for rows {tuple(xq.shape)}")
-    out = torch.empty((plan.n_tiles * TM, w.n_dim), dtype=torch.float32, device=xq.device)
+    out = torch.empty((plan.n_tiles * plan.tm, w.n_dim), dtype=torch.float32,
+                      device=xq.device)
     err = _fns()[1](xq.data_ptr(), sx.data_ptr(),
                     0 if row_src is None else row_src.data_ptr(), w.q.data_ptr(),
                     w.scales.data_ptr(), plan.tile_e.data_ptr(), plan.tile_valid.data_ptr(),
@@ -264,19 +294,20 @@ def moe_prefill(x: torch.Tensor, w13: QTensor, w2: QTensor,
     pick_valid == 0 is in no tile and adds nothing."""
     T, H = x.shape
     k = topk_idx.shape[1]
-    plan = plan_tiles(topk_idx, w13.q.shape[0], pick_valid=pick_valid)
-    Mp = plan.n_tiles * TM
+    E = w13.q.shape[0]
+    int8_rows = activation == "int8" and gmm_a8_supported(w13) and gmm_a8_supported(w2)
+    tm = TM if int8_rows else choose_tm(T * k, E)
+    plan = plan_tiles(topk_idx, E, tm, pick_valid=pick_valid)
+    Mp = plan.n_tiles * tm
     x = x.contiguous()
-    if activation == "int8" and gmm_a8_supported(w13) and gmm_a8_supported(w2):
+    if int8_rows:
         xq, sx = quantize_activations(x.to(torch.bfloat16), w13.group_size)
         h = gmm_a8(xq, sx, plan.row_src, w13, plan)
         a = swiglu_fn(h, swiglu_limit, gpt_oss)
         aq, sa = quantize_activations(a, w2.group_size)
         o = gmm_a8(aq, sa, None, w2, plan)
     elif expert_class.prefill_fused(w13, w2):
-        if gpt_oss:
-            raise NotImplementedError("the fused grouped kernel has no GPT-OSS activation yet")
-        a = gmm(x, plan.row_src, w13, plan, swiglu=True)
+        a = gmm(x, plan.row_src, w13, plan, True, swiglu_limit, gpt_oss)
         o = gmm(a, None, w2, plan, swiglu=False)
     else:
         h = gmm_two_stage(x, plan.row_src, w13, plan)

@@ -103,11 +103,6 @@ def moe_forward_gathered(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _fused_only(gpt_oss: bool) -> None:
-    if gpt_oss:
-        raise NotImplementedError("the fused decode kernels have no GPT-OSS activation yet")
-
-
 def moe_forward(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
                 topk_weights: torch.Tensor, swiglu_limit: float = 0.0,
                 gpt_oss: bool = False, w13_bias: Optional[torch.Tensor] = None,
@@ -139,15 +134,15 @@ def moe_forward(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
     if kernels:
         if activation == "int8":
             if expert_class.decode_fused_int8(w13, w2):
-                _fused_only(gpt_oss)
-                return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights)
+                return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights,
+                                         swiglu_limit, gpt_oss)
             if (moe_cuda.gathered_qmm_a8_supported(w13)
                     and moe_cuda.gathered_qmm_a8_supported(w2)):
                 return moe_cuda.moe_gathered_tiled(x, w13, w2, topk_idx, topk_weights,
                                                    swiglu_limit, gpt_oss, pick_valid, "int8")
         if expert_class.decode_fused(w13, w2):
-            _fused_only(gpt_oss)
-            return moe_cuda.moe_bf16(x, w13, w2, topk_idx, topk_weights)
+            return moe_cuda.moe_bf16(x, w13, w2, topk_idx, topk_weights,
+                                     swiglu_limit, gpt_oss)
         return moe_cuda.moe_gathered_tiled(x, w13, w2, topk_idx, topk_weights,
                                            swiglu_limit, gpt_oss, pick_valid)
     return moe_forward_gathered(x, w13, w2, topk_idx, topk_weights, **plain)

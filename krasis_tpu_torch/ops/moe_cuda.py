@@ -60,7 +60,10 @@ def _grouped_dot_plain(xq, sx, w_i8, sw, gs):
 
 
 def moe_w4a8_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
-                   topk_idx: torch.Tensor, topk_weights: torch.Tensor) -> torch.Tensor:
+                   topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+                   swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
+    """K3's function: int8 group dots into an f32 h, the activation on the
+    f32 h (SwiGLU, or GPT-OSS's clamped form), the hidden requantized."""
     T, H = x.shape
     k = topk_idx.shape[1]
     I = w2.k_dim
@@ -69,8 +72,7 @@ def moe_w4a8_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     xq, sx = quantize_activations(x, gs)
     h = _grouped_dot_plain(xq[tok], sx[tok], unpack(w13[e]), w13.scales[e], gs)
-    g, u = h[:, :I], h[:, I:]
-    a = g * torch.sigmoid(g) * u
+    a = swiglu(h, swiglu_limit, gpt_oss)
     aq, sa = quantize_activations(a, w2.group_size)
     o = _grouped_dot_plain(aq, sa, unpack(w2[e]), w2.scales[e], w2.group_size)
     o = o * topk_weights.reshape(-1, 1).to(torch.float32)
@@ -78,9 +80,10 @@ def moe_w4a8_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
 
 
 def moe_bf16_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
-                   topk_idx: torch.Tensor, topk_weights: torch.Tensor) -> torch.Tensor:
+                   topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+                   swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
     """K5's function at its rounding points: bf16 x and bf16-rounded
-    dequantized weights with f32 accumulation, SwiGLU on the f32 h, the
+    dequantized weights with f32 accumulation, the activation on the f32 h, the
     hidden rounded to bf16 before the w2 product, f32 picks summed in order."""
     T, H = x.shape
     k = topk_idx.shape[1]
@@ -89,8 +92,7 @@ def moe_bf16_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     xf = x.to(torch.bfloat16).to(torch.float32)[tok]                     # [P, H]
     h = torch.einsum("ph,phn->pn", xf, dequantize(w13[e], torch.bfloat16).to(torch.float32))
-    g, u = h[:, :I], h[:, I:]
-    a = (g * torch.sigmoid(g) * u).to(torch.bfloat16).to(torch.float32)
+    a = swiglu(h, swiglu_limit, gpt_oss).to(torch.bfloat16).to(torch.float32)
     o = torch.einsum("pi,pih->ph", a, dequantize(w2[e], torch.bfloat16).to(torch.float32))
     o = o * topk_weights.reshape(-1, 1).to(torch.float32)
     return o.reshape(T, k, H).sum(dim=1).to(x.dtype)
@@ -103,9 +105,9 @@ def _fns():
     b13, b2 = lib.moe_w13_bf16_launch, lib.moe_w2_bf16_launch
     if f13.argtypes is None:
         f13.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                        + [ctypes.c_long] * 2 + [ctypes.c_void_p])
+                        + [ctypes.c_long] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         b13.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                        + [ctypes.c_long] * 2 + [ctypes.c_void_p])
+                        + [ctypes.c_long] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         f2.argtypes = b2.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                                      + [ctypes.c_long] * 2 + [ctypes.c_void_p])
         for fn in (f13, f2, b13, b2):
@@ -134,11 +136,12 @@ def _check(name: str, x: torch.Tensor, w13: QTensor, w2: QTensor) -> None:
 
 
 def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
-             topk_idx: torch.Tensor, topk_weights: torch.Tensor) -> torch.Tensor:
+             topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+             swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
     """x [T, H] bf16, stacks w13 [E, H(/2), 2I] and w2 [E, I(/2), H], picks
     [T, k] → [T, H] bf16."""
     if x.device.type == "cpu":
-        return moe_w4a8_plain(x, w13, w2, topk_idx, topk_weights)
+        return moe_w4a8_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss)
     global launches
     _check("moe_w4a8", x, w13, w2)
     T, H = x.shape
@@ -154,7 +157,8 @@ def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
     f13, f2 = _fns()[0]
     err = f13(xq.data_ptr(), sx.data_ptr(), idx.data_ptr(), w13.q.data_ptr(),
               w13.scales.data_ptr(), a.data_ptr(), P, k, H, I, w13.bits,
-              w13.group_size, w13.q.stride(0), w13.scales.stride(0), stream)
+              w13.group_size, w13.q.stride(0), w13.scales.stride(0), float(swiglu_limit),
+              int(gpt_oss), stream)
     build.check(err, "moe_w13")
     launches += 1
     err = f2(a.data_ptr(), idx.data_ptr(), wt.data_ptr(), w2.q.data_ptr(),
@@ -166,11 +170,12 @@ def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
 
 
 def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
-             topk_idx: torch.Tensor, topk_weights: torch.Tensor) -> torch.Tensor:
+             topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+             swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
     """The same call with bf16 activations: x [T, H] bf16, stacks
     w13 [E, H(/2), 2I] and w2 [E, I(/2), H], picks [T, k] → [T, H] bf16."""
     if x.device.type == "cpu":
-        return moe_bf16_plain(x, w13, w2, topk_idx, topk_weights)
+        return moe_bf16_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss)
     global launches_bf16
     _check("moe_bf16", x, w13, w2)
     T, H = x.shape
@@ -186,7 +191,7 @@ def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
     b13, b2 = _fns()[1]
     err = b13(xb.data_ptr(), idx.data_ptr(), w13.q.data_ptr(), w13.scales.data_ptr(),
               a.data_ptr(), P, k, H, I, w13.bits, w13.group_size, w13.q.stride(0),
-              w13.scales.stride(0), stream)
+              w13.scales.stride(0), float(swiglu_limit), int(gpt_oss), stream)
     build.check(err, "moe_w13_bf16")
     launches_bf16 += 1
     err = b2(a.data_ptr(), idx.data_ptr(), wt.data_ptr(), w2.q.data_ptr(),

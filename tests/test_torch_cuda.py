@@ -309,3 +309,143 @@ def test_tiny_hybrid_generates_on_card(dev, attention, activation):
         if name == "launches_stacked" and attention == "bf16":
             continue
         assert getattr(m, name) > b, name
+
+
+def _decode_case(dev, family, B, S, seed):
+    g = _gen(dev, seed)
+    if family == "mla":
+        q = torch.zeros((B, 1, 16, 640), dtype=torch.bfloat16, device=dev)
+        kv = torch.zeros((B, 1, S, 640), dtype=torch.bfloat16, device=dev)
+        q[..., :576] = torch.randn((B, 1, 16, 576), generator=g, device=dev).to(torch.bfloat16)
+        kv[..., :576] = torch.randn((B, 1, S, 576), generator=g, device=dev).to(torch.bfloat16)
+        return q, kv, None, dict(scale=0.07, v_dim=512, qk_dim=576)
+    q = torch.randn((B, 1, 16, 256), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, 2, S, 256), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, 2, S, 256), generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v, dict(scale=1 / 16, v_dim=256, qk_dim=256)
+
+
+@pytest.mark.parametrize("kv_len", [[300], [17], [300, 17], [512], [2500]],
+                         ids=["ragged", "below_chunk", "two_rows", "full", "long"])
+@pytest.mark.parametrize("family", ["mla", "gqa"])
+def test_split_decode_kernel(dev, family, kv_len):
+    """K2's split-KV decode (two launches) against the one-launch plain
+    version and against the split form's own plain version; splits past
+    kv_len are empty."""
+    S = 4096 if max(kv_len) > 512 else 512
+    q, kv, v, kw = _decode_case(dev, family, len(kv_len), S, sum(kv_len))
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = fa.launches
+    got = fa.decode_attention(q, kv, kl, kw["scale"], kw["v_dim"], v=v, qk_dim=kw["qk_dim"])
+    assert fa.launches == before + 2
+    _close(got, fa.flash_attention_plain(q, kv, kl - 1, kl, kw["scale"], kw["v_dim"], v,
+                                         kw["qk_dim"]), 2e-2)
+    want = fa.decode_attention(q.cpu(), kv.cpu(), kl.cpu(), kw["scale"], kw["v_dim"],
+                               v=None if v is None else v.cpu(), qk_dim=kw["qk_dim"])
+    _close(got.cpu(), want, 2e-2)
+
+
+@pytest.mark.parametrize("sq,q_off,kv_len", [(2, 298, 300), (4, 60, 64)])
+def test_split_decode_kernel_verify_rows(dev, sq, q_off, kv_len):
+    """A few query tokens (Sq·G ≤ 64 stacked rows) take the split form with
+    the causal mask inside a split."""
+    q, kv, _, kw = _decode_case(dev, "mla", 1, 512, sq)
+    q = q.expand(1, sq, 16, 640).contiguous()
+    q[:, 1:] = torch.roll(q[:, 1:], 1, dims=-1)
+    qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    before = fa.launches
+    got = fa.flash_attention(q, kv, qo, kl, kw["scale"], kw["v_dim"], qk_dim=kw["qk_dim"])
+    assert fa.launches == before + 2
+    _close(got, fa.flash_attention_plain(q, kv, qo, kl, kw["scale"], kw["v_dim"],
+                                         qk_dim=kw["qk_dim"]), 2e-2)
+
+
+@pytest.mark.parametrize("family", ["mla", "gqa"])
+def test_prefill_kernel_real_lanes(dev, family):
+    """The one-launch form with scores over the real lanes only, prefill and
+    a chunk over history."""
+    q1, kv, v, kw = _decode_case(dev, family, 1, 512, 3)
+    g = _gen(dev, 4)
+    for sq, q_off, kv_len in ((300, 0, 300), (97, 300, 397)):
+        q = torch.zeros((1, sq) + tuple(q1.shape[2:]), dtype=torch.bfloat16, device=dev)
+        q[..., :kw["qk_dim"]] = torch.randn(q[..., :kw["qk_dim"]].shape, generator=g,
+                                            device=dev).to(torch.bfloat16)
+        qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+        kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+        before = fa.launches
+        got = fa.flash_attention(q, kv, qo, kl, kw["scale"], kw["v_dim"], v, kw["qk_dim"])
+        assert fa.launches == before + 1
+        _close(got, fa.flash_attention_plain(q, kv, qo, kl, kw["scale"], kw["v_dim"], v,
+                                             kw["qk_dim"]), 2e-2)
+
+
+def _gmm_case(dev, bits, seed, T, k, E, H=256, I=128):
+    g = _gen(dev, seed)
+    w13 = random_qtensor((E, H, 2 * I), bits, 128, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((E, I, H), bits, 128, g, dev, scale_mag=0.03)
+    x = torch.randn((T, H), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    pv = torch.rand((T, k), generator=g, device=dev) > 0.2
+    return w13, w2, x, idx, pv
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("tm", [64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_grouped_kernel_tile_heights(dev, bits, tm, masked):
+    """gmm_kernel at both tile heights, int4 and int8, both epilogues,
+    against gmm_plain on the same plan; padding rows of computed tiles
+    read back zero."""
+    w13, w2, x, idx, pv = _gmm_case(dev, bits, 40 + bits + tm, 300, 2, 8)
+    plan = gmm_cuda.plan_tiles(idx, 8, tm, pick_valid=pv if masked else None)
+    real = plan.row_src >= 0
+    pad = (~real) & plan.tile_valid.bool().repeat_interleave(tm)
+    before = gmm_cuda.launches
+    a = gmm_cuda.gmm(x, plan.row_src, w13, plan, True)
+    _close(a[real], gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True)[real], 3e-2)
+    assert not a[pad].any()
+    o = gmm_cuda.gmm(a, None, w2, plan, False)
+    _close(o[real], gmm_cuda.gmm_plain(a, None, w2, plan, False)[real], 3e-2)
+    assert gmm_cuda.launches == before + 2
+    h = gmm_cuda.gmm_two_stage(x, plan.row_src, w13, plan)
+    _close(h[real], gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)[real], 2e-2)
+    assert not h[pad].any()
+
+
+@pytest.mark.parametrize("tm", [64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_two_stage_equals_fused_at_both_heights(dev, bits, tm):
+    """K7 + SwiGLU + K7 equals K4 bit for bit on one plan, at K = 2048 and
+    an I whose K/2 is no multiple of the scale group (V2-Lite's w2)."""
+    from krasis_tpu_torch.ops.activations import swiglu
+
+    w13, w2, x, idx, _ = _gmm_case(dev, bits, 50 + bits + tm, 256, 4, 8, H=2048, I=1408)
+    plan = gmm_cuda.plan_tiles(idx, 8, tm)
+    live = plan.tile_valid.bool().repeat_interleave(tm)
+    a4 = gmm_cuda.gmm(x, plan.row_src, w13, plan, True)
+    a7 = swiglu(gmm_cuda.gmm_two_stage(x, plan.row_src, w13, plan).to(torch.bfloat16))
+    assert torch.equal(a4[live], a7[live])
+    assert torch.equal(gmm_cuda.gmm(a4, None, w2, plan, False)[live],
+                       gmm_cuda.gmm_two_stage(a7, None, w2, plan)[live])
+
+
+def test_gpt_oss_epilogues_on_card(dev):
+    """K3, K5 and K4 with GPT-OSS's clamped activation against their plain
+    versions, with gate and up values past the clamp."""
+    w13, w2, _ = _experts(dev, 10, 256, 128, 5)
+    g = _gen(dev, 6)
+    x = (4 * torch.randn((2, 256), generator=g, device=dev)).to(torch.bfloat16)
+    idx = torch.tensor([[0, 3, 5, 8, 9], [7, 1, 2, 8, 9]], dtype=torch.int32, device=dev)
+    wts = torch.rand((2, 5), generator=g, device=dev)
+    for run, plain in ((moe_cuda.moe_w4a8, moe_cuda.moe_w4a8_plain),
+                       (moe_cuda.moe_bf16, moe_cuda.moe_bf16_plain)):
+        got = run(x, w13, w2, idx, wts, 7.0, True)
+        _close(got, plain(x, w13, w2, idx, wts, 7.0, True), 3e-2)
+        assert not torch.equal(got, run(x, w13, w2, idx, wts))
+    xs = (4 * torch.randn((200, 256), generator=g, device=dev)).to(torch.bfloat16)
+    topk = torch.rand((200, 10), generator=g, device=dev).topk(3, dim=-1).indices.to(torch.int32)
+    plan = gmm_cuda.plan_tiles(topk, 10)
+    real = plan.row_src >= 0
+    _close(gmm_cuda.gmm(xs, plan.row_src, w13, plan, True, 7.0, True)[real],
+           gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, True, 7.0, True)[real], 3e-2)

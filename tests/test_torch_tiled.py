@@ -194,6 +194,15 @@ def test_moe_forward_takes_the_form_of_the_class(monkeypatch, activation, big):
 
 
 def test_fused_kernels_refuse_gpt_oss():
+    """The fused decode forms no longer refuse GPT-OSS's clamped activation:
+    moe_forward takes them (K3 with int8 activations, K5 with bf16) and
+    matches the reference's Pallas kernels with gpt_oss=True."""
     w13, w2, x, idx, wts, _ = _moe_case(12, 4, False, T=1)
-    with pytest.raises(NotImplementedError):
-        moe.moe_forward(t(x), tq(w13), tq(w2), t(idx), t(wts), swiglu_limit=7.0, gpt_oss=True)
+    x = _bf16(f32(x) * 8.0)          # gate and up values past the clamp
+    for activation, ref, tol in (("int8", jmp.moe_gathered_w4a8_pallas, 3e-2),
+                                 ("bf16", jmp.moe_gathered_pallas, 3e-2)):
+        got = moe.moe_forward(t(x), tq(w13), tq(w2), t(idx), t(wts), swiglu_limit=7.0,
+                              gpt_oss=True, activation=activation)
+        want = ref(x, w13, w2, jnp.asarray(idx), jnp.asarray(wts), swiglu_limit=7.0,
+                   gpt_oss=True, interpret=True)
+        np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
