@@ -105,11 +105,54 @@ def max_err(got, want, tol: float):
     return float(diff.max()), float((diff / limit).max())
 
 
+def device_per_call(fn, name_part: str, flush, calls: int = 20, tries: int = 4):
+    """Device time of one call, from torch.profiler: the summed device time
+    of the kernels whose names contain `name_part` over their launches in
+    `calls` calls (the L2 flushed before each, as for the event times);
+    and the number of device kernels one call launches, from a second
+    profile of `calls` calls with nothing between them. Each profile
+    records its second step (the first warms the tracer up) and is taken
+    again, up to `tries` times, until it holds a whole number of
+    `name_part` launches and of all launches a call: the tracer on the
+    card at times leaves kernels out. Returns (us, kernels per call); raises if no profile
+    was whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def rows(between):
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                         schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+                for _ in range(2):
+                    for _ in range(calls):
+                        between()
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            got = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
+            named = sum(n for key, _, n in got if name_part in key)
+            if named > 0 and named % calls == 0 and sum(n for _, _, n in got) % calls == 0:
+                return got
+        raise AssertionError(f"the profiler never saw whole calls of {name_part}")
+
+    fn()
+    torch.cuda.synchronize()
+    timed = [(us, n) for key, us, n in rows(flush.zero_) if name_part in key]
+    counted = rows(lambda: None)
+    per_launch = sum(us for us, _ in timed) / sum(n for _, n in timed)
+    named_per_call = sum(n for key, _, n in counted if name_part in key) / calls
+    return per_launch * named_per_call, sum(n for _, _, n in counted) / calls
+
+
 def check_kernel(results, name, counter, replaces, run_kernel, run_plain, run_library,
-                 tol, nbytes, ops, peak, iters, flush, select=None):
+                 tol, nbytes, ops, peak, iters, flush, select=None, device_name=None):
     """Hold one kernel to its plain version and time both. `counter` is the
     (module, attribute) of the wrapper's launch count, filled in later from
-    the main path's run."""
+    the main path's run. With `device_name`, the kernel's device time per
+    call and the kernels a call launches are taken from the profiler too."""
     module = counter[0]
     got, want = run_kernel(), run_plain()
     if select is not None:
@@ -124,8 +167,13 @@ def check_kernel(results, name, counter, replaces, run_kernel, run_plain, run_li
            "err_over_limit": ratio,
            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": b_ms, "bound_by": b_by}
+    device = ""
+    if device_name is not None:
+        us, per_call = device_per_call(run_kernel, device_name, flush)
+        res.update(device_us=us, kernels_per_call=per_call)
+        device = f" device {us:.2f} us a call (profiler), {per_call:g} kernels a call"
     print(f"[kernel] {name}: max|Δ| {err:.3g}, {ratio:.3g} of the limit (tol {tol}) kernel {ms:.4f} ms "
-          f"plain {plain_ms:.4f} ms library {lib_ms} ms bound {b_ms:.4f} ms ({b_by})",
+          f"plain {plain_ms:.4f} ms library {lib_ms} ms bound {b_ms:.4f} ms ({b_by}){device}",
           flush=True)
     if not ratio <= 1.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -227,18 +275,21 @@ def counters():
 
 
 def qmm_checks(results, prefix, cases, g, flush):
-    """K1 / K1s at T = 1. cases: (name, weight, layer or None, out dtype)."""
+    """K1 / K1s. cases: (name, weight, layer or None, out dtype[, rows T]),
+    T = 1 unless given."""
     import torch
     from krasis_tpu_torch.ops import qmm_cuda
     from krasis_tpu_torch.quant import dequantize, qtensor_bytes
 
     C = counters()
-    for name, qt, layer, out_dtype in cases:
+    for name, qt, layer, out_dtype, *rest in cases:
+        T = rest[0] if rest else 1
         K, N = qt.k_dim, qt.n_dim
-        x = torch.randn((1, K), generator=g, device=qt.q.device).to(torch.bfloat16)
+        x = torch.randn((T, K), generator=g, device=qt.q.device).to(torch.bfloat16)
         one = qt if layer is None else qt[layer]
         w = dequantize(one, torch.bfloat16)
-        nbytes = qtensor_bytes(one) + x.numel() * 2 + N * (4 if out_dtype == torch.float32 else 2)
+        nbytes = (qtensor_bytes(one) + x.numel() * 2
+                  + T * N * (4 if out_dtype == torch.float32 else 2))
         if layer is None:
             run, counter, replaces = (lambda: qmm_cuda.qmm(x, qt, out_dtype)), C["K1"], qmm_cuda.REPLACES
         else:
@@ -247,8 +298,42 @@ def qmm_checks(results, prefix, cases, g, flush):
         check_kernel(results, prefix + name, counter, replaces, run,
                      lambda: qmm_cuda.qmm_plain(x, one, out_dtype),
                      lambda: torch.matmul(x, w),
-                     2e-2, nbytes, 2 * K * N, PEAK_BF16, 50, flush)
+                     2e-2, nbytes, 2 * T * K * N, PEAK_BF16, 50, flush, device_name="qmm")
         del w
+        if results[-1][1]["kernels_per_call"] != 1:
+            raise AssertionError(f"{prefix}{name}: a call launched "
+                                 f"{results[-1][1]['kernels_per_call']} device kernels, not 1")
+
+
+def qmm_split_checks(name, qt, layer, g):
+    """At a split shape: two calls on the same inputs are equal bit for bit
+    (the split sums meet in a fixed order), and the element-wise check
+    refuses a plain version that leaves out one K split."""
+    import torch
+    from krasis_tpu_torch.ops import qmm_cuda
+    from krasis_tpu_torch.quant import dequantize
+
+    one = qt[layer]
+    K, N = one.k_dim, one.n_dim
+    p = qmm_cuda.plan(1, K, N, one.bits, one.group_size)
+    if p.ks < 2:
+        raise AssertionError(f"{name}: not a split shape ({p})")
+    x = torch.randn((1, K), generator=g, device=qt.q.device).to(torch.bfloat16)
+    a, b = qmm_cuda.qmm_stacked(x, qt, layer), qmm_cuda.qmm_stacked(x, qt, layer)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls differ by {float((a - b).abs().max())}")
+    w = dequantize(one, torch.bfloat16).to(torch.float32)
+    r0, r1 = p.split_rows(K // 2 if one.bits == 4 else K)[p.ks // 2]
+    w[r0:r1] = 0.0
+    if one.bits == 4:
+        w[K // 2 + r0:K // 2 + r1] = 0.0
+    dropped = (x.to(torch.float32) @ w).to(torch.bfloat16)
+    _, fault = max_err(dropped, qmm_cuda.qmm_plain(x, one), 2e-2)
+    print(f"[kernel] {name}: {p.ks} splits in one cluster; two calls equal bit for bit; a plain "
+          f"version without split {p.ks // 2} (rows {r0}-{r1}) reads {fault:.3g} of the limit",
+          flush=True)
+    if not fault > 1.0:
+        raise AssertionError(f"{name}: the check cannot see a dropped split")
 
 
 def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, scale, q_std,
@@ -456,17 +541,27 @@ def v2lite_kernel_phase(params, cfg, results, g, flush):
 def hybrid_kernel_phase(params, cfg, results, g, flush):
     import torch
 
+    from krasis_tpu_torch.quant import quantize
+
     la, gqa = params["layers"][0], params["layers"][3]
     layer = la["qkvz_proj"].q.shape[0] - 1                   # the last layer of each stack
+    # an int4 weight at qkvz_proj's shape, quantized on the card from a
+    # seeded bf16 weight: no full-width path runs int4 through K1
+    K, N = la["qkvz_proj"].k_dim, la["qkvz_proj"].n_dim
+    w4 = quantize((torch.randn((K, N), generator=g, device=flush.device) * 0.02)
+                  .to(torch.bfloat16), 4, 128)
     # K1 — the int8 lm_head; K1s — every stacked int8 projection of a decode step
     qmm_checks(results, "qcn/", (
         ("qmm:lm_head", params["lm_head"], None, torch.float32),
+        ("qmm:int4_at_qkvz_shape", w4, None, torch.bfloat16),
         ("qmm_stacked:qkvz_proj", la["qkvz_proj"], layer, torch.bfloat16),
+        ("qmm_stacked:qkvz_proj_T16", la["qkvz_proj"], layer, torch.bfloat16, 16),
         ("qmm_stacked:ba_proj", la["ba_proj"], layer, torch.bfloat16),
         ("qmm_stacked:la_out_proj", la["la_out_proj"], layer, torch.bfloat16),
         ("qmm_stacked:q_proj", gqa["q_proj"], layer, torch.bfloat16),
         ("qmm_stacked:k_proj", gqa["k_proj"], layer, torch.bfloat16),
         ("qmm_stacked:o_proj", gqa["o_proj"], layer, torch.bfloat16)), g, flush)
+    qmm_split_checks("qcn/qmm_stacked:o_proj", gqa["o_proj"], layer, g)
     # K2 — GQA: 16 query heads on 2 kv heads of 256, K and V in two buffers
     d = cfg.qk_head_dim
     # score std = d^-0.5 * sqrt(d) * q_std = 3
@@ -694,17 +789,26 @@ def profile_phase(eng, prompt, new: int):
     """Device time by kernel over one request, against the wall time of the
     same request run without the profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the second step is recorded: the first, one small kernel, warms the
+    # tracer up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
         torch.cuda.synchronize()
+        prof.step()
+    # the step markers' spans on the device timeline are not kernels
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"[profile] prompt {len(prompt)} + {new} tokens: wall {wall_ms:.1f} ms unprofiled, "
@@ -712,6 +816,11 @@ def profile_phase(eng, prompt, new: int):
           f"{sum(r[2] for r in rows)} launches")
     for key, ms, count in rows[:12]:
         print(f"[profile]   {ms:9.2f} ms {count:6d}x  {key[:90]}")
+    k1 = [(ms, count) for key, ms, count in rows if "qmm_kernel" in key]
+    if k1:
+        ms, count = sum(r[0] for r in k1), sum(r[1] for r in k1)
+        print(f"[profile]   K1 + K1s: {ms:.2f} ms over {count} launches, "
+              f"{1e3 * ms / count:.2f} us each")
     for key, ms, count in rows:                       # K2's launches, each form
         if "attention_kernel" in key or "combine_kernel" in key:
             name = key.split("((")[0].replace("void (anonymous namespace)::", "")

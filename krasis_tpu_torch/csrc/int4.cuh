@@ -51,6 +51,32 @@ __device__ __forceinline__ float deq_bf16(int q, float scale) {
   return __bfloat162float(__float2bfloat16((float)q * scale));
 }
 
+// Two weights of one column as a bf16 pair, dequantized as deq_bf16 does:
+// from a word of 4 packed bytes b0..b3 in which (b_p, b_p+2) are one
+// column's k pair (ldmatrix.trans of packed rows; p = 0 or 1), the low (h
+// = 0) or high (h = 1) nibbles for int4, else the bytes. The values become
+// exact bf16 integers — int4: the nibble ^ 8 in the low bits of bf16 128,
+// minus 136; int8: the byte's low 7 bits in the low bits of bf16 128, minus
+// 128, or 256 where its sign bit is set (bf16 256 is 128's bits with that
+// bit) — and one bf16 multiply by the scale pair rounds the exact product
+// once: bf16(f32(q) * scale).
+template <bool IS4>
+__device__ __forceinline__ uint32_t deq_pair(uint32_t w, int p, int h, __nv_bfloat162 scale) {
+  __nv_bfloat162 v;
+  if (IS4) {
+    const uint32_t m = ((w >> (8 * p + 4 * h)) & 0x000F000Fu) ^ 0x43084308u;
+    v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m), __float2bfloat162_rn(136.f));
+  } else {
+    const uint32_t b = w >> (8 * p);
+    const uint32_t m = (b & 0x007F007Fu) | 0x43004300u;
+    const uint32_t base = (b & 0x00800080u) | 0x43004300u;
+    v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                *reinterpret_cast<const __nv_bfloat162*>(&base));
+  }
+  v = __hmul2(v, scale);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // The MLP activation on f32 gate g and up u: SwiGLU g·σ(g)·u, or with
 // gpt_oss the clamped GPT-OSS form g = min(g, lim), u = clamp(u, -lim,
 // lim), g·σ(1.702 g)·(u + 1). σ is 1 / (1 + e^-x) in full-precision expf,

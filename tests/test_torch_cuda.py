@@ -41,29 +41,100 @@ def _close(got, want, tol):
     assert bool((diff <= limit).all()), float((diff / limit).max())
 
 
+def _one_launch_each(fn, counter):
+    """Two calls: bit-equal results, one count each on the wrapper's
+    counter `counter` (module, attribute)."""
+    before = getattr(*counter)
+    a = fn()
+    b = fn()
+    assert getattr(*counter) == before + 2
+    assert torch.equal(a, b)
+    return a
+
+
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("T", [1, 8, 13])
-def test_qmm_kernel(dev, bits, T):
-    g = _gen(dev, T + bits)
-    qt = quantize(torch.randn((512, 384), generator=g, device=dev) * 0.05, bits, 128)
+@pytest.mark.parametrize("N", [64, 384, 388])
+@pytest.mark.parametrize("T", [1, 4, 8, 13, 16])
+def test_qmm_kernel(dev, bits, T, N):
+    """N = 388 is the tail form (4-column copies: N % 16 != 0)."""
+    g = _gen(dev, T + bits + N)
+    qt = quantize(torch.randn((512, N), generator=g, device=dev) * 0.05, bits, 128)
     x = torch.randn((T, 512), generator=g, device=dev).to(torch.bfloat16)
+    got = _one_launch_each(lambda: qmm_cuda.qmm(x, qt, torch.float32), (qmm_cuda, "launches"))
+    _close(got, qmm_cuda.qmm_plain(x, qt, torch.float32), 2e-2)
+    _close(qmm_cuda.qmm(x, qt), qmm_cuda.qmm_plain(x, qt), 2e-2)          # bf16 out
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("T,N", [(1, 384), (5, 384), (1, 64), (4, 64), (16, 64), (1, 388),
+                                 (4, 388), (16, 388), (16, 384)])
+def test_qmm_stacked_kernel(dev, bits, T, N):
+    """Layers of a [12, K(/2), N] stack, read in place, layer 11 included;
+    N = 64 is the narrow ba_proj case (half a block of columns), N = 388
+    the tail form."""
+    g = _gen(dev, 7 * T + bits + N)
+    stack = stack_leading([quantize(torch.randn((512, N), generator=g, device=dev) * 0.05,
+                                    bits, 128) for _ in range(12)], 0)
+    x = torch.randn((T, 512), generator=g, device=dev).to(torch.bfloat16)
+    for layer in (0, 5, 11):
+        got = _one_launch_each(lambda: qmm_cuda.qmm_stacked(x, stack, layer, torch.float32),
+                               (qmm_cuda, "launches_stacked"))
+        _close(got, qmm_cuda.qmm_plain(x, stack[layer], torch.float32), 2e-2)
+
+
+@pytest.mark.parametrize("K,N,bits,gs", [(1408, 256, 4, 128), (2064, 128, 4, 16),
+                                         (10944, 128, 8, 64), (4096, 2048, 8, 128)])
+@pytest.mark.parametrize("T", [1, 16])
+def test_qmm_kernel_group_edges(dev, K, N, bits, gs, T):
+    """Group boundaries inside a split or a 16-row step: int4's K/2 not a
+    multiple of the group (1408), K/2 at half a 16-row step past a group
+    boundary (2064, gs 16), gs 64 with 171 groups (V2-Lite's dense w2), and
+    o_proj's shape with 8 splits."""
+    g = _gen(dev, K + T)
+    qt = quantize(torch.randn((K, N), generator=g, device=dev) * 0.05, bits, gs)
+    assert qt.group_size == gs
+    x = torch.randn((T, K), generator=g, device=dev).to(torch.bfloat16)
+    got = _one_launch_each(lambda: qmm_cuda.qmm(x, qt, torch.float32), (qmm_cuda, "launches"))
+    _close(got, qmm_cuda.qmm_plain(x, qt, torch.float32), 2e-2)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qmm_kernel_unaligned_x(dev, bits):
+    """x starting 2 bytes past a 16-byte boundary takes the kernel's
+    element-by-element x copy."""
+    g = _gen(dev, 99 + bits)
+    qt = quantize(torch.randn((1024, 384), generator=g, device=dev) * 0.05, bits, 128)
+    buf = torch.randn((3 * 1024 + 1,), generator=g, device=dev).to(torch.bfloat16)
+    x = buf[1:].view(3, 1024)
+    assert x.data_ptr() % 16
     _close(qmm_cuda.qmm(x, qt, torch.float32), qmm_cuda.qmm_plain(x, qt, torch.float32), 2e-2)
 
 
-@pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("T,N", [(1, 384), (5, 384), (1, 64)])
-def test_qmm_stacked_kernel(dev, bits, T, N):
-    """Every layer of a [3, K(/2), N] stack, read in place; N = 64 is the
-    narrow ba_proj case (half a block of columns)."""
-    g = _gen(dev, 7 * T + bits + N)
-    stack = stack_leading([quantize(torch.randn((512, N), generator=g, device=dev) * 0.05,
-                                    bits, 128) for _ in range(3)], 0)
-    x = torch.randn((T, 512), generator=g, device=dev).to(torch.bfloat16)
-    before = qmm_cuda.launches_stacked
-    for layer in range(3):
-        _close(qmm_cuda.qmm_stacked(x, stack, layer, torch.float32),
-               qmm_cuda.qmm_plain(x, stack[layer], torch.float32), 2e-2)
-    assert qmm_cuda.launches_stacked == before + 3
+def test_qmm_one_device_kernel_a_call(dev):
+    """At a split shape (o_proj, 8 splits), a call is one device kernel: the
+    split sums meet on the chip, and no sum or cast launch follows."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    g = _gen(dev, 5)
+    qt = quantize(torch.randn((4096, 2048), generator=g, device=dev) * 0.05, 8, 128)
+    x = torch.randn((1, 4096), generator=g, device=dev).to(torch.bfloat16)
+    assert qmm_cuda.plan(1, 4096, 2048, 8, 128).ks > 1
+    qmm_cuda.qmm(x, qt)
+    torch.cuda.synchronize()
+    for _ in range(3):              # the tracer at times records nothing: take it again
+        # the second step is recorded; the first warms the tracer up
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(2):
+                for _ in range(5):
+                    qmm_cuda.qmm(x, qt)
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "qmm" in kernels[0][0] and kernels[0][1] == 5, kernels
 
 
 @pytest.mark.parametrize("sq,q_off,kv_len", [(200, 0, 200), (100, 128, 228), (1, 300, 301),

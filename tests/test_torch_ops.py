@@ -85,8 +85,9 @@ def test_greedy_sample_matches():
     got = sample(torch.from_numpy(logits), SamplingParams(temperature=0.0))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     temp = torch.tensor([0.0, 0.0, 0.0])
-    np.testing.assert_array_equal(sample_batched(torch.from_numpy(logits), temp).numpy(),
-                                  np.asarray(want))
+    got_b = sample_batched(torch.from_numpy(logits), temp, torch.full((3,), 0.9),
+                           torch.zeros(3), torch.zeros((3, 1000), dtype=torch.bool))
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want))
 
 
 def test_temperature_sample_stays_in_nucleus():
