@@ -4,7 +4,8 @@ A copy of the parts of ``krasis_tpu.config`` that the ported paths read:
 ``QuantConfig``, the ``ModelConfig`` fields and derived properties, and
 the presets of the ported families (MLA × MoE: ``deepseek-v2-lite``;
 GQA × MoE: ``qwen3-moe``; hybrid Gated DeltaNet + GQA: ``qwen3-coder-next``
-and its 64-expert cut ``qcn-1chip``). Field names and defaults are
+and its 64-expert cut ``qcn-1chip``; GQA with sliding windows, sinks and
+biases: ``gpt-oss-120b`` and ``gpt-oss-20b``). Field names and defaults are
 identical, so one configuration describes both packages. Parsing of
 checkpoint ``config.json`` files arrives with the loader in a later slice.
 """
@@ -180,7 +181,38 @@ _PRESETS: Dict[str, Dict[str, Any]] = {
         norm_topk_prob=True, rms_norm_eps=1e-6, rope_theta=10000000.0,
         partial_rotary_factor=0.25,
     ),
+    # GPT-OSS-120B: 128 experts top-4, alternating sliding (window 128) and
+    # full GQA layers with learned attention sinks, biased projections and
+    # experts, the clamped gpt-oss activation, and a router that selects on
+    # raw logits and takes the softmax over the top-k only.
+    "gpt-oss-120b": dict(
+        model_type="gpt_oss",
+        hidden_size=2880, intermediate_size=2880, moe_intermediate_size=2880,
+        num_hidden_layers=36, num_attention_heads=64, num_key_value_heads=8,
+        vocab_size=201088, head_dim=64, qk_norm=False,
+        attention_bias=True, sliding_window=128,
+        layer_types=[
+            "sliding_attention" if i % 2 == 0 else "full_attention"
+            for i in range(36)
+        ],
+        n_routed_experts=128, num_experts_per_tok=4,
+        moe_router_softmax_after_topk=True,
+        swiglu_limit=7.0, rms_norm_eps=1e-5, rope_theta=150000.0,
+        rope_scaling=dict(
+            rope_type="yarn", factor=32.0,
+            original_max_position_embeddings=4096,
+            beta_fast=32.0, beta_slow=1.0,
+        ),
+        max_position_embeddings=131072,
+    ),
 }
+# GPT-OSS-20B: the same family at 24 layers and 32 experts.
+_PRESETS["gpt-oss-20b"] = dict(
+    _PRESETS["gpt-oss-120b"],
+    num_hidden_layers=24, n_routed_experts=32,
+    layer_types=["sliding_attention" if i % 2 == 0 else "full_attention"
+                 for i in range(24)],
+)
 # The same architecture with 64 of the 512 experts: per-layer shapes are
 # those of the full model, the expert stacks are an eighth of its size.
 _PRESETS["qcn-1chip"] = dict(_PRESETS["qwen3-coder-next"],

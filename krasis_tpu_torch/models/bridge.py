@@ -10,7 +10,8 @@ reference package: the caller does the jax → numpy step.
 The reference's layout is ``prefix_layers`` plus ``pattern`` entries whose
 leaves carry a leading ``reps`` dim; the port's ``layers`` list holds
 prefix layers, then pattern × reps in the order of ``pattern_layer_index``.
-Expert stacks and dense leaves become per-layer views. A quantized
+Expert stacks and dense leaves become per-layer views, GPT-OSS's sinks,
+projection and expert biases and router logit biases among them. A quantized
 attention / DeltaNet projection stack (``STACKED_PROJECTIONS``) stays
 whole: each layer of its pattern position holds the same stack and its own
 ``_layer_idx``, as ``init_synthetic_params`` builds them.

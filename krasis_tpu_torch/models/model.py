@@ -3,11 +3,15 @@
 Layer graph (the reference's ``krasis_tpu/models/model.py``):
     h += attn(rms_norm(h));  h += mlp(rms_norm(h))
 with attn ∈ {MLA in absorbed form, GQA (qk-norm, gated output, partial
-rotary), Gated DeltaNet} and mlp ∈ {routed MoE + shared expert, dense MLP}.
-The reference's prefix layers and scanned pattern stack are one Python
-loop over ``params["layers"]`` here, each layer's kind read from
-``layer_specs``. ``forward`` updates the cache in place and returns the
-logits. Sliding windows and attention sinks are not ported yet.
+rotary, sliding windows, sinks, biases), Gated DeltaNet} and mlp ∈ {routed
+MoE + shared expert, dense MLP}. The reference's prefix layers and scanned
+pattern stack are one Python loop over ``params["layers"]`` here, each
+layer's kind read from ``layer_specs``. ``forward`` updates the cache in
+place and returns the logits.
+
+As in the reference, the first prefill chunk (``history == 0``) attends to
+its freshly projected bf16 keys and values, never to the rows it has just
+written to the cache; later chunks and decode read the cache, bf16 or fp8.
 """
 
 from __future__ import annotations
@@ -26,12 +30,16 @@ from ..ops.norm import gated_rms_norm, rms_norm
 from ..ops.qmm import linear
 from ..ops.rope import apply_rope, rope_cos_sin, yarn_softmax_scale
 from ..ops.routing import compute_routing
+from ..runtime.kv_cache import store
 from .params import GATED_ATTENTION_TYPES, layer_specs
 
 
 def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor, kv_len: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, sliding: bool = False,
+                   fresh: bool = False) -> torch.Tensor:
+    """`sliding`: the layer sees the last cfg.sliding_window keys only.
+    `fresh`: the first prefill chunk, which attends to its own k / v."""
     B, S, _ = x.shape
     d = cfg.qk_head_dim
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -68,11 +76,16 @@ def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     # padding rows past the cache end are dropped, as XLA drops them
     keep = positions < lc["k"].shape[2]
     for name, new in (("k", k), ("v", v)):
-        rows = F.pad(new, (0, Dp - d)).to(lc[name].dtype)
-        lc[name][bidx[keep], :, positions[keep]] = rows[keep]
+        store(lc[name], (bidx[keep], slice(None), positions[keep]),
+              F.pad(new, (0, Dp - d))[keep])
 
-    out = flash_attention(F.pad(q, (0, Dp - d)), lc["k"], positions[:, 0], kv_len,
-                          d ** -0.5, v_dim=d, v=lc["v"], qk_dim=d)
+    if fresh:   # the chunk's own bf16 rows, padded as the cache's are
+        kk, vv = (F.pad(t, (0, Dp - d)).transpose(1, 2) for t in (k, v))
+    else:
+        kk, vv = lc["k"], lc["v"]
+    out = flash_attention(F.pad(q, (0, Dp - d)), kk, positions[:, 0], kv_len, d ** -0.5,
+                          v_dim=d, v=vv, qk_dim=d,
+                          window=cfg.sliding_window if sliding else 0, sinks=lp.get("sinks"))
     out = out.reshape(B, S, hq * d)
     if gate is not None:
         out = out * torch.sigmoid(gate.to(torch.float32)).to(out.dtype)
@@ -130,7 +143,7 @@ def _la_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
 
 def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor, kv_len: torch.Tensor,
-                   cfg: ModelConfig, prefill: bool) -> torch.Tensor:
+                   cfg: ModelConfig, prefill: bool, fresh: bool = False) -> torch.Tensor:
     B, S, _ = x.shape
     hq = cfg.num_attention_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -150,14 +163,14 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
 
     cache = lc["kv"]                                         # [B, 1, Smax, Dp]
     Dp = cache.shape[-1]
-    row = F.pad(torch.cat([ckv, kpe], dim=-1), (0, Dp - (L + dr))).to(cache.dtype)
+    row = F.pad(torch.cat([ckv, kpe], dim=-1), (0, Dp - (L + dr)))
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)
     if prefill:
         # padding rows past the cache end are dropped, as XLA drops them
         keep = positions < cache.shape[2]
-        cache[bidx[keep], 0, positions[keep]] = row[keep]
+        store(cache, (bidx[keep], 0, positions[keep]), row[keep])
     else:
-        cache[bidx, 0, positions] = row
+        store(cache, (bidx, 0, positions), row)
 
     scale = yarn_softmax_scale((dn + dr) ** -0.5, cfg.rope_scaling)
     # absorbed MQA form: q_nope @ w_kc joins q_pe against the single-head
@@ -165,8 +178,9 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     q_eff = torch.einsum("bshd,hdl->bshl", q_nope.to(torch.float32),
                          lp["w_kc"].to(torch.float32)).to(x.dtype)
     q_cat = F.pad(torch.cat([q_eff, q_pe.to(x.dtype)], dim=-1), (0, Dp - (L + dr)))
-    ctx = flash_attention(q_cat, cache, positions[:, 0], kv_len, scale, v_dim=L,
-                          qk_dim=L + dr)
+    # the first chunk attends to its own bf16 rows, not the cache's
+    ctx = flash_attention(q_cat, row[:, None] if fresh else cache, positions[:, 0], kv_len,
+                          scale, v_dim=L, qk_dim=L + dr)
     out = torch.einsum("bshl,hlv->bshv", ctx.to(torch.float32),
                        lp["w_vc"].to(torch.float32)).to(x.dtype)
     return linear(out.reshape(B, S, -1), lp["o_proj"], layer_idx=li)
@@ -184,7 +198,8 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
     act = dict(swiglu_limit=cfg.swiglu_limit, gpt_oss=gpt_oss)
     if "mlp_w13" in lp:
         return mlp_forward(x2d, lp["mlp_w13"], lp["mlp_w2"], **act)
-    routing = compute_routing(x2d, lp["gate_w"], cfg)
+    routing = compute_routing(x2d, lp["gate_w"], cfg, lp.get("gate_bias"),
+                              logit_bias=lp.get("gate_logit_bias"))
     E_stack = lp["w13"].q.shape[0]
     n_virt = E_stack - cfg.n_routed_experts
     if n_virt > 0 and not prefill and not gpt_oss:
@@ -217,12 +232,15 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor,
             cache: Dict[str, Any], cfg: ModelConfig, quant: QuantConfig,
-            prefill: bool, return_all_logits: bool = False) -> torch.Tensor:
+            prefill: bool, return_all_logits: bool = False,
+            history: int = 0) -> torch.Tensor:
     """One pass over tokens [B, S] with seq_lens [B] valid tokens per row,
     after cache["length"] cached ones. Writes the new cache rows, advances
     cache["length"], and returns f32 logits [B, V] at each row's last valid
     token, or [B, S, V] at every position with return_all_logits (the
-    perplexity path)."""
+    perplexity path). `history` is the host's count of tokens cached
+    before a prefill chunk: 0 marks the first chunk (read on the host, so
+    the cache's device-side length is never synchronised)."""
     B, S = tokens.shape
     length = cache["length"]
     steps = torch.arange(S, device=tokens.device)
@@ -231,16 +249,15 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
     kv_len = length + seq_lens.to(length.dtype)
     # prefill MoE stays bf16: the int8-activation numerics belong to decode
     activation = "bf16" if prefill else quant.expert_activation
+    fresh = prefill and history == 0
 
     x = params["embed"][tokens]
     for lp, lc, spec in zip(params["layers"], cache["layers"], layer_specs(cfg)):
         normed = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
-        if spec.sliding:
-            raise NotImplementedError("sliding-window attention is not ported yet")
         if spec.attn_kind == "gqa":
-            attn = _gqa_attention(lp, lc, normed, positions, kv_len, cfg)
+            attn = _gqa_attention(lp, lc, normed, positions, kv_len, cfg, spec.sliding, fresh)
         elif spec.attn_kind == "mla":
-            attn = _mla_attention(lp, lc, normed, positions, kv_len, cfg, prefill)
+            attn = _mla_attention(lp, lc, normed, positions, kv_len, cfg, prefill, fresh)
         else:
             attn = _la_attention(lp, lc, normed, valid, cfg, prefill)
         x = x + attn

@@ -13,7 +13,9 @@ stacked qmm kernel reads in place.
 
 ``init_synthetic_params`` builds a random-weight model directly in
 quantized form on the target device from an explicit ``torch.Generator``,
-with the shared experts folded into the expert stacks at creation.
+with the shared experts folded into the expert stacks at creation. GPT-OSS
+layers also hold ``sinks`` [Hq], ``gate_logit_bias`` [E], ``w13_bias``
+[E, 2I] and ``w2_bias`` [E, H] (f32, zero, as the reference makes them).
 """
 
 from __future__ import annotations
@@ -139,9 +141,8 @@ def _n_virtual(cfg: ModelConfig, quant: QuantConfig, Is: int) -> int:
 
 def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
                 g: torch.Generator, device: torch.device) -> Dict[str, Any]:
-    if spec.sliding or cfg.model_type == "gpt_oss":
-        raise NotImplementedError("sliding-window attention and sinks are not ported yet")
     H, gs = cfg.hidden_size, quant.group_size
+    gpt_oss = cfg.model_type == "gpt_oss"
 
     def rnd(shape, dtype=torch.bfloat16, scale=0.02):
         return (torch.randn(shape, generator=g, device=device,
@@ -177,6 +178,8 @@ def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
                 lp[name] = torch.zeros(n, dtype=torch.bfloat16, device=device)
         if cfg.qk_norm:
             lp["q_norm"], lp["k_norm"] = ones(d), ones(d)
+        if gpt_oss:
+            lp["sinks"] = torch.zeros(hq, dtype=torch.float32, device=device)
     elif spec.attn_kind == "mla":
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         L, dv = cfg.kv_lora_rank, cfg.v_head_dim
@@ -208,6 +211,10 @@ def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
 
     E, I = cfg.n_routed_experts, cfg.moe_intermediate_size
     lp["gate_w"] = rnd((H, E), torch.float32)
+    if cfg.has_router_bias:
+        lp["gate_bias"] = torch.zeros(E, dtype=torch.float32, device=device)
+    if gpt_oss:
+        lp["gate_logit_bias"] = torch.zeros(E, dtype=torch.float32, device=device)
     Is = 0
     if cfg.n_shared_experts > 0:
         Is = cfg.shared_expert_intermediate_size or I * cfg.n_shared_experts
@@ -232,6 +239,9 @@ def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
             lp[name].scales[E:] = v.scales
     elif n_virt:
         lp["w13"], lp["w2"] = lp["w13"][:E], lp["w2"][:E]
+    if gpt_oss:
+        lp["w13_bias"] = torch.zeros((E, 2 * I), dtype=torch.float32, device=device)
+        lp["w2_bias"] = torch.zeros((E, H), dtype=torch.float32, device=device)
     return lp
 
 

@@ -82,25 +82,29 @@ class Engine:
         self.cache = init_cache(self.cfg, self.quant, 1, self._cache_len, self.device)
 
     def _forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
-                 prefill: bool, return_all_logits: bool = False) -> torch.Tensor:
+                 prefill: bool, return_all_logits: bool = False,
+                 history: int = 0) -> torch.Tensor:
         return forward(self.params, tokens, seq_lens, self.cache, self.cfg,
-                       self.quant, prefill, return_all_logits)
+                       self.quant, prefill, return_all_logits, history)
 
-    def _prefill_rows(self, ids: Sequence[int], return_all_logits: bool = False) -> torch.Tensor:
-        """One prefill forward over `ids`, padded to at least MIN_PREFILL_ROWS
-        rows so that it takes the grouped MoE regime."""
+    def _prefill_rows(self, ids: Sequence[int], return_all_logits: bool = False,
+                      history: int = 0) -> torch.Tensor:
+        """One prefill forward over `ids` after `history` cached tokens,
+        padded to at least MIN_PREFILL_ROWS rows so that it takes the
+        grouped MoE regime."""
         m = len(ids)
         tokens = torch.zeros((1, max(m, MIN_PREFILL_ROWS)), dtype=torch.int64)
         tokens[0, :m] = torch.tensor(ids, dtype=torch.int64)
         seq_lens = torch.tensor([m], dtype=torch.int32)
         return self._forward(tokens.to(self.device), seq_lens.to(self.device),
-                             prefill=True, return_all_logits=return_all_logits)
+                             prefill=True, return_all_logits=return_all_logits,
+                             history=history)
 
     def _prefill_prompt(self, prompt_ids: Sequence[int]) -> torch.Tensor:
         """Prefill in chunks of self.chunk; returns last-position logits."""
         logits = None
         for pos in range(0, len(prompt_ids), self.chunk):
-            logits = self._prefill_rows(prompt_ids[pos:pos + self.chunk])
+            logits = self._prefill_rows(prompt_ids[pos:pos + self.chunk], history=pos)
         return logits
 
     @torch.inference_mode()

@@ -5,16 +5,19 @@ per layer, plus the per-slot valid ``length``:
 
 * MLA: ``{"kv": [B, 1, S, pad128(L + Dr)]}`` holding ``[ckv ; kpe ; 0]``
   rows, so attention reads one buffer and V is the latent prefix of K;
-* GQA: ``{"k", "v": [B, Hkv, S, pad128(d)]}`` bf16, two buffers;
+* GQA: ``{"k", "v": [B, Hkv, S, pad128(d)]}``, two buffers;
 * Gated DeltaNet: ``{"state": [B, Hv, dk, dv] f32, "conv": [B, K-1,
   conv_dim] bf16}``: O(1) per sequence, no KV.
 
-The port updates the cache in place (the reference returns a new cache
-that XLA aliases through donation).
+KV buffers hold bf16 or, with ``kv_cache_dtype="fp8"``, e4m3
+(``torch.float8_e4m3fn``), written through ``to_cache`` and widened to
+bf16 inside K2. The port updates the cache in place (the reference returns
+a new cache that XLA aliases through donation).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 from typing import Any, Dict
 
@@ -23,8 +26,12 @@ import torch
 from ..config import ModelConfig, QuantConfig
 from ..models.params import layer_specs
 
-# "auto" kv dtype: bf16 caches up to this many bytes, fp8 beyond.
+# "auto" kv dtype: bf16 caches up to this many bytes (KRASIS_TPU_KV_BYTES
+# overrides), fp8 beyond.
 DEFAULT_KV_BUDGET = 4 << 30
+# bf16 values past this magnitude round beyond e4m3's largest finite value
+# (448); the reference's cast gives NaN there, torch's saturates.
+_FP8_OVERFLOW = 464.0
 
 
 def lane_pad(d: int) -> int:
@@ -43,19 +50,42 @@ def kv_bytes_per_token(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
 
 def resolve_kv_quant(cfg: ModelConfig, quant: QuantConfig, batch: int,
                      max_len: int) -> QuantConfig:
-    """"auto" → bf16 when the full cache fits DEFAULT_KV_BUDGET, else fp8."""
+    """"auto" → bf16 when the full cache fits the budget
+    (``KRASIS_TPU_KV_BYTES``, default DEFAULT_KV_BUDGET), else fp8."""
     if quant.kv_cache_dtype != "auto":
         return quant
+    budget = int(os.environ.get("KRASIS_TPU_KV_BYTES", DEFAULT_KV_BUDGET))
     need = batch * max_len * kv_bytes_per_token(cfg, 2)
-    return replace(quant, kv_cache_dtype="bf16" if need <= DEFAULT_KV_BUDGET else "fp8")
+    return replace(quant, kv_cache_dtype="bf16" if need <= budget else "fp8")
+
+
+def kv_dtype(quant: QuantConfig) -> torch.dtype:
+    return torch.float8_e4m3fn if quant.kv_cache_dtype == "fp8" else torch.bfloat16
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows rounded to the cache's dtype as the reference's cast of its
+    bf16 rows rounds them: through bf16, and for e4m3 round to nearest
+    even with NaN where the value rounds past 448 (torch would saturate)."""
+    x = x.to(torch.bfloat16)
+    if dtype == torch.float8_e4m3fn:
+        x = torch.where(x.abs() > _FP8_OVERFLOW, torch.full_like(x, float("nan")), x)
+    return x.to(dtype)
+
+
+def store(buf: torch.Tensor, index, rows: torch.Tensor) -> None:
+    """buf[index] = to_cache(rows, buf.dtype); an fp8 buffer is written
+    through its bytes."""
+    rows = to_cache(rows, buf.dtype)
+    if buf.dtype == torch.float8_e4m3fn:
+        buf, rows = buf.view(torch.uint8), rows.view(torch.uint8)
+    buf[index] = rows
 
 
 def init_cache(cfg: ModelConfig, quant: QuantConfig, batch: int, max_len: int,
                device) -> Dict[str, Any]:
     """Zeroed cache: {"layers": [one dict per layer], "length": [B] int32}."""
-    quant = resolve_kv_quant(cfg, quant, batch, max_len)
-    if quant.kv_cache_dtype != "bf16":
-        raise NotImplementedError("the fp8 KV cache is not ported yet")
+    kdt = kv_dtype(resolve_kv_quant(cfg, quant, batch, max_len))
 
     def zeros(shape, dtype=torch.bfloat16):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -64,10 +94,10 @@ def init_cache(cfg: ModelConfig, quant: QuantConfig, batch: int, max_len: int,
     for spec in layer_specs(cfg):
         if spec.attn_kind == "mla":
             Dp = lane_pad(cfg.kv_lora_rank + cfg.qk_rope_head_dim)
-            layers.append({"kv": zeros((batch, 1, max_len, Dp))})
+            layers.append({"kv": zeros((batch, 1, max_len, Dp), kdt)})
         elif spec.attn_kind == "gqa":
             shape = (batch, cfg.num_key_value_heads, max_len, lane_pad(cfg.qk_head_dim))
-            layers.append({"k": zeros(shape), "v": zeros(shape)})
+            layers.append({"k": zeros(shape, kdt), "v": zeros(shape, kdt)})
         else:
             hk, hv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
             dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim

@@ -520,3 +520,92 @@ def test_gpt_oss_epilogues_on_card(dev):
     real = plan.row_src >= 0
     _close(gmm_cuda.gmm(xs, plan.row_src, w13, plan, True, 7.0, True)[real],
            gmm_cuda.gmm_plain(xs, plan.row_src, w13, plan, True, 7.0, True)[real], 3e-2)
+
+
+def _gptoss_case(dev, seed, sq, S, Hq=16, Hkv=2):
+    """GPT-OSS's attention rows: heads of 64 real lanes in 128-lane rows,
+    K and V in two buffers, and sinks near the rows' largest scores."""
+    g = _gen(dev, seed)
+
+    def rows(shape):
+        t = torch.zeros(shape[:-1] + (128,), dtype=torch.bfloat16, device=dev)
+        t[..., :64] = torch.randn(shape[:-1] + (64,), generator=g, device=dev).to(torch.bfloat16)
+        return t
+
+    sinks = 2.0 + torch.randn((Hq,), generator=g, device=dev)
+    return rows((1, sq, Hq, 64)), rows((1, Hkv, S, 64)), rows((1, Hkv, S, 64)), sinks
+
+
+# (sq, q_off, kv_len, cache rows): prefill and a chunk (one launch), decode
+# below and past the window (split), and 4 and 8 query rows (Sq·G = 32, 64:
+# split, the causal mask inside a split)
+WINDOW_CASES = [(300, 0, 300, 512), (97, 300, 397, 512), (1, 99, 100, 4096),
+                (1, 2499, 2500, 4096), (4, 86, 90, 512), (8, 292, 300, 512)]
+
+
+@pytest.mark.parametrize("with_sinks", [True, False], ids=["sinks", "no_sinks"])
+@pytest.mark.parametrize("window", [128, 0])
+@pytest.mark.parametrize("sq,q_off,kv_len,S", WINDOW_CASES)
+def test_attention_window_sinks_kernel(dev, sq, q_off, kv_len, S, window, with_sinks):
+    """K2 with a sliding window and sinks, both launch forms, against the
+    one-launch plain version; the split form also against its own plain
+    split + combine (the sink joins once, in the combine)."""
+    q, k, v, sinks = _gptoss_case(dev, sq + kv_len + window, sq, S)
+    sinks = sinks if with_sinks else None
+    qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    split = sq * 8 <= fa.MAX_SPLIT_ROWS
+    before = fa.launches
+    got = fa.flash_attention(q, k, qo, kl, 0.125, 64, v, 64, window=window, sinks=sinks)
+    assert fa.launches == before + (2 if split else 1)
+    _close(got, fa.flash_attention_plain(q, k, qo, kl, 0.125, 64, v, 64, window, sinks), 2e-2)
+    if split:
+        chunk, _ = fa.split_plan(S, 2, 1, torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+        o, m, l = fa.decode_split_plain(q, k, qo, kl, 0.125, 64, chunk, v, 64, window)
+        _close(got, fa._unstack(fa.decode_combine_plain(o, m, l, sinks), sq), 2e-2)
+
+
+def _fp8_case(dev, family, sq, S):
+    if family == "gqa":
+        q, k, v, sinks = _gptoss_case(dev, 5 + sq, sq, S)
+        return q, k, v, sinks, dict(scale=0.125, v_dim=64, qk_dim=64, window=128)
+    g = _gen(dev, 6 + sq)
+    q = torch.zeros((1, sq, 16, 640), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((1, 1, S, 640), dtype=torch.bfloat16, device=dev)
+    q[..., :576] = (0.3 * torch.randn((1, sq, 16, 576), generator=g, device=dev)).to(torch.bfloat16)
+    kv[..., :576] = torch.randn((1, 1, S, 576), generator=g, device=dev).to(torch.bfloat16)
+    return q, kv, None, None, dict(scale=0.072, v_dim=512, qk_dim=576, window=0)
+
+
+@pytest.mark.parametrize("sq,q_off,kv_len", [(300, 0, 300), (97, 300, 397), (1, 2499, 2500),
+                                             (1, 39, 40), (2, 298, 300)])
+@pytest.mark.parametrize("family", ["gqa", "mla"])
+def test_attention_fp8_cache_kernel(dev, family, sq, q_off, kv_len):
+    """K2 over an e4m3 cache (GQA: 64 real lanes of 128, V in its own
+    buffer, window and sinks; MLA: 576 of 640, V inside K) equals K2 over the
+    same cache cast to bf16 bit for bit, and its plain version within 2e-2."""
+    from krasis_tpu_torch.runtime.kv_cache import to_cache
+
+    S = 4096 if kv_len > 512 else 512
+    q, k, v, sinks, kw = _fp8_case(dev, family, sq, S)
+    k8 = to_cache(k, torch.float8_e4m3fn)
+    v8 = None if v is None else to_cache(v, torch.float8_e4m3fn)
+    wide = (k8.to(torch.bfloat16), None if v8 is None else v8.to(torch.bfloat16))
+    qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    args = (qo, kl, kw["scale"], kw["v_dim"])
+    opts = dict(qk_dim=kw["qk_dim"], window=kw["window"], sinks=sinks)
+    got = _one_launch_each(lambda: fa.flash_attention(q, k8, *args, v=v8, **opts),
+                           (fa, "launches")) if sq * (q.shape[2] // k.shape[1]) > 64 else \
+        fa.flash_attention(q, k8, *args, v=v8, **opts)
+    assert torch.equal(got, fa.flash_attention(q, wide[0], *args, v=wide[1], **opts))
+    _close(got, fa.flash_attention_plain(q, k8, *args, v8, **opts), 2e-2)
+
+
+def test_attention_fp8_rejects_misaligned_lanes(dev):
+    q = torch.zeros((1, 1, 8, 72), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 1, 64, 72), dtype=torch.float8_e4m3fn, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, torch.tensor([0], device=dev), torch.tensor([1], device=dev),
+                           0.1, 64, v=k, qk_dim=64)

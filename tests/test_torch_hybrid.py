@@ -180,7 +180,8 @@ def _forward_case(attention, activation, seed):
         fn = prefill_fn if n == n1 else chunk_fn
         jl, jcache = fn(jparams, jnp.asarray(tok), jnp.asarray([n], jnp.int32), jcache)
         pl_ = forward(params, torch.from_numpy(tok).long(),
-                      torch.tensor([n], dtype=torch.int32), cache, cfg, quant, prefill=True)
+                      torch.tensor([n], dtype=torch.int32), cache, cfg, quant, prefill=True,
+                      history=0 if n == n1 else 128)
         _close(pl_, jl, PREFILL_TOL, f"prefill logits after {int(cache['length'][0])} tokens")
     assert int(cache["length"][0]) == int(jcache["length"][0]) == n1 + n2
     # layer 0 (DeltaNet) sees only the embeddings, so its state is tight

@@ -70,7 +70,8 @@ def test_forward_matches_jax(monkeypatch):
         fn = prefill_fn if n == n1 else chunk_fn
         jl, jcache = fn(jparams, jnp.asarray(tok), jnp.asarray([n], jnp.int32), jcache)
         pl_ = forward(params, torch.from_numpy(tok).long(),
-                      torch.tensor([n], dtype=torch.int32), cache, cfg, quant, prefill=True)
+                      torch.tensor([n], dtype=torch.int32), cache, cfg, quant, prefill=True,
+                      history=0 if n == n1 else 128)
         _close(pl_, jl, f"prefill logits after {int(cache['length'][0])} tokens")
     total = n1 + n2
     assert int(cache["length"][0]) == int(jcache["length"][0]) == total

@@ -1,6 +1,7 @@
 """Helpers for the tests that compare the PyTorch port with the JAX package:
 moving JAX arrays, QTensors and parameter trees into the port via numpy."""
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -10,7 +11,7 @@ from krasis_tpu.models.synthetic import build_synthetic_engine as jax_build_engi
 from krasis_tpu.models.synthetic import tiny_config as jax_tiny_config
 from krasis_tpu.ops import gmm_pallas, moe_pallas
 from krasis_tpu.quant import QTensor as JaxQTensor
-from krasis_tpu_torch.config import QuantConfig
+from krasis_tpu_torch.config import QuantConfig, preset_config
 from krasis_tpu_torch.models.bridge import params_from_numpy, to_torch
 from krasis_tpu_torch.models.synthetic import tiny_config
 from krasis_tpu_torch.ops import expert_class
@@ -112,3 +113,37 @@ def q8_engines(monkeypatch, activation, max_len=1024):
     eng = Engine(tiny_config("deepseek-v2-lite", **Q8_OVERRIDES), QuantConfig(**kw),
                  port_params(jeng.params), max_len=max_len, device="cpu")
     return jeng, eng, calls
+
+
+GPTOSS_TINY = dict(hidden_size=64, intermediate_size=32, moe_intermediate_size=32,
+            num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+            vocab_size=256, head_dim=16, sliding_window=4,
+            layer_types=["sliding_attention", "full_attention"] * 2,
+            n_routed_experts=8, num_experts_per_tok=2)
+GPTOSS_LEAVES = {  # scale of each random leaf
+                 "sinks": 1.0, "gate_logit_bias": 0.5, "q_bias": 0.05, "k_bias": 0.05,
+                 "v_bias": 0.05, "o_bias": 0.05, "w13_bias": 0.05, "w2_bias": 0.05}
+
+
+def gptoss_cfgs():
+    """(JAX config, port config) of the tiny GPT-OSS of tests/test_model.py:
+    sliding (window 4) and full layers, 8 experts top-2, heads of 16."""
+    return (jax_preset_config("gpt-oss-20b", **GPTOSS_TINY),
+            preset_config("gpt-oss-20b", **GPTOSS_TINY))
+
+
+def gptoss_quants(kv, **kw):
+    q = dict(expert_bits=4, group_size=32, kv_cache_dtype=kv, **kw)
+    return JaxQuantConfig(**q), QuantConfig(**q)
+
+
+def randomize_gptoss(jparams, seed=0):
+    """Random nonzero sinks, projection and expert biases and router logit
+    biases (the synthetic init leaves them at zero), in their own dtypes."""
+    rng = np.random.default_rng(seed)
+
+    def layer(lp):
+        return {k: (jnp.asarray(rng.standard_normal(v.shape) * GPTOSS_LEAVES[k], v.dtype)
+                    if k in GPTOSS_LEAVES else v) for k, v in lp.items()}
+    return {**jparams, "prefix_layers": [layer(lp) for lp in jparams["prefix_layers"]],
+            "pattern": [layer(lp) for lp in jparams["pattern"]]}
