@@ -52,6 +52,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    form must have been launched by them. The biased experts take the plain
    MoE paths, as the reference's do: no K3-K7a launch.
 
+8. the probes (krasis_tpu_torch/probes, the H100 counterparts of the TPU
+   probes under benchmarks/): the four entry points at their own full-width
+   V2-Lite expert shapes with the launch counts set to 0 just before, then
+   each probe kernel against its plain version (P4-P8 exactly: the stream
+   floor, the two unpack forms, the s4 and s8 int4 products, the int4
+   view; K3 and K5 at T 1 and T 8; the grouped probe forms within 2e-2),
+   K4 / K7 at 256 and 512 rows against 128 rows bit for bit (P3's full
+   term is K7's own launch), and two negative controls (a stream plain
+   version without one pick, a 128-row plan with one tile's expert
+   changed) the checks must refuse.
+
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
 name and power limit and the JSON result; the line before them lists the
@@ -68,6 +79,7 @@ import time
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 PEAK_BF16 = 989e12             # dense tensor-core rates, H100 SXM data sheet
 PEAK_INT8 = 1979e12
+PEAK_CUDA_CORES = 67e12        # f32 outside the tensor cores; the probes' integer adds run there
 
 
 def card_line() -> str:
@@ -80,28 +92,6 @@ def card_line() -> str:
 def bound(nbytes: float, ops: float, peak: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def time_ms(fn, iters: int, flush=None) -> float:
-    """Median of per-launch CUDA-event times; `flush` (a large buffer) is
-    rewritten before each launch so the launch finds the L2 cache cold."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in events)
-    return times[len(times) // 2]
 
 
 def max_err(got, want, tol: float):
@@ -120,82 +110,29 @@ def max_err(got, want, tol: float):
     return float(diff.max()), float((diff / limit).max())
 
 
-def device_per_call(fn, name_part, flush, calls: int = 20, tries: int = 4):
-    """Device time of one call, from torch.profiler: for each kernel whose
-    name contains `name_part` (a string, or a tuple of strings of which one
-    must occur), its mean device time a launch over `calls` calls (the L2
-    flushed before each, as for the event times) times its launches a call;
-    and the number of device kernels one call launches, from a second
-    profile of `calls` calls with nothing between them. Each profile records
-    its second step (the first warms the tracer up). The tracer on the card
-    at times leaves kernels out (one launch in twenty, or most of a
-    profile): a profile is taken again, up to `tries` times, until it holds
-    a whole number of launches a call, and otherwise the one that saw the
-    most launches is used, its counts a call rounded. Returns (us, kernels a
-    call, whether both profiles were whole); raises if no `name_part`
-    launch was seen at all."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    cuda = torch.autograd.DeviceType.CUDA
-    parts = (name_part,) if isinstance(name_part, str) else tuple(name_part)
-
-    def named(key):
-        return any(p in key for p in parts)
-
-    def rows(between):
-        best = []
-        for _ in range(tries):
-            with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
-                         schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-                for _ in range(2):
-                    for _ in range(calls):
-                        between()
-                        fn()
-                    torch.cuda.synchronize()
-                    prof.step()
-            got = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
-            hits = sum(n for key, _, n in got if named(key))
-            if hits > 0 and hits % calls == 0 and sum(n for _, _, n in got) % calls == 0:
-                return got, True
-            print(f"[profiler] {calls} calls of {name_part}: saw "
-                  f"{[(key[:60], n) for key, _, n in got]}; taken again", flush=True)
-            if sum(n for _, _, n in got) > sum(n for _, _, n in best):
-                best = got
-        return best, False
-
-    fn()
-    torch.cuda.synchronize()
-    timed, whole_timed = rows(flush.zero_)
-    counted, whole_counted = rows(lambda: None)
-    seen = {}
-    for key, us, n in timed:
-        if named(key):
-            t, c = seen.get(key, (0.0, 0))
-            seen[key] = (t + us, c + n)
-    if not seen:
-        raise AssertionError(f"the profiler never saw a launch of {name_part}")
-    per_call = {key: n for key, _, n in counted if named(key)}
-    us = sum(t / c * max(1, round(per_call.get(key, calls) / calls))
-             for key, (t, c) in seen.items())
-    return (us, round(sum(n for _, _, n in counted) / calls), whole_timed and whole_counted)
-
-
 def check_kernel(results, name, counter, replaces, run_kernel, run_plain, run_library,
-                 tol, nbytes, ops, peak, iters, flush, select=None, device_name=None):
-    """Hold one kernel to its plain version and time both. `counter` is the
-    (module, attribute) of the wrapper's launch count, filled in later from
-    the main path's run. With `device_name`, the kernel's device time per
-    call and the kernels a call launches are taken from the profiler too."""
+                 tol, nbytes, ops, peak, iters, flush, select=None, device_name=None,
+                 calls=20):
+    """Hold one kernel to its plain version and time both; tol 0 asks for
+    equality. `counter` is the (module, attribute) of the wrapper's launch
+    count, filled in later from the main path's run. With `device_name`,
+    the kernel's device time per call (over `calls` calls) and the kernels
+    a call launches are taken from the profiler too."""
+    import torch
+    from krasis_tpu_torch.timing import device_per_call, timeit_ms
+
     module = counter[0]
     got, want = run_kernel(), run_plain()
     if select is not None:
         got, want = select(got), select(want)
-    err, ratio = max_err(got, want, tol)
-    ms = time_ms(run_kernel, iters, flush)
-    plain_ms = time_ms(run_plain, max(2, iters // 10), flush)
-    lib_ms = time_ms(run_library, iters, flush) if run_library else None
+    if tol == 0:
+        err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+        ratio = 0.0 if torch.equal(got, want) else float("inf")
+    else:
+        err, ratio = max_err(got, want, tol)
+    ms = timeit_ms(run_kernel, iters, flush)
+    plain_ms = timeit_ms(run_plain, max(2, iters // 10), flush)
+    lib_ms = timeit_ms(run_library, iters, flush) if run_library else None
     b_ms, b_by = bound(nbytes, ops, peak)
     res = {"name": name, "route": "cuda", "source": module.SOURCE, "replaces": replaces,
            "launches": None, "max_abs_err": err, "max_abs_diff": err, "tol": tol,
@@ -204,7 +141,7 @@ def check_kernel(results, name, counter, replaces, run_kernel, run_plain, run_li
            "bound_ms": b_ms, "bound_by": b_by}
     device = ""
     if device_name is not None:
-        us, per_call, whole = device_per_call(run_kernel, device_name, flush)
+        us, per_call, whole = device_per_call(run_kernel, device_name, flush, calls)
         res.update(device_us=us, kernels_per_call=per_call, profile_whole=whole)
         device = (f" device {us:.2f} us a call (profiler), {per_call:g} kernels a call"
                   + ("" if whole else " (from a profile that missed launches)"))
@@ -646,6 +583,7 @@ def q8_kernel_phase(params, cfg, results, g, flush):
     from krasis_tpu_torch.ops import gmm_cuda, moe_cuda
     from krasis_tpu_torch.ops.activations import swiglu
     from krasis_tpu_torch.quant import qtensor_bytes
+    from krasis_tpu_torch.timing import timeit_ms
 
     dev = flush.device
     C = counters()
@@ -772,16 +710,16 @@ def q8_kernel_phase(params, cfg, results, g, flush):
     # boundary on this card (the port keeps the reference's boundary)
     one_idx = idx[None]
     times = {
-        "decode_int8_two_stage_K6a_ms": time_ms(lambda: moe_cuda.moe_gathered_tiled(
+        "decode_int8_two_stage_K6a_ms": timeit_ms(lambda: moe_cuda.moe_gathered_tiled(
             x, w13, w2, one_idx, wts, activation="int8"), 50, flush),
-        "decode_int8_fused_K3_ms": time_ms(lambda: moe_cuda.moe_w4a8(
+        "decode_int8_fused_K3_ms": timeit_ms(lambda: moe_cuda.moe_w4a8(
             x, w13, w2, one_idx, wts), 50, flush),
-        "decode_bf16_two_stage_K6_ms": time_ms(lambda: moe_cuda.moe_gathered_tiled(
+        "decode_bf16_two_stage_K6_ms": timeit_ms(lambda: moe_cuda.moe_gathered_tiled(
             x, w13, w2, one_idx, wts), 50, flush),
-        "decode_bf16_fused_K5_ms": time_ms(lambda: moe_cuda.moe_bf16(
+        "decode_bf16_fused_K5_ms": timeit_ms(lambda: moe_cuda.moe_bf16(
             x, w13, w2, one_idx, wts), 50, flush),
-        "prefill_two_stage_K7_swiglu_K7_ms": time_ms(two_stage, 10),
-        "prefill_fused_K4_K4_ms": time_ms(fused, 10),
+        "prefill_two_stage_K7_swiglu_K7_ms": timeit_ms(two_stage, 10),
+        "prefill_fused_K4_K4_ms": timeit_ms(fused, 10),
     }
     print("[class] " + json.dumps({"model": "deepseek-v2-lite int8 experts",
                                    "decode": f"T=1, {P} picks of {E_all}",
@@ -809,6 +747,7 @@ def gptoss_attention_checks(results, params, cfg, g, flush):
     from krasis_tpu_torch.ops.norm import rms_norm
     from krasis_tpu_torch.ops.qmm import linear
     from krasis_tpu_torch.runtime.kv_cache import to_cache
+    from krasis_tpu_torch.timing import device_per_call
 
     dev = flush.device
     Hq, Hkv, d, S = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, 4096
@@ -931,6 +870,7 @@ def q8_entry_points(eng, rng):
     from krasis_tpu_torch.ops.gmm_cuda import moe_prefill
     from krasis_tpu_torch.ops.routing import compute_routing
     from krasis_tpu_torch.perplexity import evaluate_perplexity, sliding_windows
+    from krasis_tpu_torch.timing import timeit_ms
 
     cfg, dev = eng.cfg, eng.device
     ids = rng.integers(100, cfg.vocab_size - 100, 4096).tolist()
@@ -972,7 +912,7 @@ def q8_entry_points(eng, rng):
         run = lambda: moe_prefill(x, lp["w13"], lp["w2"], routing.topk_idx,
                                   routing.topk_weights, activation=act)
         outs[act] = run().to(torch.float32)
-        ms[act] = time_ms(run, 5)
+        ms[act] = timeit_ms(run, 5)
     rel = float((outs["int8"] - outs["bf16"]).square().mean().sqrt()
                 / outs["bf16"].square().mean().sqrt())
     print(f"[entry] moe_prefill on one layer, T = 2048: bf16 rows {ms['bf16']:.3f} ms, int8 rows "
@@ -985,6 +925,7 @@ def profile_phase(eng, prompt, new: int):
     """Device time by kernel over one request, against the wall time of the
     same request run without the profiler."""
     import torch
+    from krasis_tpu_torch.timing import recorded_step, traced_kernels
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -996,15 +937,11 @@ def profile_phase(eng, prompt, new: int):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        prof.step()
+        recorded_step(prof)
         eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
         torch.cuda.synchronize()
         prof.step()
-    # the step markers' spans on the device timeline are not kernels
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+    rows = [(key, us / 1e3, count) for key, us, count in traced_kernels(prof) if us > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"[profile] prompt {len(prompt)} + {new} tokens: wall {wall_ms:.1f} ms unprofiled, "
@@ -1149,6 +1086,272 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     torch.cuda.empty_cache()
 
 
+def probe_counters():
+    """The launch count of each probe kernel and probe form: (module,
+    attribute)."""
+    from krasis_tpu_torch.ops import gmm_cuda, probes_cuda
+    return {"P4": (probes_cuda, "launches_stream"),
+            "P8:maskxor": (probes_cuda, "launches_unpack_maskxor"),
+            "P8:shift": (probes_cuda, "launches_unpack_shift"),
+            "P5": (probes_cuda, "launches_int4_native"), "P6": (probes_cuda, "launches_int4_cast"),
+            "P7": (probes_cuda, "launches_int4_view"),
+            **{f"P3:{mode}": (gmm_cuda, f"launches_{mode}")
+               for mode in ("copy", "nounpack", "unpackonly")},
+            "P2:v2": (gmm_cuda, "launches_v2")}
+
+
+def probe_phase(results):
+    """8. The TPU probes under benchmarks/ as H100 probes
+    (krasis_tpu_torch/probes). Their main path is the four entry points run
+    at their own full-width V2-Lite expert shapes (timings cut to 3
+    launches), with every launch count set to 0 just before; then each
+    probe kernel against its plain version at those shapes (P4-P8 exactly,
+    K3 / K5 within 3e-2, the grouped forms within 2e-2), K4 / K7 at 256 and
+    512 rows against 128 rows bit for bit, and two negative controls the
+    checks must refuse."""
+    import torch
+    from krasis_tpu_torch.ops import gmm_cuda, moe_cuda, probes_cuda
+    from krasis_tpu_torch.probes import (probe_gmm_terms, probe_int4_mxu,
+                                         probe_unpack_variants, probe_w4a8)
+    from krasis_tpu_torch.quant import qtensor_bytes, unpack_int4
+    from krasis_tpu_torch.timing import timeit_ms
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    first = len(results)
+    mods = (probe_int4_mxu, probe_w4a8, probe_unpack_variants, probe_gmm_terms)
+    inp = {m: m.make_inputs(dev) for m in mods}
+    C = {**counters(), **probe_counters()}
+    for m, attr in C.values():
+        setattr(m, attr, 0)
+    for m in mods:       # device times: the checks below take them, for every probe kernel
+        print(f"[probe] {m.__name__.rsplit('.', 1)[1]}:", flush=True)
+        m.run(inp[m], iters=3, device_time=False)
+    counts = {name: getattr(m, attr) for name, (m, attr) in C.items()}
+    print(f"[launches] probes: {json.dumps(counts)}", flush=True)
+    for name in (*probe_counters(), "K3", "K4", "K5", "K7"):
+        if counts[name] <= 0:
+            raise AssertionError(f"probes: {name} was never launched by the probes' entry points")
+    t_path = time.perf_counter()
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+
+    # --- P4, P8: the stream floor and the two unpack forms; K5 and K3 at the
+    # same picks (T = 1, sections B and C), for the rates beside P4's
+    mx = inp[probe_int4_mxu]
+    w13, w2, x0, idx, wts = (mx[k] for k in ("w13", "w2", "x0", "idx", "wts"))
+    H, k = mx["shape"]["H"], mx["shape"]["K_TOP"]
+    eids = idx.reshape(-1)
+    packed, with_scales = probe_int4_mxu.pick_bytes(mx)
+    check_kernel(results, "probe/stream", C["P4"], probes_cuda.REPLACES_STREAM,
+                 lambda: probes_cuda.stream(w13.q, w2.q, eids, H),
+                 lambda: probes_cuda.stream_plain(w13.q, w2.q, eids, H), None, 0,
+                 k * packed + H * 4, k * packed, PEAK_CUDA_CORES, 50, flush,
+                 device_name="colsum_kernel", calls=10)
+    res = results[-1][1]
+    res["gb_s"] = stream_gb_s = k * packed / res["device_us"] / 1e3
+    dropped = probes_cuda.stream_plain(w13.q, w2.q, eids[:-1], H)
+    wrong = int((probes_cuda.stream(w13.q, w2.q, eids, H) != dropped).sum())
+    print(f"[kernel] probe/stream: {res['gb_s']:.1f} GB/s on the device; a plain version "
+          f"without the last pick differs in {wrong} of {H} columns", flush=True)
+    if wrong == 0:
+        raise AssertionError("probe/stream: the check cannot see a dropped pick")
+    for mode in ("maskxor", "shift"):
+        block = w13.q[0]
+        check_kernel(results, f"probe/unpack:{mode}", C[f"P8:{mode}"],
+                     probes_cuda.REPLACES_UNPACK, lambda: probes_cuda.unpack_colsum(block, mode),
+                     lambda: probes_cuda.unpack_colsum_plain(block, mode), None, 0,
+                     block.numel() + block.shape[1] * 4, 2 * block.numel() * 4,
+                     PEAK_CUDA_CORES, 50, flush, device_name="colsum_kernel", calls=10)
+    per_pick = (qtensor_bytes(w13) + qtensor_bytes(w2)) // w13.q.shape[0]
+    ops1 = 2 * k * (H * w13.n_dim + w2.k_dim * H)
+    check_kernel(results, "probe/moe_bf16_T1", C["K5"], moe_cuda.REPLACES_BF16,
+                 lambda: moe_cuda.moe_bf16(x0, w13, w2, idx, wts),
+                 lambda: moe_cuda.moe_bf16_plain(x0, w13, w2, idx, wts), None, 3e-2,
+                 k * per_pick + H * 4, ops1, PEAK_BF16, 50, flush,
+                 device_name=("w13_bf16_kernel", "w2_bf16_kernel"), calls=10)
+    check_kernel(results, "probe/moe_w4a8_T1", C["K3"], moe_cuda.REPLACES,
+                 lambda: moe_cuda.moe_w4a8(x0, w13, w2, idx, wts),
+                 lambda: moe_cuda.moe_w4a8_plain(x0, w13, w2, idx, wts), None, 3e-2,
+                 k * per_pick + H * 4, ops1, PEAK_INT8, 50, flush,
+                 device_name=("w13_kernel", "w2_kernel"), calls=10)
+    res = results[-1][1]
+    res["gb_s"] = k * with_scales / res["device_us"] / 1e3
+    print(f"[kernel] probe: K3 streams its picks at {res['gb_s']:.1f} GB/s on the device, the "
+          f"stream floor at {stream_gb_s:.1f}", flush=True)
+
+    # --- P5, P6, P7 at the probe's shapes, on seeded values
+    q = torch.randint(-128, 128, (64, 256), generator=g, device=dev, dtype=torch.int8)
+    x4 = torch.randint(-8, 8, (8, 128), generator=g, device=dev, dtype=torch.int8)
+    x8 = torch.randint(-128, 128, (8, 128), generator=g, device=dev, dtype=torch.int8)
+    w8 = unpack_int4(q)
+    dot_bytes, dot_ops = 8 * 128 + q.numel() + 8 * 256 * 4, 2 * 8 * 128 * 256
+
+    def int_mm():
+        return torch._int_mm(x8, w8)
+
+    try:
+        int_mm()
+        torch.cuda.synchronize()
+    except Exception as err:                     # noqa: BLE001 — the refusal is the finding
+        print(f"[library] probe/int4_dot:s8: torch._int_mm refused [8, 128] x [128, 256]: "
+              f"{type(err).__name__}: {str(err).splitlines()[0][:200]}", flush=True)
+        int_mm = None
+    check_kernel(results, "probe/int4_dot:s4", C["P5"], probes_cuda.REPLACES_NATIVE,
+                 lambda: probes_cuda.int4_dot_native(x4, q),
+                 lambda: probes_cuda.int4_dot_plain(x4, q), None, 0, dot_bytes, dot_ops,
+                 PEAK_INT8, 50, flush, device_name="int4_dot_kernel", calls=10)
+    check_kernel(results, "probe/int4_dot:s8", C["P6"], probes_cuda.REPLACES_CAST,
+                 lambda: probes_cuda.int4_dot(x8, q), lambda: probes_cuda.int4_dot_plain(x8, q),
+                 int_mm, 0, dot_bytes, dot_ops, PEAK_INT8, 50, flush,
+                 device_name="int4_dot_kernel", calls=10)
+    u8 = torch.randint(0, 256, (128, 256), generator=g, device=dev, dtype=torch.uint8)
+    check_kernel(results, "probe/int4_view", C["P7"], probes_cuda.REPLACES_VIEW,
+                 lambda: probes_cuda.int4_view_shape(u8),
+                 lambda: probes_cuda.int4_view_shape_plain(u8), None, 0, u8.numel() + 8,
+                 2 * u8.numel(), PEAK_CUDA_CORES, 50, flush, device_name="int4_view_kernel",
+                 calls=10)
+
+    # --- P1: K3 (and K5) at T 8, 48 picks
+    w4 = inp[probe_w4a8]
+    w13, w2, x, idx, wts = (w4[k] for k in ("w13", "w2", "x", "idx", "wts"))
+    hit = int(torch.unique(idx).numel())
+    P = idx.numel()
+    per_pick = (qtensor_bytes(w13) + qtensor_bytes(w2)) // w13.q.shape[0]
+    ops8 = 2 * P * (w13.k_dim * w13.n_dim + w2.k_dim * w2.n_dim)
+    check_kernel(results, "probe/moe_w4a8_T8", C["K3"], probe_w4a8.REPLACES,
+                 lambda: moe_cuda.moe_w4a8(x, w13, w2, idx, wts),
+                 lambda: moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts), None, 3e-2,
+                 hit * per_pick + x.numel() * 4, ops8, PEAK_INT8, 50, flush,
+                 device_name=("w13_kernel", "w2_kernel"), calls=10)
+    check_kernel(results, "probe/moe_bf16_T8", C["K5"], moe_cuda.REPLACES_BF16,
+                 lambda: moe_cuda.moe_bf16(x, w13, w2, idx, wts),
+                 lambda: moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts), None, 3e-2,
+                 hit * per_pick + x.numel() * 4, ops8, PEAK_BF16, 50, flush,
+                 device_name=("w13_bf16_kernel", "w2_bf16_kernel"), calls=10)
+    print(f"[kernel] probe/moe_w4a8_T8: {P} picks over {hit} distinct experts", flush=True)
+    del flush
+    torch.cuda.empty_cache()
+
+    # --- K4 / K7 at 256 and 512 rows against 128 rows; P2's v2 form
+    uv = inp[probe_unpack_variants]
+    w13, w2, idx, x = uv["w13"], uv["w2"], uv["idx"], uv["x"]
+    E, Hd = w13.q.shape[0], w13.k_dim
+    M, N13, I = idx.numel(), w13.n_dim, w2.k_dim
+    e13, e2 = qtensor_bytes(w13) / E, qtensor_bytes(w2) / E
+    hit = int((torch.bincount(idx.reshape(-1).long(), minlength=E) > 0).sum())
+    plans = {tm: gmm_cuda.plan_tiles(idx, E, tm) for tm in (128, 256, 512)}
+    p128 = plans[128]
+    a = {tm: gmm_cuda.gmm(x, p.row_src, w13, p, True) for tm, p in plans.items()}
+    o = {tm: gmm_cuda.gmm(a[tm], None, w2, p, False) for tm, p in plans.items()}
+    h = {tm: gmm_cuda.gmm_two_stage(x, p.row_src, w13, p) for tm, p in plans.items()}
+    for tm in (256, 512):
+        p = plans[tm]
+        same = [torch.equal(r[128][p128.dest], r[tm][p.dest]) for r in (a, o, h)]
+        print(f"[kernel] probe/tile rows {tm} against 128, each pick's row: K4 w13 + SwiGLU "
+              f"{same[0]}, K4 w2 {same[1]}, K7 w13 {same[2]} (bit for bit)", flush=True)
+        if not all(same):
+            raise AssertionError(f"K4 / K7 at {tm} rows differ from 128 rows")
+    bad_e = p128.tile_e.clone()
+    t_bad = int(torch.nonzero(p128.tile_valid)[5])
+    bad_e[t_bad] = (bad_e[t_bad] + 1) % E
+    bad = p128._replace(tile_e=bad_e)
+    h_bad = gmm_cuda.gmm_two_stage(x, bad.row_src, w13, bad)
+    moved = int((h_bad[p128.dest] != h[512][plans[512].dest]).any(dim=1).sum())
+    print(f"[kernel] probe/tile rows: a 128-row plan with tile {t_bad}'s expert changed differs "
+          f"from the 512-row plan in {moved} rows", flush=True)
+    if moved == 0:
+        raise AssertionError("the row comparison cannot see a changed tile expert")
+    del a, o, h, h_bad
+    real128 = p128.row_src >= 0
+    lib13 = grouped_mm_library("probe/gmm:w13 (product alone, no SwiGLU)",
+                               x[p128.row_src[real128].long()], w13, p128, torch.bfloat16,
+                               gmm_cuda.gmm_plain(x, p128.row_src, w13, p128, False)[real128])
+    for tm in (256, 512):
+        p = plans[tm]
+        real = p.row_src >= 0
+        a_plain = gmm_cuda.gmm_plain(x, p.row_src, w13, p, True)
+        check_kernel(results, f"probe/gmm:w13_swiglu_tm{tm}", C["K4"], gmm_cuda.REPLACES,
+                     lambda: gmm_cuda.gmm(x, p.row_src, w13, p, True),
+                     lambda: gmm_cuda.gmm_plain(x, p.row_src, w13, p, True), lib13, 3e-2,
+                     hit * e13 + x.numel() * 2 + M * I * 2, 2 * M * Hd * N13, PEAK_BF16, 10,
+                     None, select=lambda r: r[real], device_name="gmm_kernel", calls=5)
+        check_kernel(results, f"probe/gmm:w2_f32_tm{tm}", C["K4"], gmm_cuda.REPLACES_W2,
+                     lambda: gmm_cuda.gmm(a_plain, None, w2, p, False),
+                     lambda: gmm_cuda.gmm_plain(a_plain, None, w2, p, False), None, 3e-2,
+                     hit * e2 + M * I * 2 + M * Hd * 4, 2 * M * I * Hd, PEAK_BF16, 10, None,
+                     select=lambda r: r[real], device_name="gmm_kernel", calls=5)
+        del a_plain
+    for tm in (128, 256, 512):
+        p, x_tiles = probe_unpack_variants.tile_inputs(uv, tm)
+        live = p.tile_valid.to(torch.bool).repeat_interleave(tm)
+        nbytes = hit * e13 + M * Hd * 2 + M * N13 * 4
+        if tm > 128:
+            check_kernel(results, f"probe/gmm_two_stage:w13_tm{tm}", C["K7"],
+                         gmm_cuda.REPLACES_TWO_STAGE,
+                         lambda: gmm_cuda.gmm_two_stage(x_tiles, None, w13, p),
+                         lambda: gmm_cuda.gmm_plain(x_tiles, None, w13, p, False), None, 2e-2,
+                         nbytes, 2 * M * Hd * N13, PEAK_BF16, 10, None,
+                         select=lambda r: r[live], device_name="gmm_kernel", calls=5)
+        check_kernel(results, f"probe/gmm_v2:tm{tm}", C["P2:v2"], gmm_cuda.REPLACES_V2,
+                     lambda: gmm_cuda.gmm_probe(x_tiles, w13, p, "v2"),
+                     lambda: gmm_cuda.gmm_probe_plain(x_tiles, w13, p, "v2"), None, 2e-2,
+                     nbytes, 2 * M * Hd * N13, PEAK_BF16, 10, None, select=lambda r: r[live],
+                     device_name="gmm_kernel", calls=5)
+        del x_tiles
+
+    # --- P3: the terms of one step at the 128-row plan, and the row gather
+    gt = inp[probe_gmm_terms]
+    plan, x_tiles = gt["plan"], gt["x_tiles"]
+    live = plan.tile_valid.to(torch.bool).repeat_interleave(plan.tm)
+    real = plan.row_src >= 0
+    M = int(real.sum())
+    hit = int((torch.bincount(gt["idx"].reshape(-1).long(), minlength=E) > 0).sum())
+    for bits, modes in probe_gmm_terms.MODES:
+        w = gt[bits]
+        ew = qtensor_bytes(w) / w.q.shape[0]
+        for mode in modes:
+            product = mode in ("nounpack", "full")         # full: K7's own launch
+            check_kernel(results, f"probe/gmm_terms:{bits}_{mode}",
+                         C["K7" if mode == "full" else f"P3:{mode}"],
+                         gmm_cuda.REPLACES_TERMS,
+                         lambda: gmm_cuda.gmm_probe(x_tiles, w, plan, mode),
+                         lambda: gmm_cuda.gmm_probe_plain(x_tiles, w, plan, mode), None,
+                         2e-2 if product else 0, hit * ew + M * Hd * 2 + M * N13 * 4,
+                         2 * M * Hd * N13 if product else 0, PEAK_BF16, 10, None,
+                         select=lambda r: r[live], device_name="gmm_kernel", calls=5)
+    w = gt["w4"]
+    lib = grouped_mm_library("probe/gmm_terms: grouped_mm at the plan", x_tiles[real], w, plan,
+                             torch.bfloat16,
+                             gmm_cuda.gmm_probe_plain(x_tiles, w, plan, "full")[real])
+    xg = (torch.randn((gt["idx"].shape[0], Hd), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    gather = {
+        "grouped_mm_product_bf16_ms": timeit_ms(lib, 10) if lib else None,
+        "K7_w13_tile_aligned_rows_ms": timeit_ms(
+            lambda: gmm_cuda.gmm_two_stage(x_tiles, None, w, plan), 10),
+        "K7_w13_gathered_rows_ms": timeit_ms(
+            lambda: gmm_cuda.gmm_two_stage(xg, plan.row_src, w, plan), 10),
+        "K4_w13_swiglu_gathered_rows_ms": timeit_ms(
+            lambda: gmm_cuda.gmm(xg, plan.row_src, w, plan, True), 10),
+        **{f"w4_{mode}_gathered_rows_ms": timeit_ms(
+            lambda: gmm_cuda.gmm_probe(xg, w, plan, mode, row_src=plan.row_src), 10)
+           for mode in ("copy", "nounpack", "unpackonly")}}
+    for mode in ("copy", "unpackonly"):       # the gathered forms hold too
+        got = gmm_cuda.gmm_probe(xg, w, plan, mode, row_src=plan.row_src)[live]
+        if not torch.equal(got, gmm_cuda.gmm_probe_plain(xg, w, plan, mode,
+                                                         row_src=plan.row_src)[live]):
+            raise AssertionError(f"probe/gmm_terms:w4_{mode} over gathered rows disagrees")
+    print("[probe] gmm_terms yardsticks at the same 128-row plan " + json.dumps(gather),
+          flush=True)
+    by_counter = {C[name]: n for name, n in counts.items()}
+    for counter, res in results[first:]:
+        res["launches"] = by_counter[counter]
+    print(f"[time] probes: entry points {t_path - t0:.1f} s, checks "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1156,7 +1359,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from krasis_tpu_torch import build
+    from krasis_tpu_torch import build, timing
     from krasis_tpu_torch.config import QuantConfig
     from krasis_tpu_torch.device import set_exact_matmul_flags
 
@@ -1203,7 +1406,10 @@ def main() -> int:
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "int8", 0, ("auto", 131072))),
                ("K1", "K2"), results, rng, profile_decode=16,
                off_path=("K1s", "K3", "K4", "K5", "K6", "K6a", "K7", "K7a"), forms=gptoss_forms)
+    probe_phase(results)
 
+    print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "
+          "launches that open its recorded steps")
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [r for _, r in results]}))
     print(f"[card] {card}")

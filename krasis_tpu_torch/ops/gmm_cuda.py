@@ -8,11 +8,15 @@ SwiGLU between for experts too large for its fused kernels: it is K4's f32
 entry at both call shapes, under its own launch count. ``gmm_a8`` (K7a)
 replaces ``gmm_a8``: the same tiles with int8 rows and per-group scales.
 ``moe_prefill`` has the glue and the three branches of
-``moe_prefill_pallas``. The tile plan differs from ``_plan_tiles``: tiles
-are 64 or 128 rows (``choose_tm``, from shapes alone), there is no spare
-trash tile, and the w13 launches gather token rows themselves; every row's
-result is the same. Each wrapper launches its CUDA kernel for tensors on
-the card and runs its plain version for tensors on the CPU.
+``moe_prefill_pallas``, and its ``tile_rows`` knob. The tile plan differs
+from ``_plan_tiles``: tiles are 64 or 128 rows unless the caller asks for
+256 or 512 (``choose_tm``, from shapes alone), there is no spare trash
+tile, and the w13 launches gather token rows themselves; every row's
+result is the same, and K4 / K7 give the same rows bit for bit at every
+height. ``gmm_probe`` launches the probe forms of the same kernel
+(``probes/probe_gmm_terms.py``, ``probes/probe_unpack_variants.py``). Each
+wrapper launches its CUDA kernel for tensors on the card and runs its
+plain version for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -33,12 +37,21 @@ REPLACES = "krasis_tpu/ops/gmm_pallas.py:365"
 REPLACES_W2 = "krasis_tpu/ops/gmm_pallas.py:411"
 REPLACES_TWO_STAGE = "krasis_tpu/ops/gmm_pallas.py:119"
 REPLACES_A8 = "krasis_tpu/ops/gmm_pallas.py:205"
+REPLACES_TERMS = "benchmarks/probe_gmm_terms.py:109"
+REPLACES_V2 = "benchmarks/probe_unpack_variants.py:134"
 launches = 0              # K4 kernel launches since the caller last set it to 0
 launches_two_stage = 0    # K7, likewise
 launches_a8 = 0           # K7a
+# the probe forms (gmm_probe), by mode; its "full" term is a K7 launch
+launches_copy = 0
+launches_nounpack = 0
+launches_unpackonly = 0
+launches_v2 = 0
 
 TM = 64                   # tile rows of the default plan, and K7a's only height
 TM_LARGE = 128
+TILE_HEIGHTS = (64, 128, 256, 512)    # K4 / K7
+PROBE_MODES = {"copy": 1, "nounpack": 2, "unpackonly": 3, "v2": 4}   # csrc/gmm.cu Mode
 
 
 class TilePlan(NamedTuple):
@@ -48,6 +61,21 @@ class TilePlan(NamedTuple):
     tile_valid: torch.Tensor  # [n_tiles] int32 1 = compute
     n_tiles: int
     tm: int                   # rows of a tile; Mp = n_tiles * tm
+
+
+def cta_cols(tm: int) -> int:
+    """Output columns of one CTA of gmm_kernel: 128, or 64 at 512 rows."""
+    return 64 if tm == 512 else 128
+
+
+def pick_tile(N: int) -> int:
+    """Largest multiple-of-128 divisor of N up to 512, else N: the TPU
+    probes' lane tile (``moe_pallas.pick_tile(N, 512)``), which the copy
+    probe form reads x through."""
+    for t in range(512, 127, -128):
+        if N % t == 0:
+            return t
+    return N
 
 
 def choose_tm(M: int, E: int) -> int:
@@ -159,16 +187,19 @@ def gmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Ten
 
 
 def _fns():
+    """The launchers of K4 / K7, K7a and the probe forms."""
     lib = build.load("gmm")
-    fn, fa = lib.gmm_launch, lib.gmm_a8_launch
+    fn, fa, fp = lib.gmm_launch, lib.gmm_a8_launch, lib.gmm_probe_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_long] * 2
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fa.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_long] * 2 + [ctypes.c_void_p])
-        fn.restype = fa.restype = ctypes.c_int
-    return fn, fa
+        fp.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_long] * 2
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+        fn.restype = fa.restype = fp.restype = ctypes.c_int
+    return fn, fa, fp
 
 
 def _check_rows(name: str, x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
@@ -201,11 +232,12 @@ def _launch(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
     K, N = w.k_dim, w.n_dim
     Mp = plan.n_tiles * plan.tm
     _check_rows("gmm", x, row_src, w, plan, torch.bfloat16)
-    if not gmm_supported(w) or plan.tm not in (TM, TM_LARGE):
+    if not gmm_supported(w) or plan.tm not in TILE_HEIGHTS:
         raise ValueError(f"gmm: unsupported stack {tuple(w.q.shape)}, bits {w.bits}, "
                          f"group {w.group_size}, tile rows {plan.tm}")
-    if (swiglu and (N // 2) % 64) or (not swiglu and N % 128):
-        raise ValueError(f"gmm: unsupported output width {N}")
+    cols = cta_cols(plan.tm)
+    if (swiglu and (N // 2) % (cols // 2)) or (not swiglu and N % cols):
+        raise ValueError(f"gmm: unsupported output width {N} at {plan.tm}-row tiles")
     if swiglu:
         out = torch.empty((Mp, N // 2), dtype=torch.bfloat16, device=x.device)
     else:
@@ -243,6 +275,69 @@ def gmm_two_stage(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
     global launches_two_stage
     out = _launch(x, row_src, w, plan, False)
     launches_two_stage += 1
+    return out
+
+
+def gmm_probe_plain(x: torch.Tensor, w: QTensor, plan: TilePlan, mode: str,
+                    row_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The probe forms' functions over the tile rows of x (row_src gathers
+    them, as for gmm; None: x is tile-aligned [Mp, K]) → f32 [Mp, N],
+    skipped tiles zero: "full" and "v2" are K7's (gmm_plain); "copy"
+    out[r, n] = rows[r, n mod pick_tile(N)]; "nounpack" rows @ S with S[k, n] =
+    s[k // gs, n] of the tile's expert; "unpackonly" out[t·tm + r, n] =
+    dequant(W[e_t])[r, n] for r < tm."""
+    if mode in ("full", "v2"):
+        return gmm_plain(x, row_src, w, plan, False)
+    if mode not in PROBE_MODES:
+        raise ValueError(f"gmm_probe: mode {mode!r}")
+    x_tiles = _tile_rows(x, row_src)
+    tm, N = plan.tm, w.n_dim
+    cols = torch.arange(N, device=x_tiles.device) % pick_tile(N)
+    out = torch.zeros((plan.n_tiles * tm, N), dtype=torch.float32, device=x_tiles.device)
+    valid = plan.tile_valid.to(torch.bool).tolist()
+    experts = plan.tile_e.tolist()
+    for t in range(plan.n_tiles):
+        if not valid[t]:
+            continue
+        sl, we = slice(t * tm, (t + 1) * tm), w[experts[t]]
+        if mode == "copy":
+            out[sl] = x_tiles[sl][:, cols].to(torch.float32)
+        elif mode == "nounpack":
+            S = we.scales.repeat_interleave(w.group_size, dim=0).to(torch.float32)
+            out[sl] = torch.matmul(x_tiles[sl].to(torch.float32), S)
+        else:
+            out[sl] = dequantize(we, torch.bfloat16)[:tm].to(torch.float32)
+    return out
+
+
+def gmm_probe(x: torch.Tensor, w: QTensor, plan: TilePlan, mode: str,
+              row_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of a probe form of gmm_kernel over the tile rows of x
+    (bf16; tile-aligned [Mp, K] as in the TPU probes, or gathered through
+    row_src as K4 / K7 take them) → f32 [Mp, N] (rows of skipped tiles
+    undefined): "copy", "nounpack" and "unpackonly" at 128-row tiles, the
+    terms of ``benchmarks/probe_gmm_terms.py``, whose "full" term is K7
+    (``gmm_two_stage``) itself; "v2" (the shift unpack,
+    ``benchmarks/probe_unpack_variants.py``) at 128, 256 or 512 rows."""
+    if mode == "full":
+        return gmm_two_stage(x, row_src, w, plan)
+    if x.device.type == "cpu":
+        return gmm_probe_plain(x, w, plan, mode, row_src)
+    K, N, tm = w.k_dim, w.n_dim, plan.tm
+    tn = pick_tile(N)
+    if (mode not in PROBE_MODES or tm not in (TILE_HEIGHTS[1:] if mode == "v2" else (TM_LARGE,))
+            or (mode == "copy" and tn > K) or not gmm_supported(w) or N % cta_cols(tm)):
+        raise ValueError(f"gmm_probe: mode {mode!r} at {tm}-row tiles, stack "
+                         f"{tuple(w.q.shape)}, bits {w.bits}, group {w.group_size}")
+    _check_rows("gmm_probe", x, row_src, w, plan, torch.bfloat16)
+    out = torch.empty((plan.n_tiles * tm, N), dtype=torch.float32, device=x.device)
+    err = _fns()[2](x.data_ptr(), 0 if row_src is None else row_src.data_ptr(),
+                    w.q.data_ptr(), w.scales.data_ptr(), plan.tile_e.data_ptr(),
+                    plan.tile_valid.data_ptr(), out.data_ptr(), plan.n_tiles, tm, K, N, w.bits,
+                    w.group_size, w.q.stride(0), w.scales.stride(0), PROBE_MODES[mode], tn,
+                    None, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"gmm_probe({mode})")
+    globals()[f"launches_{mode}"] += 1
     return out
 
 
@@ -285,18 +380,24 @@ def moe_prefill(x: torch.Tensor, w13: QTensor, w2: QTensor,
                 topk_idx: torch.Tensor, topk_weights: torch.Tensor,
                 swiglu_limit: float = 0.0, gpt_oss: bool = False,
                 pick_valid: Optional[torch.Tensor] = None,
-                activation: str = "bf16") -> torch.Tensor:
+                activation: str = "bf16", tile_rows: Optional[int] = None) -> torch.Tensor:
     """Grouped MoE: w13 GEMM, SwiGLU, w2 GEMM, then the f32 weighted combine
     of each token's k picks, cast to x.dtype. Three forms, as the
     reference's ``moe_prefill_pallas``: int8 rows (K7a) when asked for; the
     fused SwiGLU epilogue (K4) for experts of the fused class; else two
     f32 stages (K7) with the h rounded to bf16 before SwiGLU. A pick with
-    pick_valid == 0 is in no tile and adds nothing."""
+    pick_valid == 0 is in no tile and adds nothing. tile_rows is the
+    reference's A/B knob for the tile height: 64, 128, 256 or 512 rows for
+    K4 / K7 (None: ``choose_tm``); K7a runs 64-row tiles only."""
     T, H = x.shape
     k = topk_idx.shape[1]
     E = w13.q.shape[0]
     int8_rows = activation == "int8" and gmm_a8_supported(w13) and gmm_a8_supported(w2)
-    tm = TM if int8_rows else choose_tm(T * k, E)
+    if tile_rows is not None and (int8_rows or tile_rows not in TILE_HEIGHTS):
+        raise ValueError(f"moe_prefill: tile_rows={tile_rows} is not taken "
+                         + ("with int8 rows: K7a runs 64-row tiles only (ROADMAP A-12)"
+                            if int8_rows else f"(K4 / K7 take {TILE_HEIGHTS})"))
+    tm = TM if int8_rows else (tile_rows or choose_tm(T * k, E))
     plan = plan_tiles(topk_idx, E, tm, pick_valid=pick_valid)
     Mp = plan.n_tiles * tm
     x = x.contiguous()

@@ -12,8 +12,8 @@ from krasis_tpu_torch.config import QuantConfig
 from krasis_tpu_torch.device import set_exact_matmul_flags
 from krasis_tpu_torch.models.synthetic import build_synthetic_engine, tiny_config
 from krasis_tpu_torch.ops import flash_attention as fa
-from krasis_tpu_torch.ops import expert_class, gmm_cuda, moe_cuda, qmm_cuda
-from krasis_tpu_torch.quant import quantize, random_qtensor, stack_leading
+from krasis_tpu_torch.ops import expert_class, gmm_cuda, moe_cuda, probes_cuda, qmm_cuda
+from krasis_tpu_torch.quant import pack_int4, quantize, random_qtensor, stack_leading
 
 pytestmark = pytest.mark.cuda
 
@@ -609,3 +609,117 @@ def test_attention_fp8_rejects_misaligned_lanes(dev):
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, torch.tensor([0], device=dev), torch.tensor([1], device=dev),
                            0.1, 64, v=k, qk_dim=64)
+
+
+# --- the probe kernels (csrc/probes.cu) and the probe forms of gmm_kernel
+
+
+def _bytes(dev, g, shape):
+    return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("n13,n2,H", [(320, 256, 256), (2816, 2048, 2048)])
+def test_probe_stream_kernel(dev, n13, n2, H):
+    """P4 equals its plain version exactly, w13's columns past H included in
+    the stream (320: a partial 512-column group)."""
+    g = _gen(dev, n13)
+    q13, q2 = _bytes(dev, g, (8, 136, n13)), _bytes(dev, g, (8, 72, n2))
+    eids = torch.tensor([1, 4, 7, 4], dtype=torch.int32, device=dev)
+    before = probes_cuda.launches_stream
+    got = probes_cuda.stream(q13, q2, eids, H)
+    assert probes_cuda.launches_stream == before + 1
+    assert torch.equal(got, probes_cuda.stream_plain(q13, q2, eids, H))
+
+
+@pytest.mark.parametrize("mode", ["maskxor", "shift"])
+def test_probe_unpack_kernel(dev, mode):
+    q = _bytes(dev, _gen(dev, 3), (200, 336))
+    got = probes_cuda.unpack_colsum(q, mode)
+    assert torch.equal(got, probes_cuda.unpack_colsum_plain(q, mode))
+    assert torch.equal(got, probes_cuda.unpack_colsum_plain(q, "maskxor"))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 128, 256), (16, 256, 64), (3, 64, 24)])
+def test_probe_int4_dot_kernels(dev, M, K, N):
+    """P6 on the full int8 range and P5 on x in [-8, 7], both exact; P5
+    refuses x outside the s4 range."""
+    g = _gen(dev, M + K + N)
+    q = _bytes(dev, g, (K // 2, N))
+    x8 = _bytes(dev, g, (M, K))
+    x4 = torch.randint(-8, 8, (M, K), generator=g, device=dev, dtype=torch.int8)
+    assert torch.equal(probes_cuda.int4_dot(x8, q), probes_cuda.int4_dot_plain(x8, q))
+    assert torch.equal(probes_cuda.int4_dot_native(x4, q), probes_cuda.int4_dot_plain(x4, q))
+    with pytest.raises(ValueError):
+        probes_cuda.int4_dot_native(x8, q)
+
+
+def test_probe_int4_dot_on_ones(dev):
+    ones = torch.ones((8, 128), dtype=torch.int8, device=dev)
+    q = pack_int4(torch.ones((128, 256), dtype=torch.int8, device=dev))
+    assert int(probes_cuda.int4_dot_native(ones, q)[0, 0]) == 128
+    assert int(probes_cuda.int4_dot(ones, q)[0, 0]) == 128
+
+
+@pytest.mark.parametrize("R,N", [(128, 256), (7, 40)])
+def test_probe_int4_view_kernel(dev, R, N):
+    q = torch.randint(0, 256, (R, N), dtype=torch.uint8, device=dev)
+    assert probes_cuda.int4_view_shape(q).tolist() == [[2 * R, N]]
+
+
+@pytest.mark.parametrize("tm", [256, 512])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_grouped_kernel_large_tiles_equal_128(dev, bits, tm):
+    """K4 (both epilogues) and K7 at 256 and 512 rows give each pick's row
+    bit for bit as at 128 rows, and hold to their plain versions."""
+    w13, w2, x, idx, _ = _gmm_case(dev, bits, 60 + bits + tm, 600, 2, 4, I=256)
+    p128, pbig = gmm_cuda.plan_tiles(idx, 4, 128), gmm_cuda.plan_tiles(idx, 4, tm)
+    assert pbig.tm == tm
+    real = pbig.row_src >= 0
+    a = {p.tm: gmm_cuda.gmm(x, p.row_src, w13, p, True) for p in (p128, pbig)}
+    assert torch.equal(a[128][p128.dest], a[tm][pbig.dest])
+    _close(a[tm][real], gmm_cuda.gmm_plain(x, pbig.row_src, w13, pbig, True)[real], 3e-2)
+    o = {p.tm: gmm_cuda.gmm(a[p.tm], None, w2, p, False) for p in (p128, pbig)}
+    assert torch.equal(o[128][p128.dest], o[tm][pbig.dest])
+    h = {p.tm: gmm_cuda.gmm_two_stage(x, p.row_src, w13, p) for p in (p128, pbig)}
+    assert torch.equal(h[128][p128.dest], h[tm][pbig.dest])
+    _close(h[tm][real], gmm_cuda.gmm_plain(x, pbig.row_src, w13, pbig, False)[real], 2e-2)
+
+
+@pytest.mark.parametrize("gathered", [False, True], ids=["tile_rows", "row_src"])
+@pytest.mark.parametrize("mode,tm", [("copy", 128), ("nounpack", 128), ("unpackonly", 128),
+                                     ("full", 128), ("v2", 128), ("v2", 256), ("v2", 512)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_gmm_probe_forms(dev, bits, mode, tm, gathered):
+    """The probe forms against their plain versions on the computed tiles,
+    over tile-aligned rows and over rows gathered through row_src: copy and
+    unpackonly exactly, the products within 2e-2; full is K7's own launch
+    and equals it bit for bit."""
+    w13, _, xs, idx, _ = _gmm_case(dev, bits, 70 + bits + tm, 600, 2, 4, I=128)
+    plan = gmm_cuda.plan_tiles(idx, 4, tm)
+    live = plan.tile_valid.bool().repeat_interleave(tm)
+    x = xs if gathered else torch.randn((plan.n_tiles * tm, 256), generator=_gen(dev, 9),
+                                        device=dev).to(torch.bfloat16)
+    src = plan.row_src if gathered else None
+    counter = "launches_two_stage" if mode == "full" else f"launches_{mode}"
+    before = getattr(gmm_cuda, counter)
+    got = gmm_cuda.gmm_probe(x, w13, plan, mode, row_src=src)[live]
+    assert getattr(gmm_cuda, counter) == before + 1
+    want = gmm_cuda.gmm_probe_plain(x, w13, plan, mode, row_src=src)[live]
+    if mode in ("copy", "unpackonly"):
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, 2e-2)
+    if mode == "full":
+        assert torch.equal(got, gmm_cuda.gmm_two_stage(x, src, w13, plan)[live])
+
+
+@pytest.mark.parametrize("tm", [128, 256, 512])
+def test_moe_prefill_tile_rows_on_card(dev, tm):
+    w13, w2, x, idx, _ = _gmm_case(dev, 4, 80 + tm, 600, 2, 4, I=256)
+    wts = torch.rand(idx.shape, generator=_gen(dev, 2), device=dev)
+    before = gmm_cuda.launches
+    got = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, tile_rows=tm)
+    assert gmm_cuda.launches == before + 2
+    assert torch.equal(got, gmm_cuda.moe_prefill(x, w13, w2, idx, wts, tile_rows=128))
+    with pytest.raises(ValueError):
+        gmm_cuda.moe_prefill(x, w13, w2, idx, wts, activation="int8", tile_rows=tm)

@@ -1,4 +1,4 @@
-"""The port imports neither jax nor the reference package.
+"""The port imports neither jax nor the reference package, nor the TPU probes.
 
 The source is scanned rather than sys.modules: the test process imports
 both packages, and an interpreter here may import jax at start-up."""
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "krasis_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "krasis_tpu")
+FORBIDDEN = ("jax", "jaxlib", "krasis_tpu", "benchmarks")
 
 
 def _imported(tree: ast.AST):
@@ -29,7 +29,9 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "krasis_tpu_torch/models/model.py" in names
     assert {"krasis_tpu_torch/perplexity.py", "krasis_tpu_torch/ops/expert_class.py",
-            "krasis_tpu_torch/ops/gmm_cuda.py", "krasis_tpu_torch/ops/moe_cuda.py"} <= names
+            "krasis_tpu_torch/ops/gmm_cuda.py", "krasis_tpu_torch/ops/moe_cuda.py",
+            "krasis_tpu_torch/ops/probes_cuda.py", "krasis_tpu_torch/probes/_timing.py",
+            "krasis_tpu_torch/probes/probe_gmm_terms.py", "krasis_tpu_torch/timing.py"} <= names
     assert "chip_smoke.py" in names
 
 
