@@ -1,21 +1,24 @@
-"""K3, K5, K6 and K6a: the gathered expert kernels for decode
-(``csrc/moe_decode.cu``).
+"""K3, K5, K6 and K6a: the gathered expert kernels for decode.
 
-``moe_w4a8`` (K3, int8 activations) replaces ``krasis_tpu/ops/moe_pallas.py``
-``moe_gathered_w4a8_pallas``; ``moe_bf16`` (K5, bf16 activations) replaces
-``moe_gathered_pallas``: the fused expert MLP of one pick, two CUDA stages
-each. ``gathered_qmm`` (K6) and ``gathered_qmm_a8`` (K6a) replace
-``gathered_qmm_pallas`` and ``gathered_qmm_a8_pallas``: one gathered product
-per launch, which ``moe_gathered_tiled`` composes with SwiGLU between for
-the experts the fused kernels do not take (``ops/expert_class.py``). Each
-wrapper launches its kernel for tensors on the card and runs its plain
-version — the same function in plain PyTorch — for tensors on the CPU.
+``moe_w4a8`` (K3, int8 activations, ``csrc/moe_w4a8.cu``) replaces
+``krasis_tpu/ops/moe_pallas.py`` ``moe_gathered_w4a8_pallas``: the fused
+expert MLP of a token's picks in two launches, cut as ``plan_w4a8`` says.
+``moe_bf16`` (K5, bf16 activations, ``csrc/moe_decode.cu``) replaces
+``moe_gathered_pallas``: two CUDA stages, the picks summed in PyTorch.
+``gathered_qmm`` (K6) and ``gathered_qmm_a8`` (K6a, ``csrc/moe_decode.cu``)
+replace ``gathered_qmm_pallas`` and ``gathered_qmm_a8_pallas``: one gathered
+product per launch, which ``moe_gathered_tiled`` composes with SwiGLU
+between for the experts the fused kernels do not take
+(``ops/expert_class.py``). Each wrapper launches its kernel for tensors on
+the card and runs its plain version — the same function in plain PyTorch —
+for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,22 +27,33 @@ from ..quant import QTensor, dequantize, unpack
 from .activations import swiglu
 
 SOURCE = "krasis_tpu_torch/csrc/moe_decode.cu"
+SOURCE_W4A8 = "krasis_tpu_torch/csrc/moe_w4a8.cu"
 REPLACES = "krasis_tpu/ops/moe_pallas.py:391"
 REPLACES_BF16 = "krasis_tpu/ops/moe_pallas.py:226"
 REPLACES_GQ = "krasis_tpu/ops/moe_pallas.py:517"
 REPLACES_GQ_A8 = "krasis_tpu/ops/moe_pallas.py:605"
-launches = 0          # K3 kernel launches since the caller last set it to 0
+K3_KERNELS = ("w4a8_stage1_kernel", "w4a8_stage2_kernel")   # K3's device kernels, by name
+launches = 0          # K3 kernel launches (two a call) since the caller last set it to 0
 launches_bf16 = 0     # K5 kernel launches, likewise
 launches_gq = 0       # K6
 launches_gq_a8 = 0    # K6a
 
 
+_i8_max: dict = {}    # device → 0-dim f32 tensor 127
+
+
 def quantize_activations(x: torch.Tensor, gs: int):
     """[T, K] → (int8 [T, K], f32 scales [T, K/gs]): per row and K-group,
-    scale max|x|/127 clamped at 1e-8, round half to even, clip to ±127."""
+    scale max|x|/127 clamped at 1e-8, round half to even, clip to ±127.
+    The 127 is a tensor on x's device: PyTorch's CUDA division by a Python
+    number multiplies by its reciprocal, which rounds some scales one bit
+    off the division the reference and the kernels take."""
     T, K = x.shape
     xg = x.to(torch.float32).reshape(T, K // gs, gs)
-    s = torch.clamp(xg.abs().amax(dim=-1) / 127.0, min=1e-8)
+    d = _i8_max.get(x.device)
+    if d is None:
+        d = _i8_max[x.device] = torch.tensor(127.0, device=x.device)
+    s = torch.clamp(xg.abs().amax(dim=-1) / d, min=1e-8)
     q = torch.clamp(torch.round(xg / s[..., None]), -127, 127).to(torch.int8)
     return q.reshape(T, K), s
 
@@ -63,7 +77,9 @@ def moe_w4a8_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
                    topk_idx: torch.Tensor, topk_weights: torch.Tensor,
                    swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
     """K3's function: int8 group dots into an f32 h, the activation on the
-    f32 h (SwiGLU, or GPT-OSS's clamped form), the hidden requantized."""
+    f32 h (SwiGLU, or GPT-OSS's clamped form), the hidden requantized, and
+    the picks' weighted f32 outputs added in pick order, as the reference
+    adds them (a sum over the picks takes an order of its own on the card)."""
     T, H = x.shape
     k = topk_idx.shape[1]
     I = w2.k_dim
@@ -75,8 +91,11 @@ def moe_w4a8_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
     a = swiglu(h, swiglu_limit, gpt_oss)
     aq, sa = quantize_activations(a, w2.group_size)
     o = _grouped_dot_plain(aq, sa, unpack(w2[e]), w2.scales[e], w2.group_size)
-    o = o * topk_weights.reshape(-1, 1).to(torch.float32)
-    return o.reshape(T, k, H).sum(dim=1).to(x.dtype)
+    o = (o * topk_weights.reshape(-1, 1).to(torch.float32)).reshape(T, k, H)
+    acc = torch.zeros_like(o[:, 0])
+    for j in range(k):
+        acc = acc + o[:, j]
+    return acc.to(x.dtype)
 
 
 def moe_bf16_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
@@ -98,21 +117,152 @@ def moe_bf16_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
     return o.reshape(T, k, H).sum(dim=1).to(x.dtype)
 
 
+UNIT = 32             # packed rows of a K3 unit
+K3_COLS = (128, 64, 32)   # weight columns a K3 CTA may stream, widest first
+MAX_SPLITS = 8        # the portable thread-block cluster size
+SMS = 132             # the H100's streaming multiprocessors
+K3_STAGES = (6, 4)    # ring stages of K3's two kernels
+MAX_SMEM = 227 * 1024
+
+
+class StagePlan(NamedTuple):
+    """One K3 kernel: each CTA streams `cols` weight columns (stage 1:
+    cols/2 gate and cols/2 up columns) of the `units` 32-row units of its
+    cluster (stage 1: one pick's packed rows; stage 2: a token's k picks
+    times their packed rows, pick-major), which the cluster's `ks` ranks
+    split into contiguous ranges; grid = (column tiles, picks or tokens,
+    ks)."""
+    cols: int
+    ks: int
+    units: int
+    grid: Tuple[int, int, int]
+
+    def unit_range(self, z: int) -> Tuple[int, int]:
+        """The units [u0, u1) of rank z, as the kernel cuts them."""
+        return self.units * z // self.ks, self.units * (z + 1) // self.ks
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+class W4A8Plan(NamedTuple):
+    w13: StagePlan
+    w2: StagePlan
+
+
+def _rank_picks(units: int, ks: int, nb: int, kk: int) -> int:
+    """The picks a rank's units can reach (csrc/moe_w4a8.cu rank_picks)."""
+    return min(kk, (-(-units // ks) + nb - 1) // nb + 1)
+
+
+def _k3_smem(stages: int, cols: int, kk: int, G: int, K: int, cr: int, np_: int,
+             act_bytes: int) -> int:
+    """Shared memory of a K3 CTA: csrc/moe_w4a8.cu ``layout`` in Python,
+    for plans made off the card."""
+    def al(n):
+        return (n + 15) // 16 * 16
+    ring = stages * (128 // cols) * UNIT * (cols + 16)
+    return (al(max(ring, kk * cr * 4)) + al(kk * G * cr * 4) + al(kk * G * 4)
+            + al(kk * G * cr * 2) + al(np_ * K) + al(act_bytes) + al(kk * G) + al(kk * 4))
+
+
+def k3_smem(stage: int, plan: StagePlan, k: int, H: int, I: int, bits: int, gs: int) -> int:
+    """Shared memory of a CTA of K3's stage 1 or 2 under `plan`."""
+    if stage == 1:
+        return _k3_smem(K3_STAGES[0], plan.cols, 1, H // gs, H, plan.cols // plan.ks, 1, 2 * H)
+    nb = (I // 2 if bits == 4 else I) // UNIT
+    np_ = _rank_picks(plan.units, plan.ks, nb, k)
+    return _k3_smem(K3_STAGES[1], plan.cols, k, I // gs, I, plan.cols // plan.ks, np_,
+                    np_ * I * 4)
+
+
+def _k3_stage(rows: int, tiles_of, units: int, smem_of) -> StagePlan:
+    """The widest column tile, then the fewest ranks (a power of two up to 8,
+    at most one per unit), that give 2.5 CTAs an SM; else the most CTAs."""
+    best = None
+    for cols in K3_COLS:
+        tiles = tiles_of(cols)
+        if tiles is None:
+            continue
+        ks = 1
+        while ks < MAX_SPLITS and 2 * tiles * rows * ks < 5 * SMS and 2 * ks <= units:
+            ks *= 2
+        p = StagePlan(cols, ks, units, (tiles, rows, ks))
+        if smem_of(p) > MAX_SMEM:
+            continue
+        if 2 * p.ctas >= 5 * SMS:
+            return p
+        if best is None or p.ctas > best.ctas:
+            best = p
+    if best is None:
+        raise ValueError("moe_w4a8: no K3 tile fits the shared memory")
+    return best
+
+
+def plan_w4a8(T: int, k: int, H: int, I: int, bits: int, gs13: int, gs2: int,
+              bits2: Optional[int] = None, smem=k3_smem) -> W4A8Plan:
+    """How a K3 call of T tokens with k picks each is cut. Stage 1 has a
+    CTA per (a-column tile, pick, rank): its rank's units of the pick's
+    packed w13 rows, gate and up columns; stage 2 a CTA per (column tile,
+    token, rank): its rank's units of the token's k picks of packed w2 rows,
+    so the pick sum stays in one cluster. A group cut between two ranks is
+    summed in int32 before it is scaled. `smem(stage, plan, k, H, I, bits,
+    gs)` is a CTA's shared memory: the wrapper asks the built kernel
+    (``moe_w4a8_smem``), the CPU tests take ``k3_smem``, which the card
+    tests hold equal to it."""
+    bits2 = bits if bits2 is None else bits2
+    if bits not in (4, 8) or bits2 not in (4, 8) or gs13 % UNIT or gs2 % UNIT:
+        raise ValueError(f"moe_w4a8: bits {bits}/{bits2}, groups {gs13}/{gs2}: K3 takes int4 "
+                         f"or int8 and groups of a multiple of {UNIT} rows")
+    if H % 64 or I % 64 or H % gs13 or I % gs2:
+        raise ValueError(f"moe_w4a8: H {H}, I {I}, groups {gs13}/{gs2}")
+    u13 = (H // 2 if bits == 4 else H) // UNIT
+    u2 = k * (I // 2 if bits2 == 4 else I) // UNIT
+    s1 = _k3_stage(T * k, lambda c: I // (c // 2) if I % (c // 2) == 0 else None, u13,
+                   lambda p: smem(1, p, k, H, I, bits, gs13))
+    s2 = _k3_stage(T, lambda c: H // c if H % c == 0 else None, u2,
+                   lambda p: smem(2, p, k, H, I, bits2, gs2))
+    return W4A8Plan(s1, s2)
+
+
+def _w4a8_fn():
+    fn = build.load("moe_w4a8").moe_w4a8_launch
+    if fn.argtypes is None:
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [p, l, p, p, p, p, l, l, p, p, l, l, p, p] + [i] * 12 + [
+            ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def k3_smem_card(stage: int, plan: StagePlan, k: int, H: int, I: int, bits: int,
+                 gs: int) -> int:
+    """``k3_smem`` as the built kernel lays its shared memory out."""
+    fn = build.load("moe_w4a8").moe_w4a8_smem
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 8
+        fn.restype = ctypes.c_int
+    return fn(stage, bits, plan.cols, plan.ks, k, H, I, gs)
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_plan(T: int, k: int, H: int, I: int, bits: int, gs13: int, gs2: int,
+               bits2: int) -> W4A8Plan:
+    return plan_w4a8(T, k, H, I, bits, gs13, gs2, bits2, smem=k3_smem_card)
+
+
 def _fns():
-    """(w13, w2) launchers of K3 and (w13, w2) launchers of K5."""
+    """(w13, w2) launchers of K5."""
     lib = build.load("moe_decode")
-    f13, f2 = lib.moe_w13_launch, lib.moe_w2_launch
     b13, b2 = lib.moe_w13_bf16_launch, lib.moe_w2_bf16_launch
-    if f13.argtypes is None:
-        f13.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                        + [ctypes.c_long] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    if b13.argtypes is None:
         b13.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                         + [ctypes.c_long] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        f2.argtypes = b2.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                                     + [ctypes.c_long] * 2 + [ctypes.c_void_p])
-        for fn in (f13, f2, b13, b2):
-            fn.restype = ctypes.c_int
-    return (f13, f2), (b13, b2)
+        b2.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_long] * 2 + [ctypes.c_void_p])
+        b13.restype = b2.restype = ctypes.c_int
+    return b13, b2
 
 
 def supported(w13: QTensor, w2: QTensor) -> bool:
@@ -124,10 +274,16 @@ def supported(w13: QTensor, w2: QTensor) -> bool:
             and gs13 % 4 == 0 and gs2 % 32 == 0)
 
 
-def _check(name: str, x: torch.Tensor, w13: QTensor, w2: QTensor) -> None:
-    if not supported(w13, w2):
+def w4a8_supported(w13: QTensor, w2: QTensor) -> bool:
+    """K3's stacks: those of ``supported`` whose w13 groups are whole
+    32-row units too (every model of the repository: 32 or 128)."""
+    return supported(w13, w2) and w13.group_size % UNIT == 0
+
+
+def _check(name: str, x: torch.Tensor, w13: QTensor, w2: QTensor, ok: bool) -> None:
+    if not ok:
         raise ValueError(f"{name}: unsupported expert shapes {tuple(w13.q.shape)}, "
-                         f"{tuple(w2.q.shape)}")
+                         f"{tuple(w2.q.shape)} (groups {w13.group_size}, {w2.group_size})")
     if not (x.is_cuda and w13.q.is_cuda and w2.q.is_cuda):
         raise ValueError(f"{name}: inputs must be on one CUDA device")
     for t in (w13.q, w13.scales, w2.q, w2.scales):
@@ -139,34 +295,40 @@ def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
              topk_idx: torch.Tensor, topk_weights: torch.Tensor,
              swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
     """x [T, H] bf16, stacks w13 [E, H(/2), 2I] and w2 [E, I(/2), H], picks
-    [T, k] → [T, H] bf16."""
+    [T, k] (int32 indices, f32 weights, as routing gives them) → [T, H]
+    bf16: exactly two device kernels a call."""
     if x.device.type == "cpu":
         return moe_w4a8_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss)
     global launches
-    _check("moe_w4a8", x, w13, w2)
-    T, H = x.shape
-    k = topk_idx.shape[1]
-    P = T * k
-    I = w2.k_dim
-    xq, sx = quantize_activations(x, w13.group_size)
+    T = x.shape[0]
+    k = topk_idx.shape[-1]
+    H, I = w13.k_dim, w2.k_dim
+    _check("moe_w4a8", x, w13, w2, w4a8_supported(w13, w2) and x.shape[1] == H)
+    for t in (w13.q, w13.scales, w2.q, w2.scales):
+        if t.data_ptr() % 16:
+            raise ValueError("moe_w4a8: expert stacks must be 16-byte aligned")
+    plan = _card_plan(T, k, H, I, w13.bits, w13.group_size, w2.group_size, w2.bits)
+    xb = x
+    if x.dtype != torch.bfloat16 or x.stride(-1) != 1 or x.stride(0) % 2 or x.data_ptr() % 4:
+        xb = x.to(torch.bfloat16, memory_format=torch.contiguous_format, copy=True)
     idx = topk_idx.reshape(-1).to(torch.int32).contiguous()
     wt = topk_weights.reshape(-1).to(torch.float32).contiguous()
-    a = torch.empty((P, I), dtype=torch.float32, device=x.device)
-    o = torch.empty((P, H), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    f13, f2 = _fns()[0]
-    err = f13(xq.data_ptr(), sx.data_ptr(), idx.data_ptr(), w13.q.data_ptr(),
-              w13.scales.data_ptr(), a.data_ptr(), P, k, H, I, w13.bits,
-              w13.group_size, w13.q.stride(0), w13.scales.stride(0), float(swiglu_limit),
-              int(gpt_oss), stream)
-    build.check(err, "moe_w13")
-    launches += 1
-    err = f2(a.data_ptr(), idx.data_ptr(), wt.data_ptr(), w2.q.data_ptr(),
-             w2.scales.data_ptr(), o.data_ptr(), P, H, I, w2.bits, w2.group_size,
-             w2.q.stride(0), w2.scales.stride(0), stream)
-    build.check(err, "moe_w2")
-    launches += 1
-    return o.reshape(T, k, H).sum(dim=1).to(x.dtype)
+    if idx.numel() != T * k or wt.numel() != T * k or not (idx.is_cuda and wt.is_cuda):
+        raise ValueError(f"moe_w4a8: picks {tuple(topk_idx.shape)} / "
+                         f"{tuple(topk_weights.shape)} on the card for {T} tokens")
+    a = torch.empty((T * k, I), dtype=torch.float32, device=x.device)
+    out = torch.empty((T, H), dtype=torch.bfloat16, device=x.device)
+    err = _w4a8_fn()(xb.data_ptr(), xb.stride(0), idx.data_ptr(), wt.data_ptr(),
+                     w13.q.data_ptr(), w13.scales.data_ptr(), w13.q.stride(0),
+                     w13.scales.stride(0), w2.q.data_ptr(), w2.scales.data_ptr(),
+                     w2.q.stride(0), w2.scales.stride(0),
+                     a.data_ptr(), out.data_ptr(), T, k, H, I, w13.bits, w2.bits,
+                     w13.group_size, w2.group_size, plan.w13.cols, plan.w13.ks,
+                     plan.w2.cols, plan.w2.ks, float(swiglu_limit), int(gpt_oss),
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "moe_w4a8")
+    launches += 2
+    return out if x.dtype == torch.bfloat16 else out.to(x.dtype)
 
 
 def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
@@ -177,7 +339,7 @@ def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
     if x.device.type == "cpu":
         return moe_bf16_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss)
     global launches_bf16
-    _check("moe_bf16", x, w13, w2)
+    _check("moe_bf16", x, w13, w2, supported(w13, w2))
     T, H = x.shape
     k = topk_idx.shape[1]
     P = T * k
@@ -188,7 +350,7 @@ def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
     a = torch.empty((P, I), dtype=torch.bfloat16, device=x.device)
     o = torch.empty((P, H), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    b13, b2 = _fns()[1]
+    b13, b2 = _fns()
     err = b13(xb.data_ptr(), idx.data_ptr(), w13.q.data_ptr(), w13.scales.data_ptr(),
               a.data_ptr(), P, k, H, I, w13.bits, w13.group_size, w13.q.stride(0),
               w13.scales.stride(0), float(swiglu_limit), int(gpt_oss), stream)

@@ -184,6 +184,81 @@ def test_moe_decode_kernel(dev):
            moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts), 3e-2)
 
 
+def _k3_case(dev, seed, T, k, H, I, bits=4, gs=128, E=12, virtual=2):
+    """K3's inputs at a model's widths: k picks a token, the last `virtual`
+    of them folded shared experts with weight 1, and at T > 1 token 1
+    repeating token 0's first expert."""
+    g = _gen(dev, seed)
+    w13 = random_qtensor((E, H, 2 * I), bits, gs, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((E, I, H), bits, gs, g, dev, scale_mag=0.03)
+    x = torch.randn((T, H), generator=g, device=dev).to(torch.bfloat16)
+    routed = torch.stack([torch.randperm(E - virtual, generator=g, device=dev)[:k - virtual]
+                          for _ in range(T)])
+    if T > 1:
+        routed[1, -1] = routed[0, 0]
+    virt = torch.arange(E - virtual, E, device=dev).expand(T, virtual)
+    idx = torch.cat([routed, virt], dim=1).to(torch.int32)
+    wts = torch.cat([torch.rand((T, k - virtual), generator=g, device=dev) * 0.3,
+                     torch.ones((T, virtual), device=dev)], dim=1)
+    return x, w13, w2, idx, wts
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("shape", [(8, 2048, 1408, 2), (11, 2048, 512, 1)],
+                         ids=["v2lite", "hybrid"])
+def test_moe_w4a8_kernel_at_main_path_shapes(dev, shape, T):
+    """K3 at V2-Lite's (I = 1408: w2's groups cut by the nibble halves) and
+    the hybrid's widths: within 3e-2 of its plain version, two calls equal
+    bit for bit, two launches a call."""
+    k, H, I, virtual = shape
+    x, w13, w2, idx, wts = _k3_case(dev, 20 + T + k, T, k, H, I, virtual=virtual)
+    before = moe_cuda.launches
+    got = moe_cuda.moe_w4a8(x, w13, w2, idx, wts)
+    assert torch.equal(got, moe_cuda.moe_w4a8(x, w13, w2, idx, wts))
+    assert moe_cuda.launches == before + 4
+    assert got.dtype == torch.bfloat16 and got.shape == (T, H)
+    _close(got, moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts), 3e-2)
+
+
+@pytest.mark.parametrize("bits,gs,gpt_oss", [(8, 128, False), (4, 32, True), (8, 32, True)])
+def test_moe_w4a8_kernel_forms(dev, bits, gs, gpt_oss):
+    """int8 weights, 32-row groups and GPT-OSS's clamped activation."""
+    x, w13, w2, idx, wts = _k3_case(dev, 30 + bits + gs, 3, 4, 512, 384, bits, gs)
+    x = (x.float() * (4.0 if gpt_oss else 1.0)).to(torch.bfloat16)
+    lim = 7.0 if gpt_oss else 0.0
+    _close(moe_cuda.moe_w4a8(x, w13, w2, idx, wts, lim, gpt_oss),
+           moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts, lim, gpt_oss), 3e-2)
+
+
+def test_k3_smem_formula_matches_kernel(dev):
+    """The plans made off the card (``k3_smem``) and on it (the built
+    kernel's ``moe_w4a8_smem``) see the same shared memory, for every
+    column tile and cluster size at V2-Lite's, the hybrid's and a wide
+    expert's widths."""
+    for k, H, I in ((8, 2048, 1408), (11, 2048, 512), (8, 4096, 1536), (4, 512, 384)):
+        for bits in (4, 8):
+            for gs in (32, 128):
+                for stage in (1, 2):
+                    units = (H // 2 if bits == 4 else H) // moe_cuda.UNIT if stage == 1 else (
+                        k * (I // 2 if bits == 4 else I) // moe_cuda.UNIT)
+                    for cols in moe_cuda.K3_COLS:
+                        for ks in (1, 2, 4, 8):
+                            p = moe_cuda.StagePlan(cols, ks, units, (1, 1, ks))
+                            assert (moe_cuda.k3_smem(stage, p, k, H, I, bits, gs)
+                                    == moe_cuda.k3_smem_card(stage, p, k, H, I, bits, gs))
+
+
+def test_moe_w4a8_two_device_kernels_a_call(dev):
+    """Routing's int32 indices and f32 weights go in as they are: a call is
+    exactly K3's two device kernels."""
+    from krasis_tpu_torch.timing import device_per_call
+
+    x, w13, w2, idx, wts = _k3_case(dev, 40, 1, 8, 2048, 1408)
+    us, per_call, _ = device_per_call(lambda: moe_cuda.moe_w4a8(x, w13, w2, idx, wts),
+                                      moe_cuda.K3_KERNELS, calls=5)
+    assert per_call == 2 and us > 0
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 def test_moe_bf16_kernel(dev, bits):
     g = _gen(dev, 3 + bits)
