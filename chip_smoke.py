@@ -32,15 +32,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    V, K5 bf16 decode MoE, and K1, K3, K4 at this model's shapes); three
    requests with int8 expert activations, one with bf16, and the profile;
 6. DeepSeek-V2-Lite Q8 at full width and depth (int8 experts of 8.65 MB a
-   pick: the two-stage expert class): K6 / K6a gathered products on w13 and
-   w2 with 8 picks of 66, once under a pick_valid mask; K7 two-stage grouped
+   pick: the two-stage expert class): K6 and K6a's one product (gathered
+   products) on w13 and w2 with 8 picks of 66, once under a pick_valid mask;
+   K6a's chain moe_gathered_tiled(activation="int8") at the same picks (two
+   device kernels a call under K6a's names, each call equal bit for bit to
+   the next, and the plain version without any one pick's weight the check
+   must refuse), again under the mask, where it must also agree with K3's
+   function with the skipped picks' weights set to 0; K7 two-stage grouped
    GEMM at both call shapes, and K7 + SwiGLU + K7 equal bit for bit to K4's
    fused result on the same plan; K7a int8 grouped GEMM stage by stage and
    through moe_prefill(activation="int8"); the fused kernels timed at the
    same shapes for the class boundary; then requests with int8 and bf16
    activations, one with top_logprobs=5, the perplexity entry point over
    4096 token ids (window 2048, stride 1024), the int8 prefill A/B entry,
-   and the profile. Its routed experts must not launch K3, K4 or K5;
+   and the profile. Its routed experts must not launch K3, K4 or K5 (by
+   counter, and in the profiles by K3's and K5's kernel names; K4 shares
+   its kernel with K7);
 7. GPT-OSS-20B at full width and depth (24 layers alternating sliding
    (window 128) and full GQA attention with sinks, 32 biased experts top-4
    at int4 gs 32, an int8 lm_head [2880, 201088]): K1 on the lm_head, K2's
@@ -255,6 +262,7 @@ def counters():
             "K2": (flash_attention, "launches"), "K3": (moe_cuda, "launches"),
             "K4": (gmm_cuda, "launches"), "K5": (moe_cuda, "launches_bf16"),
             "K6": (moe_cuda, "launches_gq"), "K6a": (moe_cuda, "launches_gq_a8"),
+            "K6a product": (moe_cuda, "launches_gq_a8_product"),
             "K7": (gmm_cuda, "launches_two_stage"), "K7a": (gmm_cuda, "launches_a8")}
 
 
@@ -470,36 +478,40 @@ def grouped_mm_library(label, rows, w, plan, out_dtype, want):
 # so no more than a last bf16 bit (at most 2^-7 of |want|) may part them:
 # K3's limit sits just above that. The reference's 3e-2 for the MoE kernels
 # would not see the synthetic hybrid's shared expert dropped (0.796 of it).
+# K6a's chain runs on K3's core and is held to the same limit.
 K3_TOL = 1e-2
 
 
-def k3_checks(results, name, x, w13, w2, idx, wts, replaces, nbytes, ops, flush, iters=50):
-    """K3 against its plain version with device time from the profiler; a
-    call must launch exactly two device kernels and repeat bit for bit, and
-    the check must refuse the plain version with any one pick's routing
-    weight set to 0 (the last pick among them)."""
+def core_checks(results, name, counter, kernels, replaces, run, plain, wts, nbytes, ops,
+                flush, iters=50, controls=None):
+    """A call of K3's two-kernel core (K3, or K6a's chain) against its plain
+    version, `run(w)` and `plain(w)` on routing weights w, with device time
+    from the profiler; a call must launch exactly the two device kernels
+    named `kernels` and repeat bit for bit, and the check must refuse the
+    plain version with any one pick's routing weight set to 0 (the folded
+    shared experts among them). `controls` lists (weights, picks): the
+    picks dropped from run(weights), by default every pick of `wts`."""
     import torch
     from krasis_tpu_torch.ops import moe_cuda
 
-    check_kernel(results, name, counters()["K3"], replaces,
-                 lambda: moe_cuda.moe_w4a8(x, w13, w2, idx, wts),
-                 lambda: moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts), None, K3_TOL, nbytes, ops,
-                 PEAK_INT8, iters, flush, device_name=moe_cuda.K3_KERNELS, calls=10,
+    check_kernel(results, name, counter, replaces, lambda: run(wts), lambda: plain(wts), None,
+                 K3_TOL, nbytes, ops, PEAK_INT8, iters, flush, device_name=kernels, calls=10,
                  source=moe_cuda.SOURCE_W4A8)
     res = results[-1][1]
     if res["kernels_per_call"] != 2:
         raise AssertionError(f"{name}: a call launched {res['kernels_per_call']} device "
                              "kernels, not 2")
-    got = moe_cuda.moe_w4a8(x, w13, w2, idx, wts)
-    res["bit_equal_repeat"] = torch.equal(got, moe_cuda.moe_w4a8(x, w13, w2, idx, wts))
+    got = run(wts)
+    res["bit_equal_repeat"] = torch.equal(got, run(wts))
     if not res["bit_equal_repeat"]:
         raise AssertionError(f"{name}: two calls on the same inputs differ")
-    ratios = []
-    for j in range(wts.shape[1]):
-        dropped = wts.clone()
-        dropped[:, j] = 0
-        ratios.append(max_err(got, moe_cuda.moe_w4a8_plain(x, w13, w2, idx, dropped),
-                              K3_TOL)[1])
+    ratios = [None] * wts.shape[1]
+    for w, picks in controls or [(wts, range(wts.shape[1]))]:
+        got = run(w)
+        for j in picks:
+            dropped = w.clone()
+            dropped[:, j] = 0
+            ratios[j] = max_err(got, plain(dropped), K3_TOL)[1]
     res["dropped_pick_over_limit"] = ratios
     print(f"[kernel] {name}: two calls equal bit for bit; the plain version with one pick's "
           f"weight set to 0 is {min(ratios):.3g} (pick {ratios.index(min(ratios))}) to "
@@ -507,6 +519,16 @@ def k3_checks(results, name, x, w13, w2, idx, wts, replaces, nbytes, ops, flush,
     if not min(ratios) > 1.0:
         raise AssertionError(f"{name}: the check cannot see pick {ratios.index(min(ratios))} "
                              "dropped")
+
+
+def k3_checks(results, name, x, w13, w2, idx, wts, replaces, nbytes, ops, flush, iters=50):
+    """K3 (``moe_w4a8``) through ``core_checks``."""
+    from krasis_tpu_torch.ops import moe_cuda
+
+    core_checks(results, name, counters()["K3"], moe_cuda.K3_KERNELS, replaces,
+                lambda w: moe_cuda.moe_w4a8(x, w13, w2, idx, w),
+                lambda w: moe_cuda.moe_w4a8_plain(x, w13, w2, idx, w), wts, nbytes, ops, flush,
+                iters)
 
 
 def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
@@ -645,7 +667,7 @@ def q8_kernel_phase(params, cfg, results, g, flush):
         if not ratio <= 1.0:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
 
-    # --- decode: K6 (bf16 rows) and K6a (int8 rows) on w13 and on w2
+    # --- decode: K6 (bf16 rows) and K6a's one product (int8 rows) on w13 and on w2
     x = torch.randn((1, Hd), generator=g, device=dev).to(bf16)
     routed = torch.randperm(E_r, generator=g, device=dev)[:k]
     idx = torch.cat([routed, torch.arange(E_r, E_all, device=dev)]).to(torch.int32)
@@ -666,11 +688,14 @@ def q8_kernel_phase(params, cfg, results, g, flush):
                      lambda: moe_cuda.gathered_qmm(rows, w, idx),
                      lambda: moe_cuda.gathered_qmm_plain(rows, w, idx), None, 2e-2,
                      P * one + P * K * 2 + P * N * 4, 2 * P * K * N, PEAK_BF16, 50, flush)
-        check_kernel(results, f"q8/gathered_qmm_a8:{name}", C["K6a"], moe_cuda.REPLACES_GQ_A8,
+        check_kernel(results, f"q8/gathered_qmm_a8:{name}", C["K6a product"],
+                     moe_cuda.REPLACES_GQ_A8,
                      lambda: moe_cuda.gathered_qmm_a8(rq, rs, w, idx),
                      lambda: moe_cuda.gathered_qmm_a8_plain(rq, rs, w, idx), None, 3e-2,
                      P * one + P * K + P * (K // w.group_size) * 4 + P * N * 4,
-                     2 * P * K * N, PEAK_INT8, 50, flush)
+                     2 * P * K * N, PEAK_INT8, 50, flush,
+                     device_name=moe_cuda.K6A_PRODUCT_KERNEL, calls=10,
+                     source=moe_cuda.SOURCE_W4A8)
         # under a pick_valid mask: the skipped picks read back zero
         for label, got, want, tol in (
                 ("gathered_qmm", moe_cuda.gathered_qmm(rows, w, idx, mask),
@@ -680,6 +705,37 @@ def q8_kernel_phase(params, cfg, results, g, flush):
             held(f"q8/{label}:{name} with pick_valid", got, want, tol)
             if bool(got[mask == 0].any()) or not bool(got[mask == 1].any()):
                 raise AssertionError(f"q8/{label}:{name}: skipped picks must read back zero")
+
+    # --- decode: K6a's chain, the main path's call moe_gathered_tiled(activation="int8"):
+    # two device kernels, the picks summed inside
+    one_idx = idx[None]
+    per_pick = (qtensor_bytes(w13) + qtensor_bytes(w2)) // E_all
+    # The folded shared experts are quantized from N(0, 0.02) weights, the
+    # routed int8 experts are random bytes times scales near 0.02: a shared
+    # pick adds ~1e-4 of the output, under any limit a bf16 result allows.
+    # So the shared picks are dropped from a call in which they alone are
+    # weighted (the routed picks at weight 0, still computed).
+    shared_only = wts.clone()
+    shared_only[:, :k] = 0
+    core_checks(results, "q8/moe_gathered_a8", C["K6a"], moe_cuda.K6A_KERNELS,
+                moe_cuda.REPLACES_GQ_A8,
+                lambda w: moe_cuda.moe_gathered_tiled(x, w13, w2, one_idx, w, activation="int8"),
+                lambda w: moe_cuda.moe_gathered_a8_plain(x, w13, w2, one_idx, w), wts,
+                P * per_pick + Hd * 4, 2 * P * (Hd * 2 * I + I * Hd), flush,
+                controls=[(wts, range(k)), (shared_only, range(k, P))])
+    # under the pick_valid mask: as the plain chain, and as K3's function with
+    # the skipped picks' weights set to 0 (both classes round at the same points)
+    pv = mask[None].bool()
+    got = moe_cuda.moe_gathered_tiled(x, w13, w2, one_idx, wts, pick_valid=pv, activation="int8")
+    held("q8/moe_gathered_a8 with pick_valid", got,
+         moe_cuda.moe_gathered_a8_plain(x, w13, w2, one_idx, wts, pick_valid=pv), K3_TOL)
+    held("q8/moe_gathered_a8 with pick_valid, against K3's function with the skipped weights 0",
+         got, moe_cuda.moe_w4a8_plain(x, w13, w2, one_idx, wts * mask), K3_TOL)
+    unmasked = max_err(got, moe_cuda.moe_gathered_a8_plain(x, w13, w2, one_idx, wts), K3_TOL)[1]
+    print(f"[kernel] q8/moe_gathered_a8 with pick_valid: the plain version without the mask is "
+          f"{unmasked:.3g} of the limit away", flush=True)
+    if not unmasked > 1.0:
+        raise AssertionError("q8/moe_gathered_a8: the check cannot see the mask")
 
     # --- prefill: K7 at both call shapes
     T = 2048
@@ -753,7 +809,6 @@ def q8_kernel_phase(params, cfg, results, g, flush):
 
     # --- the fused kernels at the same shapes, for a later look at the class
     # boundary on this card (the port keeps the reference's boundary)
-    one_idx = idx[None]
     times = {
         "decode_int8_two_stage_K6a_ms": timeit_ms(lambda: moe_cuda.moe_gathered_tiled(
             x, w13, w2, one_idx, wts, activation="int8"), 50, flush),
@@ -966,9 +1021,10 @@ def q8_entry_points(eng, rng):
         raise AssertionError("moe_prefill(activation='int8') strays from the bf16 form")
 
 
-def profile_phase(eng, prompt, new: int):
+def profile_phase(eng, prompt, new: int, forbid=()):
     """Device time by kernel over one request, against the wall time of the
-    same request run without the profiler."""
+    same request run without the profiler. No kernel whose name holds one of
+    `forbid` may run."""
     import torch
     from krasis_tpu_torch.timing import recorded_step, traced_kernels
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -994,7 +1050,10 @@ def profile_phase(eng, prompt, new: int):
           f"{sum(r[2] for r in rows)} launches")
     for key, ms, count in rows[:12]:
         print(f"[profile]   {ms:9.2f} ms {count:6d}x  {key[:90]}")
-    for label, part in (("K1 + K1s", "qmm_kernel"), ("K3", "w4a8_stage")):
+    banned = [key for key, _, _ in rows if any(part in key for part in forbid)]
+    if banned:
+        raise AssertionError(f"kernels of the other expert class ran: {banned}")
+    for label, part in (("K1 + K1s", "qmm_kernel"), ("K3", "w4a8_stage"), ("K6a", "gq_a8_stage")):
         hits = [(ms, count) for key, ms, count in rows if part in key]
         if hits:
             ms, count = sum(r[0] for r in hits), sum(r[1] for r in hits)
@@ -1007,7 +1066,7 @@ def profile_phase(eng, prompt, new: int):
 
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
-               profile_decode, off_path=(), entry_points=None, forms=()):
+               profile_decode, off_path=(), entry_points=None, forms=(), off_names=()):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1015,7 +1074,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     length) and run `entry_points` with the launch counts set to 0 just
     before and read just after, then profile one prefill and one decode.
     Kernels named in `on_path`, and the K2 launch forms in `forms`, must
-    have been launched in that run, those in `off_path` must not. Fills the
+    have been launched in that run, those in `off_path` must not, nor may the
+    profiles show a device kernel whose name holds one of `off_names`. Fills the
     launch counts into this family's entries of `results` (by form for K2
     entries that name one)."""
     import gc
@@ -1121,8 +1181,10 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
         res["launches"] = by_form.get(res["form"], 0) if "form" in res else by_counter[counter]
 
     t_entries = time.perf_counter()
-    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1)   # prefill
-    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode)
+    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1,   # prefill
+                  off_names)
+    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode,
+                  off_names)
     print(f"[time] {label}: kernel checks {t_kernels - t0:.1f} s (engine build included), "
           f"requests {t_requests - t_kernels:.1f} s, other entry points "
           f"{t_entries - t_requests:.1f} s, profiles {time.perf_counter() - t_entries:.1f} s",
@@ -1217,7 +1279,7 @@ def probe_phase(results):
                  lambda: moe_cuda.moe_bf16(x0, w13, w2, idx, wts),
                  lambda: moe_cuda.moe_bf16_plain(x0, w13, w2, idx, wts), None, 3e-2,
                  k * per_pick + H * 4, ops1, PEAK_BF16, 50, flush,
-                 device_name=("w13_bf16_kernel", "w2_bf16_kernel"), calls=10)
+                 device_name=moe_cuda.K5_KERNELS, calls=10)
     k3_checks(results, "probe/moe_w4a8_T1", x0, w13, w2, idx, wts, moe_cuda.REPLACES,
               k * per_pick + H * 4, ops1, flush)
     res = results[-1][1]
@@ -1270,7 +1332,7 @@ def probe_phase(results):
                  lambda: moe_cuda.moe_bf16(x, w13, w2, idx, wts),
                  lambda: moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts), None, 3e-2,
                  hit * per_pick + x.numel() * 4, ops8, PEAK_BF16, 50, flush,
-                 device_name=("w13_bf16_kernel", "w2_bf16_kernel"), calls=10)
+                 device_name=moe_cuda.K5_KERNELS, calls=10)
     print(f"[kernel] probe/moe_w4a8_T8: {P} picks over {hit} distinct experts", flush=True)
     del flush
     torch.cuda.empty_cache()
@@ -1402,6 +1464,7 @@ def main() -> int:
     from krasis_tpu_torch import build, timing
     from krasis_tpu_torch.config import QuantConfig
     from krasis_tpu_torch.device import set_exact_matmul_flags
+    from krasis_tpu_torch.ops import moe_cuda
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1437,7 +1500,8 @@ def main() -> int:
                QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,
                ((2048, 128, "int8"), (40, 32, "int8", 5), (40, 16, "bf16")),
                ("K1", "K2", "K6", "K6a", "K7", "K7a"), results, rng, profile_decode=16,
-               off_path=("K3", "K4", "K5"), entry_points=q8_entry_points)
+               off_path=("K3", "K4", "K5"), entry_points=q8_entry_points,
+               off_names=moe_cuda.K3_KERNELS + moe_cuda.K5_KERNELS)
     gptoss_forms = tuple(f"{form}{tags}+sinks{fp8}" for form in ("one-launch", "split")
                          for tags in ("+window", "") for fp8 in ("", "+fp8"))
     run_family("GPT-OSS-20B (sliding window 128, sinks, biased experts)", "gpt-oss-20b",
@@ -1445,7 +1509,8 @@ def main() -> int:
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"),
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "int8", 0, ("auto", 131072))),
                ("K1", "K2"), results, rng, profile_decode=16,
-               off_path=("K1s", "K3", "K4", "K5", "K6", "K6a", "K7", "K7a"), forms=gptoss_forms)
+               off_path=("K1s", "K3", "K4", "K5", "K6", "K6a", "K6a product", "K7", "K7a"),
+               forms=gptoss_forms)
     probe_phase(results)
 
     print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "

@@ -22,23 +22,18 @@
 // CTA (lanes 0-15 gate, 16-31 up) so the activation needs no second pass.
 // (K3, the int8-activation form, has its own kernels: csrc/moe_w4a8.cu.)
 //
-// K6 and K6a — one gathered product per launch, for experts of any size:
-//   K6  (gq_bf16_kernel): out[p, :] = x[p] · dequant(W[e[p]])     bf16 x
-//   K6a (gq_a8_kernel):   out[p, :] = Σ_g (xq[p, g] · W[e[p], g]) * sx[p, g] * sw[g, :]
-// both to f32 [P, N], with picks whose valid[p] == 0 skipped: they read no
+// K6 — one gathered product per launch, for experts of any size:
+//   out[p, :] = x[p] · dequant(W[e[p]])  (gq_bf16_kernel), bf16 x,
+// to f32 [P, N], with picks whose valid[p] == 0 skipped: they read no
 // weight and write zeros, so the caller never sees stale memory.
-// Replaces: krasis_tpu/ops/moe_pallas.py gathered_qmm_pallas (_gq_kernel)
-// and gathered_qmm_a8_pallas (_gq_kernel_a8), which moe_gathered_tiled
-// composes with SwiGLU between two calls. There the N axis is tiled
-// because one expert does not fit the fast memory and every step runs all
-// P rows under a row mask; here a CTA owns one pick and 128 columns and
-// reads its one row. Numerics: K6 as K5's products (weights dequantized in
-// f32, rounded to bf16, f32 accumulation); K6a takes the int8 rows and
-// their scales from the caller, each group dot is exact in int32, and the
-// f32 terms d * sx * sw are summed per warp over the groups warp, warp + 8,
-// ... and then over the warps 0..7 (the reference adds groups 0..G-1 in
-// order: both are f32 sums of the same terms). Bound by bytes: one
-// expert's packed [K, N] block per pick.
+// Replaces: krasis_tpu/ops/moe_pallas.py gathered_qmm_pallas (_gq_kernel),
+// which moe_gathered_tiled composes with SwiGLU between two calls. There
+// the N axis is tiled because one expert does not fit the fast memory and
+// every step runs all P rows under a row mask; here a CTA owns one pick and
+// 128 columns and reads its one row. Numerics as K5's products (weights
+// dequantized in f32, rounded to bf16, f32 accumulation). Bound by bytes:
+// one expert's packed [K, N] block per pick. (K6a, its int8-activation
+// form, runs on K3's core: csrc/moe_w4a8.cu.)
 #include "int4.cuh"
 
 namespace {
@@ -61,33 +56,6 @@ __device__ __forceinline__ void bf16_dots(const __nv_bfloat16* __restrict__ x,
     const float xv = __bfloat162float(x[k]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[i] = fmaf(xv, ktt::deq_bf16(qv[i], sv[i]), acc[i]);
-  }
-}
-
-// acc[i] += Σ_groups (Σ_{k in g} xq[k] w[k][n+i]) * sx[g] * sw[g][n+i]
-// over the groups g = warp, warp + WARPS, ...
-__device__ __forceinline__ void group_dots(const int8_t* __restrict__ xq,
-                                           const float* __restrict__ sx,
-                                           const int8_t* __restrict__ q,
-                                           const __nv_bfloat16* __restrict__ s, int bits,
-                                           int K, int N, int gs, int n, int warp,
-                                           float acc[4]) {
-  const int ng = K / gs;
-  for (int g = warp; g < ng; g += WARPS) {
-    int d[4] = {0, 0, 0, 0};
-#pragma unroll 16
-    for (int k = g * gs; k < (g + 1) * gs; ++k) {
-      int w[4];
-      ktt::load_w4cols(q, bits, K, N, k, n, w);
-      const int xv = xq[k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] += xv * w[i];
-    }
-    float sw[4];
-    ktt::load_s4cols(s, N, g, n, sw);
-    const float sxg = sx[g];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] += (float)d[i] * sxg * sw[i];
   }
 }
 
@@ -183,27 +151,6 @@ gq_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx,
   sum_partials(acc, warp, lane, o);
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-gq_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-             const int* __restrict__ idx, const int* __restrict__ valid,
-             const int8_t* __restrict__ q, const __nv_bfloat16* __restrict__ s,
-             float* __restrict__ out, int K, int N, int bits, int gs, long q_estride,
-             long s_estride) {
-  const int p = blockIdx.x;
-  float* o = out + (long)p * N + blockIdx.y * 128;
-  if (valid != nullptr && valid[p] == 0) {
-    if (threadIdx.x < 128) o[threadIdx.x] = 0.f;
-    return;
-  }
-  const int e = idx[p];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.y * 128 + lane * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  group_dots(xq + (long)p * K, sx + (long)p * (K / gs), q + e * q_estride,
-             s + e * s_estride, bits, K, N, gs, n, warp, acc);
-  sum_partials(acc, warp, lane, o);
-}
-
 }  // namespace
 
 extern "C" int gathered_qmm_launch(const void* x, const void* idx, const void* valid,
@@ -214,18 +161,6 @@ extern "C" int gathered_qmm_launch(const void* x, const void* idx, const void* v
   gq_bf16_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const int*)idx, (const int*)valid, (const int8_t*)q,
       (const __nv_bfloat16*)s, (float*)out, K, N, bits, gs, q_estride, s_estride);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int gathered_qmm_a8_launch(const void* xq, const void* sx, const void* idx,
-                                      const void* valid, const void* q, const void* s,
-                                      void* out, int P, int K, int N, int bits, int gs,
-                                      long q_estride, long s_estride, void* stream) {
-  dim3 grid(P, N / 128);
-  gq_a8_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)xq, (const float*)sx, (const int*)idx, (const int*)valid,
-      (const int8_t*)q, (const __nv_bfloat16*)s, (float*)out, K, N, bits, gs, q_estride,
-      s_estride);
   return (int)cudaGetLastError();
 }
 

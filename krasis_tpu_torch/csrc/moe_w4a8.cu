@@ -61,6 +61,25 @@
 // scale is stored into every rank. After the cluster barrier each rank
 // holds whole int32 group dots of its columns and every scale, and only
 // then takes the f32 sums in group and pick order.
+//
+// K6a — the same core for the two-stage expert class, the experts too
+// large for the reference's fused kernel (ops/expert_class.py).
+// Replaces: krasis_tpu/ops/moe_pallas.py:605 gathered_qmm_a8_pallas
+// (_gq_kernel_a8), in the two forms its callers take:
+//  * the chain moe_gathered_tiled(activation="int8") (moe_pallas.py:619),
+//    two calls of it with quantization and SwiGLU between: the two kernels
+//    above under names of their own (gq_a8_stage1_kernel,
+//    gq_a8_stage2_kernel), which also take pick_valid. The reference rounds
+//    at the same points as its fused kernel: int32 group dots, the f32 sum
+//    over the groups in order, the activation on the f32 h, the hidden
+//    requantized from f32, the picks weighted in f32 and summed.
+//  * the one product gathered_qmm_a8(xq, sx, W, e, valid) → f32 [P, N]:
+//    stage 1 in a product form (gq_a8_product_kernel): the int8 rows and
+//    their scales staged as given, COLS output columns a CTA, no
+//    activation, the f32 sums stored.
+// A pick whose valid flag is 0 copies no weight or scale byte in either
+// stage and adds nothing to its token's sum; the product form writes its
+// row as zeros. That is the reference's result: its h and o are 0 there.
 #include <stdint.h>
 
 #include "int4.cuh"
@@ -91,6 +110,20 @@ struct Args {
   int T, k, H, I, gs13, gs2;
   float limit;
   int gpt_oss;
+  const int* valid;        // [T * k] or null (K6a): 0 skips the pick
+};
+
+// The product form: out[p, :] = Σ_g (xq[p, g] · W[e[p], g]) * sx[p, g] * sw[g, :].
+struct Prod {
+  const int8_t* xq;        // [P, K] int8 rows
+  const float* sx;         // [P, K / gs] their scales
+  const int* idx;          // [P]
+  const int* valid;        // [P] or null
+  const int8_t* q;         // [E, K(/2), N]
+  const __nv_bfloat16* s;  // [E, K / gs, N]
+  long q_es, s_es;
+  float* out;              // [P, N] f32
+  int K, N, gs;
 };
 
 __host__ __device__ constexpr int al16(int n) { return (n + 15) & ~15; }
@@ -188,8 +221,9 @@ __device__ __forceinline__ int perm32(int w) {
 // the int8 activations of each pick j a K-row of xperm (row j - j0, j0 =
 // u0 / nb), and the int32 dots
 // dpart[j][g][CR] of the CR columns the rank reduces, which every rank of
-// the cluster adds into.
-template <int BITS, int COLS, int STAGES>
+// the cluster adds into. With SKIP, a pick j whose expert eidx[j] is -1
+// copies nothing and adds nothing.
+template <int BITS, int COLS, int STAGES, bool SKIP = false>
 struct Rank {
   static constexpr int PITCH = COLS + 16;  // bytes of a staged row: ldmatrix without conflicts
   static constexpr int CB = COLS / 16;     // 16-column blocks: the copies of a row
@@ -202,6 +236,12 @@ struct Rank {
   int8_t* xperm;
   unsigned char* flags;
   int u0, u1, nb, K, gs, G, half, ks, CR, j0;
+  const int* eidx = nullptr;
+
+  __device__ __forceinline__ bool live(int j) const {
+    if constexpr (SKIP) return eidx[j] >= 0;
+    return true;
+  }
 
   // Issue the copies of step s: units u0 + s·UPS + (0 .. UPS-1).
   template <typename Src>
@@ -209,7 +249,9 @@ struct Rank {
     const int tid = threadIdx.x;
     const int us = tid / (UNIT * CB), row = (tid / CB) % UNIT, ch = tid % CB;
     const int u = u0 + s * UPS + us;
-    if (u < u1)
+    // SKIP first: K3's instances (SKIP false) then compute no u / nb
+    // here, which keeps their code the same as without the test
+    if (u < u1 && (!SKIP || live(u / nb)))
       ktt::cp_async16(ring + (s % STAGES) * STAGE + (us * UNIT + row) * PITCH + 16 * ch,
                       src(u / nb, (u % nb) * UNIT + row, 16 * ch), true);
   }
@@ -229,6 +271,8 @@ struct Rank {
   __device__ __forceinline__ void mark() const {
     for (int u = u0 + (int)threadIdx.x; u < u1; u += THREADS) {
       const int j = u / nb, r = (u % nb) * UNIT;
+      if constexpr (SKIP)
+        if (!live(j)) continue;
       flags[j * G + r / gs] = 1;
       if (BITS == 4) flags[j * G + (half + r) / gs] = 1;
     }
@@ -287,7 +331,7 @@ struct Rank {
       if (s + STAGES - 1 < steps) load(s + STAGES - 1, src);
       ktt::cp_commit();
       const int u = u0 + s * UPS + wus;
-      if (u >= u1) continue;
+      if (u >= u1 || (SKIP && !live(u / nb))) continue;
       const int j = u / nb, r = (u % nb) * UNIT;
       uint32_t v[4];
       ktt::ldsm_x4_t(v, ring + (s % STAGES) * STAGE + (wus * UNIT + lane) * PITCH + 16 * cb);
@@ -331,13 +375,16 @@ struct Rank {
 // its shared memory live) before the first store into another rank; then
 // quantize, stream, and meet at the barrier again, after which each rank's
 // dpart holds whole int32 group dots of its columns and no rank touches
-// another's shared memory.
-template <int BITS, int COLS>
-__global__ void __launch_bounds__(THREADS) w4a8_stage1_kernel(Args A) {
+// another's shared memory. VALID (K6a): a skipped pick's stage-1 cluster
+// returns at once (its ranks share the pick), and stage 2 leaves the pick out.
+template <int BITS, int COLS, bool VALID>
+__device__ __forceinline__ void stage1_body(const Args& A) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int NA = COLS / 2;  // a columns of a tile: NA gate + NA up weight columns
   const int ks = gridDim.z, z = blockIdx.z;
   const int p = blockIdx.y, tok = p / A.k;
+  if constexpr (VALID)
+    if (A.valid != nullptr && A.valid[p] == 0) return;
   const int n0 = blockIdx.x * NA;
   const int H = A.H, I = A.I, N = 2 * I, gs = A.gs13, G = H / gs;
   const int nb = (BITS == 4 ? H / 2 : H) / UNIT;
@@ -399,8 +446,8 @@ __global__ void __launch_bounds__(THREADS) w4a8_stage1_kernel(Args A) {
         ktt::mlp_act(hbuf[c], hbuf[cra + c], A.limit, A.gpt_oss != 0);
 }
 
-template <int BITS, int COLS>
-__global__ void __launch_bounds__(THREADS, 5) w4a8_stage2_kernel(Args A) {
+template <int BITS, int COLS, bool VALID>
+__device__ __forceinline__ void stage2_body(const Args& A) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ks = gridDim.z, z = blockIdx.z;
   const int tok = blockIdx.y, k = A.k;
@@ -411,10 +458,11 @@ __global__ void __launch_bounds__(THREADS, 5) w4a8_stage2_kernel(Args A) {
   const int np = rank_picks(U, ks, nb, k);
   const Layout L = layout(STAGES2, COLS, k, G, I, cr, np, np * I * 4);
   const int u0 = (int)((long)U * z / ks), u1 = (int)((long)U * (z + 1) / ks);
-  Rank<BITS, COLS, STAGES2> R{smem, (int*)(smem + L.dpart), (float*)(smem + L.scl),
-                              (int8_t*)(smem + L.xperm), smem + L.flags, u0, u1,
-                              nb, I, gs, G, BITS == 4 ? I / 2 : 0, ks, cr, u0 / nb};
-  int* eidx = (int*)(smem + L.eidx);
+  int* eidx = (int*)(smem + L.eidx);  // the picks' experts; -1: skipped (VALID)
+  Rank<BITS, COLS, STAGES2, VALID> R{smem, (int*)(smem + L.dpart), (float*)(smem + L.scl),
+                                     (int8_t*)(smem + L.xperm), smem + L.flags, u0, u1,
+                                     nb, I, gs, G, BITS == 4 ? I / 2 : 0, ks, cr, u0 / nb,
+                                     eidx};
   auto src = [&](int j, int row, int lc) {
     return A.q2 + eidx[j] * A.q2_es + (long)row * H + n0 + lc;
   };
@@ -423,14 +471,16 @@ __global__ void __launch_bounds__(THREADS, 5) w4a8_stage2_kernel(Args A) {
   // written before stage 1
   for (int i = threadIdx.x; i < k * G * cr; i += THREADS) R.dpart[i] = 0;
   for (int i = threadIdx.x; i < k * G; i += THREADS) R.flags[i] = 0;
-  for (int j = threadIdx.x; j < k; j += THREADS) eidx[j] = A.idx[tok * k + j];
+  for (int j = threadIdx.x; j < k; j += THREADS)
+    eidx[j] = VALID && A.valid != nullptr && A.valid[tok * k + j] == 0 ? -1 : A.idx[tok * k + j];
   cluster_arrive();
   __syncthreads();
   __nv_bfloat16* sws = (__nv_bfloat16*)(smem + L.sws);  // [j][g][cr]
   for (int i = threadIdx.x; i < k * G * (cr / 2); i += THREADS) {
     const int jg = i / (cr / 2), c = 2 * (i % (cr / 2));
-    cp_async4(sws + jg * cr + c,
-              A.s2 + eidx[jg / G] * A.s2_es + (long)(jg % G) * H + n0 + z * cr + c);
+    if (R.live(jg / G))
+      cp_async4(sws + jg * cr + c,
+                A.s2 + eidx[jg / G] * A.s2_es + (long)(jg % G) * H + n0 + z * cr + c);
   }
   asm volatile("griddepcontrol.wait;\n" ::: "memory");  // stage 1's a is complete
   // the f32 hidden rows of the rank's picks R.j0 .. R.j0 + np - 1
@@ -453,6 +503,7 @@ __global__ void __launch_bounds__(THREADS, 5) w4a8_stage2_kernel(Args A) {
   float* obuf = (float*)smem;  // [j][cr]
   for (int i = threadIdx.x; i < k * cr; i += THREADS) {
     const int j = i / cr, c = i % cr;
+    if (!R.live(j)) continue;
     float o = 0.f;
     for (int g = 0; g < G; ++g)
       o = __fadd_rn(o, __fmul_rn(__fmul_rn((float)R.dpart[(j * G + g) * cr + c],
@@ -463,15 +514,95 @@ __global__ void __launch_bounds__(THREADS, 5) w4a8_stage2_kernel(Args A) {
   __syncthreads();
   for (int c = threadIdx.x; c < cr; c += THREADS) {
     float v = 0.f;
-    for (int j = 0; j < k; ++j) v = __fadd_rn(v, __fmul_rn(obuf[j * cr + c], A.wt[tok * k + j]));
+    for (int j = 0; j < k; ++j)
+      if (R.live(j)) v = __fadd_rn(v, __fmul_rn(obuf[j * cr + c], A.wt[tok * k + j]));
     A.out[(long)tok * H + n0 + z * cr + c] = __float2bfloat16(v);
+  }
+}
+
+// K3's kernels and K6a's, under their own names for the profiler.
+template <int BITS, int COLS>
+__global__ void __launch_bounds__(THREADS) w4a8_stage1_kernel(Args A) {
+  stage1_body<BITS, COLS, false>(A);
+}
+template <int BITS, int COLS>
+__global__ void __launch_bounds__(THREADS, 5) w4a8_stage2_kernel(Args A) {
+  stage2_body<BITS, COLS, false>(A);
+}
+template <int BITS, int COLS>
+__global__ void __launch_bounds__(THREADS) gq_a8_stage1_kernel(Args A) {
+  stage1_body<BITS, COLS, true>(A);
+}
+template <int BITS, int COLS>
+__global__ void __launch_bounds__(THREADS, 5) gq_a8_stage2_kernel(Args A) {
+  stage2_body<BITS, COLS, true>(A);
+}
+
+// K6a's product form, stage 1's copies and products on rows given as int8:
+// a CTA per (COLS output columns, pick, rank). The rank stages the pick's
+// row and every group's scale itself (no quantization, so nothing goes to
+// the other ranks but the int32 dots), and stores the f32 sums of its
+// columns. The shared memory is stage 1's layout with H = K.
+template <int BITS, int COLS>
+__global__ void __launch_bounds__(THREADS) gq_a8_product_kernel(Prod A) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ks = gridDim.z, z = blockIdx.z, p = blockIdx.y;
+  const int n0 = blockIdx.x * COLS;
+  const int K = A.K, N = A.N, gs = A.gs, G = K / gs;
+  const int cr = COLS / ks;  // output columns this rank reduces
+  float* o = A.out + (long)p * N + n0 + z * cr;
+  if (A.valid != nullptr && A.valid[p] == 0) {
+    for (int c = threadIdx.x; c < cr; c += THREADS) o[c] = 0.f;
+    return;
+  }
+  const int nb = (BITS == 4 ? K / 2 : K) / UNIT;
+  const Layout L = layout(STAGES1, COLS, 1, G, K, cr, 1, 2 * K);
+  Rank<BITS, COLS, STAGES1> R{smem, (int*)(smem + L.dpart), (float*)(smem + L.scl),
+                              (int8_t*)(smem + L.xperm), smem + L.flags,
+                              (int)((long)nb * z / ks), (int)((long)nb * (z + 1) / ks),
+                              nb, K, gs, G, BITS == 4 ? K / 2 : 0, ks, cr, 0};
+  const int e = A.idx[p];
+  const int8_t* q = A.q + e * A.q_es;
+  const __nv_bfloat16* s = A.s + e * A.s_es;
+  auto src = [&](int, int row, int lc) { return q + (long)row * N + n0 + lc; };
+
+  for (int i = threadIdx.x; i < G * cr; i += THREADS) R.dpart[i] = 0;
+  cluster_arrive();
+  // the pick's int8 row, its scales, the weight scales of the rank's columns [g][cr]
+  int8_t* xs = (int8_t*)(smem + L.act);
+  const int8_t* xrow = A.xq + (long)p * K;
+  for (int i = 4 * threadIdx.x; i < K; i += 4 * THREADS) cp_async4(xs + i, xrow + i);
+  for (int g = threadIdx.x; g < G; g += THREADS) cp_async4(R.scl + g, A.sx + (long)p * G + g);
+  __nv_bfloat16* sws = (__nv_bfloat16*)(smem + L.sws);
+  for (int i = threadIdx.x; i < G * (cr / 2); i += THREADS) {
+    const int g = i / (cr / 2), c = 2 * (i % (cr / 2));
+    cp_async4(sws + g * cr + c, s + (long)g * N + n0 + z * cr + c);
+  }
+  ktt::cp_commit();
+  R.prologue(src);
+  ktt::cp_wait<STAGES1 - 1>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < K; i += THREADS) R.xperm[(i & ~31) + perm32(i & 31)] = xs[i];
+  __syncthreads();
+  cluster_wait();
+  R.run(src, [&](int c) { return make_int2(c / cr, c % cr); });
+  __syncthreads();
+  cluster_arrive();
+  cluster_wait();
+  for (int c = threadIdx.x; c < cr; c += THREADS) {
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g)
+      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn((float)R.dpart[g * cr + c], R.scl[g]),
+                                     __bfloat162float(sws[g * cr + c])));
+    o[c] = acc;
   }
 }
 
 // `configured`: the kernel's own flag, set once it may take MAX_SMEM.
 // `dependent`: the launch may begin while the previous kernel on the stream
 // runs (it waits for it with griddepcontrol.wait before reading its output).
-int launch(void (*kern)(Args), bool& configured, const Args& A, dim3 grid, int ks, int smem,
+template <typename P>
+int launch(void (*kern)(P), bool& configured, const P& A, dim3 grid, int ks, int smem,
            bool dependent, cudaStream_t stream) {
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (!configured) {
@@ -498,46 +629,90 @@ int launch(void (*kern)(Args), bool& configured, const Args& A, dim3 grid, int k
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// Shared memory of a CTA of stage 1 or 2 (the layouts the kernels take).
+// Shared memory of a CTA of stage 1 or 2 (the layouts the kernels take;
+// the product form takes stage 1's with H = K).
 int smem_bytes(int stage, int bits, int cols, int ks, int k, int H, int I, int gs) {
   if (stage == 1) return layout(STAGES1, cols, 1, H / gs, H, cols / ks, 1, 2 * H).total;
   const int nb = (bits == 4 ? I / 2 : I) / UNIT, np = rank_picks(k * nb, ks, nb, k);
   return layout(STAGES2, cols, k, I / gs, I, cols / ks, np, np * I * 4).total;
 }
 
-template <int BITS, int COLS>
+template <int BITS, int COLS, bool K6A>
 int stage1(const Args& A, int ks, cudaStream_t st) {
   const int smem = smem_bytes(1, BITS, COLS, ks, A.k, A.H, A.I, A.gs13);
   static bool configured = false;
-  return launch(w4a8_stage1_kernel<BITS, COLS>, configured, A,
-                dim3(A.I / (COLS / 2), A.T * A.k, ks), ks, smem, false, st);
+  return launch(K6A ? gq_a8_stage1_kernel<BITS, COLS> : w4a8_stage1_kernel<BITS, COLS>,
+                configured, A, dim3(A.I / (COLS / 2), A.T * A.k, ks), ks, smem, false, st);
 }
 
-template <int BITS, int COLS>
+template <int BITS, int COLS, bool K6A>
 int stage2(const Args& A, int ks, cudaStream_t st) {
   const int smem = smem_bytes(2, BITS, COLS, ks, A.k, A.H, A.I, A.gs2);
   static bool configured = false;
-  return launch(w4a8_stage2_kernel<BITS, COLS>, configured, A, dim3(A.H / COLS, A.T, ks), ks,
-                smem, true, st);
+  return launch(K6A ? gq_a8_stage2_kernel<BITS, COLS> : w4a8_stage2_kernel<BITS, COLS>,
+                configured, A, dim3(A.H / COLS, A.T, ks), ks, smem, true, st);
 }
 
-template <int BITS>
+template <int BITS, int COLS>
+int product(const Prod& A, int P, int ks, cudaStream_t st) {
+  const int smem = smem_bytes(1, BITS, COLS, ks, 1, A.K, 0, A.gs);
+  static bool configured = false;
+  return launch(gq_a8_product_kernel<BITS, COLS>, configured, A, dim3(A.N / COLS, P, ks), ks,
+                smem, false, st);
+}
+
+// The instance of each launcher for `cols` (32, 64 or 128 columns a CTA).
+template <int BITS, bool K6A>
 int stage1_cols(const Args& A, int cols, int ks, cudaStream_t st) {
-  return cols == 128 ? stage1<BITS, 128>(A, ks, st)
-         : cols == 64 ? stage1<BITS, 64>(A, ks, st)
-                      : stage1<BITS, 32>(A, ks, st);
+  return cols == 128 ? stage1<BITS, 128, K6A>(A, ks, st)
+         : cols == 64 ? stage1<BITS, 64, K6A>(A, ks, st)
+                      : stage1<BITS, 32, K6A>(A, ks, st);
+}
+
+template <int BITS, bool K6A>
+int stage2_cols(const Args& A, int cols, int ks, cudaStream_t st) {
+  return cols == 128 ? stage2<BITS, 128, K6A>(A, ks, st)
+         : cols == 64 ? stage2<BITS, 64, K6A>(A, ks, st)
+                      : stage2<BITS, 32, K6A>(A, ks, st);
 }
 
 template <int BITS>
-int stage2_cols(const Args& A, int cols, int ks, cudaStream_t st) {
-  return cols == 128 ? stage2<BITS, 128>(A, ks, st)
-         : cols == 64 ? stage2<BITS, 64>(A, ks, st)
-                      : stage2<BITS, 32>(A, ks, st);
+int product_cols(const Prod& A, int P, int cols, int ks, cudaStream_t st) {
+  return cols == 128 ? product<BITS, 128>(A, P, ks, st)
+         : cols == 64 ? product<BITS, 64>(A, P, ks, st)
+                      : product<BITS, 32>(A, P, ks, st);
 }
 
 bool valid_split(int cols, int ks, int units) {
   return (cols == 32 || cols == 64 || cols == 128) && (ks == 1 || ks == 2 || ks == 4 || ks == 8) &&
          ks <= units;
+}
+
+// The two launches of K3 (K6A false) or of K6a's chain.
+template <bool K6A>
+int two_stages(const void* x, long x_stride, const void* idx, const void* wt, const void* q13,
+               const void* s13, long q13_es, long s13_es, const void* q2, const void* s2,
+               long q2_es, long s2_es, void* a, void* out, int T, int k, int H, int I,
+               int bits13, int bits2, int gs13, int gs2, int cols1, int ks1, int cols2, int ks2,
+               float limit, int gpt_oss, const void* valid, void* stream) {
+  if (T < 1 || k < 1 || (bits13 != 4 && bits13 != 8) || (bits2 != 4 && bits2 != 8) ||
+      gs13 % UNIT || gs2 % UNIT || H % gs13 || I % gs2 || H % 64 || I % 64 ||
+      I % (cols1 / 2) || H % cols2 || T > 65535 || T * k > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int nb13 = (bits13 == 4 ? H / 2 : H) / UNIT, nb2 = (bits2 == 4 ? I / 2 : I) / UNIT;
+  if (!valid_split(cols1, ks1, nb13) || !valid_split(cols2, ks2, k * nb2) ||
+      cols1 / 2 / ks1 < 2)
+    return (int)cudaErrorInvalidValue;
+  Args A{(const __nv_bfloat16*)x, x_stride, (const int*)idx, (const float*)wt,
+         (const int8_t*)q13, (const __nv_bfloat16*)s13, q13_es, s13_es,
+         (const int8_t*)q2, (const __nv_bfloat16*)s2, q2_es, s2_es,
+         (float*)a, (__nv_bfloat16*)out, T, k, H, I, gs13, gs2, limit, gpt_oss,
+         (const int*)valid};
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = bits13 == 4 ? stage1_cols<4, K6A>(A, cols1, ks1, st)
+                        : stage1_cols<8, K6A>(A, cols1, ks1, st);
+  if (err) return err;
+  return bits2 == 4 ? stage2_cols<4, K6A>(A, cols2, ks2, st) : stage2_cols<8, K6A>(A, cols2, ks2, st);
 }
 
 }  // namespace
@@ -555,22 +730,41 @@ extern "C" int moe_w4a8_launch(const void* x, long x_stride, const void* idx, co
                                void* out, int T, int k, int H, int I, int bits13, int bits2,
                                int gs13, int gs2, int cols1, int ks1, int cols2, int ks2,
                                float limit, int gpt_oss, void* stream) {
-  if (T < 1 || k < 1 || (bits13 != 4 && bits13 != 8) || (bits2 != 4 && bits2 != 8) ||
-      gs13 % UNIT || gs2 % UNIT || H % gs13 || I % gs2 || H % 64 || I % 64 ||
-      I % (cols1 / 2) || H % cols2 || T > 65535 || T * k > 65535)
+  return two_stages<false>(x, x_stride, idx, wt, q13, s13, q13_es, s13_es, q2, s2, q2_es, s2_es,
+                           a, out, T, k, H, I, bits13, bits2, gs13, gs2, cols1, ks1, cols2, ks2,
+                           limit, gpt_oss, nullptr, stream);
+}
+
+// K6a's chain, moe_gathered_tiled(activation="int8"): K3's call with the
+// pick flags valid [T * k] (int32, or null for every pick).
+extern "C" int gq_a8_launch(const void* x, long x_stride, const void* idx, const void* wt,
+                            const void* q13, const void* s13, long q13_es, long s13_es,
+                            const void* q2, const void* s2, long q2_es, long s2_es, void* a,
+                            void* out, int T, int k, int H, int I, int bits13, int bits2,
+                            int gs13, int gs2, int cols1, int ks1, int cols2, int ks2,
+                            float limit, int gpt_oss, const void* valid, void* stream) {
+  return two_stages<true>(x, x_stride, idx, wt, q13, s13, q13_es, s13_es, q2, s2, q2_es, s2_es,
+                          a, out, T, k, H, I, bits13, bits2, gs13, gs2, cols1, ks1, cols2, ks2,
+                          limit, gpt_oss, valid, stream);
+}
+
+// K6a's product form: out[P, N] (f32) from the int8 rows xq [P, K] (4-byte
+// aligned), their scales sx [P, K/gs] (f32), the experts idx [P], the flags
+// valid [P] (or null) and the stack q [E, K(/2), N], s [E, K/gs, N]. The
+// plan (ops/moe_cuda.py plan_gq_a8) gives the columns a CTA and the cluster
+// size. One launch on `stream`; returns its cudaError_t.
+extern "C" int gq_a8_product_launch(const void* xq, const void* sx, const void* idx,
+                                    const void* valid, const void* q, const void* s, long q_es,
+                                    long s_es, void* out, int P, int K, int N, int bits, int gs,
+                                    int cols, int ks, void* stream) {
+  const int packed = bits == 4 ? K / 2 : K;
+  if (P < 1 || P > 65535 || (bits != 4 && bits != 8) || gs % UNIT || K % gs || packed % UNIT ||
+      N % cols || !valid_split(cols, ks, packed / UNIT) || cols / ks < 2)
     return (int)cudaErrorInvalidValue;
-  const int nb13 = (bits13 == 4 ? H / 2 : H) / UNIT, nb2 = (bits2 == 4 ? I / 2 : I) / UNIT;
-  if (!valid_split(cols1, ks1, nb13) || !valid_split(cols2, ks2, k * nb2) ||
-      cols1 / 2 / ks1 < 2)
-    return (int)cudaErrorInvalidValue;
-  Args A{(const __nv_bfloat16*)x, x_stride, (const int*)idx, (const float*)wt,
-         (const int8_t*)q13, (const __nv_bfloat16*)s13, q13_es, s13_es,
-         (const int8_t*)q2, (const __nv_bfloat16*)s2, q2_es, s2_es,
-         (float*)a, (__nv_bfloat16*)out, T, k, H, I, gs13, gs2, limit, gpt_oss};
+  Prod A{(const int8_t*)xq, (const float*)sx, (const int*)idx, (const int*)valid,
+         (const int8_t*)q, (const __nv_bfloat16*)s, q_es, s_es, (float*)out, K, N, gs};
   cudaStream_t st = (cudaStream_t)stream;
-  int err = bits13 == 4 ? stage1_cols<4>(A, cols1, ks1, st) : stage1_cols<8>(A, cols1, ks1, st);
-  if (err) return err;
-  return bits2 == 4 ? stage2_cols<4>(A, cols2, ks2, st) : stage2_cols<8>(A, cols2, ks2, st);
+  return bits == 4 ? product_cols<4>(A, P, cols, ks, st) : product_cols<8>(A, P, cols, ks, st);
 }
 
 // The shared memory a CTA of `stage` (1 or 2) takes under a plan: what the

@@ -5,11 +5,14 @@
 expert MLP of a token's picks in two launches, cut as ``plan_w4a8`` says.
 ``moe_bf16`` (K5, bf16 activations, ``csrc/moe_decode.cu``) replaces
 ``moe_gathered_pallas``: two CUDA stages, the picks summed in PyTorch.
-``gathered_qmm`` (K6) and ``gathered_qmm_a8`` (K6a, ``csrc/moe_decode.cu``)
-replace ``gathered_qmm_pallas`` and ``gathered_qmm_a8_pallas``: one gathered
-product per launch, which ``moe_gathered_tiled`` composes with SwiGLU
-between for the experts the fused kernels do not take
-(``ops/expert_class.py``). Each wrapper launches its kernel for tensors on
+``gathered_qmm`` (K6, ``csrc/moe_decode.cu``) replaces
+``gathered_qmm_pallas``: one gathered product per launch, which
+``moe_gathered_tiled`` composes with SwiGLU between for the experts the
+fused kernels do not take (``ops/expert_class.py``). K6a replaces
+``gathered_qmm_a8_pallas`` on K3's core (``csrc/moe_w4a8.cu``): the int8
+chain ``moe_gathered_tiled(activation="int8")`` in K3's two launches with
+pick_valid, and the one product ``gathered_qmm_a8`` in one launch of its
+stage 1 (``plan_gq_a8``). Each wrapper launches its kernel for tensors on
 the card and runs its plain version — the same function in plain PyTorch —
 for tensors on the CPU.
 """
@@ -33,10 +36,14 @@ REPLACES_BF16 = "krasis_tpu/ops/moe_pallas.py:226"
 REPLACES_GQ = "krasis_tpu/ops/moe_pallas.py:517"
 REPLACES_GQ_A8 = "krasis_tpu/ops/moe_pallas.py:605"
 K3_KERNELS = ("w4a8_stage1_kernel", "w4a8_stage2_kernel")   # K3's device kernels, by name
+K5_KERNELS = ("w13_bf16_kernel", "w2_bf16_kernel")
+K6A_KERNELS = ("gq_a8_stage1_kernel", "gq_a8_stage2_kernel")  # K6a's chain
+K6A_PRODUCT_KERNEL = "gq_a8_product_kernel"                   # K6a's one product
 launches = 0          # K3 kernel launches (two a call) since the caller last set it to 0
 launches_bf16 = 0     # K5 kernel launches, likewise
 launches_gq = 0       # K6
-launches_gq_a8 = 0    # K6a
+launches_gq_a8 = 0    # K6a's chain, two a call
+launches_gq_a8_product = 0    # K6a's one product
 
 
 _i8_max: dict = {}    # device → 0-dim f32 tensor 127
@@ -226,12 +233,37 @@ def plan_w4a8(T: int, k: int, H: int, I: int, bits: int, gs13: int, gs2: int,
     return W4A8Plan(s1, s2)
 
 
-def _w4a8_fn():
-    fn = build.load("moe_w4a8").moe_w4a8_launch
+def plan_gq_a8(P: int, K: int, N: int, bits: int, gs: int, smem=k3_smem) -> StagePlan:
+    """How a K6a product call of P int8 rows against [K, N] blocks is cut:
+    K3's stage 1 in its product form, a CTA per (column tile, pick, rank)
+    over the rank's units of the pick's packed rows; its shared memory is
+    stage 1's at H = K."""
+    packed = K // 2 if bits == 4 else K
+    if bits not in (4, 8) or gs % UNIT or K % gs or packed % UNIT or N % K3_COLS[-1]:
+        raise ValueError(f"gathered_qmm_a8: K {K}, N {N}, bits {bits}, group {gs}: K6a takes "
+                         f"int4 or int8, groups of a multiple of {UNIT} rows and whole "
+                         f"{UNIT}-row units")
+    return _k3_stage(P, lambda c: N // c if N % c == 0 else None, packed // UNIT,
+                     lambda p: smem(1, p, 1, K, 0, bits, gs))
+
+
+def _launcher(name: str, tail: list):
+    """A ``moe_w4a8`` library entry with its argument types set: K3's
+    arguments, then `tail`."""
+    fn = getattr(build.load("moe_w4a8"), name)
     if fn.argtypes is None:
         p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         fn.argtypes = [p, l, p, p, p, p, l, l, p, p, l, l, p, p] + [i] * 12 + [
-            ctypes.c_float, i, p]
+            ctypes.c_float, i] + tail
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _product_fn():
+    fn = build.load("moe_w4a8").gq_a8_product_launch
+    if fn.argtypes is None:
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [p] * 6 + [l, l, p] + [i] * 7 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -250,6 +282,11 @@ def k3_smem_card(stage: int, plan: StagePlan, k: int, H: int, I: int, bits: int,
 def _card_plan(T: int, k: int, H: int, I: int, bits: int, gs13: int, gs2: int,
                bits2: int) -> W4A8Plan:
     return plan_w4a8(T, k, H, I, bits, gs13, gs2, bits2, smem=k3_smem_card)
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_plan_gq(P: int, K: int, N: int, bits: int, gs: int) -> StagePlan:
+    return plan_gq_a8(P, K, N, bits, gs, smem=k3_smem_card)
 
 
 def _fns():
@@ -291,6 +328,41 @@ def _check(name: str, x: torch.Tensor, w13: QTensor, w2: QTensor, ok: bool) -> N
             raise ValueError(f"{name}: expert stacks must be contiguous")
 
 
+def _k3_core(name: str, fn, x: torch.Tensor, w13: QTensor, w2: QTensor,
+             topk_idx: torch.Tensor, topk_weights: torch.Tensor, swiglu_limit: float,
+             gpt_oss: bool, *tail) -> torch.Tensor:
+    """One call of K3's two kernels (K3's own, or K6a's chain with its pick
+    flags in `tail`): checked, planned, allocated and launched."""
+    T = x.shape[0]
+    k = topk_idx.shape[-1]
+    H, I = w13.k_dim, w2.k_dim
+    _check(name, x, w13, w2, w4a8_supported(w13, w2) and x.shape[1] == H)
+    for t in (w13.q, w13.scales, w2.q, w2.scales):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: expert stacks must be 16-byte aligned")
+    plan = _card_plan(T, k, H, I, w13.bits, w13.group_size, w2.group_size, w2.bits)
+    xb = x
+    if x.dtype != torch.bfloat16 or x.stride(-1) != 1 or x.stride(0) % 2 or x.data_ptr() % 4:
+        xb = x.to(torch.bfloat16, memory_format=torch.contiguous_format, copy=True)
+    idx = topk_idx.reshape(-1).to(torch.int32).contiguous()
+    wt = topk_weights.reshape(-1).to(torch.float32).contiguous()
+    if idx.numel() != T * k or wt.numel() != T * k or not (idx.is_cuda and wt.is_cuda):
+        raise ValueError(f"{name}: picks {tuple(topk_idx.shape)} / "
+                         f"{tuple(topk_weights.shape)} on the card for {T} tokens")
+    a = torch.empty((T * k, I), dtype=torch.float32, device=x.device)
+    out = torch.empty((T, H), dtype=torch.bfloat16, device=x.device)
+    err = fn(xb.data_ptr(), xb.stride(0), idx.data_ptr(), wt.data_ptr(),
+             w13.q.data_ptr(), w13.scales.data_ptr(), w13.q.stride(0),
+             w13.scales.stride(0), w2.q.data_ptr(), w2.scales.data_ptr(),
+             w2.q.stride(0), w2.scales.stride(0),
+             a.data_ptr(), out.data_ptr(), T, k, H, I, w13.bits, w2.bits,
+             w13.group_size, w2.group_size, plan.w13.cols, plan.w13.ks,
+             plan.w2.cols, plan.w2.ks, float(swiglu_limit), int(gpt_oss), *tail,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, name)
+    return out if x.dtype == torch.bfloat16 else out.to(x.dtype)
+
+
 def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
              topk_idx: torch.Tensor, topk_weights: torch.Tensor,
              swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
@@ -300,35 +372,10 @@ def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
     if x.device.type == "cpu":
         return moe_w4a8_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss)
     global launches
-    T = x.shape[0]
-    k = topk_idx.shape[-1]
-    H, I = w13.k_dim, w2.k_dim
-    _check("moe_w4a8", x, w13, w2, w4a8_supported(w13, w2) and x.shape[1] == H)
-    for t in (w13.q, w13.scales, w2.q, w2.scales):
-        if t.data_ptr() % 16:
-            raise ValueError("moe_w4a8: expert stacks must be 16-byte aligned")
-    plan = _card_plan(T, k, H, I, w13.bits, w13.group_size, w2.group_size, w2.bits)
-    xb = x
-    if x.dtype != torch.bfloat16 or x.stride(-1) != 1 or x.stride(0) % 2 or x.data_ptr() % 4:
-        xb = x.to(torch.bfloat16, memory_format=torch.contiguous_format, copy=True)
-    idx = topk_idx.reshape(-1).to(torch.int32).contiguous()
-    wt = topk_weights.reshape(-1).to(torch.float32).contiguous()
-    if idx.numel() != T * k or wt.numel() != T * k or not (idx.is_cuda and wt.is_cuda):
-        raise ValueError(f"moe_w4a8: picks {tuple(topk_idx.shape)} / "
-                         f"{tuple(topk_weights.shape)} on the card for {T} tokens")
-    a = torch.empty((T * k, I), dtype=torch.float32, device=x.device)
-    out = torch.empty((T, H), dtype=torch.bfloat16, device=x.device)
-    err = _w4a8_fn()(xb.data_ptr(), xb.stride(0), idx.data_ptr(), wt.data_ptr(),
-                     w13.q.data_ptr(), w13.scales.data_ptr(), w13.q.stride(0),
-                     w13.scales.stride(0), w2.q.data_ptr(), w2.scales.data_ptr(),
-                     w2.q.stride(0), w2.scales.stride(0),
-                     a.data_ptr(), out.data_ptr(), T, k, H, I, w13.bits, w2.bits,
-                     w13.group_size, w2.group_size, plan.w13.cols, plan.w13.ks,
-                     plan.w2.cols, plan.w2.ks, float(swiglu_limit), int(gpt_oss),
-                     torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "moe_w4a8")
+    out = _k3_core("moe_w4a8", _launcher("moe_w4a8_launch", [ctypes.c_void_p]), x, w13, w2,
+                   topk_idx, topk_weights, swiglu_limit, gpt_oss)
     launches += 2
-    return out if x.dtype == torch.bfloat16 else out.to(x.dtype)
+    return out
 
 
 def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
@@ -407,16 +454,13 @@ def gathered_qmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, w: QTensor,
     return _skip_invalid(out, pick_valid)
 
 
-def _gq_fns():
-    lib = build.load("moe_decode")
-    fb, fa = lib.gathered_qmm_launch, lib.gathered_qmm_a8_launch
-    if fb.argtypes is None:
-        fb.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2
+def _gq_fn():
+    fn = build.load("moe_decode").gathered_qmm_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2
                        + [ctypes.c_void_p])
-        fa.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2
-                       + [ctypes.c_void_p])
-        fb.restype = fa.restype = ctypes.c_int
-    return fb, fa
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _gq_args(name: str, rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
@@ -451,11 +495,10 @@ def gathered_qmm(x_rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
     xb = x_rows.to(torch.bfloat16).contiguous()
     idx, valid, out = _gq_args("gathered_qmm", xb, w, expert_ids, pick_valid,
                                gathered_qmm_supported(w))
-    err = _gq_fns()[0](xb.data_ptr(), idx.data_ptr(),
-                       0 if valid is None else valid.data_ptr(), w.q.data_ptr(),
-                       w.scales.data_ptr(), out.data_ptr(), xb.shape[0], w.k_dim, w.n_dim,
-                       w.bits, w.group_size, w.q.stride(0), w.scales.stride(0),
-                       torch.cuda.current_stream(xb.device).cuda_stream)
+    err = _gq_fn()(xb.data_ptr(), idx.data_ptr(), 0 if valid is None else valid.data_ptr(),
+                   w.q.data_ptr(), w.scales.data_ptr(), out.data_ptr(), xb.shape[0], w.k_dim,
+                   w.n_dim, w.bits, w.group_size, w.q.stride(0), w.scales.stride(0),
+                   torch.cuda.current_stream(xb.device).cuda_stream)
     build.check(err, "gathered_qmm")
     launches_gq += 1
     return out
@@ -464,11 +507,12 @@ def gathered_qmm(x_rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
 def gathered_qmm_a8(xq: torch.Tensor, sx: torch.Tensor, w: QTensor,
                     expert_ids: torch.Tensor,
                     pick_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K6a. xq [P, K] int8 with f32 scales sx [P, K/gs] (per row and
-    K-group, ``quantize_activations``) → f32 [P, N]."""
+    """K6a's one product. xq [P, K] int8 with f32 scales sx [P, K/gs] (per
+    row and K-group, ``quantize_activations``) → f32 [P, N]: one launch of
+    K3's stage 1 in its product form."""
     if xq.device.type == "cpu":
         return gathered_qmm_a8_plain(xq, sx, w, expert_ids, pick_valid)
-    global launches_gq_a8
+    global launches_gq_a8_product
     if xq.dtype != torch.int8:
         raise ValueError(f"gathered_qmm_a8: rows must be int8, got {xq.dtype}")
     xq = xq.contiguous()
@@ -478,14 +522,46 @@ def gathered_qmm_a8(xq: torch.Tensor, sx: torch.Tensor, w: QTensor,
     if tuple(sx.shape) != (xq.shape[0], w.k_dim // w.group_size) or not sx.is_cuda:
         raise ValueError(f"gathered_qmm_a8: scales {tuple(sx.shape)} for rows "
                          f"{tuple(xq.shape)}, group {w.group_size}")
-    err = _gq_fns()[1](xq.data_ptr(), sx.data_ptr(), idx.data_ptr(),
-                       0 if valid is None else valid.data_ptr(), w.q.data_ptr(),
-                       w.scales.data_ptr(), out.data_ptr(), xq.shape[0], w.k_dim, w.n_dim,
-                       w.bits, w.group_size, w.q.stride(0), w.scales.stride(0),
-                       torch.cuda.current_stream(xq.device).cuda_stream)
+    if xq.data_ptr() % 4 or w.q.data_ptr() % 16 or w.scales.data_ptr() % 4:
+        raise ValueError("gathered_qmm_a8: rows must be 4-byte and stacks 16-byte aligned")
+    P = xq.shape[0]
+    plan = _card_plan_gq(P, w.k_dim, w.n_dim, w.bits, w.group_size)
+    err = _product_fn()(xq.data_ptr(), sx.data_ptr(), idx.data_ptr(),
+                        0 if valid is None else valid.data_ptr(), w.q.data_ptr(),
+                        w.scales.data_ptr(), w.q.stride(0), w.scales.stride(0),
+                        out.data_ptr(), P, w.k_dim, w.n_dim, w.bits, w.group_size,
+                        plan.cols, plan.ks, torch.cuda.current_stream(xq.device).cuda_stream)
     build.check(err, "gathered_qmm_a8")
-    launches_gq_a8 += 1
+    launches_gq_a8_product += 1
     return out
+
+
+def moe_gathered_a8_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
+                          topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+                          swiglu_limit: float = 0.0, gpt_oss: bool = False,
+                          pick_valid: Optional[torch.Tensor] = None,
+                          product=None) -> torch.Tensor:
+    """K6a's chain, the reference's ``moe_gathered_tiled(activation="int8")``:
+    x quantized per K-group, the w13 product, the activation on the f32 h,
+    the hidden requantized, the w2 product, the picks weighted in f32 and
+    added in pick order (a sum over the picks takes an order of its own on
+    the card). `product` is the one-product function,
+    ``gathered_qmm_a8_plain`` unless given."""
+    product = product or gathered_qmm_a8_plain
+    T, H = x.shape
+    k = topk_idx.shape[-1]
+    eids = topk_idx.reshape(-1)
+    pv = None if pick_valid is None else pick_valid.reshape(-1)
+    xq, sx = quantize_activations(x.to(torch.bfloat16), w13.group_size)
+    h = product(xq.repeat_interleave(k, dim=0), sx.repeat_interleave(k, dim=0), w13, eids, pv)
+    a = swiglu(h, swiglu_limit, gpt_oss)
+    aq, sa = quantize_activations(a, w2.group_size)
+    o = product(aq, sa, w2, eids, pv)
+    o = o.reshape(T, k, H) * topk_weights[..., None].to(torch.float32)
+    acc = torch.zeros_like(o[:, 0])
+    for j in range(k):
+        acc = acc + o[:, j]
+    return acc.to(x.dtype)
 
 
 def moe_gathered_tiled(x: torch.Tensor, w13: QTensor, w2: QTensor,
@@ -496,23 +572,32 @@ def moe_gathered_tiled(x: torch.Tensor, w13: QTensor, w2: QTensor,
     """Decode MoE as two gathered products with SwiGLU between: the form of
     experts too large for the fused kernels, at the rounding points of the
     reference's ``moe_gathered_tiled``. int8: rows quantized per K-group,
-    SwiGLU on the f32 h, the hidden requantized; bf16: the f32 h rounded to
-    bf16 before SwiGLU. x [T, H], picks [T, k], pick_valid [T, k] → [T, H]."""
+    SwiGLU on the f32 h, the hidden requantized — on the card K6a's two
+    kernels and nothing else; bf16: the f32 h rounded to bf16 before SwiGLU.
+    x [T, H], picks [T, k], pick_valid [T, k] → [T, H]."""
+    global launches_gq_a8
     T, H = x.shape
     k = topk_idx.shape[-1]
-    eids = topk_idx.reshape(-1)
-    pv = None if pick_valid is None else pick_valid.reshape(-1)
     if (activation == "int8" and gathered_qmm_a8_supported(w13)
             and gathered_qmm_a8_supported(w2)):
-        xq, sx = quantize_activations(x.to(torch.bfloat16), w13.group_size)
-        h = gathered_qmm_a8(xq.repeat_interleave(k, dim=0), sx.repeat_interleave(k, dim=0),
-                            w13, eids, pv)
-        a = swiglu(h, swiglu_limit, gpt_oss)
-        aq, sa = quantize_activations(a, w2.group_size)
-        o = gathered_qmm_a8(aq, sa, w2, eids, pv)
-    else:
-        h = gathered_qmm(x.repeat_interleave(k, dim=0), w13, eids, pv)
-        a = swiglu(h.to(torch.bfloat16), swiglu_limit, gpt_oss)
-        o = gathered_qmm(a, w2, eids, pv)
+        if x.device.type == "cpu":
+            return moe_gathered_a8_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit,
+                                         gpt_oss, pick_valid, product=gathered_qmm_a8)
+        valid = 0
+        if pick_valid is not None:
+            pv = pick_valid.reshape(-1).to(torch.int32).contiguous()
+            if pv.numel() != T * k or not pv.is_cuda:
+                raise ValueError(f"moe_gathered_tiled: pick_valid {tuple(pick_valid.shape)} "
+                                 f"for {T} tokens of {k} picks")
+            valid = pv.data_ptr()
+        out = _k3_core("moe_gathered_tiled", _launcher("gq_a8_launch", [ctypes.c_void_p] * 2),
+                       x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss, valid)
+        launches_gq_a8 += 2
+        return out
+    eids = topk_idx.reshape(-1)
+    pv = None if pick_valid is None else pick_valid.reshape(-1)
+    h = gathered_qmm(x.repeat_interleave(k, dim=0), w13, eids, pv)
+    a = swiglu(h.to(torch.bfloat16), swiglu_limit, gpt_oss)
+    o = gathered_qmm(a, w2, eids, pv)
     o = o.reshape(T, k, H) * topk_weights[..., None].to(torch.float32)
     return o.sum(dim=1).to(x.dtype)

@@ -234,8 +234,10 @@ def test_k3_smem_formula_matches_kernel(dev):
     """The plans made off the card (``k3_smem``) and on it (the built
     kernel's ``moe_w4a8_smem``) see the same shared memory, for every
     column tile and cluster size at V2-Lite's, the hybrid's and a wide
-    expert's widths."""
-    for k, H, I in ((8, 2048, 1408), (11, 2048, 512), (8, 4096, 1536), (4, 512, 384)):
+    expert's widths, and at K6a's product form on V2-Lite Q8's w2 (stage
+    1's layout at H = K = 1408)."""
+    for k, H, I in ((8, 2048, 1408), (11, 2048, 512), (8, 4096, 1536), (4, 512, 384),
+                    (1, 1408, 1024)):
         for bits in (4, 8):
             for gs in (32, 128):
                 for stage in (1, 2):
@@ -323,12 +325,85 @@ def test_gathered_qmm_a8_kernel(dev, K, N, bits, masked):
     x = torch.randn((7, K), generator=g, device=dev).to(torch.bfloat16)
     xq, sx = moe_cuda.quantize_activations(x, 128)
     eids, valid = _picks(dev, g, 7, 10, masked)
-    before = moe_cuda.launches_gq_a8
+    before = moe_cuda.launches_gq_a8_product
     got = moe_cuda.gathered_qmm_a8(xq, sx, w, eids, valid)
-    assert moe_cuda.launches_gq_a8 == before + 1
+    assert moe_cuda.launches_gq_a8_product == before + 1
     _close(got, moe_cuda.gathered_qmm_a8_plain(xq, sx, w, eids, valid), 3e-2)
     if masked:
         assert not got[[1, 6]].any() and got[0].any()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("name,K,N", [("w13", 2048, 2816), ("w2", 1408, 2048)])
+def test_gathered_qmm_a8_product_at_q8_shapes(dev, name, K, N, masked):
+    """K6a's product form at V2-Lite Q8's w13 and w2 (int8, 8 picks of 12
+    experts): one device kernel a call under its own name, equal bit for bit
+    from call to call, within 1e-2 of its plain version."""
+    from krasis_tpu_torch.timing import device_per_call
+
+    g = _gen(dev, K + masked)
+    w = random_qtensor((12, K, N), 8, 128, g, dev, scale_mag=0.002)
+    x = torch.randn((8, K), generator=g, device=dev).to(torch.bfloat16)
+    xq, sx = moe_cuda.quantize_activations(x, 128)
+    eids, valid = _picks(dev, g, 8, 12, masked)
+    got = _one_launch_each(lambda: moe_cuda.gathered_qmm_a8(xq, sx, w, eids, valid),
+                           (moe_cuda, "launches_gq_a8_product"))
+    _close(got, moe_cuda.gathered_qmm_a8_plain(xq, sx, w, eids, valid), 1e-2)
+    _, per_call, _ = device_per_call(lambda: moe_cuda.gathered_qmm_a8(xq, sx, w, eids, valid),
+                                     moe_cuda.K6A_PRODUCT_KERNEL, calls=5)
+    assert per_call == 1
+
+
+def _k6a_case(dev, seed, T, k, H, I, bits, gs, masked, gpt_oss):
+    x, w13, w2, idx, wts = _k3_case(dev, seed, T, k, H, I, bits, gs)
+    if gpt_oss:
+        x = (x.float() * 4.0).to(torch.bfloat16)
+    pv = None
+    if masked:
+        pv = torch.ones((T, k), dtype=torch.bool, device=dev)
+        pv[0, 1] = pv[T - 1, k - 1] = False
+    return x, w13, w2, idx, wts, pv
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("bits,gs,gpt_oss", [(8, 128, False), (4, 128, True), (8, 32, True),
+                                             (4, 32, False)])
+def test_moe_gathered_a8_chain_kernel(dev, bits, gs, gpt_oss, masked):
+    """K6a's chain, moe_gathered_tiled(activation="int8"): two launches a
+    call, equal bit for bit from call to call, within 1e-2 of its plain
+    version; a skipped pick adds nothing (K3's function with its weight 0),
+    and without a mask the chain is K3 bit for bit."""
+    x, w13, w2, idx, wts, pv = _k6a_case(dev, 60 + bits + gs, 3, 5, 512, 384, bits, gs, masked,
+                                         gpt_oss)
+    lim = 7.0 if gpt_oss else 0.0
+
+    def run():
+        return moe_cuda.moe_gathered_tiled(x, w13, w2, idx, wts, lim, gpt_oss, pv, "int8")
+
+    before = moe_cuda.launches_gq_a8
+    got = run()
+    assert torch.equal(got, run()) and moe_cuda.launches_gq_a8 == before + 4
+    _close(got, moe_cuda.moe_gathered_a8_plain(x, w13, w2, idx, wts, lim, gpt_oss, pv), 1e-2)
+    if masked:
+        _close(got, moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts * pv, lim, gpt_oss), 1e-2)
+    else:
+        assert torch.equal(got, moe_cuda.moe_w4a8(x, w13, w2, idx, wts, lim, gpt_oss))
+
+
+@pytest.mark.parametrize("T", [1, 2, 6])
+def test_k6a_chain_at_q8_shapes(dev, T):
+    """At V2-Lite Q8's widths (int8 experts, 6 routed + 2 shared picks of 12):
+    exactly K6a's two device kernels a call, within 1e-2 of the plain chain."""
+    from krasis_tpu_torch.timing import device_per_call
+
+    x, w13, w2, idx, wts, _ = _k6a_case(dev, 70 + T, T, 8, 2048, 1408, 8, 128, False, False)
+
+    def run():
+        return moe_cuda.moe_gathered_tiled(x, w13, w2, idx, wts, activation="int8")
+
+    _close(run(), moe_cuda.moe_gathered_a8_plain(x, w13, w2, idx, wts), 1e-2)
+    us, per_call, _ = device_per_call(run, moe_cuda.K6A_KERNELS, calls=5)
+    assert per_call == 2 and us > 0
 
 
 @pytest.mark.parametrize("activation,tol", [("bf16", 2e-2), ("int8", 3e-2)])

@@ -1,4 +1,5 @@
-"""K3, the W4A8 decode MoE (``moe_cuda.moe_w4a8``), on the CPU.
+"""K3, the W4A8 decode MoE (``moe_cuda.moe_w4a8``), and K6a, which runs on
+K3's core, on the CPU.
 
 Its plain version against the Pallas kernel it replaces
 (``moe_gathered_w4a8_pallas``, interpret mode) on the same numpy inputs,
@@ -219,3 +220,58 @@ def test_k3_declines_groups_that_cut_units():
     assert moe_cuda.supported(w, w2) and not moe_cuda.w4a8_supported(w, w2)
     with pytest.raises(ValueError):
         moe_cuda.plan_w4a8(1, 2, 256, 128, 4, 16, 32)
+
+
+@pytest.mark.parametrize("bits,gs,T,gpt_oss,I", [(8, 128, 3, False, 384), (4, 128, 2, True, 384),
+                                                 (8, 32, 1, True, 128), (4, 32, 4, False, 128)])
+def test_int8_chain_plain_equals_k3_plain(bits, gs, T, gpt_oss, I):
+    """The two classes of int8 decode round at the same points (group dots
+    in int32, f32 sums in group order, the activation on the f32 h, the
+    hidden requantized, the picks weighted in f32 and added in order): the
+    plain chain equals K3's plain version bit for bit, and under pick_valid
+    equals it with the skipped picks' weights set to 0."""
+    x, w13, w2, idx, wts = _case(90 + bits + gs + T, bits, gs, T, I,
+                                 x_std=4.0 if gpt_oss else 0.5)
+    x, w13, w2, idx, wts = t(x), tq(w13), tq(w2), t(idx), t(wts)
+    limit = LIMIT if gpt_oss else 0.0
+    k = idx.shape[1]
+    pv = torch.ones((T, k), dtype=torch.bool)
+    pv[0, 1] = pv[T - 1, k - 1] = False          # a routed pick and a folded shared expert
+    for mask in (None, pv):
+        got = moe_cuda.moe_gathered_tiled(x, w13, w2, idx, wts, limit, gpt_oss, mask, "int8")
+        want = moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts if mask is None else wts * mask,
+                                       limit, gpt_oss)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert not torch.equal(got, moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts, limit, gpt_oss))
+
+
+Q8 = dict(k=8, H=2048, I=1408)     # V2-Lite's int8 experts: 6 routed + 2 folded shared
+
+
+@pytest.mark.parametrize("T,ctas", [(1, (352, 512)), (2, (352, 512)), (6, (1056, 384))])
+def test_k6a_plan_at_q8_shapes(T, ctas):
+    """K6a's chain at V2-Lite Q8's shapes (int8, groups of 128) takes K3's
+    plan: shared memory within 227 KB, every (pick, column, row) once, and
+    at T = 1 stage 1 at 128 columns in clusters of 2 (22 x 8 x 2 CTAs),
+    stage 2 at 32 columns in clusters of 8 (64 x 1 x 8); the product form's
+    plans at the same widths fit too."""
+    k, H, I = Q8["k"], Q8["H"], Q8["I"]
+    plan = moe_cuda.plan_w4a8(T, k, H, I, 8, 128, 128)
+    s1, s2 = plan.w13, plan.w2
+    assert (s1.ctas, s2.ctas) == ctas
+    if T == 1:
+        assert s1.grid == (22, 8, 2) and s1.cols == 128 and s2.grid == (64, 1, 8) and s2.cols == 32
+    for stage, st in ((1, s1), (2, s2)):
+        assert moe_cuda.k3_smem(stage, st, k, H, I, 8, 128) <= moe_cuda.MAX_SMEM
+    na = s1.cols // 2
+    _check_stage(s1, 1, H, 2 * I, 8, 128,
+                 lambda tl: np.r_[tl * na:(tl + 1) * na, I + tl * na:I + (tl + 1) * na],
+                 s1.grid[0])
+    _check_stage(s2, k, I, H, 8, 128,
+                 lambda tl: np.arange(tl * s2.cols, (tl + 1) * s2.cols), s2.grid[0])
+    for K, N in ((H, 2 * I), (I, H)):
+        p = moe_cuda.plan_gq_a8(T * k, K, N, 8, 128)
+        assert p.grid[1] == T * k and 2 * p.ctas >= 5 * moe_cuda.SMS
+        assert moe_cuda.k3_smem(1, p, 1, K, 0, 8, 128) <= moe_cuda.MAX_SMEM
+        _check_stage(p, 1, K, N, 8, 128, lambda tl: np.arange(tl * p.cols, (tl + 1) * p.cols),
+                     p.grid[0])
