@@ -10,8 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: the CUDA sources of krasis_tpu_torch/csrc with nvcc, in parallel;
 3. reference: a tiny DeepSeek-V2-Lite (int4 experts, and int8 experts in
    the two-stage class), a tiny Qwen3-Coder-Next hybrid and a tiny GPT-OSS
-   over an fp8 cache run on the card through the kernels against the same
-   models on the CPU through their plain versions;
+   over an fp8 cache (top-4 of 8 biased experts: its decode MoE runs on K6,
+   which must have launched) run on the card through the kernels against
+   the same models on the CPU through their plain versions; then groups of
+   16 (ROADMAP C-2) through moe_forward in each regime, each taking the
+   reference's form and, where that form's kernel declines the stacks, its
+   plain version on the card;
 4. DeepSeek-V2-Lite Q4 at full width (MLA, 27 layers, random weights from a
    seed): each of its kernels (K1 qmm, K2 attention with V inside K: a
    prefill, a chunk, and split-KV decode at kv_len 2560, 2500 and 40 over
@@ -32,8 +36,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    V, K5 bf16 decode MoE, and K1, K3, K4 at this model's shapes); three
    requests with int8 expert activations, one with bf16, and the profile;
 6. DeepSeek-V2-Lite Q8 at full width and depth (int8 experts of 8.65 MB a
-   pick: the two-stage expert class): K6 and K6a's one product (gathered
-   products) on w13 and w2 with 8 picks of 66, once under a pick_valid mask;
+   pick: the two-stage expert class): K6 (on K1's core, with device us and
+   a bmm yardstick) and K6a's one product (gathered products) on w13 and w2
+   with 8 picks of 66, once under a pick_valid mask;
    K6a's chain moe_gathered_tiled(activation="int8") at the same picks (two
    device kernels a call under K6a's names, each call equal bit for bit to
    the next, and the plain version without any one pick's weight the check
@@ -59,8 +64,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    window, no sinks, the sink added in every split); requests 2048 + 32,
    2500 + 16, 40 + 16, 2500 + 16 over an fp8 cache, and 40 + 16 on an
    engine at max_len 131,072 whose "auto" cache resolves to fp8; every K2
-   form must have been launched by them. The biased experts take the plain
-   MoE paths, as the reference's do: no K3-K7a launch.
+   form must have been launched by them. The biased experts: K6 at T = 1
+   and 2 (4 and 8 picks) on layer 0's w13 and w2 (2880 columns: a 64-column
+   tail), with a bmm yardstick and under a pick_valid mask; the biased chain
+   (two K6 launches, the biases between) against the plain gathered path,
+   refusing a dropped w13 bias, a dropped w2 bias and each dropped pick; one
+   layer's decode MoE device time, plain path and chain in turns. Decode
+   runs its MoE on K6, which must have launched; prefill keeps the plain
+   ragged path: no K3-K7a launch, and no K6 or grouped kernel in the
+   prefill's profile.
 
 8. the probes (krasis_tpu_torch/probes, the H100 counterparts of the TPU
    probes under benchmarks/): the four entry points at their own full-width
@@ -164,17 +176,24 @@ def check_kernel(results, name, counter, replaces, run_kernel, run_plain, run_li
     results.append((counter, res))
 
 
-def reference_phase(label, cfg, quant, tol):
+def reference_phase(label, cfg, quant, tol, prepare=None, launched=()):
     """A tiny model: kernels on the card against plain versions on the CPU.
     A model-level check, as the CPU tests hold the port to the JAX package:
     bf16 rounding differences compound over the layers, so the limit is
-    `tol` of the larger of 1 and the largest logit."""
+    `tol` of the larger of 1 and the largest logit. `prepare` edits the
+    CPU parameters before they are copied to the card; each kernel named in
+    `launched` must have been launched by the card's run."""
     import torch
     from krasis_tpu_torch.models.model import forward
     from krasis_tpu_torch.models.params import init_synthetic_params
     from krasis_tpu_torch.runtime.kv_cache import init_cache
 
     cpu = init_synthetic_params(cfg, quant, seed=1, device="cpu")
+    if prepare is not None:
+        prepare(cpu)
+    C = counters()
+    for m, attr in C.values():
+        setattr(m, attr, 0)
 
     def to(tree, dev):
         if isinstance(tree, dict):
@@ -207,8 +226,13 @@ def reference_phase(label, cfg, quant, tol):
                 worst_rel = max(worst_rel, err / float(r.square().mean().sqrt()))
                 if not err <= limit:
                     raise AssertionError(f"{label} step {step}: card vs CPU {err} > {limit}")
+    counts = {name: getattr(*C[name]) for name in launched}
     print(f"[reference] {label} on the card vs the CPU plain path: max|Δ| logits {worst:.3g} "
-          f"({worst_rel:.3g} of their rms, limit {tol})", flush=True)
+          f"({worst_rel:.3g} of their rms, limit {tol})"
+          + (f"; launches {json.dumps(counts)}" if counts else ""), flush=True)
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{label}: {name} was never launched on the card")
 
 
 def reference_phases():
@@ -247,12 +271,93 @@ def reference_phases():
         QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16", attention="int8"),
         5e-2)
     # GPT-OSS over an fp8 cache, window 4 so that the 160-token prefill and
-    # the decode steps cut it; the biased experts take the plain paths
+    # the decode steps cut it. Top-4 of 8 experts, so that decode is in the
+    # gathered regime, where the biased experts run on K6 with the biases
+    # between its launches (prefill: the plain ragged path). Each layer's
+    # router logit bias lifts 4 experts 8 above the others (the logits span
+    # about ±0.8): the pick set cannot sit on a near-tie that the two
+    # devices' summation orders would break differently. So every token
+    # takes the same 4 experts in a layer here; K6 under picks that change
+    # from token to token is held by the biased-chain check of the GPT-OSS
+    # phase (random picks a token) and run by its full-width requests.
+    def lift_four(params):
+        import torch
+
+        g = torch.Generator().manual_seed(4)
+        for lp in params["layers"]:
+            lift = torch.tensor([4.0] * 4 + [-4.0] * 4)[torch.randperm(8, generator=g)]
+            lp["gate_logit_bias"] = lp["gate_logit_bias"] + lift
+            lp["w13_bias"] = (torch.randn(lp["w13_bias"].shape, generator=g) * 0.05).to(
+                lp["w13_bias"].dtype)
+            lp["w2_bias"] = (torch.randn(lp["w2_bias"].shape, generator=g) * 0.05).to(
+                lp["w2_bias"].dtype)
+
     reference_phase(
         "tiny GPT-OSS, fp8 cache",
         tiny_config("gpt-oss-20b", num_hidden_layers=4, sliding_window=4,
-                    num_experts_per_tok=8),
-        QuantConfig(expert_bits=4, group_size=32, kv_cache_dtype="fp8"), 5e-2)
+                    num_experts_per_tok=4),
+        QuantConfig(expert_bits=4, group_size=32, kv_cache_dtype="fp8"), 5e-2,
+        prepare=lift_four, launched=("K6",))
+
+
+def c2_phase():
+    """Groups of 16 (ROADMAP C-2): stacks of 4 experts, H 256, I 128, gs 16,
+    int4 and int8, through ``moe_forward`` on the card in the five regimes —
+    fused int8, two-stage int8, fused bf16, two-stage bf16 (the class
+    limits shrunk for the two-stage ones, as the tiny reference models do)
+    and grouped (T 64). Each takes the reference's form and runs it on that
+    form's kernel (K3, K6a, K5, K6, K4: two launches, the kernels' forms for
+    groups of 16 where they have one) and on nothing else, with no call on
+    a plain form (``moe.plain_routes``); each result within 3e-2 of the same
+    call on the CPU (the plain versions)."""
+    import torch
+    from krasis_tpu_torch.ops import expert_class, moe
+    from krasis_tpu_torch.quant import random_qtensor
+
+    g = torch.Generator().manual_seed(16)
+    E, H, I, k = 4, 256, 128, 2
+    C = counters()
+    regimes = (("fused int8", 1, "int8", False, "fused_int8", "K3"),
+               ("two-stage int8", 1, "int8", True, "tiled_int8", "K6a"),
+               ("fused bf16", 1, "bf16", False, "fused_bf16", "K5"),
+               ("two-stage bf16", 1, "bf16", True, "tiled_bf16", "K6"),
+               ("grouped", 64, "bf16", False, "grouped", "K4"))
+    limits = expert_class.MAX_FUSED_PICK_BYTES
+    for bits in (4, 8):
+        w13 = random_qtensor((E, H, 2 * I), bits, 16, g, "cpu", scale_mag=0.03)
+        w2 = random_qtensor((E, I, H), bits, 16, g, "cpu", scale_mag=0.03)
+        cw13, cw2 = w13.to("cuda"), w2.to("cuda")
+        for label, T, act, two_stage, form, kernel in regimes:
+            x = torch.randn((T, H), generator=g).to(torch.bfloat16)
+            idx = torch.rand((T, E), generator=g).topk(k, dim=-1).indices.to(torch.int32)
+            wts = torch.rand((T, k), generator=g)
+            if two_stage:
+                expert_class.MAX_FUSED_PICK_BYTES = 1024
+            try:
+                r = moe.route(x.cuda(), cw13, cw2, idx.cuda(), False, act)
+                if r != form:
+                    raise AssertionError(f"C-2 int{bits} {label}: form {r}, want {form}")
+                for m, attr in C.values():
+                    setattr(m, attr, 0)
+                moe.plain_routes.update(ragged=0, gathered_plain=0)
+                got = moe.moe_forward(x.cuda(), cw13, cw2, idx.cuda(), wts.cuda(),
+                                      activation=act)
+                torch.cuda.synchronize()
+                launched = {name: getattr(m, attr) for name, (m, attr) in C.items()
+                            if getattr(m, attr)}
+                plain_routes = dict(moe.plain_routes)
+                want = moe.moe_forward(x, w13, w2, idx, wts, activation=act)
+            finally:
+                expert_class.MAX_FUSED_PICK_BYTES = limits
+            err, ratio = max_err(got.cpu(), want, 3e-2)
+            print(f"[c2] gs 16, int{bits}, {label}: form {r}; launches {json.dumps(launched)}, "
+                  f"plain routes {json.dumps(plain_routes)}; card vs CPU max|Δ| {err:.3g}, "
+                  f"{ratio:.3g} of the limit (tol 3e-2)", flush=True)
+            if not ratio <= 1.0:
+                raise AssertionError(f"C-2 int{bits} {label}: the card disagrees with the CPU")
+            if launched != {kernel: 2} or any(plain_routes.values()):
+                raise AssertionError(f"C-2 int{bits} {label}: launches {launched}, plain "
+                                     f"routes {plain_routes}, want {{{kernel!r}: 2}} only")
 
 
 def counters():
@@ -641,6 +746,129 @@ def hybrid_kernel_phase(params, cfg, results, g, flush):
     moe_checks(results, "qcn/", la["w13"], la["w2"], cfg, g, flush, bf16_too=True)
 
 
+def k6_checks(results, name, w, rows, idx, flush, mask=None):
+    """K6 (``gathered_qmm``, K1's core) against its plain version: one device
+    kernel a call, device us from the profiler, the bound over the distinct
+    experts' packed weights and scales (rows in, f32 out), and as library
+    call ``torch.bmm`` on the picks' weights gathered and dequantized to
+    bf16 beforehand; under `mask` it is held again and the skipped picks
+    must read back zero."""
+    import torch
+    from krasis_tpu_torch.ops import moe_cuda
+    from krasis_tpu_torch.quant import dequantize, qtensor_bytes
+
+    P, K = rows.shape
+    N, E = w.n_dim, w.q.shape[0]
+    distinct = int(torch.unique(idx).numel())
+    wg = dequantize(w[idx.long()], torch.bfloat16)                     # [P, K, N]
+    r3 = rows.to(torch.bfloat16)[:, None, :]
+    check_kernel(results, name, counters()["K6"], moe_cuda.REPLACES_GQ,
+                 lambda: moe_cuda.gathered_qmm(rows, w, idx),
+                 lambda: moe_cuda.gathered_qmm_plain(rows, w, idx), lambda: torch.bmm(r3, wg),
+                 2e-2, distinct * qtensor_bytes(w) / E + P * K * 2 + P * N * 4, 2 * P * K * N,
+                 PEAK_BF16, 50, flush, device_name="qmm_kernel", calls=10,
+                 source=moe_cuda.SOURCE_GQ)
+    del wg
+    res = results[-1][1]
+    res["picks"], res["experts"] = P, distinct
+    if res["kernels_per_call"] != 1:
+        raise AssertionError(f"{name}: a call launched {res['kernels_per_call']} device "
+                             "kernels, not 1")
+    if mask is not None:
+        got = moe_cuda.gathered_qmm(rows, w, idx, mask)
+        err, ratio = max_err(got, moe_cuda.gathered_qmm_plain(rows, w, idx, mask), 2e-2)
+        print(f"[kernel] {name} with pick_valid: max|Δ| {err:.3g}, {ratio:.3g} of the limit",
+              flush=True)
+        if not ratio <= 1.0 or bool(got[mask == 0].any()) or not bool(got[mask == 1].any()):
+            raise AssertionError(f"{name}: under pick_valid the kernel disagrees, or a skipped "
+                                 "pick does not read back zero")
+
+
+def gptoss_moe_checks(results, params, cfg, g, flush):
+    """GPT-OSS-20B's biased experts on layer 0's stacks (32 experts, H and I
+    2880, int4 gs 32): K6 at T = 1 (4 picks) and T = 2 (8 picks) on w13 and
+    on w2 (its 2880 columns end in a 64-column tile), each also under a
+    pick_valid mask; the biased chain (``moe_gathered_tiled`` with biases)
+    against the plain ``moe_forward_gathered`` within 3e-2, with seeded
+    nonzero biases of half the size of h and of a pick's output (the
+    synthetic biases are zero), and controls the check must refuse: the
+    w13 bias dropped, the w2 bias dropped, each pick dropped in turn; then
+    one layer's decode MoE device time, plain path and chain, in turns."""
+    import torch
+    from krasis_tpu_torch.ops import moe, moe_cuda
+    from krasis_tpu_torch.ops.activations import swiglu
+    from krasis_tpu_torch.timing import device_per_call
+
+    dev = flush.device
+    lp = params["layers"][0]
+    w13, w2 = lp["w13"], lp["w2"]
+    E, k, Hd, I = cfg.n_routed_experts, cfg.num_experts_per_tok, cfg.hidden_size, w2.k_dim
+    lim, bf16 = cfg.swiglu_limit, torch.bfloat16
+    x = torch.randn((2, Hd), generator=g, device=dev).to(bf16)
+    picks = torch.randperm(E, generator=g, device=dev)[:2 * k].to(torch.int32).reshape(2, k)
+    for T in (1, 2):
+        idx = picks[:T].reshape(-1)
+        rows = x[:T].repeat_interleave(k, dim=0)
+        a = swiglu(moe_cuda.gathered_qmm_plain(rows, w13, idx).to(bf16), lim, True)
+        mask = torch.ones(T * k, dtype=torch.int32, device=dev)
+        mask[[1, T * k - 2]] = 0
+        for name, w, r in (("w13", w13, rows), ("w2", w2, a)):
+            k6_checks(results, f"gptoss/gathered_qmm:{name} T={T}", w, r, idx, flush, mask)
+
+    # the biased chain at T = 1
+    x1, idx1 = x[:1], picks[:1]
+    wts = torch.rand((1, k), generator=g, device=dev) + 0.5
+    wts = wts / wts.sum()
+    eids = idx1.reshape(-1).long()
+    h = moe_cuda.gathered_qmm_plain(x1.repeat_interleave(k, dim=0), w13, idx1.reshape(-1))
+    b13 = (torch.randn((E, 2 * I), generator=g, device=dev) * 0.5
+           * h.square().mean().sqrt()).to(lp["w13_bias"].dtype)
+    a = swiglu(h.to(bf16) + b13[eids].to(bf16), lim, True)
+    o = moe_cuda.gathered_qmm_plain(a, w2, idx1.reshape(-1))
+    b2 = (torch.randn((E, Hd), generator=g, device=dev) * 0.5
+          * o.square().mean().sqrt()).to(lp["w2_bias"].dtype)
+
+    def chain(bias13=b13, bias2=b2, w=wts):
+        return moe_cuda.moe_gathered_tiled(x1, w13, w2, idx1, w, lim, True, w13_bias=bias13,
+                                           w2_bias=bias2)
+
+    def plain(bias13=b13, bias2=b2, w=wts):
+        return moe.moe_forward_gathered(x1, w13, w2, idx1, w, lim, True, w13_bias=bias13,
+                                        w2_bias=bias2)
+
+    C = counters()
+    before = getattr(*C["K6"])
+    got = chain()
+    if getattr(*C["K6"]) != before + 2:
+        raise AssertionError("gptoss/moe biased chain: not two K6 launches a call")
+    err, ratio = max_err(got, plain(), 3e-2)
+    controls = {"w13 bias dropped": plain(bias13=None), "w2 bias dropped": plain(bias2=None)}
+    for j in range(k):
+        w = wts.clone()
+        w[:, j] = 0
+        controls[f"pick {j} dropped"] = plain(w=w)
+    refused = {c: max_err(got, want, 3e-2)[1] for c, want in controls.items()}
+    print(f"[moe] gptoss biased chain (two K6 launches, biases between) against "
+          f"moe_forward_gathered: max|Δ| {err:.3g}, {ratio:.3g} of the limit (tol 3e-2); "
+          f"controls, fraction of the limit: "
+          + ", ".join(f"{c} {v:.3g}" for c, v in refused.items()), flush=True)
+    if not ratio <= 1.0:
+        raise AssertionError("gptoss/moe: the biased chain disagrees with moe_forward_gathered")
+    missed = [c for c, v in refused.items() if not v > 1.0]
+    if missed:
+        raise AssertionError(f"gptoss/moe: the check cannot see {missed}")
+
+    # one decode MoE layer's device time, the plain path against the chain,
+    # in turns (plain, chain, chain, plain); L2 is not flushed
+    times = {"plain": [], "chain": []}
+    for which in ("plain", "chain", "chain", "plain"):
+        us, n, whole = device_per_call(plain if which == "plain" else chain, "", None, calls=5)
+        times[which].append((round(us, 2), n, whole))
+    print("[moe] " + json.dumps({"model": "gpt-oss-20b", "decode MoE layer":
+                                 f"T=1, {k} of {E} picks, biases", "device us, kernels a call, whole": times}),
+          flush=True)
+
+
 def q8_kernel_phase(params, cfg, results, g, flush):
     """The two-stage expert class at DeepSeek-V2-Lite's int8-expert shapes:
     K6 / K6a at T = 1 with the 6 routed picks plus the 2 folded shared
@@ -684,10 +912,7 @@ def q8_kernel_phase(params, cfg, results, g, flush):
     for name, w, rows, rq, rs in (("w13", w13, x_rows, xq, sx), ("w2", w2, a, aq, sa)):
         one = qtensor_bytes(w) // E_all
         K, N = w.k_dim, w.n_dim
-        check_kernel(results, f"q8/gathered_qmm:{name}", C["K6"], moe_cuda.REPLACES_GQ,
-                     lambda: moe_cuda.gathered_qmm(rows, w, idx),
-                     lambda: moe_cuda.gathered_qmm_plain(rows, w, idx), None, 2e-2,
-                     P * one + P * K * 2 + P * N * 4, 2 * P * K * N, PEAK_BF16, 50, flush)
+        k6_checks(results, f"q8/gathered_qmm:{name}", w, rows, idx, flush)
         check_kernel(results, f"q8/gathered_qmm_a8:{name}", C["K6a product"],
                      moe_cuda.REPLACES_GQ_A8,
                      lambda: moe_cuda.gathered_qmm_a8(rq, rs, w, idx),
@@ -956,6 +1181,7 @@ def gptoss_kernel_phase(params, cfg, results, g, flush):
     qmm_checks(results, "gptoss/", (("qmm:lm_head", params["lm_head"], None, torch.float32),),
                g, flush)
     gptoss_attention_checks(results, params, cfg, g, flush)
+    gptoss_moe_checks(results, params, cfg, g, flush)
 
 
 def q8_entry_points(eng, rng):
@@ -1021,6 +1247,14 @@ def q8_entry_points(eng, rng):
         raise AssertionError("moe_prefill(activation='int8') strays from the bf16 form")
 
 
+# K6 in profiler rows: K1's kernel in its gathered instances
+K6_KERNELS = ("qmm_kernel<1, 4, float, true>", "qmm_kernel<1, 8, float, true>")
+
+
+def is_k6(key: str) -> bool:
+    return any(name in key for name in K6_KERNELS)
+
+
 def profile_phase(eng, prompt, new: int, forbid=()):
     """Device time by kernel over one request, against the wall time of the
     same request run without the profiler. No kernel whose name holds one of
@@ -1053,8 +1287,10 @@ def profile_phase(eng, prompt, new: int, forbid=()):
     banned = [key for key, _, _ in rows if any(part in key for part in forbid)]
     if banned:
         raise AssertionError(f"kernels of the other expert class ran: {banned}")
-    for label, part in (("K1 + K1s", "qmm_kernel"), ("K3", "w4a8_stage"), ("K6a", "gq_a8_stage")):
-        hits = [(ms, count) for key, ms, count in rows if part in key]
+    for label, named in (("K1 + K1s", lambda key: "qmm_kernel" in key and not is_k6(key)),
+                         ("K6", is_k6), ("K3", lambda key: "w4a8_stage" in key),
+                         ("K6a", lambda key: "gq_a8_stage" in key)):
+        hits = [(ms, count) for key, ms, count in rows if named(key)]
         if hits:
             ms, count = sum(r[0] for r in hits), sum(r[1] for r in hits)
             print(f"[profile]   {label}: {ms:.2f} ms over {count} launches, "
@@ -1066,7 +1302,8 @@ def profile_phase(eng, prompt, new: int, forbid=()):
 
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
-               profile_decode, off_path=(), entry_points=None, forms=(), off_names=()):
+               profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
+               prefill_off_names=(), ragged=False):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1075,7 +1312,11 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     before and read just after, then profile one prefill and one decode.
     Kernels named in `on_path`, and the K2 launch forms in `forms`, must
     have been launched in that run, those in `off_path` must not, nor may the
-    profiles show a device kernel whose name holds one of `off_names`. Fills the
+    profiles show a device kernel whose name holds one of `off_names` (the
+    prefill's profile one of `prefill_off_names` either). No MoE call may
+    take a plain form (``moe.plain_routes``) but, with `ragged` (biased
+    experts), the grouped regime's ``moe_forward_ragged``, which then must
+    have run. Fills the
     launch counts into this family's entries of `results` (by form for K2
     entries that name one)."""
     import gc
@@ -1105,6 +1346,7 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     t_kernels = time.perf_counter()
 
     from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe
 
     # the same weights under another expert activation or kv cache, where a
     # request asks; built when first asked for
@@ -1132,6 +1374,7 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     for m, attr in C.values():
         setattr(m, attr, 0)
     fa.form_launches.clear()
+    moe.plain_routes.update(ragged=0, gathered_plain=0)
     for n, new, act, *rest in requests:
         top = rest[0] if rest else 0
         kv = rest[1] if len(rest) > 1 else None
@@ -1164,11 +1407,16 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
         entry_points(eng, rng)
     counts = {name: getattr(m, attr) for name, (m, attr) in C.items()}
     by_form = dict(fa.form_launches)
-    print(f"[launches] {label}: {json.dumps(counts)}; K2 by form {json.dumps(by_form)}; peak "
+    print(f"[launches] {label}: {json.dumps(counts)}; K2 by form {json.dumps(by_form)}; MoE "
+          f"calls on a plain route {moe.plain_routes}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
     for name in on_path:
         if counts[name] <= 0:
             raise AssertionError(f"{label}: {name} was never launched on the main path")
+    if moe.plain_routes["gathered_plain"] or bool(moe.plain_routes["ragged"]) != ragged:
+        raise AssertionError(f"{label}: MoE calls on a plain form {moe.plain_routes}, want "
+                             + ("ragged ones only (the biased experts' grouped regime)"
+                                if ragged else "none"))
     for form in forms:
         if by_form.get(form, 0) <= 0:
             raise AssertionError(f"{label}: K2's {form} form was never launched on the main path")
@@ -1182,7 +1430,7 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
 
     t_entries = time.perf_counter()
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1,   # prefill
-                  off_names)
+                  tuple(off_names) + tuple(prefill_off_names))
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode,
                   off_names)
     print(f"[time] {label}: kernel checks {t_kernels - t0:.1f} s (engine build included), "
@@ -1481,6 +1729,7 @@ def main() -> int:
                 print(f"[ptxas] {name}: {line.strip()}")
 
     reference_phases()
+    c2_phase()
 
     results = []
     rng = np.random.default_rng(0)
@@ -1508,9 +1757,12 @@ def main() -> int:
                QuantConfig(expert_bits=4, group_size=32), gptoss_kernel_phase,
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"),
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "int8", 0, ("auto", 131072))),
-               ("K1", "K2"), results, rng, profile_decode=16,
-               off_path=("K1s", "K3", "K4", "K5", "K6", "K6a", "K6a product", "K7", "K7a"),
-               forms=gptoss_forms)
+               ("K1", "K2", "K6"), results, rng, profile_decode=16,
+               off_path=("K1s", "K3", "K4", "K5", "K6a", "K6a product", "K7", "K7a"),
+               forms=gptoss_forms, ragged=True,
+               off_names=moe_cuda.K3_KERNELS + moe_cuda.K5_KERNELS + moe_cuda.K6A_KERNELS,
+               prefill_off_names=K6_KERNELS + ("gmm_kernel", "gmm_a8_kernel",
+                                               moe_cuda.K6A_PRODUCT_KERNEL))
     probe_phase(results)
 
     print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "

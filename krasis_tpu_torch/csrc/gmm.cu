@@ -30,7 +30,8 @@
 //    rows; the loads of the next steps are in flight while step j
 //    computes. For int4 a step uses both nibbles of each byte, K rows r0..
 //    (low) and K/2 + r0.. (high), with the matching two column ranges of x
-//    and both scale rows, so every packed byte is fetched once;
+//    and both scale rows, so every packed byte is fetched once. Groups of
+//    16 rows (FULL16) stage a scale row for each 16-row half of a step;
 //  * token rows are gathered through row_src by cp.async, 16 bytes a
 //    thread, zero-filled for padding rows (256 and 512 rows: the tile's
 //    source rows sit in shared memory, not in registers);
@@ -77,9 +78,12 @@ constexpr int TM = 64;       // K7a's tile rows
 constexpr int BN = 128;
 constexpr int THREADS = 256;
 
-// What one launch of gmm_kernel computes. FULL is K4 / K7. The others are
-// the probe forms of krasis_tpu_torch/probes (f32 epilogue): each streams the same bytes through the same ring and does only
-// its named part of the step.
+// What one launch of gmm_kernel computes. FULL is K4 / K7; FULL16 is the
+// same for scale groups that are not a multiple of a step's 32 rows (a
+// multiple of 16: each 16-row half of a step has a scale row of its own).
+// The others are the probe forms of krasis_tpu_torch/probes (f32 epilogue):
+// each streams the same bytes through the same ring and does only its named
+// part of the step.
 //   COPY:       out[r, n] = x[src(r), n mod tn]           (the ring alone)
 //   NOUNPACK:   out = x @ S, S[k, n] = s[k / gs, n]       (the ring and the product)
 //   UNPACKONLY: out[r, n] = dequant(W[e])[r, n], r < TM   (the ring and the dequantization)
@@ -88,7 +92,7 @@ constexpr int THREADS = 256;
 // COPY and UNPACKONLY fold the inputs of the work they skip into a
 // checksum that reaches `sink` only when a caller passes one, so the
 // compiler keeps the loads and the dequantization.
-enum Mode { FULL = 0, COPY = 1, NOUNPACK = 2, UNPACKONLY = 3, V2 = 4 };
+enum Mode { FULL = 0, COPY = 1, NOUNPACK = 2, UNPACKONLY = 3, V2 = 4, FULL16 = 5 };
 
 // gmm_kernel's ring: PK packed weight rows a step; 6 stages for 64-row
 // tiles (bytes-bound: few rows an expert), 4 for 128- and 256-row ones, 3
@@ -103,12 +107,15 @@ constexpr int LDA = 72;      // bf16 pitch of an A row: 64 k values + 8
 // byte pitch of a packed weight row: the CTA's columns + 16
 __host__ __device__ constexpr int ldb(int tm) { return cta_cols(tm) + 16; }
 
-__host__ __device__ constexpr int stage_bytes(int tm) {
-  return tm * LDA * 2 + PK * ldb(tm) + 2 * cta_cols(tm) * 2;
+// scale rows a stage: the low and the high half's, per 16 rows with FULL16
+__host__ __device__ constexpr int scale_rows(int mode) { return mode == FULL16 ? 4 : 2; }
+__host__ __device__ constexpr int stage_bytes(int tm, int mode) {
+  return tm * LDA * 2 + PK * ldb(tm) + scale_rows(mode) * cta_cols(tm) * 2;
 }
 // the ring, and for 256- and 512-row tiles the tile's source rows after it
-__host__ __device__ constexpr int smem_bytes(int tm) {
-  return stages(tm) * stage_bytes(tm) + (tm >= 256 ? tm * 4 : 0);
+// (FULL16 at 512 rows: 227 KB exactly)
+__host__ __device__ constexpr int smem_bytes(int tm, int mode) {
+  return stages(tm) * stage_bytes(tm, mode) + (tm >= 256 ? tm * 4 : 0);
 }
 
 // An exact f32 of a small integer: the bits of 2^23 + u, minus the bias.
@@ -130,7 +137,8 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
   constexpr int MI = TMR / WM / 16;  // m16 tiles of a warp
   constexpr int NST = stages(TMR);
   constexpr int LDB = ldb(TMR);
-  constexpr int SB = stage_bytes(TMR);
+  constexpr int SB = stage_bytes(TMR, MODE);
+  constexpr bool G16 = MODE == FULL16;
   constexpr bool BIG = TMR >= 256;   // source rows from shared memory, not registers
   const int tile = blockIdx.x;
   if (!tile_valid[tile]) return;
@@ -213,7 +221,14 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
       ktt::cp_async16(sb + b_r * LDB + b_c * 16, qe + (long)(p0 + b_r) * N + b_gc, true);
     else if (tid < PK * BCH)
       ktt::cp_async16(sb + b_r * LDB + b_c * 16, qe + (long)(p0 + b_r) * N + b_gc, true);
-    if (tid < 2 * (BNC / 8)) {  // scale rows: the low half's group, then the high half's
+    if constexpr (G16) {  // scale rows (16-row half, half of K): row 2 * sub + h
+      if (tid < 4 * (BNC / 8)) {
+        const int r4 = tid >> (BNC == 128 ? 4 : 3), c8 = (tid & (BNC / 8 - 1)) * 8;
+        const int h = r4 & 1;
+        const int grp = ((h == 0 ? p0 : khalf + p0) + 16 * (r4 >> 1)) / gs;
+        ktt::cp_async16(ss + r4 * BNC + c8, se + (long)grp * N + gcol(c8), h == 0 || is4);
+      }
+    } else if (tid < 2 * (BNC / 8)) {  // scale rows: the low half's group, then the high half's
       const int h = tid >> (BNC == 128 ? 4 : 3), c8 = (tid & (BNC / 8 - 1)) * 8;
       const int grp = (h == 0 ? p0 : khalf + p0) / gs;
       const bool ok = h == 0 || is4;
@@ -254,15 +269,21 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
       continue;
     }
     // scales of this thread's 4 columns (block cb, parity p), both halves,
-    // each as a bf16 pair for the two k rows of a fragment register
+    // each as a bf16 pair for the two k rows of a fragment register: those
+    // of the step's rows r0 (FULL16: of its 16 rows from r0)
     __nv_bfloat162 sc[2][4];
+    auto load_scales = [&](int r0) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
-        sc[h][n] = __bfloat162bfloat162(ss[h * BNC + cb_col[n >> 1] + 2 * g + (n & 1)]);
+        for (int n = 0; n < 4; ++n)
+          sc[h][n] =
+              __bfloat162bfloat162(ss[(r0 + h) * BNC + cb_col[n >> 1] + 2 * g + (n & 1)]);
+    };
+    if constexpr (!G16) load_scales(0);
 #pragma unroll
     for (int kk = 0; kk < PK; kk += 16) {
+      if constexpr (G16) load_scales(kk / 8);
       uint32_t wr[4];
       if constexpr (MODE != NOUNPACK)
         ktt::ldsm_x4_t(wr, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + ld_col);
@@ -523,7 +544,7 @@ int gmm_launch_tm(const void* x, const void* row_src, const void* q, const void*
                   const void* tile_e, const void* tile_valid, void* out, int n_tiles, int K,
                   int N, int bits, int gs, long q_estride, long s_estride, int swiglu,
                   float limit, int gpt_oss, int tn, unsigned* sink, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes(TMR);
+  constexpr int bytes = smem_bytes(TMR, MODE);
   constexpr int cols = cta_cols(TMR);
   cudaError_t err = cudaFuncSetAttribute(gmm_kernel<TMR, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -536,22 +557,28 @@ int gmm_launch_tm(const void* x, const void* row_src, const void* q, const void*
   return (int)cudaGetLastError();
 }
 
-// K4 / K7 at tile heights of 64, 128, 256 or 512 rows.
+// K4 / K7 at tile heights of 64, 128, 256 or 512 rows; groups a multiple
+// of 32 rows (FULL) or of 16 (FULL16).
 extern "C" int gmm_launch(const void* x, const void* row_src, const void* q, const void* s,
                           const void* tile_e, const void* tile_valid, void* out, int n_tiles,
                           int tm, int K, int N, int bits, int gs, long q_estride,
                           long s_estride, int swiglu, float limit, int gpt_oss,
                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define GMM_TM(T)                                                                          \
-  if (tm == T)                                                                             \
-    return gmm_launch_tm<T, FULL>(x, row_src, q, s, tile_e, tile_valid, out, n_tiles, K, N, \
-                                  bits, gs, q_estride, s_estride, swiglu, limit, gpt_oss, 0, \
-                                  nullptr, st);
-  GMM_TM(64)
-  GMM_TM(128)
-  GMM_TM(256)
-  GMM_TM(512)
+  if (gs % 16 || K % gs) return (int)cudaErrorInvalidValue;
+#define GMM_TM(T, M)                                                                       \
+  if (tm == T && (M == FULL16) == (gs % 32 != 0))                                          \
+    return gmm_launch_tm<T, M>(x, row_src, q, s, tile_e, tile_valid, out, n_tiles, K, N,    \
+                               bits, gs, q_estride, s_estride, swiglu, limit, gpt_oss, 0,   \
+                               nullptr, st);
+  GMM_TM(64, FULL)
+  GMM_TM(128, FULL)
+  GMM_TM(256, FULL)
+  GMM_TM(512, FULL)
+  GMM_TM(64, FULL16)
+  GMM_TM(128, FULL16)
+  GMM_TM(256, FULL16)
+  GMM_TM(512, FULL16)
 #undef GMM_TM
   return (int)cudaErrorInvalidValue;
 }
@@ -566,6 +593,7 @@ extern "C" int gmm_probe_launch(const void* x, const void* row_src, const void* 
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   unsigned* sk = (unsigned*)sink;
+  if (gs % 32) return (int)cudaErrorInvalidValue;
 #define GMM_PROBE(T, M)                                                                     \
   if (tm == T && mode == M)                                                                 \
     return gmm_launch_tm<T, M>(x, row_src, q, s, tile_e, tile_valid, out, n_tiles, K, N, bits, \

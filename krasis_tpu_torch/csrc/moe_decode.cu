@@ -21,19 +21,7 @@
 // run to run. Stage 1 pairs each gate column with its up column inside the
 // CTA (lanes 0-15 gate, 16-31 up) so the activation needs no second pass.
 // (K3, the int8-activation form, has its own kernels: csrc/moe_w4a8.cu.)
-//
-// K6 — one gathered product per launch, for experts of any size:
-//   out[p, :] = x[p] · dequant(W[e[p]])  (gq_bf16_kernel), bf16 x,
-// to f32 [P, N], with picks whose valid[p] == 0 skipped: they read no
-// weight and write zeros, so the caller never sees stale memory.
-// Replaces: krasis_tpu/ops/moe_pallas.py gathered_qmm_pallas (_gq_kernel),
-// which moe_gathered_tiled composes with SwiGLU between two calls. There
-// the N axis is tiled because one expert does not fit the fast memory and
-// every step runs all P rows under a row mask; here a CTA owns one pick and
-// 128 columns and reads its one row. Numerics as K5's products (weights
-// dequantized in f32, rounded to bf16, f32 accumulation). Bound by bytes:
-// one expert's packed [K, N] block per pick. (K6a, its int8-activation
-// form, runs on K3's core: csrc/moe_w4a8.cu.)
+// (K6, the one gathered product with bf16 rows, runs on K1's core: csrc/qmm.cu.)
 #include "int4.cuh"
 
 namespace {
@@ -116,53 +104,7 @@ w2_bf16_kernel(const __nv_bfloat16* __restrict__ a_in, const int* __restrict__ i
   }
 }
 
-// The CTA's 128 columns: the warps' partials summed in warp order.
-__device__ __forceinline__ void sum_partials(const float acc[4], int warp, int lane,
-                                             float* __restrict__ o) {
-  __shared__ float red[WARPS][128];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) red[warp][lane * 4 + i] = acc[i];
-  __syncthreads();
-  if (threadIdx.x < 128) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) v += red[w][threadIdx.x];
-    o[threadIdx.x] = v;
-  }
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
-gq_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx,
-               const int* __restrict__ valid, const int8_t* __restrict__ q,
-               const __nv_bfloat16* __restrict__ s, float* __restrict__ out, int K, int N,
-               int bits, int gs, long q_estride, long s_estride) {
-  const int p = blockIdx.x;
-  float* o = out + (long)p * N + blockIdx.y * 128;
-  if (valid != nullptr && valid[p] == 0) {
-    if (threadIdx.x < 128) o[threadIdx.x] = 0.f;
-    return;
-  }
-  const int e = idx[p];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.y * 128 + lane * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  bf16_dots(x + (long)p * K, q + e * q_estride, s + e * s_estride, bits, K, N, gs, n, warp,
-            acc);
-  sum_partials(acc, warp, lane, o);
-}
-
 }  // namespace
-
-extern "C" int gathered_qmm_launch(const void* x, const void* idx, const void* valid,
-                                   const void* q, const void* s, void* out, int P, int K,
-                                   int N, int bits, int gs, long q_estride, long s_estride,
-                                   void* stream) {
-  dim3 grid(P, N / 128);
-  gq_bf16_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int*)idx, (const int*)valid, (const int8_t*)q,
-      (const __nv_bfloat16*)s, (float*)out, K, N, bits, gs, q_estride, s_estride);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int moe_w13_bf16_launch(const void* x, const void* idx, const void* q13,
                                    const void* s13, void* a_out, int P, int k, int H,

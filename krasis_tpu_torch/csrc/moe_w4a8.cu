@@ -61,6 +61,10 @@
 // scale is stored into every rank. After the cluster barrier each rank
 // holds whole int32 group dots of its columns and every scale, and only
 // then takes the f32 sums in group and pick order.
+// Groups of 16 rows (G16: a group size that is a multiple of 16 and not of
+// 32): each 16-row half of a unit lies in one group, and the unit's dot is
+// taken as two, one for each half (the other half's activations zero in
+// the mma), each added to its own group.
 //
 // K6a — the same core for the two-stage expert class, the experts too
 // large for the reference's fused kernel (ops/expert_class.py).
@@ -222,8 +226,9 @@ __device__ __forceinline__ int perm32(int w) {
 // u0 / nb), and the int32 dots
 // dpart[j][g][CR] of the CR columns the rank reduces, which every rank of
 // the cluster adds into. With SKIP, a pick j whose expert eidx[j] is -1
-// copies nothing and adds nothing.
-template <int BITS, int COLS, int STAGES, bool SKIP = false>
+// copies nothing and adds nothing. G16: groups of a multiple of 16 rows
+// that is not one of 32, so a unit's two 16-row halves are dotted apart.
+template <int BITS, int COLS, int STAGES, bool SKIP = false, bool G16 = false>
 struct Rank {
   static constexpr int PITCH = COLS + 16;  // bytes of a staged row: ldmatrix without conflicts
   static constexpr int CB = COLS / 16;     // 16-column blocks: the copies of a row
@@ -274,7 +279,9 @@ struct Rank {
       if constexpr (SKIP)
         if (!live(j)) continue;
       flags[j * G + r / gs] = 1;
+      if (G16) flags[j * G + (r + 16) / gs] = 1;
       if (BITS == 4) flags[j * G + (half + r) / gs] = 1;
+      if (BITS == 4 && G16) flags[j * G + (half + r + 16) / gs] = 1;
     }
   }
 
@@ -293,7 +300,8 @@ struct Rank {
       float mx = 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        v[i] = 32 * i < gs ? act(j, e0 + 32 * i + lane) : 0.f;
+        const bool in = G16 ? 32 * i + lane < gs : 32 * i < gs;
+        v[i] = in ? act(j, e0 + 32 * i + lane) : 0.f;
         mx = fmaxf(mx, fabsf(v[i]));
       }
       for (int i = 256 + lane; i < gs; i += 32) mx = fmaxf(mx, fabsf(act(j, e0 + i)));
@@ -307,7 +315,7 @@ struct Rank {
       };
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        if (32 * i < gs) put(e0 + 32 * i + lane, v[i]);
+        if (G16 ? 32 * i + lane < gs : 32 * i < gs) put(e0 + 32 * i + lane, v[i]);
       for (int i = 256 + lane; i < gs; i += 32) put(e0 + i, act(j, e0 + i));
     }
   }
@@ -346,7 +354,38 @@ struct Rank {
       const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
       const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
       int c[4] = {0, 0, 0, 0};
-      if constexpr (BITS == 8) {
+      if constexpr (G16) {
+        // the unit's rows r .. r + 15 (b0: positions 0-15) and r + 16 ..
+        // (b1), a dot each; int4: of both nibbles' rows
+        int c1[4] = {0, 0, 0, 0};
+        if constexpr (BITS == 8) {
+          mma_s8(c, w, b0, 0u);
+          mma_s8(c1, w, 0u, b1);
+          if (t < 2) {
+            red_add_cluster(out + 4 * (j * G + r / gs) * CR, t ? c[2] : c[0]);
+            red_add_cluster(out + 4 * (j * G + (r + 16) / gs) * CR, t ? c1[2] : c1[0]);
+          }
+        } else {
+          uint32_t lo[4], hi[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            lo[i] = (w[i] << 4) & 0xF0F0F0F0u;
+            hi[i] = w[i] & 0xF0F0F0F0u;
+          }
+          const uint32_t h0 = *reinterpret_cast<const uint32_t*>(xr + half);
+          const uint32_t h1 = *reinterpret_cast<const uint32_t*>(xr + half + 16);
+          int ch[4] = {0, 0, 0, 0}, ch1[4] = {0, 0, 0, 0};
+          mma_s8(c, lo, b0, 0u);
+          mma_s8(c1, lo, 0u, b1);
+          mma_s8(ch, hi, h0, 0u);
+          mma_s8(ch1, hi, 0u, h1);
+          const int d0 = t == 0 ? c[0] : t == 1 ? c[2] : t == 2 ? ch[0] : ch[2];
+          const int d1 = t == 0 ? c1[0] : t == 1 ? c1[2] : t == 2 ? ch1[0] : ch1[2];
+          const int rb = (t < 2 ? 0 : half) + r;
+          red_add_cluster(out + 4 * (j * G + rb / gs) * CR, d0 >> 4);
+          red_add_cluster(out + 4 * (j * G + (rb + 16) / gs) * CR, d1 >> 4);
+        }
+      } else if constexpr (BITS == 8) {
         mma_s8(c, w, b0, b1);
         if (t < 2) red_add_cluster(out + 4 * (j * G + r / gs) * CR, t ? c[2] : c[0]);
       } else {
@@ -377,7 +416,7 @@ struct Rank {
 // dpart holds whole int32 group dots of its columns and no rank touches
 // another's shared memory. VALID (K6a): a skipped pick's stage-1 cluster
 // returns at once (its ranks share the pick), and stage 2 leaves the pick out.
-template <int BITS, int COLS, bool VALID>
+template <int BITS, int COLS, bool VALID, bool G16>
 __device__ __forceinline__ void stage1_body(const Args& A) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int NA = COLS / 2;  // a columns of a tile: NA gate + NA up weight columns
@@ -390,10 +429,10 @@ __device__ __forceinline__ void stage1_body(const Args& A) {
   const int nb = (BITS == 4 ? H / 2 : H) / UNIT;
   const int cra = NA / ks;  // a columns this rank reduces: its dpart holds gate, then up
   const Layout L = layout(STAGES1, COLS, 1, G, H, COLS / ks, 1, 2 * H);
-  Rank<BITS, COLS, STAGES1> R{smem, (int*)(smem + L.dpart), (float*)(smem + L.scl),
-                              (int8_t*)(smem + L.xperm), smem + L.flags,
-                              (int)((long)nb * z / ks), (int)((long)nb * (z + 1) / ks),
-                              nb, H, gs, G, BITS == 4 ? H / 2 : 0, ks, 2 * cra, 0};
+  Rank<BITS, COLS, STAGES1, false, G16> R{
+      smem, (int*)(smem + L.dpart), (float*)(smem + L.scl), (int8_t*)(smem + L.xperm),
+      smem + L.flags, (int)((long)nb * z / ks), (int)((long)nb * (z + 1) / ks), nb, H, gs, G,
+      BITS == 4 ? H / 2 : 0, ks, 2 * cra, 0};
   const int e = A.idx[p];
   const int8_t* q = A.q13 + e * A.q13_es;
   const __nv_bfloat16* s = A.s13 + e * A.s13_es;
@@ -446,7 +485,7 @@ __device__ __forceinline__ void stage1_body(const Args& A) {
         ktt::mlp_act(hbuf[c], hbuf[cra + c], A.limit, A.gpt_oss != 0);
 }
 
-template <int BITS, int COLS, bool VALID>
+template <int BITS, int COLS, bool VALID, bool G16>
 __device__ __forceinline__ void stage2_body(const Args& A) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ks = gridDim.z, z = blockIdx.z;
@@ -459,7 +498,7 @@ __device__ __forceinline__ void stage2_body(const Args& A) {
   const Layout L = layout(STAGES2, COLS, k, G, I, cr, np, np * I * 4);
   const int u0 = (int)((long)U * z / ks), u1 = (int)((long)U * (z + 1) / ks);
   int* eidx = (int*)(smem + L.eidx);  // the picks' experts; -1: skipped (VALID)
-  Rank<BITS, COLS, STAGES2, VALID> R{smem, (int*)(smem + L.dpart), (float*)(smem + L.scl),
+  Rank<BITS, COLS, STAGES2, VALID, G16> R{smem, (int*)(smem + L.dpart), (float*)(smem + L.scl),
                                      (int8_t*)(smem + L.xperm), smem + L.flags, u0, u1,
                                      nb, I, gs, G, BITS == 4 ? I / 2 : 0, ks, cr, u0 / nb,
                                      eidx};
@@ -520,22 +559,23 @@ __device__ __forceinline__ void stage2_body(const Args& A) {
   }
 }
 
-// K3's kernels and K6a's, under their own names for the profiler.
-template <int BITS, int COLS>
+// K3's kernels and K6a's, under their own names for the profiler; G16 for
+// groups of a multiple of 16 rows that is not one of 32.
+template <int BITS, int COLS, bool G16>
 __global__ void __launch_bounds__(THREADS) w4a8_stage1_kernel(Args A) {
-  stage1_body<BITS, COLS, false>(A);
+  stage1_body<BITS, COLS, false, G16>(A);
 }
-template <int BITS, int COLS>
+template <int BITS, int COLS, bool G16>
 __global__ void __launch_bounds__(THREADS, 5) w4a8_stage2_kernel(Args A) {
-  stage2_body<BITS, COLS, false>(A);
+  stage2_body<BITS, COLS, false, G16>(A);
 }
-template <int BITS, int COLS>
+template <int BITS, int COLS, bool G16>
 __global__ void __launch_bounds__(THREADS) gq_a8_stage1_kernel(Args A) {
-  stage1_body<BITS, COLS, true>(A);
+  stage1_body<BITS, COLS, true, G16>(A);
 }
-template <int BITS, int COLS>
+template <int BITS, int COLS, bool G16>
 __global__ void __launch_bounds__(THREADS, 5) gq_a8_stage2_kernel(Args A) {
-  stage2_body<BITS, COLS, true>(A);
+  stage2_body<BITS, COLS, true, G16>(A);
 }
 
 // K6a's product form, stage 1's copies and products on rows given as int8:
@@ -637,19 +677,19 @@ int smem_bytes(int stage, int bits, int cols, int ks, int k, int H, int I, int g
   return layout(STAGES2, cols, k, I / gs, I, cols / ks, np, np * I * 4).total;
 }
 
-template <int BITS, int COLS, bool K6A>
+template <int BITS, int COLS, bool K6A, bool G16>
 int stage1(const Args& A, int ks, cudaStream_t st) {
   const int smem = smem_bytes(1, BITS, COLS, ks, A.k, A.H, A.I, A.gs13);
   static bool configured = false;
-  return launch(K6A ? gq_a8_stage1_kernel<BITS, COLS> : w4a8_stage1_kernel<BITS, COLS>,
+  return launch(K6A ? gq_a8_stage1_kernel<BITS, COLS, G16> : w4a8_stage1_kernel<BITS, COLS, G16>,
                 configured, A, dim3(A.I / (COLS / 2), A.T * A.k, ks), ks, smem, false, st);
 }
 
-template <int BITS, int COLS, bool K6A>
+template <int BITS, int COLS, bool K6A, bool G16>
 int stage2(const Args& A, int ks, cudaStream_t st) {
   const int smem = smem_bytes(2, BITS, COLS, ks, A.k, A.H, A.I, A.gs2);
   static bool configured = false;
-  return launch(K6A ? gq_a8_stage2_kernel<BITS, COLS> : w4a8_stage2_kernel<BITS, COLS>,
+  return launch(K6A ? gq_a8_stage2_kernel<BITS, COLS, G16> : w4a8_stage2_kernel<BITS, COLS, G16>,
                 configured, A, dim3(A.H / COLS, A.T, ks), ks, smem, true, st);
 }
 
@@ -662,18 +702,33 @@ int product(const Prod& A, int P, int ks, cudaStream_t st) {
 }
 
 // The instance of each launcher for `cols` (32, 64 or 128 columns a CTA).
-template <int BITS, bool K6A>
+template <int BITS, bool K6A, bool G16>
 int stage1_cols(const Args& A, int cols, int ks, cudaStream_t st) {
-  return cols == 128 ? stage1<BITS, 128, K6A>(A, ks, st)
-         : cols == 64 ? stage1<BITS, 64, K6A>(A, ks, st)
-                      : stage1<BITS, 32, K6A>(A, ks, st);
+  return cols == 128 ? stage1<BITS, 128, K6A, G16>(A, ks, st)
+         : cols == 64 ? stage1<BITS, 64, K6A, G16>(A, ks, st)
+                      : stage1<BITS, 32, K6A, G16>(A, ks, st);
 }
 
-template <int BITS, bool K6A>
+template <int BITS, bool K6A, bool G16>
 int stage2_cols(const Args& A, int cols, int ks, cudaStream_t st) {
-  return cols == 128 ? stage2<BITS, 128, K6A>(A, ks, st)
-         : cols == 64 ? stage2<BITS, 64, K6A>(A, ks, st)
-                      : stage2<BITS, 32, K6A>(A, ks, st);
+  return cols == 128 ? stage2<BITS, 128, K6A, G16>(A, ks, st)
+         : cols == 64 ? stage2<BITS, 64, K6A, G16>(A, ks, st)
+                      : stage2<BITS, 32, K6A, G16>(A, ks, st);
+}
+
+// ... and for the stage's bits and group size
+template <bool K6A>
+int stage1_any(const Args& A, int bits, int cols, int ks, cudaStream_t st) {
+  const bool g16 = A.gs13 % UNIT != 0;
+  return bits == 4 ? (g16 ? stage1_cols<4, K6A, true> : stage1_cols<4, K6A, false>)(A, cols, ks, st)
+                   : (g16 ? stage1_cols<8, K6A, true> : stage1_cols<8, K6A, false>)(A, cols, ks, st);
+}
+
+template <bool K6A>
+int stage2_any(const Args& A, int bits, int cols, int ks, cudaStream_t st) {
+  const bool g16 = A.gs2 % UNIT != 0;
+  return bits == 4 ? (g16 ? stage2_cols<4, K6A, true> : stage2_cols<4, K6A, false>)(A, cols, ks, st)
+                   : (g16 ? stage2_cols<8, K6A, true> : stage2_cols<8, K6A, false>)(A, cols, ks, st);
 }
 
 template <int BITS>
@@ -696,7 +751,7 @@ int two_stages(const void* x, long x_stride, const void* idx, const void* wt, co
                int bits13, int bits2, int gs13, int gs2, int cols1, int ks1, int cols2, int ks2,
                float limit, int gpt_oss, const void* valid, void* stream) {
   if (T < 1 || k < 1 || (bits13 != 4 && bits13 != 8) || (bits2 != 4 && bits2 != 8) ||
-      gs13 % UNIT || gs2 % UNIT || H % gs13 || I % gs2 || H % 64 || I % 64 ||
+      gs13 % 16 || gs2 % 16 || H % gs13 || I % gs2 || H % 64 || I % 64 ||
       I % (cols1 / 2) || H % cols2 || T > 65535 || T * k > 65535)
     return (int)cudaErrorInvalidValue;
   const int nb13 = (bits13 == 4 ? H / 2 : H) / UNIT, nb2 = (bits2 == 4 ? I / 2 : I) / UNIT;
@@ -709,10 +764,9 @@ int two_stages(const void* x, long x_stride, const void* idx, const void* wt, co
          (float*)a, (__nv_bfloat16*)out, T, k, H, I, gs13, gs2, limit, gpt_oss,
          (const int*)valid};
   cudaStream_t st = (cudaStream_t)stream;
-  int err = bits13 == 4 ? stage1_cols<4, K6A>(A, cols1, ks1, st)
-                        : stage1_cols<8, K6A>(A, cols1, ks1, st);
+  const int err = stage1_any<K6A>(A, bits13, cols1, ks1, st);
   if (err) return err;
-  return bits2 == 4 ? stage2_cols<4, K6A>(A, cols2, ks2, st) : stage2_cols<8, K6A>(A, cols2, ks2, st);
+  return stage2_any<K6A>(A, bits2, cols2, ks2, st);
 }
 
 }  // namespace

@@ -51,6 +51,20 @@
 //    shared memory and writes out[T, N] in the output type. The sum's order
 //    is fixed, so the result is the same bits from run to run, and a call
 //    is one launch.
+//
+// K6, the gathered entry (gathered_qmm_launch), is the same kernel once per
+// pick: out[p] = x[p] (bf16) @ dequant(W[idx[p]]) in f32 for P picks, each
+// pick one row of x (the TT = 1 instance) against the expert idx[p] of a
+// [E, K(/2), N] stack, read in place as K1s reads a layer (the expert id is
+// read on the device and taken as the layer). The grid is (column tiles,
+// picks, K splits). A pick with valid[p] == 0 reads no weight: the CTAs
+// of its cluster write zeros over their share of the columns and leave.
+// Replaces: krasis_tpu/ops/moe_pallas.py gathered_qmm_pallas (_gq_kernel),
+// which moe_gathered_tiled composes with the activation between two calls.
+// Bound by the bytes of the picked experts' packed weights and scales,
+// like K1; what the TPU kernel did with N tiles of an expert that did not
+// fit its fast memory, K1's column tiles and split K do here, and the
+// partial last column tile (N % 128, e.g. GPT-OSS's 2880) is K1's own.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -102,16 +116,31 @@ __device__ __forceinline__ void store1(__nv_bfloat16* o, float a) { *o = __float
 
 // TT: T rounded up to 1, 2, 4, 8 or 16. Packed rows [r0, r1) of split z
 // are units [z * units / ks, (z + 1) * units / ks) of `unit` rows each.
-template <int TT, int BITS, typename OT>
+// GATHER: the K6 form, one pick a blockIdx.y (x's row p, out's row p, the
+// layer idx[p]); the trailing idx and valid are read only there.
+template <int TT, int BITS, typename OT, bool GATHER>
 __global__ void __launch_bounds__(THREADS)
 qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
            const __nv_bfloat16* __restrict__ s, OT* __restrict__ out, int T, int K, int N,
            int gs, int unit, int ks, int pk, long q_lstride, long s_lstride, int layer,
-           int x_vec) {
+           int x_vec, const int* __restrict__ idx, const int* __restrict__ valid) {
   constexpr bool IS4 = BITS == 4;
   constexpr int HALVES = IS4 ? 2 : 1;
   constexpr int NT = TT > 8 ? 2 : 1;  // n8 tiles of x rows
   extern __shared__ __align__(128) unsigned char smem[];
+  if constexpr (GATHER) {
+    const int p = blockIdx.y;
+    x += (long)p * K;
+    out += (long)p * N;
+    if (valid != nullptr && valid[p] == 0) {
+      // the whole cluster leaves here; rank z zeroes its share of the tile
+      const int cw = NC / ks, c0 = blockIdx.x * NC + (int)blockIdx.z * cw;
+      for (int c = threadIdx.x; c < cw; c += THREADS)
+        if (c0 + c < N) store1(out + c0 + c, 0.f);
+      return;
+    }
+    layer = idx[p];
+  }
   q += layer * q_lstride;
   s += layer * s_lstride;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -326,11 +355,13 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   cluster.sync();  // no CTA leaves while another reads its partial
 }
 
-template <int TT, int BITS, typename OT>
+// picks: the grid's y (1 for K1 / K1s); idx / valid: the K6 form's.
+template <int TT, int BITS, typename OT, bool GATHER = false>
 int launch(const void* x, const void* q, const void* s, void* out, int T, int K, int N, int gs,
            int unit, int ks, int pk, long q_lstride, long s_lstride, int layer, int x_vec,
-           cudaStream_t stream) {
-  auto kern = qmm_kernel<TT, BITS, OT>;
+           cudaStream_t stream, int picks = 1, const int* idx = nullptr,
+           const int* valid = nullptr) {
+  auto kern = qmm_kernel<TT, BITS, OT, GATHER>;
   constexpr int HALVES = BITS == 4 ? 2 : 1;
   static bool configured = false;  // the largest ring a block may take
   if (!configured) {
@@ -343,7 +374,7 @@ int launch(const void* x, const void* q, const void* s, void* out, int T, int K,
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem < TT * NC * 4) smem = TT * NC * 4;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + NC - 1) / NC, 1, ks);
+  cfg.gridDim = dim3((N + NC - 1) / NC, picks, ks);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -356,7 +387,7 @@ int launch(const void* x, const void* q, const void* s, void* out, int T, int K,
   cfg.numAttrs = ks > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, (const __nv_bfloat16*)x, (const int8_t*)q, (const __nv_bfloat16*)s, (OT*)out,
-      T, K, N, gs, unit, ks, pk, q_lstride, s_lstride, layer, x_vec);
+      T, K, N, gs, unit, ks, pk, q_lstride, s_lstride, layer, x_vec, idx, valid);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -402,4 +433,26 @@ extern "C" int qmm_launch(const void* x, const void* q, const void* s, void* out
                         s_lstride, layer, x_vec, st);
   return launch_tt<16>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, q_lstride,
                        s_lstride, layer, x_vec, st);
+}
+
+// K6: out[P, N] (f32) with out[p] = x[p] @ dequant(expert idx[p] of the
+// [E, K(/2), N] q and [E, K/gs, N] scales stacks, whose experts lie
+// q_estride and s_estride elements apart); rows with valid[p] == 0 (valid
+// may be null) are zeros. The plan (ops/qmm_cuda.py plan with picks = P)
+// gives unit, ks and pk as for K1. One launch; returns the cudaError_t.
+extern "C" int gathered_qmm_launch(const void* x, const void* idx, const void* valid,
+                                   const void* q, const void* s, void* out, int P, int K, int N,
+                                   int bits, int gs, int unit, int ks, int pk, long q_estride,
+                                   long s_estride, int x_vec, void* stream) {
+  if (P < 1 || P > 65535 || (bits != 4 && bits != 8) || ks < 1 || ks > 8 || pk % 32 ||
+      pk > 128)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* ix = (const int*)idx;
+  const int* v = (const int*)valid;
+  if (bits == 4)
+    return launch<1, 4, float, true>(x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride,
+                                     s_estride, 0, x_vec, st, P, ix, v);
+  return launch<1, 8, float, true>(x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride,
+                                   s_estride, 0, x_vec, st, P, ix, v);
 }

@@ -11,6 +11,18 @@ rule that gives a model the same rounding points in both packages, and
 the port keeps them at the reference's values. Moving the boundary on
 measurements of this card would be a recorded departure from the
 reference's bf16 numerics.
+
+The predicates here are the reference's, copied: they decide the numeric
+form of a call (``ops/moe.py`` ``route``), and each form the reference
+runs on its kernels runs on the port's (whose wrappers raise on the card
+for stacks they do not take). One departure in dispatch,
+with the same function: the reference sends biased experts (GPT-OSS) and
+stacks its gathered kernels decline to the plain ``moe_forward_gathered``
+(bf16 rows, h rounded to bf16, + the bf16 w13 bias, the activation, + the
+f32 w2 bias); the port runs that form on K6's two launches with the biases
+added between them, at the same rounding points, wherever K6 takes both
+stacks — also under ``expert_activation="int8"``, as the reference's form
+has bf16 rows there too.
 """
 
 from __future__ import annotations
@@ -42,6 +54,21 @@ def decode_fused_int8(w13: QTensor, w2: QTensor) -> bool:
     """``moe_pallas.w4a8_supported``: the fused class with group-aligned K."""
     return (decode_fused(w13, w2) and w13.k_dim % w13.group_size == 0
             and w2.k_dim % w13.group_size == 0)
+
+
+def gathered(w) -> bool:
+    """The reference's ``moe_pallas.gathered_qmm_supported``: a quantized
+    stack whose width is whole 128-lane tiles takes the two-stage gathered
+    form in decode and the grouped kernels in prefill. Its bound on the
+    bytes of one tile is a limit of the TPU's fast memory that no model of
+    the repository reaches; it is not carried over."""
+    return isinstance(w, QTensor) and w.q.dim() in (3, 4) and w.n_dim % 128 == 0
+
+
+def gathered_int8(w) -> bool:
+    """``moe_pallas.gathered_qmm_a8_supported``: the same with K a whole
+    number of activation groups."""
+    return gathered(w) and w.k_dim % w.group_size == 0 and w.bits in (4, 8)
 
 
 def prefill_fused(w13: QTensor, w2: QTensor) -> bool:

@@ -217,11 +217,12 @@ def _check_rows(name: str, x: torch.Tensor, row_src: Optional[torch.Tensor], w: 
 
 
 def gmm_supported(w: QTensor) -> bool:
-    """Stacks gmm_kernel takes: a step is 32 packed rows within one scale
-    group (for int4 both halves: K/2 a multiple of 32), columns in 16-byte
-    blocks."""
+    """Stacks gmm_kernel takes: a step is 32 packed rows (for int4 both
+    halves: K/2 a multiple of 32) whose 16-row halves each lie in one scale
+    group (groups of a multiple of 16 rows; below 32 the kernel's FULL16
+    form stages a scale row per half), columns in 16-byte blocks."""
     packed = w.k_dim // 2 if w.bits == 4 else w.k_dim
-    return (w.bits in (4, 8) and packed % 32 == 0 and w.group_size % 32 == 0
+    return (w.bits in (4, 8) and packed % 32 == 0 and w.group_size % 16 == 0
             and w.k_dim % w.group_size == 0 and w.n_dim % 16 == 0)
 
 
@@ -326,7 +327,8 @@ def gmm_probe(x: torch.Tensor, w: QTensor, plan: TilePlan, mode: str,
     K, N, tm = w.k_dim, w.n_dim, plan.tm
     tn = pick_tile(N)
     if (mode not in PROBE_MODES or tm not in (TILE_HEIGHTS[1:] if mode == "v2" else (TM_LARGE,))
-            or (mode == "copy" and tn > K) or not gmm_supported(w) or N % cta_cols(tm)):
+            or (mode == "copy" and tn > K) or not gmm_supported(w) or w.group_size % 32
+            or N % cta_cols(tm)):
         raise ValueError(f"gmm_probe: mode {mode!r} at {tm}-row tiles, stack "
                          f"{tuple(w.q.shape)}, bits {w.bits}, group {w.group_size}")
     _check_rows("gmm_probe", x, row_src, w, plan, torch.bfloat16)

@@ -1,13 +1,27 @@
 """MoE expert forward and the dense MLP.
 
-``moe_forward`` dispatches as the reference's (``krasis_tpu/ops/moe.py``):
-first by batch size (``use_grouped_path``): many rows take a grouped form
-with bf16 activations, few rows a gathered one; then by the size of one
-expert (``ops/expert_class.py``): the fused kernels (K4; K3 under
-``expert_activation="int8"``, K5 under ``"bf16"``) or their two-stage forms
-(K7; K6a, K6) with SwiGLU between the launches. Biased experts and stacks
-the kernels decline take ``moe_forward_ragged`` / ``moe_forward_gathered``,
-plain PyTorch as they are plain XLA in the reference.
+``moe_forward`` decides a call's numeric form with the reference's own
+predicates (``krasis_tpu/ops/moe.py`` ``moe_forward``, copied in
+``route``): by batch size (``use_grouped_path``) the grouped regime (bf16
+rows) or the gathered one; then biases, the reference's gathered-kernel
+predicate (``expert_class.gathered``), the expert class
+(``ops/expert_class.py``) and ``activation``. A form the reference runs on
+its Pallas kernels runs on the port's kernels: grouped on K4 / K7
+(``gmm_cuda.moe_prefill``), fused int8 on K3, two-stage int8 on K6a,
+fused bf16 on K5, two-stage bf16 on K6 twice. Their wrappers run the plain
+versions for tensors on the CPU and raise on the card for stacks their
+kernels do not take; every stack of these forms that the reference's
+predicates admit at groups of a multiple of 16 rows is taken.
+
+Biased experts and stacks the reference's kernels decline take the
+reference's plain forms: ``moe_forward_ragged`` in the grouped regime
+(form "ragged"), and in the gathered one ``moe_forward_gathered``. The
+port runs the latter on K6's two launches with the biases added between
+them wherever K6 takes both stacks (form "gathered": a departure in
+dispatch with the same rounding points: bf16 rows, h rounded to bf16,
++ the bf16 w13 bias, the activation, + the f32 w2 bias), else as it is
+(form "gathered_plain"). ``plain_routes`` counts the calls of the two
+plain forms.
 """
 
 from __future__ import annotations
@@ -103,6 +117,39 @@ def moe_forward_gathered(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
     return out.to(x.dtype)
 
 
+# moe_forward calls of each plain form since the caller last set them to 0
+plain_routes = {"ragged": 0, "gathered_plain": 0}
+
+
+def route(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor, biased: bool,
+          activation: str = "bf16") -> str:
+    """The form of a call, from predicates alone, before anything is
+    launched: "grouped" (K4 / K7), "fused_int8" (K3), "tiled_int8" (K6a),
+    "fused_bf16" (K5), "tiled_bf16" (K6 twice), "gathered" (K6 twice with
+    the biases), or one of the plain forms "ragged" (``moe_forward_ragged``)
+    and "gathered_plain" (``moe_forward_gathered``)."""
+    T, k = x.shape[0], topk_idx.shape[-1]
+    quant = isinstance(w13, QTensor) and isinstance(w2, QTensor)
+    E = w13.q.shape[0] if isinstance(w13, QTensor) else w13.shape[0]
+    ref = not biased and quant and expert_class.gathered(w13) and expert_class.gathered(w2)
+    if use_grouped_path(T, k, E):
+        return "grouped" if ref else "ragged"
+    if not biased and quant:
+        if activation == "int8":
+            if expert_class.decode_fused_int8(w13, w2):
+                return "fused_int8"
+            if expert_class.gathered_int8(w13) and expert_class.gathered_int8(w2):
+                return "tiled_int8"
+        if expert_class.decode_fused(w13, w2):
+            return "fused_bf16"
+        if ref:
+            return "tiled_bf16"
+    if (quant and x.dtype == torch.bfloat16 and moe_cuda.gathered_qmm_supported(w13)
+            and moe_cuda.gathered_qmm_supported(w2)):
+        return "gathered"
+    return "gathered_plain"
+
+
 def moe_forward(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
                 topk_weights: torch.Tensor, swiglu_limit: float = 0.0,
                 gpt_oss: bool = False, w13_bias: Optional[torch.Tensor] = None,
@@ -116,36 +163,24 @@ def moe_forward(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
     two-stage forms also skip its work."""
     if activation not in ("bf16", "int8"):
         raise ValueError(f"unknown expert activation {activation!r}")
-    T = x.shape[0]
-    k = topk_idx.shape[-1]
-    E = w13.q.shape[0] if isinstance(w13, QTensor) else w13.shape[0]
-    plain = dict(swiglu_limit=swiglu_limit, gpt_oss=gpt_oss, w13_bias=w13_bias,
-                 w2_bias=w2_bias)
-    kernels = (w13_bias is None and w2_bias is None and isinstance(w13, QTensor)
-               and isinstance(w2, QTensor) and moe_cuda.gathered_qmm_supported(w13)
-               and moe_cuda.gathered_qmm_supported(w2))
-    if use_grouped_path(T, k, E):
-        if kernels:
-            # the grouped regime runs bf16 activations whatever `activation`
-            # says; its int8 form stays an A/B entry of moe_prefill
-            return gmm_cuda.moe_prefill(x, w13, w2, topk_idx, topk_weights,
-                                        swiglu_limit, gpt_oss, pick_valid)
-        return moe_forward_ragged(x, w13, w2, topk_idx, topk_weights, **plain)
-    if kernels:
-        if activation == "int8":
-            if expert_class.decode_fused_int8(w13, w2):
-                return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights,
-                                         swiglu_limit, gpt_oss)
-            if (moe_cuda.gathered_qmm_a8_supported(w13)
-                    and moe_cuda.gathered_qmm_a8_supported(w2)):
-                return moe_cuda.moe_gathered_tiled(x, w13, w2, topk_idx, topk_weights,
-                                                   swiglu_limit, gpt_oss, pick_valid, "int8")
-        if expert_class.decode_fused(w13, w2):
-            return moe_cuda.moe_bf16(x, w13, w2, topk_idx, topk_weights,
-                                     swiglu_limit, gpt_oss)
-        return moe_cuda.moe_gathered_tiled(x, w13, w2, topk_idx, topk_weights,
-                                           swiglu_limit, gpt_oss, pick_valid)
-    return moe_forward_gathered(x, w13, w2, topk_idx, topk_weights, **plain)
+    form = route(x, w13, w2, topk_idx, w13_bias is not None or w2_bias is not None, activation)
+    act = (swiglu_limit, gpt_oss)
+    bias = dict(w13_bias=w13_bias, w2_bias=w2_bias)
+    if form in plain_routes:
+        plain_routes[form] += 1
+        fn = moe_forward_ragged if form == "ragged" else moe_forward_gathered
+        return fn(x, w13, w2, topk_idx, topk_weights, *act, **bias)
+    if form == "grouped":
+        # the grouped regime runs bf16 activations whatever `activation`
+        # says; its int8 form stays an A/B entry of moe_prefill
+        return gmm_cuda.moe_prefill(x, w13, w2, topk_idx, topk_weights, *act, pick_valid)
+    if form == "fused_int8":
+        return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights, *act)
+    if form == "fused_bf16":
+        return moe_cuda.moe_bf16(x, w13, w2, topk_idx, topk_weights, *act)
+    # "tiled_int8", "tiled_bf16", and "gathered" on K6 with the biases
+    return moe_cuda.moe_gathered_tiled(x, w13, w2, topk_idx, topk_weights, *act, pick_valid,
+                                       "int8" if form == "tiled_int8" else "bf16", **bias)
 
 
 def mlp_forward(x: torch.Tensor, w13: Weight, w2: Weight, swiglu_limit: float = 0.0,

@@ -5,10 +5,12 @@
 expert MLP of a token's picks in two launches, cut as ``plan_w4a8`` says.
 ``moe_bf16`` (K5, bf16 activations, ``csrc/moe_decode.cu``) replaces
 ``moe_gathered_pallas``: two CUDA stages, the picks summed in PyTorch.
-``gathered_qmm`` (K6, ``csrc/moe_decode.cu``) replaces
-``gathered_qmm_pallas``: one gathered product per launch, which
-``moe_gathered_tiled`` composes with SwiGLU between for the experts the
-fused kernels do not take (``ops/expert_class.py``). K6a replaces
+``gathered_qmm`` (K6) replaces ``gathered_qmm_pallas`` on K1's core
+(``csrc/qmm.cu``, planned by ``qmm_cuda.plan`` with a pick per grid row):
+one gathered product per launch, which ``moe_gathered_tiled`` composes with
+the activation between for the experts the fused kernels do not take
+(``ops/expert_class.py``), and with the biases of GPT-OSS's experts at the
+plain gathered path's rounding points. K6a replaces
 ``gathered_qmm_a8_pallas`` on K3's core (``csrc/moe_w4a8.cu``): the int8
 chain ``moe_gathered_tiled(activation="int8")`` in K3's two launches with
 pick_valid, and the one product ``gathered_qmm_a8`` in one launch of its
@@ -27,10 +29,12 @@ import torch
 
 from .. import build
 from ..quant import QTensor, dequantize, unpack
+from . import expert_class, qmm_cuda
 from .activations import swiglu
 
 SOURCE = "krasis_tpu_torch/csrc/moe_decode.cu"
 SOURCE_W4A8 = "krasis_tpu_torch/csrc/moe_w4a8.cu"
+SOURCE_GQ = qmm_cuda.SOURCE                                   # K6, on K1's core
 REPLACES = "krasis_tpu/ops/moe_pallas.py:391"
 REPLACES_BF16 = "krasis_tpu/ops/moe_pallas.py:226"
 REPLACES_GQ = "krasis_tpu/ops/moe_pallas.py:517"
@@ -125,6 +129,7 @@ def moe_bf16_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
 
 
 UNIT = 32             # packed rows of a K3 unit
+GROUP_ROWS = 16       # K3's groups are whole 16-row halves of a unit
 K3_COLS = (128, 64, 32)   # weight columns a K3 CTA may stream, widest first
 MAX_SPLITS = 8        # the portable thread-block cluster size
 SMS = 132             # the H100's streaming multiprocessors
@@ -219,9 +224,9 @@ def plan_w4a8(T: int, k: int, H: int, I: int, bits: int, gs13: int, gs2: int,
     (``moe_w4a8_smem``), the CPU tests take ``k3_smem``, which the card
     tests hold equal to it."""
     bits2 = bits if bits2 is None else bits2
-    if bits not in (4, 8) or bits2 not in (4, 8) or gs13 % UNIT or gs2 % UNIT:
+    if bits not in (4, 8) or bits2 not in (4, 8) or gs13 % GROUP_ROWS or gs2 % GROUP_ROWS:
         raise ValueError(f"moe_w4a8: bits {bits}/{bits2}, groups {gs13}/{gs2}: K3 takes int4 "
-                         f"or int8 and groups of a multiple of {UNIT} rows")
+                         f"or int8 and groups of a multiple of {GROUP_ROWS} rows")
     if H % 64 or I % 64 or H % gs13 or I % gs2:
         raise ValueError(f"moe_w4a8: H {H}, I {I}, groups {gs13}/{gs2}")
     u13 = (H // 2 if bits == 4 else H) // UNIT
@@ -303,18 +308,22 @@ def _fns():
 
 
 def supported(w13: QTensor, w2: QTensor) -> bool:
+    """K5's stacks: int4 / int8 w13 [E, H(/2), 2I] and w2 [E, I(/2), H] in
+    64-column blocks, K a whole number of groups of any size (each row
+    reads its own group's scale)."""
     H, N13 = w13.k_dim, w13.n_dim
     I, H2 = w2.k_dim, w2.n_dim
-    gs13, gs2 = w13.group_size, w2.group_size
     return (H == H2 and N13 == 2 * I and w13.bits in (4, 8) and w2.bits in (4, 8)
-            and I % 64 == 0 and H % 128 == 0 and H % gs13 == 0 and I % gs2 == 0
-            and gs13 % 4 == 0 and gs2 % 32 == 0)
+            and I % 64 == 0 and H % 128 == 0 and H % w13.group_size == 0
+            and I % w2.group_size == 0)
 
 
 def w4a8_supported(w13: QTensor, w2: QTensor) -> bool:
-    """K3's stacks: those of ``supported`` whose w13 groups are whole
-    32-row units too (every model of the repository: 32 or 128)."""
-    return supported(w13, w2) and w13.group_size % UNIT == 0
+    """K3's stacks, and K6a's chain's: those of ``supported`` whose groups
+    are whole 16-row halves of a 32-row unit (every model of the
+    repository: 32 or 128; groups of 16 take the kernels' G16 form)."""
+    return (supported(w13, w2) and w13.group_size % GROUP_ROWS == 0
+            and w2.group_size % GROUP_ROWS == 0)
 
 
 def _check(name: str, x: torch.Tensor, w13: QTensor, w2: QTensor, ok: bool) -> None:
@@ -412,18 +421,29 @@ def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
 
 
 def gathered_qmm_supported(w: QTensor) -> bool:
-    """Stacks K6 takes: int4 / int8 experts whose width fills whole
-    128-column blocks. The reference's extra bound on K·tile bytes
-    (``moe_pallas.gathered_qmm_supported``) is a limit of its fast memory
-    that no supported model reaches; it is not carried over."""
-    return (isinstance(w, QTensor) and w.q.dim() == 3 and w.bits in (4, 8)
-            and w.n_dim % 128 == 0)
+    """Stacks K6 takes on K1's core: int4 / int8 experts [E, K(/2), N] with
+    K a whole number of groups, N % 4 == 0 (the last column tile may be
+    partial), int8 storage and bf16 scales, contiguous on 4-byte
+    boundaries, as K1 checks a weight. A k pair of an mma fragment shares
+    one scale, so groups are even and, for int4, K/2 is too."""
+    if not (isinstance(w, QTensor) and w.q.dim() == 3 and w.bits in (4, 8)):
+        return False
+    K, N, gs = w.k_dim, w.n_dim, w.group_size
+    return (K % gs == 0 and gs % 2 == 0 and N % 4 == 0 and (w.bits == 8 or K % 4 == 0)
+            and w.q.dtype == torch.int8 and w.scales.dtype == torch.bfloat16
+            and w.q.is_contiguous() and w.scales.is_contiguous()
+            and w.q.data_ptr() % 4 == 0 and w.scales.data_ptr() % 4 == 0)
 
 
 def gathered_qmm_a8_supported(w: QTensor) -> bool:
-    """K6a: the activation groups run along K, so K is a whole number of
-    groups."""
-    return gathered_qmm_supported(w) and w.k_dim % w.group_size == 0
+    """K6a's product runs on K3's core (``plan_gq_a8``), which takes less
+    than K6: whole 128-column blocks, K a whole number of groups, and
+    groups and packed rows in whole 32-row units."""
+    if not (isinstance(w, QTensor) and w.q.dim() == 3 and w.bits in (4, 8)):
+        return False
+    packed = w.k_dim // 2 if w.bits == 4 else w.k_dim
+    return (w.n_dim % 128 == 0 and w.k_dim % w.group_size == 0
+            and w.group_size % UNIT == 0 and packed % UNIT == 0)
 
 
 def _skip_invalid(out: torch.Tensor, pick_valid: Optional[torch.Tensor]) -> torch.Tensor:
@@ -455,12 +475,19 @@ def gathered_qmm_a8_plain(xq: torch.Tensor, sx: torch.Tensor, w: QTensor,
 
 
 def _gq_fn():
-    fn = build.load("moe_decode").gathered_qmm_launch
+    fn = build.load("qmm").gathered_qmm_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_long] * 2
-                       + [ctypes.c_void_p])
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [p] * 6 + [i] * 8 + [l, l, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_gq(P: int, K: int, N: int, bits: int, gs: int) -> qmm_cuda.Plan:
+    """How a K6 call of P picks against [K, N] experts is cut: K1's plan
+    with the column tiles of every pick, grid (tiles, P, ks)."""
+    return qmm_cuda.plan(1, K, N, bits, gs, picks=P)
 
 
 def _gq_args(name: str, rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
@@ -488,16 +515,20 @@ def _gq_args(name: str, rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor
 def gathered_qmm(x_rows: torch.Tensor, w: QTensor, expert_ids: torch.Tensor,
                  pick_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6. x_rows [P, K] bf16, stack w [E, K(/2), N] read in place at
-    expert_ids [P], pick_valid [P] (1 = compute) → f32 [P, N]."""
+    expert_ids [P], pick_valid [P] (1 = compute) → f32 [P, N]: one launch
+    of K1's core."""
     if x_rows.device.type == "cpu":
         return gathered_qmm_plain(x_rows, w, expert_ids, pick_valid)
     global launches_gq
     xb = x_rows.to(torch.bfloat16).contiguous()
     idx, valid, out = _gq_args("gathered_qmm", xb, w, expert_ids, pick_valid,
                                gathered_qmm_supported(w))
+    P, K = xb.shape
+    p = plan_gq(P, K, w.n_dim, w.bits, w.group_size)
+    x_vec = int(K % 16 == 0 and p.unit % 8 == 0 and xb.data_ptr() % 16 == 0)
     err = _gq_fn()(xb.data_ptr(), idx.data_ptr(), 0 if valid is None else valid.data_ptr(),
-                   w.q.data_ptr(), w.scales.data_ptr(), out.data_ptr(), xb.shape[0], w.k_dim,
-                   w.n_dim, w.bits, w.group_size, w.q.stride(0), w.scales.stride(0),
+                   w.q.data_ptr(), w.scales.data_ptr(), out.data_ptr(), P, K, w.n_dim, w.bits,
+                   w.group_size, p.unit, p.ks, p.pk, w.q.stride(0), w.scales.stride(0), x_vec,
                    torch.cuda.current_stream(xb.device).cuda_stream)
     build.check(err, "gathered_qmm")
     launches_gq += 1
@@ -564,22 +595,57 @@ def moe_gathered_a8_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
     return acc.to(x.dtype)
 
 
+def moe_gathered_bf16_plain(x: torch.Tensor, w13: QTensor, w2: QTensor,
+                            topk_idx: torch.Tensor, topk_weights: torch.Tensor,
+                            swiglu_limit: float = 0.0, gpt_oss: bool = False,
+                            pick_valid: Optional[torch.Tensor] = None,
+                            w13_bias: Optional[torch.Tensor] = None,
+                            w2_bias: Optional[torch.Tensor] = None,
+                            product=None) -> torch.Tensor:
+    """The bf16-row chain, the reference's ``moe_gathered_tiled`` in bf16 and,
+    with biases, its ``moe_forward_gathered``: the w13 product in f32,
+    h rounded to bf16, + w13_bias[e] in bf16, the activation, the w2 product
+    in f32, + w2_bias[e] in f32, the routing weights in f32, the sum over
+    the picks cast to x's dtype. w13_bias [E, 2I], w2_bias [E, H]. `product`
+    is the one-product function, ``gathered_qmm_plain`` unless given."""
+    product = product or gathered_qmm_plain
+    T, H = x.shape
+    k = topk_idx.shape[-1]
+    eids = topk_idx.reshape(-1)
+    pv = None if pick_valid is None else pick_valid.reshape(-1)
+    h = product(x.repeat_interleave(k, dim=0), w13, eids, pv).to(torch.bfloat16)
+    if w13_bias is not None:
+        h = h + w13_bias[eids.long()].to(torch.bfloat16)
+    a = swiglu(h, swiglu_limit, gpt_oss)
+    o = product(a, w2, eids, pv)
+    if w2_bias is not None:
+        o = o + w2_bias[eids.long()].to(torch.float32)
+    o = o.reshape(T, k, H) * topk_weights[..., None].to(torch.float32)
+    return o.sum(dim=1).to(x.dtype)
+
+
 def moe_gathered_tiled(x: torch.Tensor, w13: QTensor, w2: QTensor,
                        topk_idx: torch.Tensor, topk_weights: torch.Tensor,
                        swiglu_limit: float = 0.0, gpt_oss: bool = False,
                        pick_valid: Optional[torch.Tensor] = None,
-                       activation: str = "bf16") -> torch.Tensor:
-    """Decode MoE as two gathered products with SwiGLU between: the form of
-    experts too large for the fused kernels, at the rounding points of the
-    reference's ``moe_gathered_tiled``. int8: rows quantized per K-group,
-    SwiGLU on the f32 h, the hidden requantized — on the card K6a's two
-    kernels and nothing else; bf16: the f32 h rounded to bf16 before SwiGLU.
+                       activation: str = "bf16", w13_bias: Optional[torch.Tensor] = None,
+                       w2_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode MoE as two gathered products with the activation between: the
+    form of experts too large for the fused kernels, at the rounding points
+    of the reference's ``moe_gathered_tiled``. int8 (where the reference's
+    predicate takes both stacks, ``expert_class.gathered_int8``): rows
+    quantized per K-group, the activation on the f32 h, the hidden
+    requantized — on the card K6a's two kernels and nothing else; bf16: two
+    K6 launches, the f32 h rounded to bf16 before the activation, with
+    GPT-OSS's expert biases where given (``moe_gathered_bf16_plain``).
     x [T, H], picks [T, k], pick_valid [T, k] → [T, H]."""
     global launches_gq_a8
     T, H = x.shape
     k = topk_idx.shape[-1]
-    if (activation == "int8" and gathered_qmm_a8_supported(w13)
-            and gathered_qmm_a8_supported(w2)):
+    if (activation == "int8" and expert_class.gathered_int8(w13)
+            and expert_class.gathered_int8(w2)):
+        if w13_bias is not None or w2_bias is not None:
+            raise ValueError("moe_gathered_tiled: the int8 form takes no expert biases")
         if x.device.type == "cpu":
             return moe_gathered_a8_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit,
                                          gpt_oss, pick_valid, product=gathered_qmm_a8)
@@ -594,10 +660,5 @@ def moe_gathered_tiled(x: torch.Tensor, w13: QTensor, w2: QTensor,
                        x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss, valid)
         launches_gq_a8 += 2
         return out
-    eids = topk_idx.reshape(-1)
-    pv = None if pick_valid is None else pick_valid.reshape(-1)
-    h = gathered_qmm(x.repeat_interleave(k, dim=0), w13, eids, pv)
-    a = swiglu(h.to(torch.bfloat16), swiglu_limit, gpt_oss)
-    o = gathered_qmm(a, w2, eids, pv)
-    o = o.reshape(T, k, H) * topk_weights[..., None].to(torch.float32)
-    return o.sum(dim=1).to(x.dtype)
+    return moe_gathered_bf16_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss,
+                                   pick_valid, w13_bias, w2_bias, product=gathered_qmm)

@@ -41,9 +41,10 @@ def qmm_plain(x: torch.Tensor, qt: QTensor, out_dtype=torch.bfloat16) -> torch.T
 class Plan(NamedTuple):
     """How one call is cut: `tt` is T rounded up to an instance (1, 2, 4,
     8, 16); the packed rows split into `ks` ranges (one thread-block
-    cluster per column tile) on boundaries of `unit` rows, a group or,
-    for int4 with K/2 not a multiple of the group, half a group; `pk`
-    packed rows a pipeline stage; `grid` = (column tiles, 1, ks)."""
+    cluster per column tile and pick) on boundaries of `unit` rows, a group
+    or, for int4 with K/2 not a multiple of the group, half a group; `pk`
+    packed rows a pipeline stage; `grid` = (column tiles, picks, ks), the
+    last column tile partial where N % 128 != 0; picks is 1 but for K6."""
     tt: int
     unit: int
     ks: int
@@ -57,12 +58,13 @@ class Plan(NamedTuple):
                 for z in range(self.ks)]
 
 
-def plan(T: int, K: int, N: int, bits: int, gs: int, sms: int = SMS) -> Plan:
+def plan(T: int, K: int, N: int, bits: int, gs: int, sms: int = SMS, picks: int = 1) -> Plan:
     """Enough CTAs to keep two or three on each SM pulling bytes: the
-    column tiles, times the fewest K splits (a power of two up to 8, at
-    most one per unit) that reach 2.5 x `sms` CTAs. Where even that
-    leaves fewer than two CTAs an SM, each stage takes 128 packed rows
-    instead of 64, so a CTA keeps more bytes in flight."""
+    column tiles (of every pick: K6 has `picks` of one row each), times
+    the fewest K splits (a power of two up to 8, at most one per unit) that
+    reach 2.5 x `sms` CTAs. Where even that leaves fewer than two CTAs an
+    SM, each stage takes 128 packed rows instead of 64, so a CTA keeps
+    more bytes in flight."""
     if not 1 <= T <= MAX_T:
         raise ValueError(f"qmm: T = {T} rows, the kernel takes 1..{MAX_T}")
     rows = K // 2 if bits == 4 else K
@@ -71,12 +73,13 @@ def plan(T: int, K: int, N: int, bits: int, gs: int, sms: int = SMS) -> Plan:
         unit = rows
     units = rows // unit
     tiles = -(-N // COLS)
+    ctas = tiles * picks
     ks = 1
-    while ks < MAX_SPLITS and 2 * tiles * ks < 5 * sms and 2 * ks <= units:
+    while ks < MAX_SPLITS and 2 * ctas * ks < 5 * sms and 2 * ks <= units:
         ks *= 2
-    pk = 128 if tiles * ks < 2 * sms else 64
+    pk = 128 if ctas * ks < 2 * sms else 64
     tt = next(n for n in (1, 2, 4, 8, 16) if n >= T)
-    return Plan(tt, unit, ks, pk, (tiles, 1, ks))
+    return Plan(tt, unit, ks, pk, (tiles, picks, ks))
 
 
 def _lib():

@@ -299,19 +299,168 @@ def _picks(dev, g, P, E, masked):
 
 @pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("K,N", [(256, 384), (384, 256)])
-def test_gathered_qmm_kernel(dev, K, N, bits, masked):
-    """K6: rows against experts read in place; skipped picks read back 0."""
-    g = _gen(dev, K + bits)
-    w = random_qtensor((10, K, N), bits, 128, g, dev, scale_mag=0.03)
+@pytest.mark.parametrize("K,N,gs", [(256, 384, 128), (384, 256, 128), (256, 320, 32),
+                                    (256, 196, 16), (64, 64, 32)])
+def test_gathered_qmm_kernel(dev, K, N, gs, bits, masked):
+    """K6 on K1's core: rows against experts read in place, widths with a
+    partial last column tile, groups of 16; skipped picks read back 0."""
+    g = _gen(dev, K + N + bits)
+    w = random_qtensor((10, K, N), bits, gs, g, dev, scale_mag=0.03)
     x = torch.randn((7, K), generator=g, device=dev).to(torch.bfloat16)
     eids, valid = _picks(dev, g, 7, 10, masked)
-    before = moe_cuda.launches_gq
-    got = moe_cuda.gathered_qmm(x, w, eids, valid)
-    assert moe_cuda.launches_gq == before + 1
+    assert moe_cuda.gathered_qmm_supported(w)
+    got = _one_launch_each(lambda: moe_cuda.gathered_qmm(x, w, eids, valid),
+                           (moe_cuda, "launches_gq"))
     _close(got, moe_cuda.gathered_qmm_plain(x, w, eids, valid), 2e-2)
     if masked:
         assert not got[[1, 6]].any() and got[0].any()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("name,K,N,bits,gs,P", [
+    ("gptoss_w13", 2880, 5760, 4, 32, 4), ("gptoss_w2", 2880, 2880, 4, 32, 4),
+    ("gptoss_w2_T2", 2880, 2880, 4, 32, 8), ("q8_w13", 2048, 2816, 8, 128, 8),
+    ("q8_w2", 1408, 2048, 8, 128, 8)])
+def test_gathered_qmm_at_full_shapes(dev, name, K, N, bits, gs, P, masked):
+    """K6 at GPT-OSS-20B's (the 2880-wide w2 ends in a 64-column tile) and
+    V2-Lite Q8's widths, 10 experts: one device kernel a call, equal bit for
+    bit from call to call, within 2e-2 of its plain version."""
+    from krasis_tpu_torch.timing import device_per_call
+
+    g = _gen(dev, K + N + P)
+    w = random_qtensor((10, K, N), bits, gs, g, dev, scale_mag=0.03 if bits == 4 else 0.002)
+    x = torch.randn((P, K), generator=g, device=dev).to(torch.bfloat16)
+    eids, valid = _picks(dev, g, P, 10, masked)
+    got = _one_launch_each(lambda: moe_cuda.gathered_qmm(x, w, eids, valid),
+                           (moe_cuda, "launches_gq"))
+    _close(got, moe_cuda.gathered_qmm_plain(x, w, eids, valid), 2e-2)
+    if masked:
+        assert not got[[1, P - 1]].any() and got[0].any()
+    _, per_call, _ = device_per_call(lambda: moe_cuda.gathered_qmm(x, w, eids, valid),
+                                     "qmm_kernel", calls=5)
+    assert per_call == 1
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("T", [1, 2])
+def test_biased_chain_at_gpt_oss_shapes(dev, T, masked):
+    """GPT-OSS's biased experts through moe_forward (32 experts, H and I
+    2880, int4 gs 32, top-4, nonzero biases): two K6 launches a call, no
+    plain route, within 3e-2 of the plain moe_forward_gathered."""
+    from krasis_tpu_torch.ops import moe
+
+    g = _gen(dev, 90 + T)
+    E, H, I, k = 32, 2880, 2880, 4
+    w13 = random_qtensor((E, H, 2 * I), 4, 32, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((E, I, H), 4, 32, g, dev, scale_mag=0.03)
+    x = torch.randn((T, H), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.stack([torch.randperm(E, generator=g, device=dev)[:k]
+                       for _ in range(T)]).to(torch.int32)
+    wts = torch.softmax(torch.randn((T, k), generator=g, device=dev), dim=-1)
+    b13 = torch.randn((E, 2 * I), generator=g, device=dev).to(torch.bfloat16)
+    b2 = torch.randn((E, H), generator=g, device=dev).to(torch.bfloat16)
+    pv = None
+    if masked:
+        pv = torch.ones((T, k), dtype=torch.bool, device=dev)
+        pv[0, 1] = False
+        wts = wts * pv
+    args = (x, w13, w2, idx, wts, 7.0, True)
+    before = moe_cuda.launches_gq
+    moe.plain_routes.update(ragged=0, gathered_plain=0)
+    got = moe.moe_forward(*args, w13_bias=b13, w2_bias=b2, pick_valid=pv, activation="int8")
+    assert moe_cuda.launches_gq == before + 2
+    assert moe.plain_routes == {"ragged": 0, "gathered_plain": 0}
+    want = moe.moe_forward_gathered(*args, w13_bias=b13, w2_bias=b2)
+    _close(got, want, 3e-2)
+    with pytest.raises(AssertionError):
+        _close(got, moe.moe_forward_gathered(*args, w2_bias=b2), 3e-2)
+
+
+@pytest.mark.parametrize("regime,T,activation,two_stage,counter", [
+    ("fused_int8", 1, "int8", False, (moe_cuda, "launches")),
+    ("tiled_int8", 1, "int8", True, (moe_cuda, "launches_gq_a8")),
+    ("fused_bf16", 1, "bf16", False, (moe_cuda, "launches_bf16")),
+    ("tiled_bf16", 1, "bf16", True, (moe_cuda, "launches_gq")),
+    ("grouped", 64, "bf16", False, (gmm_cuda, "launches"))])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_groups_of_16_in_each_regime(dev, monkeypatch, regime, T, activation, two_stage,
+                                     counter, bits):
+    """Stacks at gs 16 (4 experts, H 256, I 128, int4 and int8): moe_forward
+    takes the reference's form on the card without raising and runs it on
+    the form's kernel (two launches; no plain route), within 3e-2 of the
+    form's plain version."""
+    from krasis_tpu_torch.ops import moe
+
+    if two_stage:
+        monkeypatch.setattr(expert_class, "MAX_FUSED_PICK_BYTES", 1024)
+    g = _gen(dev, 16 + T)
+    E, H, I, k = 4, 256, 128, 2
+    w13 = random_qtensor((E, H, 2 * I), bits, 16, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((E, I, H), bits, 16, g, dev, scale_mag=0.03)
+    x = torch.randn((T, H), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    wts = torch.rand((T, k), generator=g, device=dev)
+    assert moe.route(x, w13, w2, idx, False, activation) == regime
+    moe.plain_routes.update(ragged=0, gathered_plain=0)
+    mod, attr = counter
+    before = getattr(mod, attr)
+    got = moe.moe_forward(x, w13, w2, idx, wts, activation=activation)
+    assert getattr(mod, attr) == before + 2
+    assert moe.plain_routes == {"ragged": 0, "gathered_plain": 0}
+    plain = {"fused_int8": lambda: moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts),
+             "tiled_int8": lambda: moe_cuda.moe_gathered_a8_plain(x, w13, w2, idx, wts),
+             "fused_bf16": lambda: moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts),
+             "tiled_bf16": lambda: moe_cuda.moe_gathered_bf16_plain(x, w13, w2, idx, wts),
+             "grouped": lambda: moe.moe_forward(x.cpu(), w13.to("cpu"), w2.to("cpu"), idx.cpu(),
+                                                wts.cpu()).to(dev)}
+    _close(got, plain[regime](), 3e-2)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("tm", [64, 128, 256, 512])
+def test_gmm_kernel_groups_of_16(dev, tm, bits):
+    """gmm_kernel's FULL16 form (groups of 16 rows) at every tile height,
+    both epilogues, against gmm_plain on the real rows: the w13 call with
+    gathered rows and the w2 call on tile-aligned rows; padding rows of
+    computed tiles read back zero."""
+    g = _gen(dev, tm + bits)
+    E, H, I, T, k = 4, 512, 256, 96, 2
+    w13 = random_qtensor((E, H, 2 * I), bits, 16, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((E, I, H), bits, 16, g, dev, scale_mag=0.03)
+    x = torch.randn((T, H), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    plan = gmm_cuda.plan_tiles(idx, E, tm)
+    real = plan.row_src >= 0
+    pad = (~real) & plan.tile_valid.bool().repeat_interleave(tm)
+    a = gmm_cuda.gmm(x, plan.row_src, w13, plan, True)
+    _close(a[real], gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True)[real], 3e-2)
+    assert not a[pad].any()
+    h = gmm_cuda.gmm_two_stage(x, plan.row_src, w13, plan)
+    _close(h[real], gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)[real], 2e-2)
+    o = gmm_cuda.gmm(a, None, w2, plan, False)
+    _close(o[real], gmm_cuda.gmm_plain(a, None, w2, plan, False)[real], 3e-2)
+
+
+@pytest.mark.parametrize("activation", ["int8", "bf16"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fused_decode_kernels_groups_of_16_at_v2_lite_widths(dev, bits, activation):
+    """K3 (int8 rows) and K5 (bf16 rows) at V2-Lite's widths (H 2048, I
+    1408: w2's int4 halves of 704 rows) with groups of 16, T = 2 of top-6,
+    against their plain versions."""
+    g = _gen(dev, 160 + bits)
+    E, H, I, T, k = 16, 2048, 1408, 2, 6
+    w13 = random_qtensor((E, H, 2 * I), bits, 16, g, dev, scale_mag=0.02)
+    w2 = random_qtensor((E, I, H), bits, 16, g, dev, scale_mag=0.02)
+    x = torch.randn((T, H), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    wts = torch.softmax(torch.randn((T, k), generator=g, device=dev), dim=-1)
+    if activation == "int8":
+        got = moe_cuda.moe_w4a8(x, w13, w2, idx, wts)
+        want = moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts)
+    else:
+        got = moe_cuda.moe_bf16(x, w13, w2, idx, wts)
+        want = moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts)
+    _close(got, want, 3e-2)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])

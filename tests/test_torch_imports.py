@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "krasis_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "krasis_tpu_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+         + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "krasis_tpu", "benchmarks")
 
 
@@ -32,7 +33,7 @@ def test_scan_covers_the_package():
             "krasis_tpu_torch/ops/gmm_cuda.py", "krasis_tpu_torch/ops/moe_cuda.py",
             "krasis_tpu_torch/ops/probes_cuda.py", "krasis_tpu_torch/probes/_timing.py",
             "krasis_tpu_torch/probes/probe_gmm_terms.py", "krasis_tpu_torch/timing.py"} <= names
-    assert "chip_smoke.py" in names
+    assert {"chip_smoke.py", "tools/sass_compare.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

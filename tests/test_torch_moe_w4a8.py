@@ -211,15 +211,22 @@ def test_emulated_reduction_order_equals_plain(bits, gs, I, T):
 
 
 def test_k3_declines_groups_that_cut_units():
-    """Groups of fewer than 32 rows (or not a multiple of 32) would cut a
-    32-row unit: the plan refuses them and the dispatch keeps its class."""
-    w = QTensor(torch.zeros((2, 128, 256), dtype=torch.int8),
-                torch.ones((2, 16, 256), dtype=torch.bfloat16), 4, 16)
+    """K3 dots a 32-row unit whole, or as two 16-row halves for groups of a
+    multiple of 16 that is not one of 32 (its G16 form). Groups that are
+    not a multiple of 16 (here 8) would cut a half: the predicate and the
+    plan refuse them, while K5, which reads a scale per row, takes them.
+    Groups of 16 are taken and planned."""
+    def stack(gs):
+        return QTensor(torch.zeros((2, 128, 256), dtype=torch.int8),
+                       torch.ones((2, 256 // gs, 256), dtype=torch.bfloat16), 4, gs)
+
     w2 = QTensor(torch.zeros((2, 64, 256), dtype=torch.int8),
                  torch.ones((2, 4, 256), dtype=torch.bfloat16), 4, 32)
-    assert moe_cuda.supported(w, w2) and not moe_cuda.w4a8_supported(w, w2)
+    assert moe_cuda.supported(stack(8), w2) and not moe_cuda.w4a8_supported(stack(8), w2)
     with pytest.raises(ValueError):
-        moe_cuda.plan_w4a8(1, 2, 256, 128, 4, 16, 32)
+        moe_cuda.plan_w4a8(1, 2, 256, 128, 4, 8, 32)
+    assert moe_cuda.w4a8_supported(stack(16), w2)
+    assert moe_cuda.plan_w4a8(1, 2, 256, 128, 4, 16, 32).w13.ks >= 1
 
 
 @pytest.mark.parametrize("bits,gs,T,gpt_oss,I", [(8, 128, 3, False, 384), (4, 128, 2, True, 384),
