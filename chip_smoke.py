@@ -10,8 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: the CUDA sources of krasis_tpu_torch/csrc with nvcc, in parallel;
 3. reference: a tiny DeepSeek-V2-Lite (int4 experts, and int8 experts in
    the two-stage class), a tiny Qwen3-Coder-Next hybrid and a tiny GPT-OSS
-   over an fp8 cache (top-4 of 8 biased experts: its decode MoE runs on K6,
-   which must have launched) run on the card through the kernels against
+   over an fp8 cache (top-4 of 8 biased experts: its decode MoE runs on K6
+   and its prefill MoE on K7, which must both have launched) run on the card through the kernels against
    the same models on the CPU through their plain versions; then groups of
    16 (ROADMAP C-2) through moe_forward in each regime, each taking the
    reference's form and, where that form's kernel declines the stacks, its
@@ -69,10 +69,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    tail), with a bmm yardstick and under a pick_valid mask; the biased chain
    (two K6 launches, the biases between) against the plain gathered path,
    refusing a dropped w13 bias, a dropped w2 bias and each dropped pick; one
-   layer's decode MoE device time, plain path and chain in turns. Decode
-   runs its MoE on K6, which must have launched; prefill keeps the plain
-   ragged path: no K3-K7a launch, and no K6 or grouped kernel in the
-   prefill's profile.
+   layer's decode MoE device time, plain path and chain in turns. In the
+   grouped regime: K7 on w13 and w2 (w2's last column CTA has 64 live
+   columns of 128) on plans from layer 0's router at T = 2048 (128-row
+   tiles), 452 and 40 (64-row tiles), each also under a pick_valid mask,
+   with device us and grouped_mm's bf16-out product as a yardstick; the
+   biased grouped chain (moe_prefill with the biases: two K7 launches, the
+   biases between) against the plain moe_forward_ragged at T = 2048 and 40,
+   refusing a dropped w13 bias, a dropped w2 bias and the biases of each
+   tile's neighbour's expert; one layer's prefill MoE device time, plain
+   path and chain in turns. Decode runs its MoE on K6 and prefill on K7,
+   which must both have launched, with no plain MoE form: no K3-K6a or K7a
+   launch, no K6 kernel in the prefill's profile and gmm_kernel in it.
 
 8. the probes (krasis_tpu_torch/probes, the H100 counterparts of the TPU
    probes under benchmarks/): the four entry points at their own full-width
@@ -273,7 +281,7 @@ def reference_phases():
     # GPT-OSS over an fp8 cache, window 4 so that the 160-token prefill and
     # the decode steps cut it. Top-4 of 8 experts, so that decode is in the
     # gathered regime, where the biased experts run on K6 with the biases
-    # between its launches (prefill: the plain ragged path). Each layer's
+    # between its launches (prefill: the ragged form on K7, likewise). Each layer's
     # router logit bias lifts 4 experts 8 above the others (the logits span
     # about ±0.8): the pick set cannot sit on a near-tie that the two
     # devices' summation orders would break differently. So every token
@@ -297,7 +305,7 @@ def reference_phases():
         tiny_config("gpt-oss-20b", num_hidden_layers=4, sliding_window=4,
                     num_experts_per_tok=4),
         QuantConfig(expert_bits=4, group_size=32, kv_cache_dtype="fp8"), 5e-2,
-        prepare=lift_four, launched=("K6",))
+        prepare=lift_four, launched=("K6", "K7"))
 
 
 def c2_phase():
@@ -339,7 +347,7 @@ def c2_phase():
                     raise AssertionError(f"C-2 int{bits} {label}: form {r}, want {form}")
                 for m, attr in C.values():
                     setattr(m, attr, 0)
-                moe.plain_routes.update(ragged=0, gathered_plain=0)
+                moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
                 got = moe.moe_forward(x.cuda(), cw13, cw2, idx.cuda(), wts.cuda(),
                                       activation=act)
                 torch.cuda.synchronize()
@@ -867,6 +875,154 @@ def gptoss_moe_checks(results, params, cfg, g, flush):
     print("[moe] " + json.dumps({"model": "gpt-oss-20b", "decode MoE layer":
                                  f"T=1, {k} of {E} picks, biases", "device us, kernels a call, whole": times}),
           flush=True)
+    gptoss_grouped_checks(results, lp, cfg, g, flush)
+
+
+def gptoss_grouped_checks(results, lp, cfg, g, flush):
+    """GPT-OSS-20B's biased experts in the grouped regime (prefill) on one
+    layer's stacks: K7 on w13 [32, 2880, 5760] and on w2 [32, 2880, 2880]
+    (its last column CTA holds 64 live columns of 128) against gmm_plain
+    within 2e-2, on plans from the layer's own router at T = 2048 (128-row
+    tiles), 452 and 40 (64-row tiles), each again under a pick_valid mask,
+    with device us a call and grouped_mm's bf16-out product as a yardstick
+    (grouped_mm refuses f32 output); the biased chain (``moe_prefill`` with
+    the biases: two K7 launches, the biases between) against the plain
+    ``moe_forward_ragged`` within 3e-2 at T = 2048 and 40, with seeded
+    nonzero biases of half the size of h and of a pick's output, and
+    controls the check must refuse: the w13 bias dropped, the w2 bias
+    dropped, the biases indexed by each tile's neighbour's expert (tile_e
+    rolled by one); then one layer's prefill MoE device time, plain path
+    and chain in turns, at T = 2048 and 40."""
+    import torch
+    from krasis_tpu_torch.ops import gmm_cuda, moe
+    from krasis_tpu_torch.ops.activations import swiglu
+    from krasis_tpu_torch.ops.norm import rms_norm
+    from krasis_tpu_torch.ops.routing import compute_routing
+    from krasis_tpu_torch.quant import qtensor_bytes
+    from krasis_tpu_torch.timing import device_per_call, timeit_ms
+
+    dev = flush.device
+    C = counters()
+    w13, w2 = lp["w13"], lp["w2"]
+    E, k, Hd, I = cfg.n_routed_experts, cfg.num_experts_per_tok, cfg.hidden_size, w2.k_dim
+    lim, bf16 = cfg.swiglu_limit, torch.bfloat16
+    e13, e2 = qtensor_bytes(w13) / E, qtensor_bytes(w2) / E
+    chains = {}
+    for T in (2048, 452, 40):
+        x = rms_norm(torch.randn((T, Hd), generator=g, device=dev).to(bf16),
+                     torch.ones(Hd, dtype=bf16, device=dev), cfg.rms_norm_eps)
+        routing = compute_routing(x, lp["gate_w"], cfg, lp.get("gate_bias"),
+                                  logit_bias=lp.get("gate_logit_bias"))
+        topk, wts = routing.topk_idx, routing.topk_weights
+        M = T * k
+        tm = gmm_cuda.choose_tm(M, E)                                  # the main path's
+        plan = gmm_cuda.plan_tiles(topk, E, tm)
+        real = plan.row_src >= 0
+        hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E) > 0).sum())
+        h_plain = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)
+        a = swiglu(h_plain.to(bf16), lim, True)
+        print(f"[kernel] gptoss/gmm_two_stage T={T}: {tm}-row tiles, "
+              f"{int(plan.tile_valid.sum())} of {plan.n_tiles} computed, {hit} of {E} experts hit; "
+              f"{w2.n_dim % gmm_cuda.cta_cols(tm)} live columns in w2's last CTA", flush=True)
+        for name, w, rows, row_src, nbytes, ops in (
+                ("w13", w13, x, plan.row_src, hit * e13 + T * Hd * 2 + M * 2 * I * 4,
+                 2 * M * Hd * 2 * I),
+                ("w2", w2, a, None, hit * e2 + M * I * 2 + M * Hd * 4, 2 * M * I * Hd)):
+            label = f"gptoss/gmm_two_stage:{name} T={T}"
+            want = h_plain if name == "w13" else gmm_cuda.gmm_plain(a, None, w2, plan, False)
+            lib = grouped_mm_library(label + " (bf16 out)",
+                                     rows[plan.row_src[real].long()] if name == "w13"
+                                     else rows[real], w, plan, bf16, want[real])
+            del want
+            check_kernel(results, label, C["K7"], gmm_cuda.REPLACES_TWO_STAGE,
+                         lambda: gmm_cuda.gmm_two_stage(rows, row_src, w, plan),
+                         lambda: gmm_cuda.gmm_plain(rows, row_src, w, plan, False), None, 2e-2,
+                         nbytes, ops, PEAK_BF16, 10, None, select=lambda o: o[real],
+                         device_name="gmm_kernel", calls=5)
+            res = results[-1][1]
+            res.update(tile_rows=tm, picks=M, experts=hit,
+                       grouped_mm_bf16_out_ms=timeit_ms(lib, 10) if lib else None)
+            if res["kernels_per_call"] != 1:
+                raise AssertionError(f"{label}: a call launched {res['kernels_per_call']} "
+                                     "device kernels, not 1")
+            # under a pick_valid mask: the skipped picks are in no tile
+            pv = torch.rand((T, k), generator=g, device=dev) > 0.2
+            pm = gmm_cuda.plan_tiles(topk, E, tm, pick_valid=pv)
+            rm = pm.row_src >= 0
+            if name == "w13":
+                rows_m, src_m = rows, pm.row_src
+            else:
+                rows_m, src_m = swiglu(gmm_cuda.gmm_plain(x, pm.row_src, w13, pm, False).to(bf16),
+                                       lim, True), None
+            err, ratio = max_err(gmm_cuda.gmm_two_stage(rows_m, src_m, w, pm)[rm],
+                                 gmm_cuda.gmm_plain(rows_m, src_m, w, pm, False)[rm], 2e-2)
+            print(f"[kernel] {label} with pick_valid ({int(rm.sum())} of {M} picks): max|Δ| "
+                  f"{err:.3g}, {ratio:.3g} of the limit", flush=True)
+            if not ratio <= 1.0:
+                raise AssertionError(f"{label}: under pick_valid the kernel disagrees")
+        del h_plain, a
+        if T in (2048, 40):
+            chains[T] = (x, topk, wts, plan)
+
+    for T, (x, topk, wts, plan) in chains.items():
+        # seeded nonzero biases: half the rms of h and of a pick's output
+        real = plan.row_src >= 0
+        h = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)
+        b13 = (torch.randn((E, 2 * I), generator=g, device=dev) * 0.5
+               * h[real].square().mean().sqrt()).to(lp["w13_bias"].dtype)
+        a = swiglu(gmm_cuda._add_tile_bias(h.to(bf16), b13.to(bf16), plan), lim, True)
+        del h
+        o = gmm_cuda.gmm_plain(a, None, w2, plan, False)[real]
+        b2 = (torch.randn((E, Hd), generator=g, device=dev) * 0.5
+              * o.square().mean().sqrt()).to(lp["w2_bias"].dtype)
+        del a, o
+
+        def chain(bias13=b13, bias2=b2):
+            return gmm_cuda.moe_prefill(x, w13, w2, topk, wts, lim, True, w13_bias=bias13,
+                                        w2_bias=bias2)
+
+        def plain(bias13=b13, bias2=b2):
+            return moe.moe_forward_ragged(x, w13, w2, topk, wts, lim, True, w13_bias=bias13,
+                                          w2_bias=bias2)
+
+        before = {n: getattr(*C[n]) for n in ("K4", "K7", "K7a")}
+        got = chain()
+        launched = {n: getattr(*C[n]) - before[n] for n in before}
+        if launched != {"K4": 0, "K7": 2, "K7a": 0}:
+            raise AssertionError(f"gptoss/moe_prefill biased T={T}: launches {launched}, want "
+                                 "two K7 only")
+        want = plain()
+        err, ratio = max_err(got, want, 3e-2)
+        real_add = gmm_cuda._add_tile_bias
+        gmm_cuda._add_tile_bias = lambda y, b, p: real_add(y, b,
+                                                           p._replace(tile_e=p.tile_e.roll(1)))
+        try:
+            rolled = chain()
+        finally:
+            gmm_cuda._add_tile_bias = real_add
+        refused = {"w13 bias dropped": max_err(got, plain(bias13=None), 3e-2)[1],
+                   "w2 bias dropped": max_err(got, plain(bias2=None), 3e-2)[1],
+                   "biases of tile_e rolled by one": max_err(rolled, want, 3e-2)[1]}
+        print(f"[moe] gptoss biased grouped chain T={T} ({plan.tm}-row tiles; two K7 launches, "
+              f"biases between) against moe_forward_ragged: max|Δ| {err:.3g}, {ratio:.3g} of the "
+              f"limit (tol 3e-2); controls, fraction of the limit: "
+              + ", ".join(f"{c} {v:.3g}" for c, v in refused.items()), flush=True)
+        if not ratio <= 1.0:
+            raise AssertionError(f"gptoss/moe_prefill T={T}: the biased chain disagrees with "
+                                 "moe_forward_ragged")
+        missed = [c for c, v in refused.items() if not v > 1.0]
+        if missed:
+            raise AssertionError(f"gptoss/moe_prefill T={T}: the check cannot see {missed}")
+        # one prefill MoE layer's device time, the plain path against the
+        # chain, in turns (plain, chain, chain, plain); L2 is not flushed
+        times = {"plain": [], "chain": []}
+        for which in ("plain", "chain", "chain", "plain"):
+            us, n, whole = device_per_call(plain if which == "plain" else chain, "", None,
+                                           calls=3)
+            times[which].append((round(us, 2), n, whole))
+        print("[moe] " + json.dumps({"model": "gpt-oss-20b", "prefill MoE layer":
+                                     f"T={T}, top-{k} of {E}, biases, {plan.tm}-row tiles",
+                                     "device us, kernels a call, whole": times}), flush=True)
 
 
 def q8_kernel_phase(params, cfg, results, g, flush):
@@ -1255,10 +1411,11 @@ def is_k6(key: str) -> bool:
     return any(name in key for name in K6_KERNELS)
 
 
-def profile_phase(eng, prompt, new: int, forbid=()):
+def profile_phase(eng, prompt, new: int, forbid=(), require=()):
     """Device time by kernel over one request, against the wall time of the
     same request run without the profiler. No kernel whose name holds one of
-    `forbid` may run."""
+    `forbid` may run, and for each of `require` one whose name holds it
+    must."""
     import torch
     from krasis_tpu_torch.timing import recorded_step, traced_kernels
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1287,9 +1444,13 @@ def profile_phase(eng, prompt, new: int, forbid=()):
     banned = [key for key, _, _ in rows if any(part in key for part in forbid)]
     if banned:
         raise AssertionError(f"kernels of the other expert class ran: {banned}")
+    missing = [part for part in require if not any(part in key for key, _, _ in rows)]
+    if missing:
+        raise AssertionError(f"no device kernel named {missing} in the profile")
     for label, named in (("K1 + K1s", lambda key: "qmm_kernel" in key and not is_k6(key)),
                          ("K6", is_k6), ("K3", lambda key: "w4a8_stage" in key),
-                         ("K6a", lambda key: "gq_a8_stage" in key)):
+                         ("K6a", lambda key: "gq_a8_stage" in key),
+                         ("K4 / K7", lambda key: "gmm_kernel" in key)):
         hits = [(ms, count) for key, ms, count in rows if named(key)]
         if hits:
             ms, count = sum(r[0] for r in hits), sum(r[1] for r in hits)
@@ -1303,7 +1464,7 @@ def profile_phase(eng, prompt, new: int, forbid=()):
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
-               prefill_off_names=(), ragged=False):
+               prefill_off_names=(), prefill_on_names=()):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1313,12 +1474,11 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     Kernels named in `on_path`, and the K2 launch forms in `forms`, must
     have been launched in that run, those in `off_path` must not, nor may the
     profiles show a device kernel whose name holds one of `off_names` (the
-    prefill's profile one of `prefill_off_names` either). No MoE call may
-    take a plain form (``moe.plain_routes``) but, with `ragged` (biased
-    experts), the grouped regime's ``moe_forward_ragged``, which then must
-    have run. Fills the
-    launch counts into this family's entries of `results` (by form for K2
-    entries that name one)."""
+    prefill's profile one of `prefill_off_names` either); the prefill's
+    profile must show one for each of `prefill_on_names`. No MoE call may
+    take a plain form (``moe.plain_routes``). Fills the launch counts into
+    this family's entries of `results` (by form for K2 entries that name
+    one)."""
     import gc
     from dataclasses import replace
 
@@ -1374,7 +1534,7 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     for m, attr in C.values():
         setattr(m, attr, 0)
     fa.form_launches.clear()
-    moe.plain_routes.update(ragged=0, gathered_plain=0)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
     for n, new, act, *rest in requests:
         top = rest[0] if rest else 0
         kv = rest[1] if len(rest) > 1 else None
@@ -1413,10 +1573,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     for name in on_path:
         if counts[name] <= 0:
             raise AssertionError(f"{label}: {name} was never launched on the main path")
-    if moe.plain_routes["gathered_plain"] or bool(moe.plain_routes["ragged"]) != ragged:
-        raise AssertionError(f"{label}: MoE calls on a plain form {moe.plain_routes}, want "
-                             + ("ragged ones only (the biased experts' grouped regime)"
-                                if ragged else "none"))
+    if any(moe.plain_routes.values()):
+        raise AssertionError(f"{label}: MoE calls on a plain form {moe.plain_routes}, want none")
     for form in forms:
         if by_form.get(form, 0) <= 0:
             raise AssertionError(f"{label}: K2's {form} form was never launched on the main path")
@@ -1430,7 +1588,7 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
 
     t_entries = time.perf_counter()
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1,   # prefill
-                  tuple(off_names) + tuple(prefill_off_names))
+                  tuple(off_names) + tuple(prefill_off_names), prefill_on_names)
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode,
                   off_names)
     print(f"[time] {label}: kernel checks {t_kernels - t0:.1f} s (engine build included), "
@@ -1757,12 +1915,12 @@ def main() -> int:
                QuantConfig(expert_bits=4, group_size=32), gptoss_kernel_phase,
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"),
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "int8", 0, ("auto", 131072))),
-               ("K1", "K2", "K6"), results, rng, profile_decode=16,
-               off_path=("K1s", "K3", "K4", "K5", "K6a", "K6a product", "K7", "K7a"),
-               forms=gptoss_forms, ragged=True,
+               ("K1", "K2", "K6", "K7"), results, rng, profile_decode=16,
+               off_path=("K1s", "K3", "K4", "K5", "K6a", "K6a product", "K7a"),
+               forms=gptoss_forms,
                off_names=moe_cuda.K3_KERNELS + moe_cuda.K5_KERNELS + moe_cuda.K6A_KERNELS,
-               prefill_off_names=K6_KERNELS + ("gmm_kernel", "gmm_a8_kernel",
-                                               moe_cuda.K6A_PRODUCT_KERNEL))
+               prefill_off_names=K6_KERNELS + ("gmm_a8_kernel", moe_cuda.K6A_PRODUCT_KERNEL),
+               prefill_on_names=("gmm_kernel",))
     probe_phase(results)
 
     print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "

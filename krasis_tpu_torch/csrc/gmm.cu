@@ -4,7 +4,9 @@
 // where tile t = rows [t*TM, (t+1)*TM) all belong to expert e = tile_e[t],
 // src(r) = row_src[r] gathers the token row (-1: a padding row, read as 0;
 // no row_src: the rows are x's own), and tiles with tile_valid[t] == 0 are
-// skipped. TM is the plan's tile height: 64 or 128 on the main path (the
+// skipped. N is a whole number of CTAs for swiglu; for f32 a multiple of 64
+// whose last CTA may be partial (the TAIL instances, GPT-OSS's w2 of 2880
+// columns). TM is the plan's tile height: 64 or 128 on the main path (the
 // port's choose_tm), 256 or 512 where moe_prefill(tile_rows=...) asks. The
 // summation order over K does not depend on TM: every output element is
 // the same sequence of mma.sync products at any height, so the four
@@ -57,7 +59,13 @@
 // K7 — the two-stage grouped GEMM (krasis_tpu/ops/gmm_pallas.py gmm, which
 // moe_prefill_pallas runs twice with SwiGLU between when one expert's block
 // is too large for its fused kernels) is this kernel's f32 epilogue at both
-// call shapes: w13 with gathered token rows to f32 [Mp, 2I], and w2.
+// call shapes: w13 with gathered token rows to f32 [Mp, 2I], and w2. The
+// same two launches carry the reference's plain ragged form
+// (krasis_tpu/ops/moe.py moe_forward_ragged: biased experts, GPT-OSS's
+// prefill), the biases added between them in PyTorch. Its widths need not be
+// whole CTAs: the f32 epilogue takes N % 64 == 0 (GPT-OSS's w2 is 2880 = 22.5
+// CTAs of 128 columns) through the TAIL instances, whose last column CTA reads
+// no weight or scale byte and writes no output at a column >= N.
 //
 // K7a — gmm_a8_kernel, the same tiles (TM = 64) with int8 rows
 // (gmm_pallas.py gmm_a8, _gmm_kernel_a8): out[r, :] = Σ_g (xq[r, g] · W[e, g])
@@ -100,7 +108,10 @@ enum Mode { FULL = 0, COPY = 1, NOUNPACK = 2, UNPACKONLY = 3, V2 = 4, FULL16 = 5
 constexpr int PK = 32;
 // A CTA's columns: 128 as 2 x 4 warps up to 256 rows (a warp TM/2 rows x 32
 // columns); 64 as 4 x 2 warps at 512 rows, so that a warp still holds 128
-// rows x 32 columns of f32 accumulators (128 registers a thread).
+// rows x 32 columns of f32 accumulators (128 registers a thread). With TAIL
+// the last CTA may own fewer live columns (N % 64 == 0, so at up to 256 rows
+// 64 of its 128): its loads past N are zero-filled and its warps whose 32
+// columns lie past N compute zeros and store nothing.
 __host__ __device__ constexpr int cta_cols(int tm) { return tm == 512 ? 64 : 128; }
 __host__ __device__ constexpr int stages(int tm) { return tm == 64 ? 6 : tm == 512 ? 3 : 4; }
 constexpr int LDA = 72;      // bf16 pitch of an A row: 64 k values + 8
@@ -123,7 +134,7 @@ __device__ __forceinline__ float magic(uint32_t bits, float bias) {
   return __uint_as_float(bits) - bias;
 }
 
-template <int TMR, int MODE>
+template <int TMR, int MODE, bool TAIL = false>
 __global__ void __launch_bounds__(THREADS)
 gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
            const int8_t* __restrict__ q, const __nv_bfloat16* __restrict__ s,
@@ -191,6 +202,8 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
     return swiglu ? (sc < BNC / 2 ? n0 + sc : I + n0 + sc - BNC / 2) : n0 + sc;
   };
   const int b_gc = gcol(b_c * 16);
+  // TAIL (f32 epilogue): a column at or past N is not read
+  auto live = [&](int col) { return !TAIL || col < N; };
 
   auto load_stage = [&](int j, int st) {
     unsigned char* base = smem + st * SB;
@@ -217,7 +230,12 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
         }
       }
     }
-    if constexpr (PK * BCH == THREADS)
+    if constexpr (TAIL) {
+      const bool b_live = live(b_gc);
+      if (PK * BCH == THREADS || tid < PK * BCH)
+        ktt::cp_async16(sb + b_r * LDB + b_c * 16,
+                        b_live ? qe + (long)(p0 + b_r) * N + b_gc : qe, b_live);
+    } else if constexpr (PK * BCH == THREADS)
       ktt::cp_async16(sb + b_r * LDB + b_c * 16, qe + (long)(p0 + b_r) * N + b_gc, true);
     else if (tid < PK * BCH)
       ktt::cp_async16(sb + b_r * LDB + b_c * 16, qe + (long)(p0 + b_r) * N + b_gc, true);
@@ -226,13 +244,23 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
         const int r4 = tid >> (BNC == 128 ? 4 : 3), c8 = (tid & (BNC / 8 - 1)) * 8;
         const int h = r4 & 1;
         const int grp = ((h == 0 ? p0 : khalf + p0) + 16 * (r4 >> 1)) / gs;
-        ktt::cp_async16(ss + r4 * BNC + c8, se + (long)grp * N + gcol(c8), h == 0 || is4);
+        if constexpr (TAIL) {
+          const bool ok = (h == 0 || is4) && live(n0 + c8);
+          ktt::cp_async16(ss + r4 * BNC + c8, ok ? se + (long)grp * N + gcol(c8) : se, ok);
+        } else {
+          ktt::cp_async16(ss + r4 * BNC + c8, se + (long)grp * N + gcol(c8), h == 0 || is4);
+        }
       }
     } else if (tid < 2 * (BNC / 8)) {  // scale rows: the low half's group, then the high half's
       const int h = tid >> (BNC == 128 ? 4 : 3), c8 = (tid & (BNC / 8 - 1)) * 8;
       const int grp = (h == 0 ? p0 : khalf + p0) / gs;
-      const bool ok = h == 0 || is4;
-      ktt::cp_async16(ss + h * BNC + c8, se + (long)grp * N + gcol(c8), ok);
+      if constexpr (TAIL) {
+        const bool ok = (h == 0 || is4) && live(n0 + c8);
+        ktt::cp_async16(ss + h * BNC + c8, ok ? se + (long)grp * N + gcol(c8) : se, ok);
+      } else {
+        const bool ok = h == 0 || is4;
+        ktt::cp_async16(ss + h * BNC + c8, se + (long)grp * N + gcol(c8), ok);
+      }
     }
   };
 
@@ -420,9 +448,12 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
       } else {
         float* o = (float*)out;
 #pragma unroll
-        for (int cb = 0; cb < 2; ++cb)
+        for (int cb = 0; cb < 2; ++cb) {
+          if constexpr (TAIL)
+            if (!live(n0 + cb_col[cb])) continue;
           *reinterpret_cast<float4*>(o + r * N + n0 + cb_col[cb] + 4 * t) =
               make_float4(v[cb][0], v[cb][1], v[cb][2], v[cb][3]);
+        }
       }
     }
 }
@@ -539,18 +570,19 @@ extern "C" int gmm_a8_launch(const void* xq, const void* sx, const void* row_src
   return (int)cudaGetLastError();
 }
 
-template <int TMR, int MODE>
+template <int TMR, int MODE, bool TAIL = false>
 int gmm_launch_tm(const void* x, const void* row_src, const void* q, const void* s,
                   const void* tile_e, const void* tile_valid, void* out, int n_tiles, int K,
                   int N, int bits, int gs, long q_estride, long s_estride, int swiglu,
                   float limit, int gpt_oss, int tn, unsigned* sink, cudaStream_t stream) {
   constexpr int bytes = smem_bytes(TMR, MODE);
   constexpr int cols = cta_cols(TMR);
-  cudaError_t err = cudaFuncSetAttribute(gmm_kernel<TMR, MODE>,
+  cudaError_t err = cudaFuncSetAttribute(gmm_kernel<TMR, MODE, TAIL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_tiles, swiglu ? (N / 2) / (cols / 2) : N / cols);
-  gmm_kernel<TMR, MODE><<<grid, THREADS, bytes, stream>>>(
+  // TAIL: a last, partial column CTA
+  dim3 grid(n_tiles, swiglu ? (N / 2) / (cols / 2) : (N + cols - 1) / cols);
+  gmm_kernel<TMR, MODE, TAIL><<<grid, THREADS, bytes, stream>>>(
       (const __nv_bfloat16*)x, (const int*)row_src, (const int8_t*)q,
       (const __nv_bfloat16*)s, (const int*)tile_e, (const int*)tile_valid, out, K, N, bits,
       gs, q_estride, s_estride, swiglu, limit, gpt_oss, tn, sink);
@@ -558,27 +590,42 @@ int gmm_launch_tm(const void* x, const void* row_src, const void* q, const void*
 }
 
 // K4 / K7 at tile heights of 64, 128, 256 or 512 rows; groups a multiple
-// of 32 rows (FULL) or of 16 (FULL16).
+// of 32 rows (FULL) or of 16 (FULL16). The SwiGLU epilogue takes whole CTAs
+// only; the f32 epilogue takes N % 64 == 0, through the TAIL instances where
+// N is not a whole number of CTAs (at 512 rows a CTA is 64 columns, so
+// always whole).
 extern "C" int gmm_launch(const void* x, const void* row_src, const void* q, const void* s,
                           const void* tile_e, const void* tile_valid, void* out, int n_tiles,
                           int tm, int K, int N, int bits, int gs, long q_estride,
                           long s_estride, int swiglu, float limit, int gpt_oss,
                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (gs % 16 || K % gs) return (int)cudaErrorInvalidValue;
-#define GMM_TM(T, M)                                                                       \
-  if (tm == T && (M == FULL16) == (gs % 32 != 0))                                          \
-    return gmm_launch_tm<T, M>(x, row_src, q, s, tile_e, tile_valid, out, n_tiles, K, N,    \
-                               bits, gs, q_estride, s_estride, swiglu, limit, gpt_oss, 0,   \
-                               nullptr, st);
-  GMM_TM(64, FULL)
-  GMM_TM(128, FULL)
-  GMM_TM(256, FULL)
-  GMM_TM(512, FULL)
-  GMM_TM(64, FULL16)
-  GMM_TM(128, FULL16)
-  GMM_TM(256, FULL16)
-  GMM_TM(512, FULL16)
+  if (gs % 16 || K % gs || N % 64) return (int)cudaErrorInvalidValue;
+  const int cols = cta_cols(tm);
+  if (swiglu && (N / 2) % (cols / 2)) return (int)cudaErrorInvalidValue;
+  const bool tail = !swiglu && N % cols != 0;
+#define GMM_TM(T, M, TL)                                                                    \
+  if (tm == T && (M == FULL16) == (gs % 32 != 0))                                           \
+    return gmm_launch_tm<T, M, TL>(x, row_src, q, s, tile_e, tile_valid, out, n_tiles, K, N, \
+                                   bits, gs, q_estride, s_estride, swiglu, limit, gpt_oss, 0, \
+                                   nullptr, st);
+  if (tail) {
+    GMM_TM(64, FULL, true)
+    GMM_TM(128, FULL, true)
+    GMM_TM(256, FULL, true)
+    GMM_TM(64, FULL16, true)
+    GMM_TM(128, FULL16, true)
+    GMM_TM(256, FULL16, true)
+    return (int)cudaErrorInvalidValue;
+  }
+  GMM_TM(64, FULL, false)
+  GMM_TM(128, FULL, false)
+  GMM_TM(256, FULL, false)
+  GMM_TM(512, FULL, false)
+  GMM_TM(64, FULL16, false)
+  GMM_TM(128, FULL16, false)
+  GMM_TM(256, FULL16, false)
+  GMM_TM(512, FULL16, false)
 #undef GMM_TM
   return (int)cudaErrorInvalidValue;
 }

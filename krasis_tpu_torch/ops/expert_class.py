@@ -22,7 +22,13 @@ stacks its gathered kernels decline to the plain ``moe_forward_gathered``
 f32 w2 bias); the port runs that form on K6's two launches with the biases
 added between them, at the same rounding points, wherever K6 takes both
 stacks — also under ``expert_activation="int8"``, as the reference's form
-has bf16 rows there too.
+has bf16 rows there too. The prefill half is the same departure: such
+stacks in the grouped regime go to the reference's plain
+``moe_forward_ragged``, which the port runs on K7's two launches with the
+biases added between them, at that form's rounding points, wherever K7
+takes both stacks (N a multiple of 64: its last column CTA may be half
+full) — whatever ``prefill_fused`` says, since the bias comes between the
+bf16 rounding of h and the activation, where K4's epilogue has no room.
 """
 
 from __future__ import annotations

@@ -8,7 +8,11 @@ SwiGLU between for experts too large for its fused kernels: it is K4's f32
 entry at both call shapes, under its own launch count. ``gmm_a8`` (K7a)
 replaces ``gmm_a8``: the same tiles with int8 rows and per-group scales.
 ``moe_prefill`` has the glue and the three branches of
-``moe_prefill_pallas``, and its ``tile_rows`` knob. The tile plan differs
+``moe_prefill_pallas``, and its ``tile_rows`` knob; with expert biases it
+runs the reference's plain ragged form (``moe_forward_ragged``) on K7's two
+launches, the biases added between them at that form's rounding points. K7
+takes widths that are not whole CTAs (N % 64 == 0: GPT-OSS's w2 has 2880
+columns), K4 whole CTAs only. The tile plan differs
 from ``_plan_tiles``: tiles are 64 or 128 rows unless the caller asks for
 256 or 512 (``choose_tm``, from shapes alone), there is no spare trash
 tile, and the w13 launches gather token rows themselves; every row's
@@ -64,7 +68,11 @@ class TilePlan(NamedTuple):
 
 
 def cta_cols(tm: int) -> int:
-    """Output columns of one CTA of gmm_kernel: 128, or 64 at 512 rows."""
+    """Output columns of one CTA of gmm_kernel: 128, or 64 at 512 rows.
+    The f32 epilogue (K7) takes a partial last CTA: N is a multiple of 64,
+    not of this (up to 256 rows the last CTA owns 64 live columns); that
+    CTA reads no weight or scale byte and writes no output past N. The
+    SwiGLU epilogue (K4) takes whole CTAs only."""
     return 64 if tm == 512 else 128
 
 
@@ -217,13 +225,15 @@ def _check_rows(name: str, x: torch.Tensor, row_src: Optional[torch.Tensor], w: 
 
 
 def gmm_supported(w: QTensor) -> bool:
-    """Stacks gmm_kernel takes: a step is 32 packed rows (for int4 both
-    halves: K/2 a multiple of 32) whose 16-row halves each lie in one scale
-    group (groups of a multiple of 16 rows; below 32 the kernel's FULL16
-    form stages a scale row per half), columns in 16-byte blocks."""
+    """Stacks gmm_kernel's f32 epilogue (K7) takes: a step is 32 packed
+    rows (for int4 both halves: K/2 a multiple of 32) whose 16-row halves
+    each lie in one scale group (groups of a multiple of 16 rows; below 32
+    the kernel's FULL16 form stages a scale row per half), N a multiple of
+    64 columns (a last CTA of 64 where N is no whole number of CTAs; the
+    SwiGLU epilogue also needs whole CTAs, which ``_launch`` checks)."""
     packed = w.k_dim // 2 if w.bits == 4 else w.k_dim
     return (w.bits in (4, 8) and packed % 32 == 0 and w.group_size % 16 == 0
-            and w.k_dim % w.group_size == 0 and w.n_dim % 16 == 0)
+            and w.k_dim % w.group_size == 0 and w.n_dim % 64 == 0)
 
 
 def _launch(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
@@ -236,8 +246,7 @@ def _launch(x: torch.Tensor, row_src: Optional[torch.Tensor], w: QTensor,
     if not gmm_supported(w) or plan.tm not in TILE_HEIGHTS:
         raise ValueError(f"gmm: unsupported stack {tuple(w.q.shape)}, bits {w.bits}, "
                          f"group {w.group_size}, tile rows {plan.tm}")
-    cols = cta_cols(plan.tm)
-    if (swiglu and (N // 2) % (cols // 2)) or (not swiglu and N % cols):
+    if swiglu and (N // 2) % (cta_cols(plan.tm) // 2):
         raise ValueError(f"gmm: unsupported output width {N} at {plan.tm}-row tiles")
     if swiglu:
         out = torch.empty((Mp, N // 2), dtype=torch.bfloat16, device=x.device)
@@ -378,23 +387,39 @@ def gmm_a8(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Tensor],
     return out
 
 
+def _add_tile_bias(y: torch.Tensor, bias: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """y [Mp, N] + the bias row [E, N] of each tile's expert, in y's dtype."""
+    n = y.shape[1]
+    return (y.view(plan.n_tiles, plan.tm, n) + bias[plan.tile_e.long()][:, None, :]).view(-1, n)
+
+
 def moe_prefill(x: torch.Tensor, w13: QTensor, w2: QTensor,
                 topk_idx: torch.Tensor, topk_weights: torch.Tensor,
                 swiglu_limit: float = 0.0, gpt_oss: bool = False,
                 pick_valid: Optional[torch.Tensor] = None,
-                activation: str = "bf16", tile_rows: Optional[int] = None) -> torch.Tensor:
+                activation: str = "bf16", tile_rows: Optional[int] = None,
+                w13_bias: Optional[torch.Tensor] = None,
+                w2_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped MoE: w13 GEMM, SwiGLU, w2 GEMM, then the f32 weighted combine
     of each token's k picks, cast to x.dtype. Three forms, as the
     reference's ``moe_prefill_pallas``: int8 rows (K7a) when asked for; the
     fused SwiGLU epilogue (K4) for experts of the fused class; else two
-    f32 stages (K7) with the h rounded to bf16 before SwiGLU. A pick with
-    pick_valid == 0 is in no tile and adds nothing. tile_rows is the
-    reference's A/B knob for the tile height: 64, 128, 256 or 512 rows for
-    K4 / K7 (None: ``choose_tm``); K7a runs 64-row tiles only."""
+    f32 stages (K7) with the h rounded to bf16 before SwiGLU. With
+    w13_bias [E, 2I] or w2_bias [E, H] (GPT-OSS) it is the reference's
+    plain ragged form (``moe_forward_ragged``) on K7 whatever the class or
+    `activation` say: h = K7(w13) in f32, rounded to bf16, + the bf16 w13
+    bias of each tile's expert, the activation, o = K7(w2) in f32, + the
+    f32 w2 bias, then the combine. Padding rows and skipped tiles get a
+    bias too; the combine reads neither. A pick with pick_valid == 0 is in
+    no tile and adds nothing. tile_rows is the reference's A/B knob for the
+    tile height: 64, 128, 256 or 512 rows for K4 / K7 (None:
+    ``choose_tm``); K7a runs 64-row tiles only."""
     T, H = x.shape
     k = topk_idx.shape[1]
     E = w13.q.shape[0]
-    int8_rows = activation == "int8" and gmm_a8_supported(w13) and gmm_a8_supported(w2)
+    biased = w13_bias is not None or w2_bias is not None
+    int8_rows = (activation == "int8" and not biased and gmm_a8_supported(w13)
+                 and gmm_a8_supported(w2))
     if tile_rows is not None and (int8_rows or tile_rows not in TILE_HEIGHTS):
         raise ValueError(f"moe_prefill: tile_rows={tile_rows} is not taken "
                          + ("with int8 rows: K7a runs 64-row tiles only (ROADMAP A-12)"
@@ -409,13 +434,17 @@ def moe_prefill(x: torch.Tensor, w13: QTensor, w2: QTensor,
         a = swiglu_fn(h, swiglu_limit, gpt_oss)
         aq, sa = quantize_activations(a, w2.group_size)
         o = gmm_a8(aq, sa, None, w2, plan)
-    elif expert_class.prefill_fused(w13, w2):
+    elif not biased and expert_class.prefill_fused(w13, w2):
         a = gmm(x, plan.row_src, w13, plan, True, swiglu_limit, gpt_oss)
         o = gmm(a, None, w2, plan, swiglu=False)
     else:
-        h = gmm_two_stage(x, plan.row_src, w13, plan)
-        a = swiglu_fn(h.to(torch.bfloat16), swiglu_limit, gpt_oss)
+        hb = gmm_two_stage(x, plan.row_src, w13, plan).to(torch.bfloat16)
+        if w13_bias is not None:
+            hb = _add_tile_bias(hb, w13_bias.to(torch.bfloat16), plan)
+        a = swiglu_fn(hb, swiglu_limit, gpt_oss)
         o = gmm_two_stage(a, None, w2, plan)
+        if w2_bias is not None:
+            o = _add_tile_bias(o, w2_bias.to(torch.float32), plan)
     if pick_valid is None:
         o_rep = o[plan.dest]
     else:

@@ -14,14 +14,17 @@ kernels do not take; every stack of these forms that the reference's
 predicates admit at groups of a multiple of 16 rows is taken.
 
 Biased experts and stacks the reference's kernels decline take the
-reference's plain forms: ``moe_forward_ragged`` in the grouped regime
-(form "ragged"), and in the gathered one ``moe_forward_gathered``. The
-port runs the latter on K6's two launches with the biases added between
-them wherever K6 takes both stacks (form "gathered": a departure in
-dispatch with the same rounding points: bf16 rows, h rounded to bf16,
-+ the bf16 w13 bias, the activation, + the f32 w2 bias), else as it is
-(form "gathered_plain"). ``plain_routes`` counts the calls of the two
-plain forms.
+reference's plain forms: ``moe_forward_ragged`` in the grouped regime, and
+in the gathered one ``moe_forward_gathered``. The port runs each on its
+regime's kernel with the biases added between the two launches, a
+departure in dispatch with the same rounding points (bf16 rows, h rounded
+to bf16, + the bf16 w13 bias, the activation, + the f32 w2 bias): the
+gathered form on K6 wherever K6 takes both stacks (form "gathered"), the
+ragged one on K7 (``gmm_cuda.moe_prefill`` with the biases; form
+"ragged") wherever K7 takes both stacks and the rows are bf16. Only the
+summation order differs from the reference's. Elsewhere they run as they
+are (forms "gathered_plain" and "ragged_plain"), and ``plain_routes``
+counts the calls of these two plain forms.
 """
 
 from __future__ import annotations
@@ -118,22 +121,28 @@ def moe_forward_gathered(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
 
 
 # moe_forward calls of each plain form since the caller last set them to 0
-plain_routes = {"ragged": 0, "gathered_plain": 0}
+plain_routes = {"ragged_plain": 0, "gathered_plain": 0}
 
 
 def route(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor, biased: bool,
           activation: str = "bf16") -> str:
     """The form of a call, from predicates alone, before anything is
     launched: "grouped" (K4 / K7), "fused_int8" (K3), "tiled_int8" (K6a),
-    "fused_bf16" (K5), "tiled_bf16" (K6 twice), "gathered" (K6 twice with
-    the biases), or one of the plain forms "ragged" (``moe_forward_ragged``)
-    and "gathered_plain" (``moe_forward_gathered``)."""
+    "fused_bf16" (K5), "tiled_bf16" (K6 twice), "ragged" (K7 twice with the
+    biases), "gathered" (K6 twice with the biases), or one of the plain
+    forms "ragged_plain" (``moe_forward_ragged``) and "gathered_plain"
+    (``moe_forward_gathered``)."""
     T, k = x.shape[0], topk_idx.shape[-1]
     quant = isinstance(w13, QTensor) and isinstance(w2, QTensor)
     E = w13.q.shape[0] if isinstance(w13, QTensor) else w13.shape[0]
     ref = not biased and quant and expert_class.gathered(w13) and expert_class.gathered(w2)
     if use_grouped_path(T, k, E):
-        return "grouped" if ref else "ragged"
+        if ref:
+            return "grouped"
+        if (quant and x.dtype == torch.bfloat16 and w13.q.dim() == 3 and w2.q.dim() == 3
+                and gmm_cuda.gmm_supported(w13) and gmm_cuda.gmm_supported(w2)):
+            return "ragged"
+        return "ragged_plain"
     if not biased and quant:
         if activation == "int8":
             if expert_class.decode_fused_int8(w13, w2):
@@ -168,12 +177,14 @@ def moe_forward(x: torch.Tensor, w13, w2, topk_idx: torch.Tensor,
     bias = dict(w13_bias=w13_bias, w2_bias=w2_bias)
     if form in plain_routes:
         plain_routes[form] += 1
-        fn = moe_forward_ragged if form == "ragged" else moe_forward_gathered
+        fn = moe_forward_ragged if form == "ragged_plain" else moe_forward_gathered
         return fn(x, w13, w2, topk_idx, topk_weights, *act, **bias)
-    if form == "grouped":
+    if form in ("grouped", "ragged"):
         # the grouped regime runs bf16 activations whatever `activation`
-        # says; its int8 form stays an A/B entry of moe_prefill
-        return gmm_cuda.moe_prefill(x, w13, w2, topk_idx, topk_weights, *act, pick_valid)
+        # says; its int8 form stays an A/B entry of moe_prefill. "ragged"
+        # passes the biases, which select K7 whatever the expert class says
+        return gmm_cuda.moe_prefill(x, w13, w2, topk_idx, topk_weights, *act, pick_valid,
+                                    **bias)
     if form == "fused_int8":
         return moe_cuda.moe_w4a8(x, w13, w2, topk_idx, topk_weights, *act)
     if form == "fused_bf16":

@@ -366,10 +366,10 @@ def test_biased_chain_at_gpt_oss_shapes(dev, T, masked):
         wts = wts * pv
     args = (x, w13, w2, idx, wts, 7.0, True)
     before = moe_cuda.launches_gq
-    moe.plain_routes.update(ragged=0, gathered_plain=0)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
     got = moe.moe_forward(*args, w13_bias=b13, w2_bias=b2, pick_valid=pv, activation="int8")
     assert moe_cuda.launches_gq == before + 2
-    assert moe.plain_routes == {"ragged": 0, "gathered_plain": 0}
+    assert moe.plain_routes == {"ragged_plain": 0, "gathered_plain": 0}
     want = moe.moe_forward_gathered(*args, w13_bias=b13, w2_bias=b2)
     _close(got, want, 3e-2)
     with pytest.raises(AssertionError):
@@ -401,12 +401,12 @@ def test_groups_of_16_in_each_regime(dev, monkeypatch, regime, T, activation, tw
     idx = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
     wts = torch.rand((T, k), generator=g, device=dev)
     assert moe.route(x, w13, w2, idx, False, activation) == regime
-    moe.plain_routes.update(ragged=0, gathered_plain=0)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
     mod, attr = counter
     before = getattr(mod, attr)
     got = moe.moe_forward(x, w13, w2, idx, wts, activation=activation)
     assert getattr(mod, attr) == before + 2
-    assert moe.plain_routes == {"ragged": 0, "gathered_plain": 0}
+    assert moe.plain_routes == {"ragged_plain": 0, "gathered_plain": 0}
     plain = {"fused_int8": lambda: moe_cuda.moe_w4a8_plain(x, w13, w2, idx, wts),
              "tiled_int8": lambda: moe_cuda.moe_gathered_a8_plain(x, w13, w2, idx, wts),
              "fused_bf16": lambda: moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts),
@@ -439,6 +439,77 @@ def test_gmm_kernel_groups_of_16(dev, tm, bits):
     _close(h[real], gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)[real], 2e-2)
     o = gmm_cuda.gmm(a, None, w2, plan, False)
     _close(o[real], gmm_cuda.gmm_plain(a, None, w2, plan, False)[real], 3e-2)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("gs", [32, 16])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("tm", [64, 128, 256])
+def test_k7_column_tail(dev, tm, bits, gs, masked):
+    """K7 at widths that end in a 64-column CTA (N = 320 and 192), at the
+    heights where a CTA is 128 columns, both call shapes (gathered rows,
+    tile-aligned rows), against gmm_plain on the real rows within 2e-2;
+    padding rows of computed tiles read back zero. K4's SwiGLU epilogue
+    still refuses such a width."""
+    g = _gen(dev, 300 + tm + bits + gs + masked)
+    E, T, k = 4, 150, 2
+    w13 = random_qtensor((E, 320, 192), bits, gs, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((E, 192, 320), bits, gs, g, dev, scale_mag=0.03)
+    x = torch.randn((T, 320), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    pv = torch.rand((T, k), generator=g, device=dev) > 0.2 if masked else None
+    plan = gmm_cuda.plan_tiles(idx, E, tm, pick_valid=pv)
+    real = plan.row_src >= 0
+    pad = (~real) & plan.tile_valid.bool().repeat_interleave(tm)
+    before = gmm_cuda.launches_two_stage
+    h = gmm_cuda.gmm_two_stage(x, plan.row_src, w13, plan)
+    _close(h[real], gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)[real], 2e-2)
+    assert not h[pad].any()
+    a = torch.randn((plan.n_tiles * tm, w2.k_dim), generator=g, device=dev).to(torch.bfloat16)
+    o = gmm_cuda.gmm_two_stage(a, None, w2, plan)
+    live = plan.tile_valid.bool().repeat_interleave(tm)
+    _close(o[live], gmm_cuda.gmm_plain(a, None, w2, plan, False)[live], 2e-2)
+    assert gmm_cuda.launches_two_stage == before + 2
+    with pytest.raises(ValueError):
+        gmm_cuda.gmm(x, plan.row_src, w13, plan, True)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "pick_valid"])
+@pytest.mark.parametrize("T", [40, 1024])
+def test_biased_grouped_chain_at_gpt_oss_shapes(dev, T, masked):
+    """GPT-OSS's biased experts in the grouped regime through moe_forward
+    (32 experts, H and I 2880, int4 gs 32, top-4, nonzero biases; 64-row
+    tiles at T = 40, 128-row at T = 1024): two K7 launches a call and no
+    plain route, within 3e-2 of the plain moe_forward_ragged; without the
+    w13 bias the plain form is not."""
+    from krasis_tpu_torch.ops import moe
+
+    g = _gen(dev, 120 + T)
+    E, H, I, k = 32, 2880, 2880, 4
+    w13 = random_qtensor((E, H, 2 * I), 4, 32, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((E, I, H), 4, 32, g, dev, scale_mag=0.03)
+    x = torch.randn((T, H), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.stack([torch.randperm(E, generator=g, device=dev)[:k]
+                       for _ in range(T)]).to(torch.int32)
+    wts = torch.softmax(torch.randn((T, k), generator=g, device=dev), dim=-1)
+    b13 = torch.randn((E, 2 * I), generator=g, device=dev).to(torch.bfloat16)
+    b2 = torch.randn((E, H), generator=g, device=dev).to(torch.bfloat16)
+    pv = None
+    if masked:
+        pv = torch.rand((T, k), generator=g, device=dev) > 0.2
+        wts = wts * pv
+    args = (x, w13, w2, idx, wts, 7.0, True)
+    assert moe.route(x, w13, w2, idx, True) == "ragged"
+    before = (gmm_cuda.launches_two_stage, gmm_cuda.launches, gmm_cuda.launches_a8)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+    got = moe.moe_forward(*args, w13_bias=b13, w2_bias=b2, pick_valid=pv, activation="int8")
+    assert (gmm_cuda.launches_two_stage, gmm_cuda.launches, gmm_cuda.launches_a8) == (
+        before[0] + 2, before[1], before[2])
+    assert moe.plain_routes == {"ragged_plain": 0, "gathered_plain": 0}
+    want = moe.moe_forward_ragged(*args, w13_bias=b13, w2_bias=b2)
+    _close(got, want, 3e-2)
+    with pytest.raises(AssertionError):
+        _close(got, moe.moe_forward_ragged(*args, w2_bias=b2), 3e-2)
 
 
 @pytest.mark.parametrize("activation", ["int8", "bf16"])

@@ -10,8 +10,8 @@ JAX package:
   the same biases (3e-2, the reference's MoE tolerance), with a control
   that drops the w13 bias and must fail that limit;
 * the dispatch: biased decode takes exactly two K6 calls, biased prefill
-  the plain ragged path, unbiased stacks of the repository's models the
-  kernels they took before;
+  the ragged form on two K7 calls (no plain route), unbiased stacks of the
+  repository's models the kernels they took before;
 * K6's launch plan: every column, the 64-column tail included, and every
   pick;
 * groups of 16 (ROADMAP C-2): in every regime the port's form is the one
@@ -128,27 +128,38 @@ def test_moe_forward_runs_biased_decode_on_two_k6_calls(monkeypatch, activation)
 
     monkeypatch.setattr(moe_cuda, "gathered_qmm", counted)
     w13, w2, x, idx, wts, b13, b2 = _biased_case(6, T=1)
-    moe.plain_routes.update(ragged=0, gathered_plain=0)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
     got = moe.moe_forward(t(x), tq(w13), tq(w2), t(idx), t(wts), 7.0, True,
                           w13_bias=t(b13), w2_bias=t(b2), activation=activation)
     assert calls == [w13.n_dim, w2.n_dim]
-    assert moe.plain_routes == {"ragged": 0, "gathered_plain": 0}
+    assert moe.plain_routes == {"ragged_plain": 0, "gathered_plain": 0}
     want = jmoe.moe_forward(x, w13, w2, jnp.asarray(idx), jnp.asarray(wts), swiglu_limit=7.0,
                             gpt_oss=True, w13_bias=b13, w2_bias=b2, activation=activation)
     np.testing.assert_allclose(f32(got), f32(want), rtol=TOL_MOE, atol=TOL_MOE)
 
 
 def test_moe_forward_keeps_biased_prefill_on_the_ragged_path(monkeypatch):
+    """A biased call in the grouped regime takes the reference's ragged
+    form, now on K7: two K7 calls with the biases between, no K6 call, no
+    call of the plain moe_forward_ragged and no plain route (I = 192: a K7
+    step is 32 packed int4 rows)."""
     calls = []
     monkeypatch.setattr(moe_cuda, "gathered_qmm", lambda *a, **kw: calls.append("K6"))
+    real_k7 = gmm_cuda.gmm_two_stage
+    monkeypatch.setattr(gmm_cuda, "gmm_two_stage",
+                        lambda *a, **kw: calls.append("K7") or real_k7(*a, **kw))
     real = moe.moe_forward_ragged
     monkeypatch.setattr(moe, "moe_forward_ragged",
-                        lambda *a, **kw: calls.append("ragged") or real(*a, **kw))
-    w13, w2, x, idx, wts, b13, b2 = _biased_case(7, T=6, k=4, E=8)
-    moe.plain_routes.update(ragged=0, gathered_plain=0)
-    moe.moe_forward(t(x), tq(w13), tq(w2), t(idx), t(wts), 7.0, True, w13_bias=t(b13),
-                    w2_bias=t(b2))
-    assert calls == ["ragged"] and moe.plain_routes == {"ragged": 1, "gathered_plain": 0}
+                        lambda *a, **kw: calls.append("ragged_plain") or real(*a, **kw))
+    w13, w2, x, idx, wts, b13, b2 = _biased_case(7, T=6, k=4, E=8, I=192)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+    got = moe.moe_forward(t(x), tq(w13), tq(w2), t(idx), t(wts), 7.0, True, w13_bias=t(b13),
+                          w2_bias=t(b2))
+    assert calls == ["K7", "K7"]
+    assert moe.plain_routes == {"ragged_plain": 0, "gathered_plain": 0}
+    want = jmoe.moe_forward_ragged(x, w13, w2, jnp.asarray(idx), jnp.asarray(wts),
+                                   swiglu_limit=7.0, gpt_oss=True, w13_bias=b13, w2_bias=b2)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=TOL_MOE, atol=TOL_MOE)
 
 
 def _meta_stack(e, k, n, bits, gs):
@@ -196,10 +207,15 @@ def test_unbiased_routes_of_the_models_are_the_kernels(model):
 def test_gpt_oss_routes():
     """GPT-OSS-20B's biased experts (32, H 2880, I 2880, int4 gs 32): the
     plain gathered form on K6 in decode under both activations; the plain
-    ragged form in prefill."""
+    ragged form on K7 in prefill (w2's 2880 columns: a 64-column tail), at
+    both plan heights."""
     for act in ("int8", "bf16"):
         assert _route(32, 2880, 2880, 4, 32, 1, 4, act, biased=True) == "gathered"
-    assert _route(32, 2880, 2880, 4, 32, 2048, 4, "bf16", biased=True) == "ragged"
+    for T in (2048, 452, 40):
+        assert _route(32, 2880, 2880, 4, 32, T, 4, "bf16", biased=True) == "ragged"
+    w13, w2 = _meta_stack(32, 2880, 5760, 4, 32), _meta_stack(32, 2880, 2880, 4, 32)
+    assert gmm_cuda.gmm_supported(w13) and gmm_cuda.gmm_supported(w2)
+    assert [gmm_cuda.choose_tm(T * 4, 32) for T in (2048, 452, 40)] == [128, 64, 64]
 
 
 @pytest.mark.parametrize("P,K,N,bits,gs", [
@@ -282,9 +298,9 @@ def test_groups_of_16_take_the_reference_form(monkeypatch, regime):
     pw13, pw2 = tq(w13), tq(w2)
     assert moe.route(t(x), pw13, pw2, t(idx), False, activation) == form
     assert CARD[form](pw13, pw2)
-    moe.plain_routes.update(ragged=0, gathered_plain=0)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
     got = moe.moe_forward(t(x), pw13, pw2, t(idx), t(wts), activation=activation)
-    assert moe.plain_routes == {"ragged": 0, "gathered_plain": 0}
+    assert moe.plain_routes == {"ragged_plain": 0, "gathered_plain": 0}
     want = jmoe.moe_forward(x, w13, w2, jnp.asarray(idx), jnp.asarray(wts),
                             activation=activation)
     np.testing.assert_allclose(f32(got), f32(want), rtol=TOL_MOE, atol=TOL_MOE)

@@ -133,19 +133,20 @@ def test_plain_paths_match_reference(bits, path, biased):
 
 def test_moe_forward_sends_biased_experts_to_the_plain_paths(monkeypatch):
     """Biased experts take the reference's plain forms: the ragged path in
-    the grouped regime; in the gathered one the plain gathered form, which
-    the port runs on K6's chain with the biases (moe_gathered_tiled) where
-    K6 takes the stacks."""
+    the grouped regime, which the port runs on K7's two launches with the
+    biases (moe_prefill) where K7 takes the stacks; in the gathered one the
+    plain gathered form, which the port runs on K6's chain with the biases
+    (moe_gathered_tiled) where K6 takes the stacks."""
     w13, w2, x, idx, wts, _ = _case(90, 4, False)
     b13 = t(_bf16(np.full((E, 2 * I), 0.1)))
     calls = []
     for mod, name in ((moe, "moe_forward_ragged"), (moe, "moe_forward_gathered"),
-                      (moe.moe_cuda, "moe_gathered_tiled")):
+                      (moe.gmm_cuda, "moe_prefill"), (moe.moe_cuda, "moe_gathered_tiled")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **kw: calls.append(
             (_n, kw.get("w13_bias") is b13)))
     moe.moe_forward(t(x), tq(w13), tq(w2), t(idx), t(wts), w13_bias=b13)
     moe.moe_forward(t(x)[:1], tq(w13), tq(w2), t(idx)[:1], t(wts)[:1], w13_bias=b13)
-    assert calls == [("moe_forward_ragged", True), ("moe_gathered_tiled", True)]
+    assert calls == [("moe_prefill", True), ("moe_gathered_tiled", True)]
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
