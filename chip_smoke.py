@@ -14,27 +14,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    and its prefill MoE on K7, which must both have launched) run on the card through the kernels against
    the same models on the CPU through their plain versions; then groups of
    16 (ROADMAP C-2) through moe_forward in each regime, each taking the
-   reference's form and, where that form's kernel declines the stacks, its
-   plain version on the card;
+   reference's form on that form's kernel; and moe_prefill(activation=
+   "int8") on a gs-16 int4 stack (ROADMAP C-3): two K7a launches, no K4 or
+   K7, within 3e-2 of the same call on the CPU;
 4. DeepSeek-V2-Lite Q4 at full width (MLA, 27 layers, random weights from a
    seed): each of its kernels (K1 qmm, K2 attention with V inside K: a
    prefill, a chunk, and split-KV decode at kv_len 2560, 2500 and 40 over
    the engine's 4096-row cache view; K3 W4A8 decode MoE, two device
    kernels a call, each call equal bit for bit to the next, and the plain
-   version without any one pick's weight the check must refuse; K4
+   version without any one pick's weight the check must refuse; K5, the
+   bf16-row decode MoE on K1's core, the same way within 3e-2; K4
    grouped GEMM on the main path's tile plan) against its plain PyTorch
    version at
    main-path shapes on the model's own weights, with kernel, plain,
    library-call (SDPA for K2, grouped_mm on pre-dequantized stacks for the
    grouped GEMM's products) and bound times, K2's forms again over the
    cache in e4m3 (equal bit for bit to K2 over that cache cast to bf16);
-   then four greedy requests through Engine.generate, one with an fp8
-   cache, and a profile of one prefill and one decode;
+   then five greedy requests through Engine.generate, one with an fp8
+   cache and one with bf16 expert activations (K5), and a profile of one
+   prefill and one decode;
 5. Qwen3-Coder-Next at full width (48 layers: 36 Gated DeltaNet + 12 GQA,
    512 experts top-10 + 1 shared, int8 projections): the same for the
    kernels this path adds or reshapes (K1s stacked qmm, K2 with a separate
    V, K5 bf16 decode MoE, and K1, K3, K4 at this model's shapes); three
-   requests with int8 expert activations, one with bf16, and the profile;
+   requests with int8 expert activations, one with bf16, and the profile,
+   and a profile of that bf16 request, which must show K5's two kernels
+   (K1's kernel with its ACT and PSUM flags) and no K3 kernel;
 6. DeepSeek-V2-Lite Q8 at full width and depth (int8 experts of 8.65 MB a
    pick: the two-stage expert class): K6 (on K1's core, with device us and
    a bmm yardstick) and K6a's one product (gathered products) on w13 and w2
@@ -45,8 +50,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    must refuse), again under the mask, where it must also agree with K3's
    function with the skipped picks' weights set to 0; K7 two-stage grouped
    GEMM at both call shapes, and K7 + SwiGLU + K7 equal bit for bit to K4's
-   fused result on the same plan; K7a int8 grouped GEMM stage by stage and
-   through moe_prefill(activation="int8"); the fused kernels timed at the
+   fused result on the same plan; K7a int8 grouped GEMM (the int8 tensor
+   cores) stage by stage on the 64-row plan and on the 128-row plan that
+   choose_tm gives T = 2048, with device us and max|Δ| (0 expected: int8
+   stacks fold in the plain version's order), and the whole
+   moe_prefill(activation="int8") within 3e-2 of its plain version, timed in
+   turns with the bf16 moe_prefill on the same routing; the fused kernels timed at the
    same shapes for the class boundary; then requests with int8 and bf16
    activations, one with top_logprobs=5, the perplexity entry point over
    4096 token ids (window 2048, stride 1024), the int8 prefill A/B entry,
@@ -91,7 +100,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    K4 / K7 at 256 and 512 rows against 128 rows bit for bit (P3's full
    term is K7's own launch), and two negative controls (a stream plain
    version without one pick, a 128-row plan with one tile's expert
-   changed) the checks must refuse.
+   changed) the checks must refuse; K7a with int4 rows at V2-Lite's w13
+   and w2 (w2's K/2 = 704 cuts a group of 128) on the 128-row plan.
 
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
@@ -368,6 +378,40 @@ def c2_phase():
                                      f"routes {plain_routes}, want {{{kernel!r}: 2}} only")
 
 
+def c3_phase():
+    """ROADMAP C-3: moe_prefill(activation="int8") on gs-16 stacks (4
+    experts, H 256, I 128, int4, T 64) takes the reference's int8 form on
+    the card: two K7a launches and no K4 or K7, within 3e-2 of the same call
+    on the CPU (its plain version)."""
+    import torch
+    from krasis_tpu_torch.ops import gmm_cuda
+    from krasis_tpu_torch.quant import random_qtensor
+
+    g = torch.Generator().manual_seed(13)
+    E, H, I, T, k = 4, 256, 128, 64, 2
+    w13 = random_qtensor((E, H, 2 * I), 4, 16, g, "cpu", scale_mag=0.03)
+    w2 = random_qtensor((E, I, H), 4, 16, g, "cpu", scale_mag=0.03)
+    x = torch.randn((T, H), generator=g).to(torch.bfloat16)
+    idx = torch.rand((T, E), generator=g).topk(k, dim=-1).indices.to(torch.int32)
+    wts = torch.rand((T, k), generator=g)
+    C = counters()
+    for m, attr in C.values():
+        setattr(m, attr, 0)
+    got = gmm_cuda.moe_prefill(x.cuda(), w13.to("cuda"), w2.to("cuda"), idx.cuda(), wts.cuda(),
+                               activation="int8")
+    torch.cuda.synchronize()
+    launched = {name: getattr(m, attr) for name, (m, attr) in C.items() if getattr(m, attr)}
+    want = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, activation="int8")
+    err, ratio = max_err(got.cpu(), want, 3e-2)
+    print(f"[c3] gs 16, int4, moe_prefill(activation=\"int8\"), T {T}: launches "
+          f"{json.dumps(launched)}; card vs CPU max|Δ| {err:.3g}, {ratio:.3g} of the limit "
+          "(tol 3e-2)", flush=True)
+    if launched != {"K7a": 2}:
+        raise AssertionError(f"C-3: launches {launched}, want {{'K7a': 2}} only")
+    if not ratio <= 1.0:
+        raise AssertionError("C-3: the card disagrees with the CPU")
+
+
 def counters():
     """The launch count of each kernel: (module, attribute)."""
     from krasis_tpu_torch.ops import flash_attention, gmm_cuda, moe_cuda, qmm_cuda
@@ -596,20 +640,21 @@ K3_TOL = 1e-2
 
 
 def core_checks(results, name, counter, kernels, replaces, run, plain, wts, nbytes, ops,
-                flush, iters=50, controls=None):
-    """A call of K3's two-kernel core (K3, or K6a's chain) against its plain
-    version, `run(w)` and `plain(w)` on routing weights w, with device time
-    from the profiler; a call must launch exactly the two device kernels
-    named `kernels` and repeat bit for bit, and the check must refuse the
-    plain version with any one pick's routing weight set to 0 (the folded
-    shared experts among them). `controls` lists (weights, picks): the
-    picks dropped from run(weights), by default every pick of `wts`."""
+                flush, iters=50, controls=None, tol=K3_TOL, peak=PEAK_INT8, source=None):
+    """A two-kernel decode MoE call (K3, K6a's chain, or K5 with `tol`
+    3e-2, `peak` bf16 and its `source`) against its plain version, `run(w)`
+    and `plain(w)` on routing weights w, with device time from the
+    profiler; a call must launch exactly the two device kernels named
+    `kernels` and repeat bit for bit, and the check must refuse the plain
+    version with any one pick's routing weight set to 0 (the folded shared
+    experts among them). `controls` lists (weights, picks): the picks
+    dropped from run(weights), by default every pick of `wts`."""
     import torch
     from krasis_tpu_torch.ops import moe_cuda
 
     check_kernel(results, name, counter, replaces, lambda: run(wts), lambda: plain(wts), None,
-                 K3_TOL, nbytes, ops, PEAK_INT8, iters, flush, device_name=kernels, calls=10,
-                 source=moe_cuda.SOURCE_W4A8)
+                 tol, nbytes, ops, peak, iters, flush, device_name=kernels, calls=10,
+                 source=source or moe_cuda.SOURCE_W4A8)
     res = results[-1][1]
     if res["kernels_per_call"] != 2:
         raise AssertionError(f"{name}: a call launched {res['kernels_per_call']} device "
@@ -624,7 +669,7 @@ def core_checks(results, name, counter, kernels, replaces, run, plain, wts, nbyt
         for j in picks:
             dropped = w.clone()
             dropped[:, j] = 0
-            ratios[j] = max_err(got, plain(dropped), K3_TOL)[1]
+            ratios[j] = max_err(got, plain(dropped), tol)[1]
     res["dropped_pick_over_limit"] = ratios
     print(f"[kernel] {name}: two calls equal bit for bit; the plain version with one pick's "
           f"weight set to 0 is {min(ratios):.3g} (pick {ratios.index(min(ratios))}) to "
@@ -642,6 +687,31 @@ def k3_checks(results, name, x, w13, w2, idx, wts, replaces, nbytes, ops, flush,
                 lambda w: moe_cuda.moe_w4a8(x, w13, w2, idx, w),
                 lambda w: moe_cuda.moe_w4a8_plain(x, w13, w2, idx, w), wts, nbytes, ops, flush,
                 iters)
+
+
+def k5_checks(results, name, x, w13, w2, idx, wts, nbytes, ops, flush, n_routed):
+    """K5 (``moe_bf16``, two instances of K1's kernel) through
+    ``core_checks`` at 3e-2: two device kernels a call, bit-equal repeats,
+    no PyTorch cast of the rows or picks, and every one-pick-dropped control
+    refused. At 3e-2 a pick of small weight hides in the others, so the
+    controls weight the routed picks equally and alone, then the folded
+    shared picks (the last P - n_routed) alone."""
+    from krasis_tpu_torch.ops import moe_cuda
+
+    P = wts.shape[1]
+    routed_only, shared_only = wts.clone(), wts.clone()
+    routed_only[:, :n_routed], routed_only[:, n_routed:] = 1.0 / n_routed, 0.0
+    shared_only[:, :n_routed] = 0.0
+    controls = [(routed_only, range(n_routed))]
+    if P > n_routed:
+        controls.append((shared_only, range(n_routed, P)))
+    casts = moe_cuda.k5_casts
+    core_checks(results, name, counters()["K5"], moe_cuda.K5_KERNELS, moe_cuda.REPLACES_BF16,
+                lambda w: moe_cuda.moe_bf16(x, w13, w2, idx, w),
+                lambda w: moe_cuda.moe_bf16_plain(x, w13, w2, idx, w), wts, nbytes, ops, flush,
+                controls=controls, tol=3e-2, peak=PEAK_BF16, source=moe_cuda.SOURCE)
+    if moe_cuda.k5_casts != casts:
+        raise AssertionError(f"{name}: K5 cast its rows or picks with PyTorch first")
 
 
 def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
@@ -666,10 +736,8 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
     k3_checks(results, prefix + "moe_decode", x, w13, w2, idx, wts, moe_cuda.REPLACES,
               P * per_pick + Hd * 4, decode_ops, flush)
     if bf16_too:
-        check_kernel(results, prefix + "moe_decode_bf16", C["K5"], moe_cuda.REPLACES_BF16,
-                     lambda: moe_cuda.moe_bf16(x, w13, w2, idx, wts),
-                     lambda: moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts),
-                     None, 3e-2, P * per_pick + Hd * 4, decode_ops, PEAK_BF16, 50, flush)
+        k5_checks(results, prefix + "moe_decode_bf16", x, w13, w2, idx, wts,
+                  P * per_pick + Hd * 4, decode_ops, flush, k)
 
     T = 2048
     x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
@@ -716,9 +784,9 @@ def v2lite_kernel_phase(params, cfg, results, g, flush):
     # score std = scale * sqrt(576) = 3.2 at unit-scale queries
     attention_checks(results, "", cfg.num_attention_heads, 1, L + DR, 640, L, False, scale,
                      1.0, g, flush, fp8=True)
-    # K3, K4 — 6 routed picks of 64 plus the 2 folded shared experts
+    # K3, K5, K4 — 6 routed picks of 64 plus the 2 folded shared experts
     moe = next(lp for lp in params["layers"] if "w13" in lp)
-    moe_checks(results, "", moe["w13"], moe["w2"], cfg, g, flush, bf16_too=False)
+    moe_checks(results, "", moe["w13"], moe["w2"], cfg, g, flush, bf16_too=True)
 
 
 def hybrid_kernel_phase(params, cfg, results, g, flush):
@@ -1025,6 +1093,43 @@ def gptoss_grouped_checks(results, lp, cfg, g, flush):
                                      "device us, kernels a call, whole": times}), flush=True)
 
 
+def k7a_checks(results, name, xq, sx, w13, w2, plan, hit, T):
+    """K7a (``gmm_a8``, the int8 tensor cores) on w13 (gathered int8 rows)
+    and w2 (the hidden requantized) on one plan, with device us: within 3e-2
+    of ``gmm_a8_plain``, max|Δ| and whether it is 0 (int8 stacks fold their
+    groups in the plain version's order) printed. `name` has a {} for the
+    stack."""
+    import torch
+    from krasis_tpu_torch.ops import gmm_cuda, moe_cuda
+    from krasis_tpu_torch.ops.activations import swiglu
+    from krasis_tpu_torch.quant import qtensor_bytes
+
+    C = counters()
+    E = w13.q.shape[0]
+    M = plan.dest.numel()
+    Hd, I = w13.k_dim, w2.k_dim
+    real = plan.row_src >= 0
+    h8 = gmm_cuda.gmm_a8_plain(xq, sx, plan.row_src, w13, plan)
+    aq, sa = moe_cuda.quantize_activations(swiglu(h8), w2.group_size)
+    del h8
+    for stack, w, rows, scales, src, K, N in (("w13", w13, xq, sx, plan.row_src, Hd, 2 * I),
+                                              ("w2", w2, aq, sa, None, I, Hd)):
+        in_rows = T if src is not None else M
+        check_kernel(results, name.format(stack), C["K7a"], gmm_cuda.REPLACES_A8,
+                     lambda: gmm_cuda.gmm_a8(rows, scales, src, w, plan),
+                     lambda: gmm_cuda.gmm_a8_plain(rows, scales, src, w, plan), None, 3e-2,
+                     hit * qtensor_bytes(w) / E + in_rows * K + in_rows * (K // w.group_size) * 4
+                     + M * N * 4, 2 * M * K * N, PEAK_INT8, 10, None, select=lambda o: o[real],
+                     device_name="gmm_a8_kernel", calls=5)
+        res = results[-1][1]
+        got = gmm_cuda.gmm_a8(rows, scales, src, w, plan)[real]
+        res["bit_equal_plain"] = torch.equal(got, gmm_cuda.gmm_a8_plain(rows, scales, src, w,
+                                                                         plan)[real])
+        print(f"[kernel] {name.format(stack)}: int{w.bits} gs {w.group_size}, {plan.tm}-row "
+              f"tiles, max|Δ| {res['max_abs_err']:.3g} against gmm_a8_plain, equal bit for bit: "
+              f"{res['bit_equal_plain']}", flush=True)
+
+
 def q8_kernel_phase(params, cfg, results, g, flush):
     """The two-stage expert class at DeepSeek-V2-Lite's int8-expert shapes:
     K6 / K6a at T = 1 with the 6 routed picks plus the 2 folded shared
@@ -1165,28 +1270,28 @@ def q8_kernel_phase(params, cfg, results, g, flush):
     if d_a != 0.0 or d_o != 0.0:
         raise AssertionError("the two-stage grouped form must equal the fused one bit for bit")
 
-    # --- K7a: each stage, then the whole int8 entry, on the 64-row plan
-    # that moe_prefill gives its int8 rows
-    plan8 = gmm_cuda.plan_tiles(topk, E_all)
-    real8 = plan8.row_src >= 0
+    # --- K7a: each stage on the 64-row plan and on the 128-row plan that
+    # choose_tm gives this T (M = 12288 >= 128 x 66), then the whole int8 entry
     gs13, gs2 = w13.group_size, w2.group_size
     xsq, xss = moe_cuda.quantize_activations(xs, gs13)
-    h8 = gmm_cuda.gmm_a8_plain(xsq, xss, plan8.row_src, w13, plan8)
-    a8q, a8s = moe_cuda.quantize_activations(swiglu(h8), gs2)
-    check_kernel(results, "q8/gmm_a8:w13", C["K7a"], gmm_cuda.REPLACES_A8,
-                 lambda: gmm_cuda.gmm_a8(xsq, xss, plan8.row_src, w13, plan8),
-                 lambda: gmm_cuda.gmm_a8_plain(xsq, xss, plan8.row_src, w13, plan8), None, 3e-2,
-                 hit * e13 + T * Hd + T * (Hd // gs13) * 4 + M * 2 * I * 4,
-                 2 * M * Hd * 2 * I, PEAK_INT8, 10, None, select=lambda o: o[real8])
-    check_kernel(results, "q8/gmm_a8:w2", C["K7a"], gmm_cuda.REPLACES_A8,
-                 lambda: gmm_cuda.gmm_a8(a8q, a8s, None, w2, plan8),
-                 lambda: gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan8), None, 3e-2,
-                 hit * e2 + M * I + M * (I // gs2) * 4 + M * Hd * 4, 2 * M * I * Hd,
-                 PEAK_INT8, 10, None, select=lambda o: o[real8])
-    o8 = gmm_cuda.gmm_a8_plain(a8q, a8s, None, w2, plan8)
-    want = (o8[plan8.dest].reshape(T, k, Hd) * pw[..., None]).sum(dim=1).to(bf16)
-    held('q8/moe_prefill(activation="int8")',
-         gmm_cuda.moe_prefill(xs, w13, w2, topk, pw, activation="int8"), want, 3e-2)
+    for tm in (64, 128):
+        plan8 = plan if tm == plan.tm else gmm_cuda.plan_tiles(topk, E_all, tm)
+        k7a_checks(results, f"q8/gmm_a8:{{}}_tm{tm}", xsq, xss, w13, w2, plan8, hit, T)
+    o8 = gmm_cuda.gmm_a8_plain(*moe_cuda.quantize_activations(
+        swiglu(gmm_cuda.gmm_a8_plain(xsq, xss, plan.row_src, w13, plan)), gs2), None, w2, plan)
+    want = (o8[plan.dest].reshape(T, k, Hd) * pw[..., None]).sum(dim=1).to(bf16)
+    before = gmm_cuda.launches_a8
+    got8 = gmm_cuda.moe_prefill(xs, w13, w2, topk, pw, activation="int8")
+    held('q8/moe_prefill(activation="int8"), 128-row plan', got8, want, 3e-2)
+    if gmm_cuda.launches_a8 != before + 2:
+        raise AssertionError("moe_prefill(activation='int8') did not launch K7a twice")
+    # the whole int8 entry in turns with the bf16 one (K7 + SwiGLU + K7) on
+    # the same routing and stacks: does int8 prefill pay on this card?
+    entry = {"bf16": lambda: gmm_cuda.moe_prefill(xs, w13, w2, topk, pw),
+             "int8": lambda: gmm_cuda.moe_prefill(xs, w13, w2, topk, pw, activation="int8")}
+    turns = [(act, timeit_ms(entry[act], 10)) for act in ("bf16", "int8", "int8", "bf16")]
+    print("[entry] " + json.dumps({"moe_prefill T=2048, in turns (ms)": turns,
+                                   "plan rows": plan.tm}), flush=True)
 
     # --- the fused kernels at the same shapes, for a later look at the class
     # boundary on this card (the port keeps the reference's boundary)
@@ -1403,12 +1508,20 @@ def q8_entry_points(eng, rng):
         raise AssertionError("moe_prefill(activation='int8') strays from the bf16 form")
 
 
-# K6 in profiler rows: K1's kernel in its gathered instances
-K6_KERNELS = ("qmm_kernel<1, 4, float, true>", "qmm_kernel<1, 8, float, true>")
+# K6 in profiler rows: K1's kernel in its gathered instances (K5's stages
+# are its ACT and PSUM instances, moe_cuda.K5_KERNELS)
+K6_KERNELS = ("qmm_kernel<1, 4, float, true, false, false>",
+              "qmm_kernel<1, 8, float, true, false, false>")
+OLD_K5_KERNELS = ("w13_bf16_kernel", "w2_bf16_kernel")   # K5 before it moved onto K1's core
 
 
 def is_k6(key: str) -> bool:
     return any(name in key for name in K6_KERNELS)
+
+
+def is_k5(key: str) -> bool:
+    from krasis_tpu_torch.ops import moe_cuda
+    return any(name in key for name in moe_cuda.K5_KERNELS)
 
 
 def profile_phase(eng, prompt, new: int, forbid=(), require=()):
@@ -1447,8 +1560,9 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
     missing = [part for part in require if not any(part in key for key, _, _ in rows)]
     if missing:
         raise AssertionError(f"no device kernel named {missing} in the profile")
-    for label, named in (("K1 + K1s", lambda key: "qmm_kernel" in key and not is_k6(key)),
-                         ("K6", is_k6), ("K3", lambda key: "w4a8_stage" in key),
+    for label, named in (("K1 + K1s", lambda key: "qmm_kernel" in key and not is_k6(key)
+                          and not is_k5(key)),
+                         ("K6", is_k6), ("K5", is_k5), ("K3", lambda key: "w4a8_stage" in key),
                          ("K6a", lambda key: "gq_a8_stage" in key),
                          ("K4 / K7", lambda key: "gmm_kernel" in key)):
         hits = [(ms, count) for key, ms, count in rows if named(key)]
@@ -1464,7 +1578,7 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
-               prefill_off_names=(), prefill_on_names=()):
+               prefill_off_names=(), prefill_on_names=(), profile_bf16=0):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1475,7 +1589,10 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     have been launched in that run, those in `off_path` must not, nor may the
     profiles show a device kernel whose name holds one of `off_names` (the
     prefill's profile one of `prefill_off_names` either); the prefill's
-    profile must show one for each of `prefill_on_names`. No MoE call may
+    profile must show one for each of `prefill_on_names`. With
+    `profile_bf16`, a 40 + `profile_bf16` request under bf16 expert
+    activations is profiled too: it must show K5's two kernels (this
+    family's bits) and neither K3's nor K5's earlier ones. No MoE call may
     take a plain form (``moe.plain_routes``). Fills the launch counts into
     this family's entries of `results` (by form for K2 entries that name
     one)."""
@@ -1591,6 +1708,15 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
                   tuple(off_names) + tuple(prefill_off_names), prefill_on_names)
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode,
                   off_names)
+    if profile_bf16:
+        from krasis_tpu_torch.ops import moe_cuda
+
+        bits = next(lp for lp in eng.params["layers"] if "w13" in lp)["w13"].bits
+        print(f"[profile] {label}, expert_activation=\"bf16\":", flush=True)
+        profile_phase(engine_for("bf16", None),
+                      rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_bf16,
+                      tuple(off_names) + moe_cuda.K3_KERNELS + OLD_K5_KERNELS,
+                      tuple(n for n in moe_cuda.K5_KERNELS if f"<1, {bits}," in n))
     print(f"[time] {label}: kernel checks {t_kernels - t0:.1f} s (engine build included), "
           f"requests {t_requests - t_kernels:.1f} s, other entry points "
           f"{t_entries - t_requests:.1f} s, profiles {time.perf_counter() - t_entries:.1f} s",
@@ -1681,11 +1807,8 @@ def probe_phase(results):
                      PEAK_CUDA_CORES, 50, flush, device_name="colsum_kernel", calls=10)
     per_pick = (qtensor_bytes(w13) + qtensor_bytes(w2)) // w13.q.shape[0]
     ops1 = 2 * k * (H * w13.n_dim + w2.k_dim * H)
-    check_kernel(results, "probe/moe_bf16_T1", C["K5"], moe_cuda.REPLACES_BF16,
-                 lambda: moe_cuda.moe_bf16(x0, w13, w2, idx, wts),
-                 lambda: moe_cuda.moe_bf16_plain(x0, w13, w2, idx, wts), None, 3e-2,
-                 k * per_pick + H * 4, ops1, PEAK_BF16, 50, flush,
-                 device_name=moe_cuda.K5_KERNELS, calls=10)
+    k5_checks(results, "probe/moe_bf16_T1", x0, w13, w2, idx, wts, k * per_pick + H * 4, ops1,
+              flush, k)
     k3_checks(results, "probe/moe_w4a8_T1", x0, w13, w2, idx, wts, moe_cuda.REPLACES,
               k * per_pick + H * 4, ops1, flush)
     res = results[-1][1]
@@ -1734,11 +1857,8 @@ def probe_phase(results):
     ops8 = 2 * P * (w13.k_dim * w13.n_dim + w2.k_dim * w2.n_dim)
     k3_checks(results, "probe/moe_w4a8_T8", x, w13, w2, idx, wts, probe_w4a8.REPLACES,
               hit * per_pick + x.numel() * 4, ops8, flush)
-    check_kernel(results, "probe/moe_bf16_T8", C["K5"], moe_cuda.REPLACES_BF16,
-                 lambda: moe_cuda.moe_bf16(x, w13, w2, idx, wts),
-                 lambda: moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts), None, 3e-2,
-                 hit * per_pick + x.numel() * 4, ops8, PEAK_BF16, 50, flush,
-                 device_name=moe_cuda.K5_KERNELS, calls=10)
+    k5_checks(results, "probe/moe_bf16_T8", x, w13, w2, idx, wts,
+              hit * per_pick + x.numel() * 4, ops8, flush, idx.shape[1])
     print(f"[kernel] probe/moe_w4a8_T8: {P} picks over {hit} distinct experts", flush=True)
     del flush
     torch.cuda.empty_cache()
@@ -1792,6 +1912,12 @@ def probe_phase(results):
                      hit * e2 + M * I * 2 + M * Hd * 4, 2 * M * I * Hd, PEAK_BF16, 10, None,
                      select=lambda r: r[real], device_name="gmm_kernel", calls=5)
         del a_plain
+    # K7a with int4 rows at V2-Lite's w13 / w2 on the 128-row plan: w2's
+    # K/2 = 704 cuts a group of 128 in two
+    xq4, sx4 = moe_cuda.quantize_activations(x, w13.group_size)
+    k7a_checks(results, "probe/gmm_a8:{}_int4_tm128", xq4, sx4, w13, w2, p128, hit,
+               x.shape[0])
+    del xq4, sx4
     for tm in (128, 256, 512):
         p, x_tiles = probe_unpack_variants.tile_inputs(uv, tm)
         live = p.tile_valid.to(torch.bool).repeat_interleave(tm)
@@ -1888,20 +2014,22 @@ def main() -> int:
 
     reference_phases()
     c2_phase()
+    c3_phase()
 
     results = []
     rng = np.random.default_rng(0)
     run_family("DeepSeek-V2-Lite Q4", "deepseek-v2-lite",
                QuantConfig(expert_bits=4, group_size=128), v2lite_kernel_phase,
                ((2048, 64, "int8"), (2500, 32, "int8"), (40, 32, "int8"),
-                (2500, 16, "int8", 0, "fp8")),
-               ("K1", "K2", "K3", "K4"), results, rng, profile_decode=16,
+                (2500, 16, "int8", 0, "fp8"), (40, 16, "bf16")),
+               ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=16,
                forms=("one-launch", "split", "one-launch+fp8", "split+fp8"))
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"), (40, 16, "bf16")),
-               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=8)
+               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=8,
+               profile_bf16=16)
 
     run_family("DeepSeek-V2-Lite Q8 (two-stage expert class)", "deepseek-v2-lite",
                QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,

@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "krasis_tpu_torch"
-KERNELS = ("qmm", "attention", "moe_decode", "moe_w4a8", "gmm", "probes")
+KERNELS = ("qmm", "attention", "moe_w4a8", "gmm", "probes")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 

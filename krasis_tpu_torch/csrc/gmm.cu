@@ -67,23 +67,52 @@
 // CTAs of 128 columns) through the TAIL instances, whose last column CTA reads
 // no weight or scale byte and writes no output at a column >= N.
 //
-// K7a — gmm_a8_kernel, the same tiles (TM = 64) with int8 rows
+// K7a — gmm_a8_kernel<TMR, IS4, G16>, the same tiles with int8 rows
 // (gmm_pallas.py gmm_a8, _gmm_kernel_a8): out[r, :] = Σ_g (xq[r, g] · W[e, g])
-// * sx[r, g] * sw[g, :], the weights unpacked to int8 with no scale, one exact
-// int32 dot per K-group, folded into the f32 sum at each group boundary,
-// groups in order (d * sx first, then * sw, then the add, each rounded, as
-// the reference writes it). Bound by bytes at int8's tensor-core peak; this
-// version does not use the tensor cores: each thread keeps an 8 x 4 block of
-// int32 dots with dp4a, reading the rows' 4-byte k-quads from shared memory
-// by broadcast and the weights repacked k-major, 4 k values of a column in
-// one word. A padding row (row_src < 0) reads as zeros and gives zeros.
+// * sx[r, g] * sw[g, :], the weights unpacked to int8 with no scale, one
+// exact int32 dot per K-group, folded into the f32 sum when the group is
+// done (d * sx first, then * sw, then the add, each rounded, as the
+// reference writes it). Tiles of 64 rows (2 x 4 warps over 128 columns) or
+// 128 rows (4 x 2 warps over 64 columns): a warp always owns 32 rows x 32
+// columns, so the int32 sets and the f32 sums fit its registers. Groups of
+// a multiple of 32 rows run mma.sync m16n8k32 .s8.s8.s32; groups of 16
+// (G16: a multiple of 16, not of 32) m16n8k16, so no product spans two
+// groups. N % 64 == 0: a last 128-column CTA may have 64 live columns (its
+// loads past N are zero-filled, its warps past N store nothing).
+// Bound by operations at int8's tensor-core peak at the main path's row
+// counts, by bytes where experts get few rows. Design:
+//  * gmm_kernel's cp.async ring of 32 packed rows a step (6 stages at 64
+//    rows, 4 at 128), with the tile's int8 rows (gathered through row_src,
+//    zero-filled for padding rows) and, for a step that ends a group, the
+//    rows' f32 and the weights' bf16 scales of that group staged beside
+//    them; groups are tracked by their end rows, with no division;
+//  * a group's fold converts its dots to f32 exactly on the full-rate
+//    pipes (|d| < 2^22 up to 256 rows a group; I2F beyond);
+//  * A fragments (the rows) by ldmatrix; B fragments (the weights) by four
+//    32-bit loads of 4 columns of 4 k rows and a 4 x 4 byte transpose
+//    (__byte_perm), which makes k-major words: column c of n8 tile c is
+//    4g + c of the warp's 32, so a thread's C values are 8 adjacent
+//    columns. The staged rows are 16-byte-chunk swizzled so these loads
+//    hit 32 distinct banks;
+//  * int4: each packed byte is read from device memory once and gives both
+//    nibbles, each moved to its byte's high nibble (16 q, exact in int8):
+//    the dots are 16x and shifted back exactly before the fold. The low
+//    nibbles (K rows r) and the high ones (K/2 + r) lie in two groups, so
+//    two int32 sets run side by side; where K/2 is not a whole number of
+//    groups, the group that holds row K/2 is cut in two and a third set
+//    sums both its parts before its one fold, after the last step. So for
+//    int4 the groups are folded as they finish, low and high interleaved
+//    and that cut group last, not in index order: the f32 sums may differ
+//    from gmm_a8_plain's in the last bits. For int8 stacks the order is
+//    the plain version's and the result equal bit for bit;
+//  * a padding row (row_src < 0) reads zeros and scales 0 and gives zeros.
+#include "int4.cuh"
+#include "mma.cuh"
 #include "int4.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int TM = 64;       // K7a's tile rows
-constexpr int BN = 128;
 constexpr int THREADS = 256;
 
 // What one launch of gmm_kernel computes. FULL is K4 / K7; FULL16 is the
@@ -458,116 +487,356 @@ gmm_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ row_src,
     }
 }
 
-constexpr int A8_BK = 32;           // k rows per step; the group size is a multiple
+// --- K7a ---------------------------------------------------------------
+__host__ __device__ constexpr int a8_cols(int tm) { return tm == 128 ? 64 : 128; }
+__host__ __device__ constexpr int a8_stages(int tm) { return tm == 128 ? 4 : 6; }
+// byte pitches of a staged row of x (its 32 or 64 bytes a step, + 16) and
+// of weights (the CTA's columns + 16)
+__host__ __device__ constexpr int a8_lda(bool is4) { return is4 ? 80 : 48; }
+__host__ __device__ constexpr int a8_ldb(int tm) { return a8_cols(tm) + 16; }
+// scale slots of a step: one per half (int4: two) and 16-row sub-step (G16)
+__host__ __device__ constexpr int a8_slots(bool is4, bool g16) {
+  return (is4 ? 2 : 1) * (g16 ? 2 : 1);
+}
+__host__ __device__ constexpr int a8_stage_bytes(int tm, bool is4, bool g16) {
+  return tm * a8_lda(is4) + PK * a8_ldb(tm) + tm * a8_slots(is4, g16) * 4 +
+         a8_slots(is4, g16) * a8_cols(tm) * 2;
+}
+__host__ __device__ constexpr int a8_smem(int tm, bool is4, bool g16) {
+  return a8_stages(tm) * a8_stage_bytes(tm, is4, g16) + tm * 4;
+}
+// the swizzled 16-byte chunk of weight row r: chunks move by two for rows
+// 8-15 of each 16, so the four k-quads a B load reads lie in four bank groups
+__device__ __forceinline__ int a8_chunk(int r, int c) { return c ^ (((r >> 3) & 1) << 1); }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(ktt::smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// f32(d) for |d| < 2^22, exactly, on the full-rate pipes: d added to the
+// bits of 1.5 * 2^23, whose unit in the last place is 1, then 1.5 * 2^23
+// taken away
+__device__ __forceinline__ float small_int_to_float(int d) {
+  return __fsub_rn(__int_as_float(0x4B400000 + d), 12582912.f);
+}
+
+// a[i] for a small array indexed at run time, by selects (no local memory)
+template <typename T, int S>
+__device__ __forceinline__ T pick(const T (&a)[S], int i) {
+  T v = a[0];
+#pragma unroll
+  for (int k = 1; k < S; ++k)
+    if (i == k) v = a[k];
+  return v;
+}
+
+// o[c] = byte c of w[0..3]: a 4 x 4 byte transpose
+__device__ __forceinline__ void transpose4(const uint32_t w[4], uint32_t o[4]) {
+  const uint32_t a = __byte_perm(w[0], w[1], 0x5140), b = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t c = __byte_perm(w[2], w[3], 0x5140), d = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(a, c, 0x5410);
+  o[1] = __byte_perm(a, c, 0x7632);
+  o[2] = __byte_perm(b, d, 0x5410);
+  o[3] = __byte_perm(b, d, 0x7632);
+}
+
+__device__ __forceinline__ void mma_s8_k32(int c[4], const uint32_t a[4], uint32_t b0,
+                                           uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_s8_k16(int c[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+template <int TMR, bool IS4, bool G16>
 __global__ void __launch_bounds__(THREADS)
 gmm_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
               const int* __restrict__ row_src, const int8_t* __restrict__ q,
               const __nv_bfloat16* __restrict__ s, const int* __restrict__ tile_e,
               const int* __restrict__ tile_valid, float* __restrict__ out, int K, int N,
-              int bits, int gs, long q_estride, long s_estride) {
+              int gs, long q_estride, long s_estride) {
+  constexpr int BNC = a8_cols(TMR);
+  constexpr int WN = BNC / 32, WM = 8 / WN;  // warps along the columns and the rows
+  static_assert(WM * 32 == TMR, "a warp owns 32 rows");
+  constexpr int NST = a8_stages(TMR), LDA = a8_lda(IS4), LDB = a8_ldb(TMR);
+  constexpr int HALVES = IS4 ? 2 : 1;
+  constexpr int SUBS = G16 ? 2 : 1;
+  constexpr int SLOTS = HALVES * SUBS;
+  constexpr int SB = a8_stage_bytes(TMR, IS4, G16);
+  constexpr int SETS = IS4 ? 3 : 1;  // int32 sets: low half, high half, the cut group
   const int tile = blockIdx.x;
   if (!tile_valid[tile]) return;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int e = tile_e[tile];
-  const int tid = threadIdx.x;
-  const int ty = tid >> 5, tx = tid & 31;       // 8 rows x 4 columns per thread
-  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows = IS4 ? K / 2 : K;  // packed weight rows
+  const int khalf = K / 2;
+  const int steps = rows / PK;
+  const int G = K / gs;
+  // int4: the group cut by row K/2, or -1
+  const int gcut = IS4 && khalf % gs ? khalf / gs : -1;
+  const int n0 = blockIdx.y * BNC;
   const int8_t* qe = q + e * q_estride;
   const __nv_bfloat16* se = s + e * s_estride;
-  const int G = K / gs;
-
-  __shared__ __align__(16) uint32_t As[TM][A8_BK / 4 + 1];   // [row][k-quad]
-  __shared__ __align__(16) uint32_t Bp[A8_BK / 4][BN];        // [k-quad][column]
-  __shared__ int srcs[TM];
-  if (tid < TM) {
-    const int grow = tile * TM + tid;
-    srcs[tid] = row_src ? row_src[grow] : grow;
+  int* srow = reinterpret_cast<int*>(smem + NST * SB);
+  for (int r = tid; r < TMR; r += THREADS) {
+    const int grow = tile * TMR + r;
+    srow[r] = row_src ? row_src[grow] : grow;
   }
   __syncthreads();
 
-  // loads of this thread: one 8-byte piece of one A row, and the 4 x 4 block
-  // of weights (4 k rows, 4 columns) that it repacks into 4 k-major words
-  const int ar = tid >> 2, ac = (tid & 3) * 8;
-  const int asrc = srcs[ar];
-  const int bq = tid >> 5, bc = (tid & 31) * 4;
-
-  int d[8][4];
-  float acc[8][4];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      d[r][c] = 0;
-      acc[r][c] = 0.f;
+  // Groups are tracked without division, by the next group end (a K row)
+  // and the current group of each half: for the loader, which stages a
+  // slot's scales only where its chunk ends a group (and the low half's
+  // last chunk, which ends the cut group), and for the products, which
+  // fold there. The loader runs step by step in order, NST - 1 ahead.
+  const int CH = G16 ? 16 : 32;  // K rows of a product chunk
+  const int hi_grp = khalf / gs;
+  int lend[2] = {gs, (hi_grp + 1) * gs}, lgrp[2] = {0, hi_grp};
+  auto load_stage = [&](int j, int st) {
+    unsigned char* base = smem + st * SB;
+    int8_t* sa = reinterpret_cast<int8_t*>(base);
+    int8_t* sb = reinterpret_cast<int8_t*>(base + TMR * LDA);
+    float* sxs = reinterpret_cast<float*>(base + TMR * LDA + PK * LDB);
+    __nv_bfloat16* sws = reinterpret_cast<__nv_bfloat16*>(base + TMR * LDA + PK * LDB +
+                                                          TMR * SLOTS * 4);
+    const int p0 = j * PK;
+    // the rows: per half 32 bytes, two 16-byte chunks
+    for (int c = tid; c < TMR * HALVES * 2; c += THREADS) {
+      const int r = c / (HALVES * 2), h = (c >> 1) % HALVES, off = (c & 1) * 16;
+      const int src = srow[r];
+      ktt::cp_async16(sa + r * LDA + h * 32 + off,
+                      src >= 0 ? xq + (long)src * K + (h ? khalf : 0) + p0 + off : xq, src >= 0);
     }
-
-  for (int k0 = 0; k0 < K; k0 += A8_BK) {
-    uint2 av = make_uint2(0u, 0u);
-    if (asrc >= 0) av = *reinterpret_cast<const uint2*>(xq + (long)asrc * K + k0 + ac);
-    As[ar][ac / 4] = av.x;
-    As[ar][ac / 4 + 1] = av.y;
-    uint32_t packed[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int w[4];
-      ktt::load_w4cols(qe, bits, K, N, k0 + bq * 4 + i, n0 + bc, w);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) packed[c] |= ((uint32_t)w[c] & 0xFFu) << (8 * i);
+    // the weights: PK packed rows of the CTA's columns, chunks swizzled
+    for (int c = tid; c < PK * (BNC / 16); c += THREADS) {
+      const int r = c / (BNC / 16), ch = c % (BNC / 16);
+      const bool ok = n0 + ch * 16 < N;
+      ktt::cp_async16(sb + r * LDB + a8_chunk(r, ch) * 16,
+                      ok ? qe + (long)(p0 + r) * N + n0 + ch * 16 : qe, ok);
     }
-    *reinterpret_cast<uint4*>(&Bp[bq][bc]) =
-        make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    __syncthreads();
+    // the group of each slot whose chunk ends one, and the slots' group scales
+    int grp[SLOTS];
+    bool ends[SLOTS];
 #pragma unroll
-    for (int kq = 0; kq < A8_BK / 4; ++kq) {
-      const uint4 b = *reinterpret_cast<const uint4*>(&Bp[kq][tx * 4]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int a = (int)As[ty * 8 + r][kq];
-        d[r][0] = __dp4a(a, (int)b.x, d[r][0]);
-        d[r][1] = __dp4a(a, (int)b.y, d[r][1]);
-        d[r][2] = __dp4a(a, (int)b.z, d[r][2]);
-        d[r][3] = __dp4a(a, (int)b.w, d[r][3]);
+    for (int sl = 0; sl < SLOTS; ++sl) {
+      const int h = sl / SUBS;
+      const int kend = (h ? khalf : 0) + p0 + 16 * (sl % SUBS) + CH;
+      grp[sl] = lgrp[h];
+      ends[sl] = kend == lend[h] || (IS4 && h == 0 && kend == khalf);
+      if (kend == lend[h]) {
+        lend[h] += gs;
+        ++lgrp[h];
       }
     }
-    __syncthreads();
-    if ((k0 + A8_BK) % gs == 0) {
-      const int g = k0 / gs;
-      float sw[4];
-      ktt::load_s4cols(se, N, g, n0 + tx * 4, sw);
+    for (int c = tid; c < TMR * SLOTS; c += THREADS) {
+      const int r = c / SLOTS, sl = c % SLOTS;
+      const int src = srow[r];
+      if (pick(ends, sl))
+        cp_async4(sxs + r * SLOTS + sl, src >= 0 ? sx + (long)src * G + pick(grp, sl) : sx,
+                  src >= 0);
+    }
+    for (int c = tid; c < SLOTS * (BNC / 8); c += THREADS) {
+      const int sl = c / (BNC / 8), c8 = (c % (BNC / 8)) * 8;
+      const bool ok = n0 + c8 < N;
+      if (pick(ends, sl))
+        ktt::cp_async16(sws + sl * BNC + c8, ok ? se + (long)pick(grp, sl) * N + n0 + c8 : se, ok);
+    }
+  };
+
+  float acc[2][4][4];      // [m16 tile][n8 tile][C fragment]
+  int d[SETS][2][4][4];    // the int32 group dots of each set
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int src = srcs[ty * 8 + r];
-        const float sxr = src >= 0 ? sx[(long)src * G + g] : 0.f;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[r][c] = __fadd_rn(acc[r][c],
-                                __fmul_rn(__fmul_rn((float)d[r][c], sxr), sw[c]));
-          d[r][c] = 0;
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        acc[i][n][v] = 0.f;
+#pragma unroll
+        for (int st = 0; st < SETS; ++st) d[st][i][n][v] = 0;
+      }
+
+  // |a group's dot| < 2^22 up to 256 rows (int8: 256 * 127 * 128 < 2^22)
+  const bool small = gs <= 256;
+  // acc += (f32(dots) * sx[row, slot]) * sw[slot, col], the dots zeroed.
+  // C fragment (g, t) of m16 tile i, n8 tile n: rows 32 wm + 16 i + g (+ 8),
+  // columns 32 wn + 8 t + n and + 4
+  auto fold_as = [&](auto to_float, int (&dd)[2][4][4], const float* sxs,
+                     const __nv_bfloat16* sws, int sl) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wm * 32 + i * 16 + g;
+      const float s0 = sxs[r * SLOTS + sl], s1 = sxs[(r + 8) * SLOTS + sl];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = wn * 32 + 8 * t + n;
+        const float w0 = __bfloat162float(sws[sl * BNC + col]);
+        const float w1 = __bfloat162float(sws[sl * BNC + col + 4]);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const float dv = to_float(IS4 ? dd[i][n][v] >> 4 : dd[i][n][v]);
+          acc[i][n][v] = __fadd_rn(acc[i][n][v],
+                                   __fmul_rn(__fmul_rn(dv, v < 2 ? s0 : s1), v & 1 ? w1 : w0));
+          dd[i][n][v] = 0;
         }
       }
     }
-  }
+  };
+  auto fold = [&](int (&dd)[2][4][4], const float* sxs, const __nv_bfloat16* sws, int sl) {
+    if (small)
+      fold_as([](int v) { return small_int_to_float(v); }, dd, sxs, sws, sl);
+    else
+      fold_as([](int v) { return (float)v; }, dd, sxs, sws, sl);
+  };
 
-  const long row0 = (long)tile * TM + ty * 8;
+#pragma unroll 1
+  for (int st = 0; st < NST - 1; ++st) {
+    if (st < steps) load_stage(st, st);
+    ktt::cp_commit();
+  }
+  // the products' group tracking, as the loader's
+  int gend[2] = {gs, (hi_grp + 1) * gs};
+  const int cut_lo = gcut * gs, cut_hi = (gcut + 1) * gs;  // the cut group's rows
+  for (int j = 0; j < steps; ++j) {
+    ktt::cp_wait<NST - 2>();
+    __syncthreads();
+    if (j + NST - 1 < steps) load_stage(j + NST - 1, (j + NST - 1) % NST);
+    ktt::cp_commit();
+    const unsigned char* base = smem + (j % NST) * SB;
+    const int8_t* sa = reinterpret_cast<const int8_t*>(base);
+    const int8_t* sb = reinterpret_cast<const int8_t*>(base + TMR * LDA);
+    const float* sxs = reinterpret_cast<const float*>(base + TMR * LDA + PK * LDB);
+    const __nv_bfloat16* sws = reinterpret_cast<const __nv_bfloat16*>(
+        base + TMR * LDA + PK * LDB + TMR * SLOTS * 4);
+    const int p0 = j * PK;
+    // B: k-major words of the warp's columns 4g + c, k rows 16 blk + 4t ..
+    uint32_t bq[2][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
-    *reinterpret_cast<float4*>(out + (row0 + r) * N + n0 + tx * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    for (int blk = 0; blk < 2; ++blk) {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = blk * 16 + 4 * t + i;
+        const int byte = wn * 32 + 4 * g;
+        w[i] = *reinterpret_cast<const uint32_t*>(sb + r * LDB + a8_chunk(r, byte >> 4) * 16 +
+                                                  (byte & 15));
+      }
+      transpose4(w, bq[blk]);
+    }
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) {
+      uint32_t b[2][4];
+#pragma unroll
+      for (int blk = 0; blk < 2; ++blk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          b[blk][c] = IS4 ? (h == 0 ? (bq[blk][c] << 4) & 0xF0F0F0F0u : bq[blk][c] & 0xF0F0F0F0u)
+                          : bq[blk][c];
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ktt::ldsm_x4(af[i], sa + (wm * 32 + i * 16 + (lane & 15)) * LDA + h * 32 + (lane >> 4) * 16);
+#pragma unroll
+      for (int sub = 0; sub < SUBS; ++sub) {
+        const int k0 = (h ? khalf : 0) + p0 + 16 * sub;  // the chunk's first K row
+        const bool cut = IS4 && gcut >= 0 && (h ? k0 < cut_hi : k0 >= cut_lo);
+        auto product = [&](int (&dd)[2][4][4]) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if constexpr (G16)
+                mma_s8_k16(dd[i][c], af[i][2 * sub], af[i][2 * sub + 1], b[sub][c]);
+              else
+                mma_s8_k32(dd[i][c], af[i], b[0][c], b[1][c]);
+            }
+        };
+        if (cut)
+          product(d[SETS - 1]);
+        else
+          product(d[h]);
+        if (k0 + CH == gend[h]) {
+          if (!cut) fold(d[h], sxs, sws, h * SUBS + sub);
+          gend[h] += gs;
+        }
+      }
+    }
+    // the cut group: its high part came first, its low part ends the loop
+    if (IS4 && gcut >= 0 && j == steps - 1) fold(d[SETS - 1], sxs, sws, SUBS - 1);
+  }
+  ktt::cp_wait<0>();
+
+  if (n0 + wn * 32 >= N) return;  // a warp of the last CTA past N
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long r = (long)tile * TMR + wm * 32 + i * 16 + g + 8 * hh;
+      float* o = out + r * N + n0 + wn * 32 + 8 * t;
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[i][0][2 * hh], acc[i][1][2 * hh], acc[i][2][2 * hh], acc[i][3][2 * hh]);
+      *reinterpret_cast<float4*>(o + 4) = make_float4(acc[i][0][2 * hh + 1], acc[i][1][2 * hh + 1],
+                                                      acc[i][2][2 * hh + 1], acc[i][3][2 * hh + 1]);
+    }
+}
+
+template <int TMR, bool IS4, bool G16>
+int gmm_a8_launch_tm(const void* xq, const void* sx, const void* row_src, const void* q,
+                     const void* s, const void* tile_e, const void* tile_valid, void* out,
+                     int n_tiles, int K, int N, int gs, long q_estride, long s_estride,
+                     cudaStream_t stream) {
+  constexpr int bytes = a8_smem(TMR, IS4, G16);
+  const cudaError_t err = cudaFuncSetAttribute(gmm_a8_kernel<TMR, IS4, G16>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_tiles, (N + a8_cols(TMR) - 1) / a8_cols(TMR));
+  gmm_a8_kernel<TMR, IS4, G16><<<grid, THREADS, bytes, stream>>>(
+      (const int8_t*)xq, (const float*)sx, (const int*)row_src, (const int8_t*)q,
+      (const __nv_bfloat16*)s, (const int*)tile_e, (const int*)tile_valid, (float*)out, K, N, gs,
+      q_estride, s_estride);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// K7a at tile heights of 64 or 128 rows: groups a multiple of 16 rows (of
+// 32: m16n8k32; else m16n8k16), K a whole number of groups, a multiple of
+// 32 packed rows, N % 64 == 0 (a last CTA of 64 live columns at 64 rows).
 extern "C" int gmm_a8_launch(const void* xq, const void* sx, const void* row_src,
                              const void* q, const void* s, const void* tile_e,
-                             const void* tile_valid, void* out, int n_tiles, int K, int N,
-                             int bits, int gs, long q_estride, long s_estride,
+                             const void* tile_valid, void* out, int n_tiles, int tm, int K,
+                             int N, int bits, int gs, long q_estride, long s_estride,
                              void* stream) {
-  dim3 grid(n_tiles, N / BN);
-  gmm_a8_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)xq, (const float*)sx, (const int*)row_src, (const int8_t*)q,
-      (const __nv_bfloat16*)s, (const int*)tile_e, (const int*)tile_valid, (float*)out, K,
-      N, bits, gs, q_estride, s_estride);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rows = bits == 4 ? K / 2 : K;
+  if ((bits != 4 && bits != 8) || gs % 16 || K % gs || rows % PK || N % 64)
+    return (int)cudaErrorInvalidValue;
+#define GMM_A8(T, B4, G)                                                                      \
+  if (tm == T && (bits == 4) == B4 && (gs % 32 != 0) == G)                                    \
+    return gmm_a8_launch_tm<T, B4, G>(xq, sx, row_src, q, s, tile_e, tile_valid, out, n_tiles, \
+                                      K, N, gs, q_estride, s_estride, st);
+  GMM_A8(64, true, false)
+  GMM_A8(64, true, true)
+  GMM_A8(64, false, false)
+  GMM_A8(64, false, true)
+  GMM_A8(128, true, false)
+  GMM_A8(128, true, true)
+  GMM_A8(128, false, false)
+  GMM_A8(128, false, true)
+#undef GMM_A8
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int TMR, int MODE, bool TAIL = false>

@@ -65,6 +65,33 @@
 // like K1; what the TPU kernel did with N tiles of an expert that did not
 // fit its fast memory, K1's column tiles and split K do here, and the
 // partial last column tile (N % 128, e.g. GPT-OSS's 2880) is K1's own.
+//
+// K5, the fused bf16-row decode MoE (k5_launch), is two more instances of
+// the gathered form, each with one compile-time epilogue flag, so that K1,
+// K1s and K6 keep their code:
+//  * ACT (stage 1, w13): grid (I / 64, picks, K splits). A CTA's 128
+//    columns are 64 gate columns n0..n0+63 and their 64 up columns
+//    I+n0.., staged as two 64-column segments of each packed row; x is the
+//    pick's token row p / kk. After the cluster's rank-ordered sum the
+//    epilogue applies ktt::mlp_act to the f32 h (the fused class's rounding
+//    point: no bf16 rounding of h first) and writes a[p] in bf16.
+//  * PSUM (stage 2, w2): grid (H / 128, tokens, K splits). A cluster owns
+//    one token's kk picks and a column tile; its ranks stream the picks'
+//    packed w2 rows pick-major (rows of a step never straddle two picks:
+//    the plan's step and split unit divide a pick's rows), each step
+//    reading its pick's expert and a row. At each pick boundary a rank
+//    scales its f32 partial by the routing weight (rounded, then added,
+//    picks in order) into the token's sum; the ranks meet in rank order
+//    through distributed shared memory and write the bf16 [T, H] output.
+//    The sum's order is fixed, so results repeat bit for bit.
+// The picks' expert ids are int32 and the routing weights f32, as the
+// router gives them.
+// Replaces: krasis_tpu/ops/moe_pallas.py moe_gathered_pallas (_kernel with
+// _unpack_scale). Numerics as there: each weight bf16(f32(q) * s), x in
+// bf16, h in f32, the activation (SwiGLU, or GPT-OSS's clamped form) on the
+// f32 h, a rounded to bf16 before the w2 product, the f32 output scaled by
+// the routing weight and the picks summed in f32. Bound by the bytes of the
+// picked experts' packed w13 and w2 and their scales, like K6.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -114,21 +141,46 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* o, float a,
 __device__ __forceinline__ void store1(float* o, float a) { *o = a; }
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float a) { *o = __float2bfloat16(a); }
 
+// K5 stage 2: psum += w * the pick's f32 partial (rounded, then added); the partial zeroed
+template <int CB_>
+__device__ __forceinline__ void fold_pick(float (&acc)[CB_][1][4], float (&psum)[CB_][4], float w) {
+#pragma unroll
+  for (int cb = 0; cb < CB_; ++cb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      psum[cb][i] = __fadd_rn(psum[cb][i], __fmul_rn(acc[cb][0][i], w));
+      acc[cb][0][i] = 0.f;
+    }
+}
+
 // TT: T rounded up to 1, 2, 4, 8 or 16. Packed rows [r0, r1) of split z
 // are units [z * units / ks, (z + 1) * units / ks) of `unit` rows each.
 // GATHER: the K6 form, one pick a blockIdx.y (x's row p, out's row p, the
-// layer idx[p]); the trailing idx and valid are read only there.
-template <int TT, int BITS, typename OT, bool GATHER>
+// layer idx[p]); the trailing idx and valid are read only there. ACT and
+// PSUM: K5's stages (with GATHER); kk, limit, gpt_oss and wt are read only
+// there.
+template <int TT, int BITS, typename OT, bool GATHER, bool ACT = false, bool PSUM = false>
 __global__ void __launch_bounds__(THREADS)
 qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
            const __nv_bfloat16* __restrict__ s, OT* __restrict__ out, int T, int K, int N,
            int gs, int unit, int ks, int pk, long q_lstride, long s_lstride, int layer,
-           int x_vec, const int* __restrict__ idx, const int* __restrict__ valid) {
+           int x_vec, const int* __restrict__ idx, const int* __restrict__ valid, int kk,
+           float limit, int gpt_oss, const float* __restrict__ wt) {
   constexpr bool IS4 = BITS == 4;
   constexpr int HALVES = IS4 ? 2 : 1;
   constexpr int NT = TT > 8 ? 2 : 1;  // n8 tiles of x rows
+  static_assert(!(ACT || PSUM) || (GATHER && TT == 1 && !(ACT && PSUM)), "K5's stages");
   extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (GATHER) {
+  int pbase = 0;  // PSUM: the token's first pick
+  if constexpr (PSUM) {
+    pbase = (int)blockIdx.y * kk;
+    out += (long)blockIdx.y * N;
+  } else if constexpr (ACT) {
+    const int p = blockIdx.y;
+    x += (long)(p / kk) * K;
+    out += (long)p * (N / 2);
+    layer = idx[p];
+  } else if constexpr (GATHER) {
     const int p = blockIdx.y;
     x += (long)p * K;
     out += (long)p * N;
@@ -146,9 +198,9 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * NC;
-  const int rows = IS4 ? K / 2 : K;  // packed rows
+  const int rows = IS4 ? K / 2 : K;  // packed rows (PSUM: of one pick)
   const int khalf = K / 2;
-  const int units = rows / unit;
+  const int units = (PSUM ? kk * rows : rows) / unit;
   const int z = blockIdx.z;
   const int r0 = (int)((long)units * z / ks) * unit;
   const int r1 = (int)((long)units * (z + 1) / ks) * unit;
@@ -161,7 +213,84 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   const bool s16 = (N % 8 == 0) && ((reinterpret_cast<uintptr_t>(s) & 15) == 0);
   // the first group of a stage's rows, per half
   auto group0 = [&](int h, int p0) { return min((h ? khalf : 0) + p0, K - 1) / gs; };
+  // the global column of the CTA's staged column cc: ACT stages 64 gate
+  // columns, then their 64 up columns
+  auto gcol = [&](int cc) {
+    if constexpr (ACT)
+      return cc < NC / 2 ? (int)blockIdx.x * (NC / 2) + cc
+                         : N / 2 + (int)blockIdx.x * (NC / 2) + cc - NC / 2;
+    return n0 + cc;
+  };
 
+  // K5's stages: a step's weight and scale columns through gcol and, for
+  // PSUM, the step's pick (its expert, its row of a, its own rows)
+  auto load_stage_k5 = [&](int j, int st) {
+    unsigned char* base = smem + st * sbytes;
+    int p0 = r0 + j * pk;
+    int pend = r1;
+    const int8_t* qb = q;
+    const __nv_bfloat16* sb = s;
+    const __nv_bfloat16* xb = x;
+    if constexpr (PSUM) {  // the step's pick, its expert and its row of a
+      const int pick = p0 / rows;
+      const long e = idx[pbase + pick];
+      p0 -= pick * rows;
+      pend = rows;
+      qb += e * q_lstride;
+      sb += e * s_lstride;
+      xb += (long)(pbase + pick) * K;
+    }
+    if (w16) {
+      for (int c = tid; c < pk * (NC / 16); c += THREADS) {
+        const int r = c / (NC / 16), cc = (c % (NC / 16)) * 16;
+        const bool ok = p0 + r < pend && gcol(cc) < N;
+        ktt::cp_async16(base + r * LDB + cc, ok ? qb + (long)(p0 + r) * N + gcol(cc) : qb, ok);
+      }
+    } else {  // the tail form: 4 columns a copy
+      for (int c = tid; c < pk * (NC / 4); c += THREADS) {
+        const int r = c / (NC / 4), cc = (c % (NC / 4)) * 4;
+        const bool ok = p0 + r < pend && gcol(cc) < N;
+        cp_async4(base + r * LDB + cc, ok ? qb + (long)(p0 + r) * N + gcol(cc) : qb, ok);
+      }
+    }
+    // x: for each half, TT rows of the stage's pk columns; zero past T
+    // and past r1
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + pk * LDB);
+    if (x_vec) {
+      const int per_row = pk / 8;
+      for (int c = tid; c < HALVES * TT * per_row; c += THREADS) {
+        const int hr = c / per_row, k8 = (c % per_row) * 8;
+        const int h = hr / TT, row = hr % TT;
+        const bool ok = row < T && p0 + k8 < pend;
+        const __nv_bfloat16* src = xb + (long)row * K + (h ? khalf : 0) + p0 + k8;
+        ktt::cp_async16(xs + hr * xp + k8, ok ? src : xb, ok);
+      }
+    } else {  // x not 16-byte aligned: element by element
+      for (int c = tid; c < HALVES * TT * pk; c += THREADS) {
+        const int hr = c / pk, k = c % pk;
+        const int h = hr / TT, row = hr % TT;
+        const bool ok = row < T && p0 + k < pend;
+        xs[hr * xp + k] = ok ? xb[(long)row * K + (h ? khalf : 0) + p0 + k] : __float2bfloat16(0.f);
+      }
+    }
+    // scales: each half's group rows from the stage's first row on, 128
+    // columns (16-byte copies, or 4-byte ones in the tail form)
+    __nv_bfloat16* ss = reinterpret_cast<__nv_bfloat16*>(base + pk * LDB + xbytes);
+    const int per = s16 ? NC / 8 : NC / 2;
+    for (int c = tid; c < HALVES * sg * per; c += THREADS) {
+      const int hg = c / per, h = hg / sg, grp = group0(h, p0) + hg % sg;
+      const int cc = (c % per) * (s16 ? 8 : 2);
+      const bool ok = grp < K / gs && gcol(cc) < N;
+      const __nv_bfloat16* src = ok ? sb + (long)grp * N + gcol(cc) : sb;
+      if (s16)
+        ktt::cp_async16(ss + hg * NC + cc, src, ok);
+      else
+        cp_async4(ss + hg * NC + cc, src, ok);
+    }
+  };
+
+  // K1 / K1s / K6 (kept apart from K5's: local copies of the weight
+  // pointers there changed these instances' code)
   auto load_stage = [&](int j, int st) {
     unsigned char* base = smem + st * sbytes;
     const int p0 = r0 + j * pk;
@@ -212,7 +341,7 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
       else
         cp_async4(ss + hg * NC + cc, src, ok);
     }
-  };
+    };
 
   // this thread's columns: 2g and 2g+1 of each of the warp's two 16-column
   // blocks; their scales for the current group of each half and k-row set
@@ -248,21 +377,47 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   for (int cb = 0; cb < CB; ++cb)
 #pragma unroll
     for (int n = 0; n < NT; ++n) acc[cb][n][0] = acc[cb][n][1] = acc[cb][n][2] = acc[cb][n][3] = 0.f;
+  // PSUM: the token's weighted sum over the picks this rank has finished,
+  // and the pick of the current partial
+  float psum[CB][4];
+  int cur = -1;
+  if constexpr (PSUM) {
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) psum[cb][0] = psum[cb][1] = psum[cb][2] = psum[cb][3] = 0.f;
+  }
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < steps) load_stage(st, st);
+    if constexpr (ACT || PSUM) {
+      if (st < steps) load_stage_k5(st, st);
+    } else if (st < steps) {
+      load_stage(st, st);
+    }
     ktt::cp_commit();
   }
   for (int j = 0; j < steps; ++j) {
     ktt::cp_wait<STAGES - 2>();
     __syncthreads();
-    if (j + STAGES - 1 < steps) load_stage(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    if constexpr (ACT || PSUM) {
+      if (j + STAGES - 1 < steps) load_stage_k5(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    } else if (j + STAGES - 1 < steps) {
+      load_stage(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    }
     ktt::cp_commit();
     const unsigned char* base = smem + (j % STAGES) * sbytes;
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(base + pk * LDB);
     const __nv_bfloat16* ss = reinterpret_cast<const __nv_bfloat16*>(base + pk * LDB + xbytes);
-    const int p0 = r0 + j * pk;
+    int p0 = r0 + j * pk;
+    if constexpr (PSUM) {  // a new pick: fold the last one's partial, new scales
+      const int pick = p0 / rows;
+      p0 -= pick * rows;
+      if (pick != cur) {
+        if (cur >= 0) fold_pick(acc, psum, wt[pbase + cur]);
+        cur = pick;
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) bound[h][0] = bound[h][1] = -1;
+      }
+    }
     for (int u = 0; u < pk; u += 32) {
       // per column block: k rows u + 0-7, 8-15, 16-23, 24-31
       uint32_t wr[CB][4];
@@ -303,9 +458,55 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     }
   }
   ktt::cp_wait<0>();
+  if constexpr (PSUM) {
+    fold_pick(acc, psum, wt[pbase + cur]);
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[cb][0][i] = psum[cb][i];
+  }
 
   // Thread (g, t) holds, per column block cb and n8 tile n, rows
   // 8n + 2t + {0, 1} of columns wcol + 16 cb + 2g (c0, c1) and the next (c2, c3).
+  if constexpr (ACT) {  // K5 stage 1: the activation pairs gate column c with up column 64 + c
+    __syncthreads();  // every warp is done with the ring: it becomes the partial
+    float* red = reinterpret_cast<float*>(smem);  // [NC]: row 0
+    if (t == 0) {
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) {
+        float* r = red + wcol + 16 * cb + 2 * g;
+        r[0] = acc[cb][0][0];
+        r[1] = acc[cb][0][2];
+      }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    if (ks > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+    const int rank = ks > 1 ? (int)cluster.block_rank() : 0;
+    const int cw = (NC / 2) / ks;  // this CTA's gate columns [rank * cw, (rank + 1) * cw)
+    for (int c = tid; c < cw; c += THREADS) {
+      const int col = rank * cw + c;
+      float pg[8], pu[8];  // every rank's values in flight at once, summed in rank order
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float* rr = r < ks ? (ks > 1 ? cluster.map_shared_rank(red, r) : red) : nullptr;
+        pg[r] = rr ? rr[col] : 0.f;
+        pu[r] = rr ? rr[NC / 2 + col] : 0.f;
+      }
+      float gv = 0.f, uv = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r < ks) {
+          gv += pg[r];
+          uv += pu[r];
+        }
+      store1(out + (int)blockIdx.x * (NC / 2) + col, ktt::mlp_act(gv, uv, limit, gpt_oss != 0));
+    }
+    if (ks > 1) cluster.sync();  // no CTA leaves while another reads its partial
+    return;
+  }
   if (ks == 1) {
 #pragma unroll
     for (int cb = 0; cb < CB; ++cb) {
@@ -355,13 +556,15 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   cluster.sync();  // no CTA leaves while another reads its partial
 }
 
-// picks: the grid's y (1 for K1 / K1s); idx / valid: the K6 form's.
-template <int TT, int BITS, typename OT, bool GATHER = false>
+// picks: the grid's y (1 for K1 / K1s); idx / valid: the K6 form's; kk,
+// limit, gpt_oss, wt: K5's.
+template <int TT, int BITS, typename OT, bool GATHER = false, bool ACT = false, bool PSUM = false>
 int launch(const void* x, const void* q, const void* s, void* out, int T, int K, int N, int gs,
            int unit, int ks, int pk, long q_lstride, long s_lstride, int layer, int x_vec,
            cudaStream_t stream, int picks = 1, const int* idx = nullptr,
-           const int* valid = nullptr) {
-  auto kern = qmm_kernel<TT, BITS, OT, GATHER>;
+           const int* valid = nullptr, int kk = 1, float limit = 0.f, int gpt_oss = 0,
+           const float* wt = nullptr) {
+  auto kern = qmm_kernel<TT, BITS, OT, GATHER, ACT, PSUM>;
   constexpr int HALVES = BITS == 4 ? 2 : 1;
   static bool configured = false;  // the largest ring a block may take
   if (!configured) {
@@ -387,7 +590,8 @@ int launch(const void* x, const void* q, const void* s, void* out, int T, int K,
   cfg.numAttrs = ks > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, (const __nv_bfloat16*)x, (const int8_t*)q, (const __nv_bfloat16*)s, (OT*)out,
-      T, K, N, gs, unit, ks, pk, q_lstride, s_lstride, layer, x_vec, idx, valid);
+      T, K, N, gs, unit, ks, pk, q_lstride, s_lstride, layer, x_vec, idx, valid, kk, limit,
+      gpt_oss, wt);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -455,4 +659,42 @@ extern "C" int gathered_qmm_launch(const void* x, const void* idx, const void* v
                                      s_estride, 0, x_vec, st, P, ix, v);
   return launch<1, 8, float, true>(x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride,
                                    s_estride, 0, x_vec, st, P, ix, v);
+}
+
+// K5, one of its two stages. Stage 1: a[P, I] (bf16) with a[p] =
+// act(x[p / kk] @ dequant(W13[idx[p]])), x [T, K = H], W13 [E, H(/2), N = 2I],
+// grid (I / 64, P, ks). Stage 2: out[T, N = H] (bf16) with out[t] =
+// sum over the token's kk picks p of wt[p] * (a[p] @ dequant(W2[idx[p]])),
+// x = a [P, K = I], W2 [E, I(/2), H], grid (H / 128, T, ks); unit == pk and
+// both divide a pick's packed rows. rows_y is P (stage 1) or T (stage 2).
+// The plan is ops/moe_cuda.py plan_k5. One launch; returns the cudaError_t.
+extern "C" int k5_launch(int stage, const void* x, const void* idx, const void* wt,
+                         const void* q, const void* s, void* out, int rows_y, int kk, int K,
+                         int N, int bits, int gs, int unit, int ks, int pk, long q_estride,
+                         long s_estride, int x_vec, float limit, int gpt_oss, void* stream) {
+  const int rows = bits == 4 ? K / 2 : K;
+  if (rows_y < 1 || rows_y > 65535 || kk < 1 || (bits != 4 && bits != 8) || ks < 1 || ks > 8 ||
+      pk % 32 || pk > 128 || (stage != 1 && stage != 2) ||
+      (stage == 1 && (N % 128 || rows_y % kk)) ||
+      (stage == 2 && (unit != pk || rows % pk || N % 128)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* ix = (const int*)idx;
+  const float* w = (const float*)wt;
+  if (stage == 1) {
+    if (bits == 4)
+      return launch<1, 4, __nv_bfloat16, true, true, false>(
+          x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride, s_estride, 0, x_vec, st, rows_y,
+          ix, nullptr, kk, limit, gpt_oss, w);
+    return launch<1, 8, __nv_bfloat16, true, true, false>(
+        x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride, s_estride, 0, x_vec, st, rows_y, ix,
+        nullptr, kk, limit, gpt_oss, w);
+  }
+  if (bits == 4)
+    return launch<1, 4, __nv_bfloat16, true, false, true>(
+        x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride, s_estride, 0, x_vec, st, rows_y, ix,
+        nullptr, kk, limit, gpt_oss, w);
+  return launch<1, 8, __nv_bfloat16, true, false, true>(
+      x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride, s_estride, 0, x_vec, st, rows_y, ix,
+      nullptr, kk, limit, gpt_oss, w);
 }

@@ -77,6 +77,14 @@ def gathered_int8(w) -> bool:
     return gathered(w) and w.k_dim % w.group_size == 0 and w.bits in (4, 8)
 
 
+def grouped_int8(w) -> bool:
+    """The reference's ``gmm_pallas.gmm_a8_supported``: the grouped form
+    quantizes the rows (K7a) where ``moe_prefill(activation="int8")`` is
+    asked for and both stacks are int4 / int8 with K a whole number of
+    groups, of any size."""
+    return isinstance(w, QTensor) and w.bits in (4, 8) and w.k_dim % w.group_size == 0
+
+
 def prefill_fused(w13: QTensor, w2: QTensor) -> bool:
     """The reference's ``gmm_fused_supported``: grouped GEMM with the SwiGLU
     epilogue (K4) rather than two grouped GEMMs with SwiGLU between (K7)."""

@@ -6,7 +6,8 @@
 replaces ``gmm``, the grouped GEMM that the reference runs twice with
 SwiGLU between for experts too large for its fused kernels: it is K4's f32
 entry at both call shapes, under its own launch count. ``gmm_a8`` (K7a)
-replaces ``gmm_a8``: the same tiles with int8 rows and per-group scales.
+replaces ``gmm_a8``: the same tiles with int8 rows and per-group scales,
+on the int8 tensor cores, at 64- and 128-row tiles.
 ``moe_prefill`` has the glue and the three branches of
 ``moe_prefill_pallas``, and its ``tile_rows`` knob; with expert biases it
 runs the reference's plain ragged form (``moe_forward_ragged``) on K7's two
@@ -52,9 +53,10 @@ launches_nounpack = 0
 launches_unpackonly = 0
 launches_v2 = 0
 
-TM = 64                   # tile rows of the default plan, and K7a's only height
+TM = 64                   # tile rows of the default plan
 TM_LARGE = 128
 TILE_HEIGHTS = (64, 128, 256, 512)    # K4 / K7
+TILE_HEIGHTS_A8 = (64, 128)           # K7a: the heights choose_tm picks
 PROBE_MODES = {"copy": 1, "nounpack": 2, "unpackonly": 3, "v2": 4}   # csrc/gmm.cu Mode
 
 
@@ -202,7 +204,7 @@ def _fns():
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_long] * 2
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fa.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        fa.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                        + [ctypes.c_long] * 2 + [ctypes.c_void_p])
         fp.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_long] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
@@ -353,23 +355,26 @@ def gmm_probe(x: torch.Tensor, w: QTensor, plan: TilePlan, mode: str,
 
 
 def gmm_a8_supported(w: QTensor) -> bool:
-    """int8 rows group along K: K a whole number of groups, and a group a
-    whole number of the kernel's 32-row steps."""
-    return (w.bits in (4, 8) and w.k_dim % w.group_size == 0 and w.group_size % 32 == 0
-            and w.n_dim % 128 == 0)
+    """Stacks K7a takes, the same as K7's (``gmm_supported``): a step is 32
+    packed rows, groups a multiple of 16 rows (groups of a multiple of 32
+    run the k32 int8 product, others the k16 one, so no product spans two
+    groups), K a whole number of groups, N a multiple of 64 (at 64-row
+    tiles a last CTA of 64 live columns). Its tiles are 64 or 128 rows
+    (``TILE_HEIGHTS_A8``)."""
+    return gmm_supported(w)
 
 
 def gmm_a8(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Tensor],
            w: QTensor, plan: TilePlan) -> torch.Tensor:
     """K7a. xq [rows, K] int8 with f32 scales sx [rows, K/gs]; row_src
     gathers the tile rows of both (None: they are tile-aligned) → f32
-    [Mp, N]."""
+    [Mp, N]. Tiles of 64 or 128 rows."""
     if xq.device.type == "cpu":
         return gmm_a8_plain(xq, sx, row_src, w, plan)
     global launches_a8
-    if not gmm_a8_supported(w) or plan.tm != TM:
+    if not gmm_a8_supported(w) or plan.tm not in TILE_HEIGHTS_A8:
         raise ValueError(f"gmm_a8: unsupported stack {tuple(w.q.shape)}, bits {w.bits}, "
-                         f"group {w.group_size}")
+                         f"group {w.group_size}, tile rows {plan.tm}")
     _check_rows("gmm_a8", xq, row_src, w, plan, torch.int8)
     sx = sx.to(torch.float32).contiguous()
     if tuple(sx.shape) != (xq.shape[0], w.k_dim // w.group_size) or not sx.is_cuda:
@@ -379,8 +384,8 @@ def gmm_a8(xq: torch.Tensor, sx: torch.Tensor, row_src: Optional[torch.Tensor],
     err = _fns()[1](xq.data_ptr(), sx.data_ptr(),
                     0 if row_src is None else row_src.data_ptr(), w.q.data_ptr(),
                     w.scales.data_ptr(), plan.tile_e.data_ptr(), plan.tile_valid.data_ptr(),
-                    out.data_ptr(), plan.n_tiles, w.k_dim, w.n_dim, w.bits, w.group_size,
-                    w.q.stride(0), w.scales.stride(0),
+                    out.data_ptr(), plan.n_tiles, plan.tm, w.k_dim, w.n_dim, w.bits,
+                    w.group_size, w.q.stride(0), w.scales.stride(0),
                     torch.cuda.current_stream(xq.device).cuda_stream)
     build.check(err, "gmm_a8")
     launches_a8 += 1
@@ -402,9 +407,13 @@ def moe_prefill(x: torch.Tensor, w13: QTensor, w2: QTensor,
                 w2_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped MoE: w13 GEMM, SwiGLU, w2 GEMM, then the f32 weighted combine
     of each token's k picks, cast to x.dtype. Three forms, as the
-    reference's ``moe_prefill_pallas``: int8 rows (K7a) when asked for; the
-    fused SwiGLU epilogue (K4) for experts of the fused class; else two
-    f32 stages (K7) with the h rounded to bf16 before SwiGLU. With
+    reference's ``moe_prefill_pallas``: int8 rows (K7a) when asked for and
+    the reference's predicate takes both stacks
+    (``expert_class.grouped_int8``: int4 / int8, K a whole number of
+    groups; on the card K7a takes groups of a multiple of 16 rows and
+    N % 64 == 0, and raises for other such stacks); the fused SwiGLU
+    epilogue (K4) for experts of the fused class; else two f32 stages (K7)
+    with the h rounded to bf16 before SwiGLU. With
     w13_bias [E, 2I] or w2_bias [E, H] (GPT-OSS) it is the reference's
     plain ragged form (``moe_forward_ragged``) on K7 whatever the class or
     `activation` say: h = K7(w13) in f32, rounded to bf16, + the bf16 w13
@@ -412,19 +421,21 @@ def moe_prefill(x: torch.Tensor, w13: QTensor, w2: QTensor,
     f32 w2 bias, then the combine. Padding rows and skipped tiles get a
     bias too; the combine reads neither. A pick with pick_valid == 0 is in
     no tile and adds nothing. tile_rows is the reference's A/B knob for the
-    tile height: 64, 128, 256 or 512 rows for K4 / K7 (None:
-    ``choose_tm``); K7a runs 64-row tiles only."""
+    tile height: 64, 128, 256 or 512 rows for K4 / K7, 64 or 128 for K7a
+    (None: ``choose_tm``, for every form)."""
     T, H = x.shape
     k = topk_idx.shape[1]
     E = w13.q.shape[0]
     biased = w13_bias is not None or w2_bias is not None
-    int8_rows = (activation == "int8" and not biased and gmm_a8_supported(w13)
-                 and gmm_a8_supported(w2))
-    if tile_rows is not None and (int8_rows or tile_rows not in TILE_HEIGHTS):
+    int8_rows = (activation == "int8" and not biased and expert_class.grouped_int8(w13)
+                 and expert_class.grouped_int8(w2))
+    heights = TILE_HEIGHTS_A8 if int8_rows else TILE_HEIGHTS
+    if tile_rows is not None and tile_rows not in heights:
         raise ValueError(f"moe_prefill: tile_rows={tile_rows} is not taken "
-                         + ("with int8 rows: K7a runs 64-row tiles only (ROADMAP A-12)"
+                         + (f"with int8 rows: K7a takes {TILE_HEIGHTS_A8} (whether 256- and "
+                            "512-row tiles stay at all is ROADMAP S-4a's question)"
                             if int8_rows else f"(K4 / K7 take {TILE_HEIGHTS})"))
-    tm = TM if int8_rows else (tile_rows or choose_tm(T * k, E))
+    tm = tile_rows or choose_tm(T * k, E)
     plan = plan_tiles(topk_idx, E, tm, pick_valid=pick_valid)
     Mp = plan.n_tiles * tm
     x = x.contiguous()

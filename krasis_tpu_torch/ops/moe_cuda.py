@@ -3,8 +3,10 @@
 ``moe_w4a8`` (K3, int8 activations, ``csrc/moe_w4a8.cu``) replaces
 ``krasis_tpu/ops/moe_pallas.py`` ``moe_gathered_w4a8_pallas``: the fused
 expert MLP of a token's picks in two launches, cut as ``plan_w4a8`` says.
-``moe_bf16`` (K5, bf16 activations, ``csrc/moe_decode.cu``) replaces
-``moe_gathered_pallas``: two CUDA stages, the picks summed in PyTorch.
+``moe_bf16`` (K5, bf16 activations) replaces ``moe_gathered_pallas`` on
+K1's core (``csrc/qmm.cu``, two instances of its gathered form, planned by
+``plan_k5``): two device kernels a call, the activation, the routing
+weights and the pick sum inside them.
 ``gathered_qmm`` (K6) replaces ``gathered_qmm_pallas`` on K1's core
 (``csrc/qmm.cu``, planned by ``qmm_cuda.plan`` with a pick per grid row):
 one gathered product per launch, which ``moe_gathered_tiled`` composes with
@@ -32,7 +34,7 @@ from ..quant import QTensor, dequantize, unpack
 from . import expert_class, qmm_cuda
 from .activations import swiglu
 
-SOURCE = "krasis_tpu_torch/csrc/moe_decode.cu"
+SOURCE = qmm_cuda.SOURCE                                      # K5, on K1's core
 SOURCE_W4A8 = "krasis_tpu_torch/csrc/moe_w4a8.cu"
 SOURCE_GQ = qmm_cuda.SOURCE                                   # K6, on K1's core
 REPLACES = "krasis_tpu/ops/moe_pallas.py:391"
@@ -40,11 +42,14 @@ REPLACES_BF16 = "krasis_tpu/ops/moe_pallas.py:226"
 REPLACES_GQ = "krasis_tpu/ops/moe_pallas.py:517"
 REPLACES_GQ_A8 = "krasis_tpu/ops/moe_pallas.py:605"
 K3_KERNELS = ("w4a8_stage1_kernel", "w4a8_stage2_kernel")   # K3's device kernels, by name
-K5_KERNELS = ("w13_bf16_kernel", "w2_bf16_kernel")
+# K5's device kernels, by name: K1's kernel with the ACT (w13) or PSUM (w2) flag
+K5_KERNELS = tuple(f"qmm_kernel<1, {bits}, __nv_bfloat16, true, {flags}>"
+                   for flags in ("true, false", "false, true") for bits in (4, 8))
 K6A_KERNELS = ("gq_a8_stage1_kernel", "gq_a8_stage2_kernel")  # K6a's chain
 K6A_PRODUCT_KERNEL = "gq_a8_product_kernel"                   # K6a's one product
 launches = 0          # K3 kernel launches (two a call) since the caller last set it to 0
-launches_bf16 = 0     # K5 kernel launches, likewise
+launches_bf16 = 0     # K5 kernel launches (two a call), likewise
+k5_casts = 0          # K5 calls whose rows or picks needed a PyTorch cast first
 launches_gq = 0       # K6
 launches_gq_a8 = 0    # K6a's chain, two a call
 launches_gq_a8_product = 0    # K6a's one product
@@ -294,28 +299,70 @@ def _card_plan_gq(P: int, K: int, N: int, bits: int, gs: int) -> StagePlan:
     return plan_gq_a8(P, K, N, bits, gs, smem=k3_smem_card)
 
 
-def _fns():
-    """(w13, w2) launchers of K5."""
-    lib = build.load("moe_decode")
-    b13, b2 = lib.moe_w13_bf16_launch, lib.moe_w2_bf16_launch
-    if b13.argtypes is None:
-        b13.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                        + [ctypes.c_long] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        b2.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_long] * 2 + [ctypes.c_void_p])
-        b13.restype = b2.restype = ctypes.c_int
-    return b13, b2
+class K5Plan(NamedTuple):
+    """K5's two launches, each a K1 plan (``qmm_cuda.Plan``): `w13` over the
+    T·k picks' rows, grid (I / 64 column tiles of 64 gate and 64 up
+    columns, picks, ks); `w2` over the T tokens, grid (H / 128 column
+    tiles, tokens, ks), whose ranks split the token's k picks' packed rows
+    pick-major on `unit` = `pk` rows, which divide a pick's packed rows, so
+    no step straddles two picks. `smem` is each launch's dynamic shared
+    memory, as the kernel sizes it."""
+    w13: qmm_cuda.Plan
+    w2: qmm_cuda.Plan
+    smem: Tuple[int, int]
+
+
+def plan_k5(T: int, k: int, H: int, I: int, bits: int, gs: int,
+            bits2: Optional[int] = None, gs2: Optional[int] = None) -> K5Plan:
+    """How a K5 call of T tokens with k picks each is cut. Stage 1 is K1's
+    plan over the 2I columns with a grid row per pick. Stage 2 has T·(H/128)
+    clusters; a step takes 128 packed rows where even the largest split
+    leaves few CTAs and 128 divides a pick's rows, else 64 or 32 (whichever
+    divides them), and the fewest ranks (a power of two up to 8, at most one
+    per unit) that reach 2.5 CTAs an SM, as K1's plan."""
+    bits2 = bits if bits2 is None else bits2
+    gs2 = gs if gs2 is None else gs2
+    if bits not in (4, 8) or bits2 not in (4, 8) or I % 64 or H % 128 or H % gs or I % gs2:
+        raise ValueError(f"moe_bf16: H {H}, I {I}, bits {bits}/{bits2}, groups {gs}/{gs2}")
+    s1 = qmm_cuda.plan(1, H, 2 * I, bits, gs, picks=T * k)
+    rows = I // 2 if bits2 == 4 else I
+    tiles = H // qmm_cuda.COLS
+    ctas = tiles * T
+    few = ctas * MAX_SPLITS < 2 * SMS
+    pk = next(p for p in ((128, 64, 32) if few else (64, 32)) if rows % p == 0)
+    units = k * rows // pk
+    ks = 1
+    while ks < MAX_SPLITS and 2 * ctas * ks < 5 * SMS and 2 * ks <= units:
+        ks *= 2
+    s2 = qmm_cuda.Plan(1, pk, ks, pk, (tiles, T, ks))
+    return K5Plan(s1, s2, (qmm_cuda.smem(s1.pk, 1, bits, gs), qmm_cuda.smem(pk, 1, bits2, gs2)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _k5_plan(T: int, k: int, H: int, I: int, bits: int, gs: int, bits2: int,
+             gs2: int) -> K5Plan:
+    return plan_k5(T, k, H, I, bits, gs, bits2, gs2)
+
+
+def _k5_fn():
+    fn = build.load("qmm").k5_launch
+    if fn.argtypes is None:
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [i] + [p] * 6 + [i] * 9 + [l, l, i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def supported(w13: QTensor, w2: QTensor) -> bool:
-    """K5's stacks: int4 / int8 w13 [E, H(/2), 2I] and w2 [E, I(/2), H] in
-    64-column blocks, K a whole number of groups of any size (each row
-    reads its own group's scale)."""
+    """K5's stacks: int4 / int8 w13 [E, H(/2), 2I] and w2 [E, I(/2), H],
+    I a multiple of 64 and H of 128, K a whole number of groups of an even
+    size (a k pair of K1's mma fragment shares one scale)."""
     H, N13 = w13.k_dim, w13.n_dim
     I, H2 = w2.k_dim, w2.n_dim
     return (H == H2 and N13 == 2 * I and w13.bits in (4, 8) and w2.bits in (4, 8)
             and I % 64 == 0 and H % 128 == 0 and H % w13.group_size == 0
-            and I % w2.group_size == 0)
+            and I % w2.group_size == 0 and w13.group_size % 2 == 0
+            and w2.group_size % 2 == 0)
 
 
 def w4a8_supported(w13: QTensor, w2: QTensor) -> bool:
@@ -390,34 +437,51 @@ def moe_w4a8(x: torch.Tensor, w13: QTensor, w2: QTensor,
 def moe_bf16(x: torch.Tensor, w13: QTensor, w2: QTensor,
              topk_idx: torch.Tensor, topk_weights: torch.Tensor,
              swiglu_limit: float = 0.0, gpt_oss: bool = False) -> torch.Tensor:
-    """The same call with bf16 activations: x [T, H] bf16, stacks
-    w13 [E, H(/2), 2I] and w2 [E, I(/2), H], picks [T, k] → [T, H] bf16."""
+    """K5, the same call with bf16 activations: x [T, H] bf16, stacks
+    w13 [E, H(/2), 2I] and w2 [E, I(/2), H], picks [T, k] (int32 ids and f32
+    weights, as the router gives them) → [T, H] bf16: exactly two device
+    kernels a call, instances of K1's kernel (``plan_k5``)."""
     if x.device.type == "cpu":
         return moe_bf16_plain(x, w13, w2, topk_idx, topk_weights, swiglu_limit, gpt_oss)
-    global launches_bf16
-    _check("moe_bf16", x, w13, w2, supported(w13, w2))
+    global launches_bf16, k5_casts
     T, H = x.shape
-    k = topk_idx.shape[1]
-    P = T * k
+    _check("moe_bf16", x, w13, w2, supported(w13, w2) and H == w13.k_dim)
+    for w in (w13, w2):
+        if w.q.dtype != torch.int8 or w.scales.dtype != torch.bfloat16 or w.q.data_ptr() % 4:
+            raise ValueError("moe_bf16: stacks must be int8 storage with bf16 scales, "
+                             "4-byte aligned")
+    k = topk_idx.shape[-1]
     I = w2.k_dim
-    xb = x.to(torch.bfloat16).contiguous()
-    idx = topk_idx.reshape(-1).to(torch.int32).contiguous()
-    wt = topk_weights.reshape(-1).to(torch.float32).contiguous()
-    a = torch.empty((P, I), dtype=torch.bfloat16, device=x.device)
-    o = torch.empty((P, H), dtype=torch.float32, device=x.device)
+    # the kernels read the router's dtypes (int32 ids, f32 weights) and bf16
+    # rows; anything else takes a PyTorch cast first, counted in k5_casts
+    xb, idx, wt = x, topk_idx, topk_weights
+    cast = False
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        xb, cast = x.to(torch.bfloat16).contiguous(), True
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx, cast = idx.to(torch.int32).contiguous(), True
+    if wt.dtype != torch.float32 or not wt.is_contiguous():
+        wt, cast = wt.to(torch.float32).contiguous(), True
+    k5_casts += cast
+    if idx.numel() != T * k or wt.numel() != T * k or not (idx.is_cuda and wt.is_cuda):
+        raise ValueError(f"moe_bf16: picks {tuple(topk_idx.shape)} / "
+                         f"{tuple(topk_weights.shape)} on the card for {T} tokens")
+    plan = _k5_plan(T, k, H, I, w13.bits, w13.group_size, w2.bits, w2.group_size)
+    a = torch.empty((T * k, I), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((T, H), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    b13, b2 = _fns()
-    err = b13(xb.data_ptr(), idx.data_ptr(), w13.q.data_ptr(), w13.scales.data_ptr(),
-              a.data_ptr(), P, k, H, I, w13.bits, w13.group_size, w13.q.stride(0),
-              w13.scales.stride(0), float(swiglu_limit), int(gpt_oss), stream)
-    build.check(err, "moe_w13_bf16")
-    launches_bf16 += 1
-    err = b2(a.data_ptr(), idx.data_ptr(), wt.data_ptr(), w2.q.data_ptr(),
-             w2.scales.data_ptr(), o.data_ptr(), P, H, I, w2.bits, w2.group_size,
-             w2.q.stride(0), w2.scales.stride(0), stream)
-    build.check(err, "moe_w2_bf16")
-    launches_bf16 += 1
-    return o.reshape(T, k, H).sum(dim=1).to(x.dtype)
+    fn = _k5_fn()
+    for stage, p, rows, src, w, dst, K, N in (
+            (1, plan.w13, T * k, xb, w13, a, H, 2 * I),
+            (2, plan.w2, T, a, w2, out, I, H)):
+        x_vec = int(K % 16 == 0 and p.unit % 8 == 0 and src.data_ptr() % 16 == 0)
+        err = fn(stage, src.data_ptr(), idx.data_ptr(), wt.data_ptr(), w.q.data_ptr(),
+                 w.scales.data_ptr(), dst.data_ptr(), rows, k, K, N, w.bits, w.group_size,
+                 p.unit, p.ks, p.pk, w.q.stride(0), w.scales.stride(0), x_vec,
+                 float(swiglu_limit), int(gpt_oss), stream)
+        build.check(err, f"moe_bf16 stage {stage}")
+        launches_bf16 += 1
+    return out if x.dtype == torch.bfloat16 else out.to(x.dtype)
 
 
 def gathered_qmm_supported(w: QTensor) -> bool:

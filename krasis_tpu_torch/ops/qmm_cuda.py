@@ -82,6 +82,20 @@ def plan(T: int, K: int, N: int, bits: int, gs: int, sms: int = SMS, picks: int 
     return Plan(tt, unit, ks, pk, (tiles, picks, ks))
 
 
+STAGES = 4            # csrc/qmm.cu: the ring's stages, a staged weight row's byte pitch,
+LDB = COLS + 16       # an x row's bf16 pad
+XPAD = 8
+
+
+def smem(pk: int, tt: int, bits: int, gs: int) -> int:
+    """Dynamic shared memory of a launch of K1's kernel (csrc/qmm.cu
+    ``launch``): the ring, or the cluster's partial if that is larger."""
+    halves = 2 if bits == 4 else 1
+    scale_rows = (pk + gs - 1) // gs + 1
+    stage = pk * LDB + halves * tt * (pk + XPAD) * 2 + halves * scale_rows * COLS * 2
+    return max(STAGES * stage, tt * COLS * 4)
+
+
 def _lib():
     fn = build.load("qmm").qmm_launch
     if fn.argtypes is None:

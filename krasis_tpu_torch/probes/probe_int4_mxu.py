@@ -83,7 +83,7 @@ def run(inp: dict, sections=("A", "B", "C", "E", "D"), iters: int = ITERS,
         device = "" if us is None else f" (device {us:.2f} us)"
         print(f"{label:28s} {ms:8.4f} ms/iter{device}  {nbytes / t / 1e6:7.1f} GB/s", flush=True)
 
-    k3, k5 = moe_cuda.K3_KERNELS, ("w13_bf16_kernel", "w2_bf16_kernel")
+    k3, k5 = moe_cuda.K3_KERNELS, moe_cuda.K5_KERNELS
     if "A" in sections:
         timed("A_stream", "A. stream floor", lambda: probes_cuda.stream(w13.q, w2.q, idx, H),
               k * packed, "colsum_kernel")

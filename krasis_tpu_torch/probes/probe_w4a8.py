@@ -62,7 +62,7 @@ def run(inp: dict, iters: int = ITERS, device_time: bool = True) -> dict:
     print(f"relerr w4a8 vs ref : {res['relerr_w4a8_vs_ref']}", flush=True)
     flush = flush_buffer(dev)
     tb, ub = time_on(dev, lambda: moe_cuda.moe_bf16(x, w13, w2, idx, wts), n=iters, flush=flush,
-                     kernel=("w13_bf16_kernel", "w2_bf16_kernel") if device_time else None)
+                     kernel=moe_cuda.K5_KERNELS if device_time else None)
     tw, uw = time_on(dev, lambda: moe_cuda.moe_w4a8(x, w13, w2, idx, wts), n=iters, flush=flush,
                      kernel=moe_cuda.K3_KERNELS if device_time else None)
     res.update(w4a16_ms=tb, w4a8_ms=tw, w4a16_device_us=ub, w4a8_device_us=uw)

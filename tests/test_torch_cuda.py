@@ -13,7 +13,8 @@ from krasis_tpu_torch.device import set_exact_matmul_flags
 from krasis_tpu_torch.models.synthetic import build_synthetic_engine, tiny_config
 from krasis_tpu_torch.ops import flash_attention as fa
 from krasis_tpu_torch.ops import expert_class, gmm_cuda, moe_cuda, probes_cuda, qmm_cuda
-from krasis_tpu_torch.quant import pack_int4, quantize, random_qtensor, stack_leading
+from krasis_tpu_torch.quant import (QTensor, pack_int4, quantize, random_qtensor,
+                                    stack_leading)
 
 pytestmark = pytest.mark.cuda
 
@@ -1085,11 +1086,125 @@ def test_gmm_probe_forms(dev, bits, mode, tm, gathered):
 
 @pytest.mark.parametrize("tm", [128, 256, 512])
 def test_moe_prefill_tile_rows_on_card(dev, tm):
+    """K4 at each height equals the 128-row plan bit for bit; with int8 rows
+    K7a takes 128 rows (two launches, equal to the 64-row plan bit for bit)
+    and refuses 256 and 512."""
     w13, w2, x, idx, _ = _gmm_case(dev, 4, 80 + tm, 600, 2, 4, I=256)
     wts = torch.rand(idx.shape, generator=_gen(dev, 2), device=dev)
     before = gmm_cuda.launches
     got = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, tile_rows=tm)
     assert gmm_cuda.launches == before + 2
     assert torch.equal(got, gmm_cuda.moe_prefill(x, w13, w2, idx, wts, tile_rows=128))
-    with pytest.raises(ValueError):
-        gmm_cuda.moe_prefill(x, w13, w2, idx, wts, activation="int8", tile_rows=tm)
+    if tm == 128:
+        before = gmm_cuda.launches_a8
+        got = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, activation="int8", tile_rows=tm)
+        assert gmm_cuda.launches_a8 == before + 2
+        assert torch.equal(got, gmm_cuda.moe_prefill(x, w13, w2, idx, wts, activation="int8",
+                                                     tile_rows=64))
+    else:
+        with pytest.raises(ValueError, match="S-4a"):
+            gmm_cuda.moe_prefill(x, w13, w2, idx, wts, activation="int8", tile_rows=tm)
+
+
+# K5 at a model's widths: (T, k, H, I, bits, gs), the last pick a folded
+# shared expert of weight 1
+K5_SHAPES = {"hybrid": (1, 11, 2048, 512, 4, 128), "v2lite": (1, 8, 2048, 1408, 4, 128),
+             "v2lite_int8_gs32": (2, 8, 2048, 1408, 8, 32), "gs16_T4": (4, 6, 256, 128, 4, 16)}
+
+
+@pytest.mark.parametrize("name", list(K5_SHAPES))
+def test_k5_two_kernels_at_model_widths(dev, name):
+    """K5 on K1's core: two device kernels a call (by the profiler), two
+    counts, bit-equal repeats, within 3e-2 of moe_bf16_plain, no cast, and
+    the check refuses the plain version without the shared pick."""
+    from krasis_tpu_torch.timing import device_per_call
+
+    T, k, H, I, bits, gs = K5_SHAPES[name]
+    x, w13, w2, idx, wts = _k3_case(dev, 170 + len(name), T, k, H, I, bits, gs, E=16,
+                                    virtual=1)
+    casts, before = moe_cuda.k5_casts, moe_cuda.launches_bf16
+    got = moe_cuda.moe_bf16(x, w13, w2, idx, wts)
+    assert torch.equal(got, moe_cuda.moe_bf16(x, w13, w2, idx, wts))
+    assert moe_cuda.launches_bf16 == before + 4 and moe_cuda.k5_casts == casts
+    want = moe_cuda.moe_bf16_plain(x, w13, w2, idx, wts)
+    _close(got, want, 3e-2)
+    shared_only = wts.clone()
+    shared_only[:, :-1] = 0
+    with pytest.raises(AssertionError):
+        _close(moe_cuda.moe_bf16(x, w13, w2, idx, shared_only), torch.zeros_like(want), 3e-2)
+    us, per_call, _ = device_per_call(lambda: moe_cuda.moe_bf16(x, w13, w2, idx, wts),
+                                      moe_cuda.K5_KERNELS, calls=5)
+    assert per_call == 2 and us > 0
+
+
+def test_k5_reads_the_router_dtypes(dev):
+    """The router's int32 ids and f32 weights go to the kernels as they are;
+    int64 ids or bf16 weights take one counted PyTorch cast and give the
+    same result; GPT-OSS's clamped activation within 3e-2."""
+    x, w13, w2, idx, wts = _k3_case(dev, 190, 2, 6, 256, 128, 4, 32, E=16, virtual=1)
+    wb = wts.to(torch.bfloat16)
+    casts = moe_cuda.k5_casts
+    want = moe_cuda.moe_bf16(x, w13, w2, idx, wb.float())
+    assert moe_cuda.k5_casts == casts
+    assert torch.equal(moe_cuda.moe_bf16(x, w13, w2, idx.long(), wb), want)
+    assert moe_cuda.k5_casts == casts + 1
+    _close(moe_cuda.moe_bf16(4 * x, w13, w2, idx, wts, 7.0, True),
+           moe_cuda.moe_bf16_plain(4 * x, w13, w2, idx, wts, 7.0, True), 3e-2)
+
+
+# K7a: (K, N, gs): N = 192 and 320 have a 64-column tail at 64-row tiles;
+# K = 384 at gs 128 cuts group 1 at K/2 = 192 for int4
+A8_STACKS = {"gs32_tail": (256, 320, 32), "gs16_tail": (256, 192, 16), "gs128": (384, 256, 128)}
+
+
+@pytest.mark.parametrize("stack", list(A8_STACKS))
+@pytest.mark.parametrize("tm", [64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_k7a_int8_tensor_cores(dev, bits, tm, stack):
+    """K7a on the int8 mma: against gmm_a8_plain within 3e-2 on the real
+    rows (int8 stacks bit for bit: the groups fold in the plain version's
+    order), padding rows of computed tiles zero, one launch, and the same
+    rows bit for bit at 64 and 128 rows."""
+    K, N, gs = A8_STACKS[stack]
+    g = _gen(dev, K + N + gs + bits + tm)
+    E, T, k = 4, 200, 2
+    w = random_qtensor((E, K, N), bits, gs, g, dev, scale_mag=0.03)
+    x = torch.randn((T, K), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    xq, sx = moe_cuda.quantize_activations(x, gs)
+    plans = {h: gmm_cuda.plan_tiles(idx, E, h) for h in (64, 128)}
+    plan = plans[tm]
+    real = plan.row_src >= 0
+    before = gmm_cuda.launches_a8
+    got = gmm_cuda.gmm_a8(xq, sx, plan.row_src, w, plan)
+    assert gmm_cuda.launches_a8 == before + 1
+    want = gmm_cuda.gmm_a8_plain(xq, sx, plan.row_src, w, plan)
+    _close(got[real], want[real], 3e-2)
+    if bits == 8:
+        assert torch.equal(got[real], want[real])
+    assert not got[(~real) & plan.tile_valid.bool().repeat_interleave(tm)].any()
+    other = plans[192 - tm]
+    assert torch.equal(got[plan.dest], gmm_cuda.gmm_a8(xq, sx, other.row_src, w, other)[other.dest])
+
+
+def test_k7a_takes_groups_of_16_in_moe_prefill(dev):
+    """C-3 on the card: moe_prefill(activation="int8") on a gs-16 int4 stack
+    launches K7a twice and no K4 / K7, within 3e-2 of the same call on the
+    CPU; a stack K7a declines (groups of 8) raises."""
+    g = _gen(dev, 316)
+    w13 = random_qtensor((4, 256, 256), 4, 16, g, dev, scale_mag=0.03)
+    w2 = random_qtensor((4, 128, 256), 4, 16, g, dev, scale_mag=0.03)
+    x = torch.randn((64, 256), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.rand((64, 4), generator=g, device=dev).topk(2, dim=-1).indices.to(torch.int32)
+    wts = torch.rand((64, 2), generator=g, device=dev)
+    before = (gmm_cuda.launches_a8, gmm_cuda.launches, gmm_cuda.launches_two_stage)
+    got = gmm_cuda.moe_prefill(x, w13, w2, idx, wts, activation="int8")
+    assert (gmm_cuda.launches_a8, gmm_cuda.launches, gmm_cuda.launches_two_stage) == (
+        before[0] + 2, before[1], before[2])
+    want = gmm_cuda.moe_prefill(x.cpu(), w13.to("cpu"), w2.to("cpu"), idx.cpu(), wts.cpu(),
+                                activation="int8")
+    _close(got.cpu(), want, 3e-2)
+    w8 = QTensor(w13.q, w13.scales.repeat_interleave(2, dim=1), 4, 8)
+    assert expert_class.grouped_int8(w8) and not gmm_cuda.gmm_a8_supported(w8)
+    with pytest.raises(ValueError, match="gmm_a8"):
+        gmm_cuda.moe_prefill(x, w8, w2, idx, wts, activation="int8")

@@ -229,14 +229,17 @@ def test_moe_prefill_tile_rows_matches_pallas(tm):
 
 
 def test_tile_rows_choices():
-    """tile_rows takes the four heights; K7a takes none (ROADMAP A-12)."""
+    """tile_rows takes the four heights; with int8 rows K7a takes 64 and
+    128 and refuses 256 (ROADMAP S-4a)."""
     w13, w2 = _small_experts(5, E=4, H=256, I=128)
     x = torch.zeros((8, 256), dtype=torch.bfloat16)
     idx = torch.zeros((8, 2), dtype=torch.int32)
     idx[:, 1] = 1
     wts = torch.ones((8, 2))
-    with pytest.raises(ValueError, match="A-12"):
-        gmm_cuda.moe_prefill(x, tq(w13), tq(w2), idx, wts, activation="int8", tile_rows=128)
+    with pytest.raises(ValueError, match="S-4a"):
+        gmm_cuda.moe_prefill(x, tq(w13), tq(w2), idx, wts, activation="int8", tile_rows=256)
+    out = gmm_cuda.moe_prefill(x, tq(w13), tq(w2), idx, wts, activation="int8", tile_rows=128)
+    assert out.shape == (8, 256) and not out.any()
     with pytest.raises(ValueError):
         gmm_cuda.moe_prefill(x, tq(w13), tq(w2), idx, wts, tile_rows=96)
     out = gmm_cuda.moe_prefill(x, tq(w13), tq(w2), idx, wts, tile_rows=512)

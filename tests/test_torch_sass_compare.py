@@ -22,6 +22,10 @@ _spec.loader.exec_module(sass_compare)
     ("void (anonymous namespace)::w4a8_stage1_kernel<4, 128, true>((anonymous namespace)::Args)",
      "w4a8_stage1_kernel<4, 128, true>"),
     ("void <unnamed>::gmm_kernel<(int)128, (int)0>(const int *, void *)", "gmm_kernel<128, 0>"),
+    ("void <unnamed>::qmm_kernel<(int)1, (int)4, float, (bool)1, (bool)0, (bool)0>(const "
+     "__nv_bfloat16 *, int, float, const void *, int)", "qmm_kernel<1, 4, float, 1>"),
+    ("void <unnamed>::qmm_kernel<(int)1, (int)4, __nv_bfloat16, (bool)1, (bool)0, (bool)1>("
+     "const __nv_bfloat16 *)", "qmm_kernel<1, 4, __nv_bfloat16, 1, 0, 1>"),
     ("<unnamed>::gq_bf16_kernel(const __nv_bfloat16 *, const int *)", "gq_bf16_kernel"),
 ])
 def test_key(demangled, want):

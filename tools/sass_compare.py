@@ -9,8 +9,8 @@ compares each kernel's instructions, addresses and encodings left out and
 whitespace collapsed (the dump's column alignment moves with the name
 lengths). Kernels are matched by their demangled names (``cu++filt``)
 without namespace and parameter list (parameters may be appended), and
-with a last template argument ``false`` dropped, so that an instance keeps
-its key when a flag is appended to a kernel template with its old
+with trailing template arguments ``false`` dropped, so that an instance
+keeps its key when flags are appended to a kernel template with its old
 behavior at ``false``. Prints,
 and writes to ``build/sass/compare.json``, the kernels that are the same,
 that differ (with the count of differing lines), and those found on one
@@ -64,7 +64,7 @@ def disassemble(src: Path, tag: str) -> Dict[str, List[str]]:
 
 def key(demangled: str) -> str:
     """A kernel's name and template arguments: no return type, namespace,
-    parameter list or integer casts, and a last template argument false
+    parameter list or integer casts, and trailing template arguments false
     dropped."""
     d = demangled.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
     d = re.sub(r"^void ", "", d)
@@ -76,7 +76,8 @@ def key(demangled: str) -> str:
                 break
             i -= 1
         d = d[:i]
-    d = re.sub(r", (?:\(bool\)0|false)>$", ">", d)
+    while re.search(r", (?:\(bool\)0|false)>$", d):
+        d = re.sub(r", (?:\(bool\)0|false)>$", ">", d)
     return re.sub(r"\((?:int|bool)\)", "", d)
 
 
