@@ -103,6 +103,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    changed) the checks must refuse; K7a with int4 rows at V2-Lite's w13
    and w2 (w2's K/2 = 704 cuts a group of 128) on the 128-row plan.
 
+9. checkpoints from disk: DeepSeek-V2-Lite in bf16 safetensors (3 layers,
+   every width, 3.34 GB in 2 shards) and GPT-OSS-20B in its MXFP4 layout
+   (2 layers, 3.27 GB), written from a seed into a temporary directory that
+   also holds the weight cache ($KRASIS_TPU_HOME, removed at the end); for
+   each: ModelConfig.from_model_path (fields that differ from the preset
+   printed), load_params with an empty cache (the build, quantized on the
+   card) and again (the hit), timed, every leaf of the hit equal to the
+   build's, the head, every layer's non-expert leaves, experts 0, the last
+   and two seeded ones of every MoE layer, the folded virtual experts and
+   the MXFP4 decode bit-equal to the port's CPU load; the quantizer's
+   division on the checkpoint's tensors (ROADMAP C-5); a 2048 + 16 greedy
+   request on each load through Engine.generate (finite, no plain MoE form,
+   K1-K4 for V2-Lite and K1, K2, K6, K7 for GPT-OSS launched, the same
+   tokens); then the division on f32 inputs, and the GGUF codecs on the
+   card against the CPU bit for bit.
+
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
 name and power limit and the JSON result; the line before them lists the
@@ -1986,6 +2002,507 @@ def probe_phase(results):
           f"{time.perf_counter() - t_path:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# 9. [load]: checkpoints on disk through the loader, the cache and the engine
+# --------------------------------------------------------------------------
+
+LOAD_DEVICE = "cuda"     # where the checkpoints are made and the card-side checks run
+
+# DeepSeek-V2-Lite's published config.json, cut to 3 layers (layer 0 dense,
+# layers 1-2 MoE); every width is the model's.
+V2LITE_CONFIG = {
+    "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
+    "hidden_size": 2048, "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 3, "num_attention_heads": 16, "num_key_value_heads": 16,
+    "vocab_size": 102400, "kv_lora_rank": 512, "q_lora_rank": None,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "n_routed_experts": 64, "num_experts_per_tok": 6, "n_shared_experts": 2,
+    "first_k_dense_replace": 1, "moe_layer_freq": 1, "n_group": 1, "topk_group": 1,
+    "topk_method": "greedy", "scoring_func": "softmax", "norm_topk_prob": False,
+    "routed_scaling_factor": 1.0, "rms_norm_eps": 1e-6, "rope_theta": 10000,
+    "rope_scaling": {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707},
+    "max_position_embeddings": 163840, "tie_word_embeddings": False, "hidden_act": "silu",
+    "attention_bias": False, "bos_token_id": 100000, "eos_token_id": 100001,
+    "torch_dtype": "bfloat16"}
+# GPT-OSS-20B's published config.json, cut to 2 layers (one sliding, one
+# full); its experts are MXFP4 blocks.
+GPTOSS_CONFIG = {
+    "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
+    "hidden_size": 2880, "intermediate_size": 2880, "num_hidden_layers": 2,
+    "num_attention_heads": 64, "num_key_value_heads": 8, "head_dim": 64,
+    "vocab_size": 201088, "num_local_experts": 32, "num_experts_per_tok": 4,
+    "experts_per_token": 4, "sliding_window": 128, "swiglu_limit": 7.0,
+    "attention_bias": True, "layer_types": ["sliding_attention", "full_attention"],
+    "rms_norm_eps": 1e-05, "rope_theta": 150000,
+    "rope_scaling": {"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0, "beta_slow": 1.0,
+                     "original_max_position_embeddings": 4096, "truncate": False},
+    "max_position_embeddings": 131072, "initial_context_length": 4096,
+    "tie_word_embeddings": False, "hidden_act": "silu", "eos_token_id": 200002,
+    "pad_token_id": 199999, "torch_dtype": "bfloat16",
+    "quantization_config": {"quant_method": "mxfp4", "modules_to_not_convert": [
+        "model.layers.*.self_attn", "model.layers.*.mlp.router", "model.embed_tokens",
+        "lm_head"]}}
+
+
+def v2lite_tensors(cfg):
+    """(name, shape, kind) of DeepSeek-V2-Lite's checkpoint in HF names."""
+    H, V, I, Im = cfg["hidden_size"], cfg["vocab_size"], cfg["intermediate_size"], \
+        cfg["moe_intermediate_size"]
+    hq, dn, dr, dv, L = (cfg[k] for k in ("num_attention_heads", "qk_nope_head_dim",
+                                          "qk_rope_head_dim", "v_head_dim", "kv_lora_rank"))
+    out = [("model.embed_tokens.weight", (V, H), "w")]
+    for i in range(cfg["num_hidden_layers"]):
+        P = f"model.layers.{i}"
+        out += [(f"{P}.input_layernorm.weight", (H,), "norm"),
+                (f"{P}.post_attention_layernorm.weight", (H,), "norm"),
+                (f"{P}.self_attn.q_proj.weight", (hq * (dn + dr), H), "w"),
+                (f"{P}.self_attn.kv_a_proj_with_mqa.weight", (L + dr, H), "w"),
+                (f"{P}.self_attn.kv_a_layernorm.weight", (L,), "norm"),
+                (f"{P}.self_attn.kv_b_proj.weight", (hq * (dn + dv), L), "w"),
+                (f"{P}.self_attn.o_proj.weight", (H, hq * dv), "w")]
+        if i < cfg["first_k_dense_replace"]:
+            out += [(f"{P}.mlp.{n}.weight", s, "w") for n, s in (
+                ("gate_proj", (I, H)), ("up_proj", (I, H)), ("down_proj", (H, I)))]
+            continue
+        out.append((f"{P}.mlp.gate.weight", (cfg["n_routed_experts"], H), "w"))
+        for e in range(cfg["n_routed_experts"]):
+            out += [(f"{P}.mlp.experts.{e}.{n}.weight", s, "w") for n, s in (
+                ("gate_proj", (Im, H)), ("up_proj", (Im, H)), ("down_proj", (H, Im)))]
+        Is = Im * cfg["n_shared_experts"]
+        out += [(f"{P}.mlp.shared_experts.{n}.weight", s, "w") for n, s in (
+            ("gate_proj", (Is, H)), ("up_proj", (Is, H)), ("down_proj", (H, Is)))]
+    out += [("model.norm.weight", (H,), "norm"), ("lm_head.weight", (V, H), "w")]
+    return out
+
+
+def gptoss_tensors(cfg):
+    """(name, shape, kind) of GPT-OSS-20B's published MXFP4 checkpoint."""
+    H, V, I, E = cfg["hidden_size"], cfg["vocab_size"], cfg["intermediate_size"], \
+        cfg["num_local_experts"]
+    hq, hkv, d = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
+    out = [("model.embed_tokens.weight", (V, H), "w")]
+    for i in range(cfg["num_hidden_layers"]):
+        P, M = f"model.layers.{i}", f"model.layers.{i}.mlp"
+        out += [(f"{P}.input_layernorm.weight", (H,), "norm"),
+                (f"{P}.post_attention_layernorm.weight", (H,), "norm")]
+        for n, rows in (("q_proj", hq * d), ("k_proj", hkv * d), ("v_proj", hkv * d)):
+            out += [(f"{P}.self_attn.{n}.weight", (rows, H), "w"),
+                    (f"{P}.self_attn.{n}.bias", (rows,), "bias")]
+        out += [(f"{P}.self_attn.o_proj.weight", (H, hq * d), "w"),
+                (f"{P}.self_attn.o_proj.bias", (H,), "bias"),
+                (f"{P}.self_attn.sinks", (hq,), "sinks"),
+                (f"{M}.router.weight", (E, H), "w"), (f"{M}.router.bias", (E,), "bias"),
+                (f"{M}.experts.gate_up_proj_blocks", (E, 2 * I, H // 32, 16), "blocks"),
+                (f"{M}.experts.gate_up_proj_scales", (E, 2 * I, H // 32), "scales"),
+                (f"{M}.experts.gate_up_proj_bias", (E, 2 * I), "bias"),
+                (f"{M}.experts.down_proj_blocks", (E, H, I // 32, 16), "blocks"),
+                (f"{M}.experts.down_proj_scales", (E, H, I // 32), "scales"),
+                (f"{M}.experts.down_proj_bias", (E, H), "bias")]
+    out += [("model.norm.weight", (H,), "norm"), ("lm_head.weight", (V, H), "w")]
+    return out
+
+
+def write_checkpoint(path, config, tensors, shards=2):
+    """config.json and `shards` safetensors shards with their index, the
+    tensors made on the card from a generator seeded 0: weights N(0, 0.02)
+    in bf16, norms 1 + N(0, 0.05), biases N(0, 0.02), sinks N(0, 1), MXFP4
+    blocks random bytes (every byte is two valid e2m1 codes) and e8m0
+    scales in 118-127. Returns the bytes written."""
+    import math
+    import os
+
+    import torch
+    from krasis_tpu_torch.utils.safetensors_io import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    g = torch.Generator(device=LOAD_DEVICE)
+    g.manual_seed(0)
+
+    def make(shape, kind):
+        if kind == "blocks":
+            return torch.randint(0, 256, shape, generator=g, device=LOAD_DEVICE, dtype=torch.uint8)
+        if kind == "scales":
+            return torch.randint(118, 128, shape, generator=g, device=LOAD_DEVICE, dtype=torch.uint8)
+        x = torch.randn(shape, generator=g, device=LOAD_DEVICE)
+        x = {"w": x * 0.02, "bias": x * 0.02, "norm": 1.0 + x * 0.05, "sinks": x}[kind]
+        return x.to(torch.bfloat16)
+
+    total = sum(math.prod(s) * (1 if k in ("blocks", "scales") else 2) for _, s, k in tensors)
+    weight_map, written, start = {}, 0, 0
+    for n in range(shards):
+        shard = f"model-{n + 1:05d}-of-{shards:05d}.safetensors"
+        part, size = {}, 0
+        for name, shape, kind in tensors[start:]:
+            if size >= total / shards and n < shards - 1:
+                break
+            part[name] = make(shape, kind).cpu()
+            size += part[name].numel() * part[name].element_size()
+            weight_map[name] = shard
+        start += len(part)
+        write_safetensors(os.path.join(path, shard), part)
+        written += size
+        del part
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": written}, "weight_map": weight_map}, f)
+    return written
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (a NaN may carry another payload)."""
+    import torch
+
+    a, b = a.detach().cpu().reshape(-1), b.detach().cpu().reshape(-1)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    same = a.view(ints) == b.view(ints)
+    if a.dtype.is_floating_point:
+        same |= torch.isnan(a) & torch.isnan(b)
+    return bool(same.all())
+
+
+def leaves(tree, prefix=""):
+    """(path, tensor) pairs of a parameter tree; a QTensor gives .q and
+    .scales."""
+    from krasis_tpu_torch.quant import QTensor
+
+    if isinstance(tree, QTensor):
+        yield f"{prefix}.q", tree.q
+        yield f"{prefix}.scales", tree.scales
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            if k != "_layer_idx":
+                yield from leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def scale_moves(w, bits: int, gs: int):
+    """The on-card quantizer's division (ROADMAP C-5): groups of w [K, N] (on
+    the card) whose f32 scale amax / qmax, and whose bf16 scale, differ
+    between a division by a Python float (PyTorch multiplies by its
+    reciprocal on CUDA; quant.quantize took it before C-5) and by a 0-dim tensor
+    (IEEE division, as quantize_np), with the largest change of a
+    dequantized weight that the bf16 moves make."""
+    import torch
+
+    K, N = w.shape
+    if not bool(torch.isfinite(w).all()):
+        raise AssertionError("scale_moves wants finite weights")
+    g = w.to(torch.float32).reshape(K // gs, gs, N)
+    amax = g.abs().amax(dim=1, keepdim=True)
+    qmax = 7.0 if bits == 4 else 127.0
+    one = torch.ones_like(amax)
+    by_float = torch.where(amax == 0, one, amax / qmax)
+    by_tensor = torch.where(amax == 0, one, amax / torch.full((), qmax, device=w.device))
+    f32 = int((by_float != by_tensor).sum())
+    old, new = by_float.to(torch.bfloat16), by_tensor.to(torch.bfloat16)
+    moved = int((old != new).sum())
+    delta = 0.0
+    if moved:
+        lo, hi = (-8, 7) if bits == 4 else (-128, 127)
+
+        def deq(s):
+            s = s.to(torch.float32)
+            return torch.clamp(torch.round(g * (1.0 / s)), lo, hi) * s
+        delta = float((deq(old) - deq(new)).abs().max())
+    return {"f32_scales_moved": f32, "bf16_scales_moved": moved, "groups": amax.numel(),
+            "max_abs_weight_change": delta}
+
+
+def cpu_checks(label, path, cfg, quant, params, rng):
+    """Bit for bit against the port's CPU load of the same checkpoint
+    tensors: every non-expert leaf (head, each layer, the folded shared
+    leaves), experts 0, the last and two seeded ones of every MoE layer,
+    the folded virtual experts, and (MXFP4) the decode on the card. Returns
+    the number of tensors compared."""
+    import torch
+    from krasis_tpu_torch.models.loader import WeightLoader, _empty_qtensor
+    from krasis_tpu_torch.models.params import fold_layer, fold_width, layer_specs
+    from krasis_tpu_torch.quant import dequant_mxfp4, pick_group_size, quantize
+
+    wl = WeightLoader(cfg, quant, device="cpu")
+    n = 0
+
+    def check(name, got, want):
+        nonlocal n
+        if not same_bits(got, want):
+            raise AssertionError(f"{label}: {name} on the card differs from the CPU's load")
+        n += 1
+
+    for name, want in wl.load_head().items():
+        for sub, t in leaves(want, name):
+            check(sub, dict(leaves(params[name], name))[sub], t)
+    E, H, I = cfg.n_routed_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    bits, gs = quant.expert_bits, quant.group_size
+    fold = quant.fold_shared_decode and cfg.n_shared_experts > 0
+    for i, spec in enumerate(layer_specs(cfg)):
+        card = params["layers"][i]
+        experts = {}
+        if spec.mlp_kind == "moe":
+            pick = [0, E - 1] + sorted(rng.choice(range(1, E - 1), 2, replace=False).tolist())
+            wl.experts = pick
+
+            def sink(e, w13_e, w2_e):
+                experts[e] = (quantize(w13_e, bits, gs), quantize(w2_e, bits, gs))
+            lp = wl._load_layer(i, spec, expert_sink=sink)
+            if sorted(experts) != sorted(pick):
+                raise AssertionError(f"{label}: layer {i} read experts {sorted(experts)}")
+            n_virt = 0
+            if fold and "shared_w13" in lp:
+                Is = lp["shared_w13"].n_dim // 2
+                n_virt = fold_width(cfg, bits, pick_group_size(I, gs), Is, "w13_bias" in lp)
+            lp["w13"] = _empty_qtensor((E + n_virt, H, 2 * I), bits, pick_group_size(H, gs),
+                                       "cpu")
+            lp["w2"] = _empty_qtensor((E + n_virt, I, H), bits, pick_group_size(I, gs), "cpu")
+            lp = fold_layer(lp, cfg, reserved=True)
+            for name in ("w13", "w2"):
+                if tuple(card[name].q.shape) != tuple(lp[name].q.shape):
+                    raise AssertionError(f"{label}: layer {i} {name} {tuple(card[name].q.shape)}")
+                for e, qts in experts.items():
+                    qt = qts[0 if name == "w13" else 1]
+                    check(f"layer {i} {name}[{e}].q", card[name].q[e], qt.q)
+                    check(f"layer {i} {name}[{e}].scales", card[name].scales[e], qt.scales)
+                if n_virt:
+                    check(f"layer {i} {name} virtual .q", card[name].q[E:], lp[name].q[E:])
+                    check(f"layer {i} {name} virtual .scales", card[name].scales[E:],
+                          lp[name].scales[E:])
+            M = f"model.layers.{i}.mlp.experts"
+            if f"{M}.gate_up_proj_blocks" in wl.st:
+                for e in pick:
+                    for part in ("gate_up_proj", "down_proj"):
+                        b, s = (wl.st.tensor(f"{M}.{part}_{k}")[e] for k in ("blocks", "scales"))
+                        check(f"layer {i} {part}[{e}] MXFP4 decode",
+                              dequant_mxfp4(b.to(LOAD_DEVICE), s.to(LOAD_DEVICE)), dequant_mxfp4(b, s))
+            rest = {k: v for k, v in lp.items() if k not in ("w13", "w2")}
+        else:
+            rest = wl._load_layer(i, spec)
+        mine = {k for k in card if k not in ("w13", "w2", "_layer_idx")}
+        if mine != set(rest):
+            raise AssertionError(f"{label}: layer {i} leaves {sorted(mine ^ set(rest))} differ")
+        for name, want in rest.items():
+            got = dict(leaves(card[name], name))
+            for sub, t in leaves(want, name):
+                check(f"layer {i} {sub}", got[sub], t)
+    wl.experts = None
+    return n
+
+
+def load_family(label, preset, config, tensors, quant, root, on_path, rng):
+    """One checkpoint: write it, load it with an empty cache (the build)
+    and again (the hit), hold the hit to the build and the sampled leaves
+    to the CPU's, count the on-card quantizer's scale moves, and answer a
+    2048 + 16 greedy request on both loads."""
+    import dataclasses
+    import gc
+    import os
+
+    import torch
+    from krasis_tpu_torch.config import ModelConfig, preset_config
+    from krasis_tpu_torch.models.loader import WeightLoader, _cache_dir, load_params
+    from krasis_tpu_torch.models.params import layer_specs
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe
+    from krasis_tpu_torch.runtime.engine import Engine
+
+    card = card_line()
+    path = os.path.join(root, preset)
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(path, config, tensors(config))
+    print(f"[load] {label}: wrote {nbytes / 1e9:.2f} GB in 2 shards in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    cfg = ModelConfig.from_model_path(path)
+    ref = preset_config(preset)
+    diff = {k: (v, getattr(ref, k)) for k, v in dataclasses.asdict(cfg).items()
+            if v != getattr(ref, k) and k not in ("model_path",)}
+    print(f"[load] {label}: config.json fields that differ from the {preset} preset: "
+          f"{json.dumps({k: [str(a)[:60], str(b)[:60]] for k, (a, b) in diff.items()})}",
+          flush=True)
+    for k in ("hidden_size", "intermediate_size", "moe_intermediate_size", "vocab_size",
+              "n_routed_experts", "num_attention_heads", "num_key_value_heads"):
+        if getattr(cfg, k) != getattr(ref, k):
+            raise AssertionError(f"{label}: {k} {getattr(cfg, k)} is not the preset's")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build = load_params(cfg, quant)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    peak_build = torch.cuda.max_memory_allocated()
+    cache = _cache_dir(cfg, quant)
+    cache_bytes = sum(os.path.getsize(os.path.join(cache, f)) for f in os.listdir(cache))
+    t0 = time.perf_counter()
+    hit = load_params(cfg, quant)
+    torch.cuda.synchronize()
+    t_hit = time.perf_counter() - t0
+    peak_hit = torch.cuda.max_memory_allocated()
+    lb, lh = dict(leaves(build)), dict(leaves(hit))
+    if lb.keys() != lh.keys() or not all(torch.equal(lb[k], lh[k]) for k in lb):
+        raise AssertionError(f"{label}: the cache hit differs from the build")
+    print(f"[load] {label}: build {t_build:.2f} s ({nbytes / 1e9 / t_build:.2f} GB/s of "
+          f"checkpoint, quantized on the card, cache {cache_bytes / 1e9:.2f} GB), hit "
+          f"{t_hit:.2f} s ({cache_bytes / 1e9 / t_hit:.2f} GB/s of cache), the files in the page "
+          f"cache; hit = build on all {len(lb)} tensors; peak {peak_build / 2**30:.2f} GiB "
+          f"(build), {peak_hit / 2**30:.2f} GiB (both loads held) on {card}", flush=True)
+
+    t0 = time.perf_counter()
+    checked = cpu_checks(label, path, cfg, quant, hit, rng)
+    print(f"[load] {label}: {checked} tensors bit-equal to the port's CPU load "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the on-card quantizer's division: every expert of the first MoE layer
+    # and the lm_head, from this checkpoint
+    wl = WeightLoader(cfg, quant)
+    i = next(j for j, s in enumerate(layer_specs(cfg)) if s.mlp_kind == "moe")
+    moved = {"lm_head": scale_moves(wl._get("lm_head.weight").float().T, 8, quant.group_size)}
+    tot = None
+    for _, w13_e, w2_e in wl._iter_experts(i):
+        for w in (w13_e, w2_e):
+            m = scale_moves(w, quant.expert_bits, quant.group_size)
+            tot = m if tot is None else {k: (max(v, m[k]) if k.startswith("max") else v + m[k])
+                                         for k, v in tot.items()}
+    moved[f"layer {i} experts"] = tot
+    del wl
+    print("[quant] " + json.dumps({"model": preset, "card": card, "groups": moved}), flush=True)
+
+    C = counters()
+    prompt = rng.integers(100, cfg.vocab_size - 100, 2048).tolist()
+    tokens = []
+    for name, params in (("hit", hit), ("build", build)):
+        eng = Engine(cfg, quant, params, max_len=4096)
+        for m, attr in C.values():
+            setattr(m, attr, 0)
+        fa.form_launches.clear()
+        moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+        res = eng.generate(prompt, max_new_tokens=16, stop_ids={-1})
+        counts = {k: getattr(m, attr) for k, (m, attr) in C.items()}
+        if not res.finite or len(res.tokens) != 16:
+            raise AssertionError(f"{label}: request on the {name} load: finite {res.finite}, "
+                                 f"{len(res.tokens)} tokens")
+        if any(moe.plain_routes.values()):
+            raise AssertionError(f"{label}: MoE calls on a plain form {moe.plain_routes}")
+        missing = [k for k in on_path if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched on the loaded model")
+        print("[request] " + json.dumps({
+            "model": f"{preset} checkpoint ({cfg.num_hidden_layers} layers)", "load": name,
+            "prompt": len(prompt), "tokens": len(res.tokens), "prefill_s": res.prefill_s,
+            "decode_s": res.decode_s, "launches": counts, "K2_forms": dict(fa.form_launches),
+            "plain_moe_routes": dict(moe.plain_routes)}), flush=True)
+        tokens.append(res.tokens)
+        del eng
+    if tokens[0] != tokens[1]:
+        raise AssertionError(f"{label}: the hit load's tokens {tokens[0]} differ from the "
+                             f"build load's {tokens[1]}")
+    print(f"[load] {label}: 2048 + 16 greedy tokens equal on both loads; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
+    del build, hit, lb, lh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_scale_moves():
+    """scale_moves on f32 inputs, where a quotient can sit on a bf16
+    rounding edge: N(0, 0.02) at V2-Lite's lm_head at int8 and int4, and
+    fp8 blocks dequantized (DeepSeek-V3's input format; e4m3 values well
+    inside its ±448) at a V3 expert's w13 and w2 at int4."""
+    import torch
+    from krasis_tpu_torch.quant import dequant_fp8_block
+
+    g = torch.Generator(device=LOAD_DEVICE)
+    g.manual_seed(0)
+    w = torch.randn((2048, 102400), generator=g, device=LOAD_DEVICE) * 0.02
+    out = {"f32 N(0, 0.02) [2048, 102400] int8 gs 128": scale_moves(w, 8, 128),
+           "f32 N(0, 0.02) [2048, 102400] int4 gs 128": scale_moves(w, 4, 128)}
+    for K, N in ((7168, 4096), (2048, 7168)):
+        w8 = (torch.randn((N, K), generator=g, device=LOAD_DEVICE) * 30).to(torch.float8_e4m3fn)
+        sinv = 1e-4 + 1e-3 * torch.rand((-(-N // 128), -(-K // 128)), generator=g,
+                                        device=LOAD_DEVICE)
+        w = dequant_fp8_block(w8, sinv).T.contiguous()                # [in K, out N]
+        out[f"fp8 blocks dequantized [{K}, {N}] int4 gs 128"] = scale_moves(w, 4, 128)
+    print("[quant] " + json.dumps({"model": "f32 inputs", "card": card_line(), "groups": out}),
+          flush=True)
+
+
+def gguf_card_checks():
+    """The GGUF codecs on the card against the CPU, bit for bit, over ~4 MB
+    of seeded blocks of each type (finite f16 scales)."""
+    import torch
+    from krasis_tpu_torch.utils import gguf
+
+    g = torch.Generator(device=LOAD_DEVICE)
+    g.manual_seed(0)
+    scale_at = {gguf.GGML_Q8_0: (0,), gguf.GGML_Q4_0: (0,), gguf.GGML_Q5_0: (0,),
+                gguf.GGML_Q4_K: (0, 2), gguf.GGML_Q5_K: (0, 2), gguf.GGML_Q6_K: (208,)}
+    done = []
+    for ttype, name in sorted(gguf.TYPE_NAMES.items()):
+        be, bb = gguf.BLOCK_INFO[ttype]
+        n_blocks = (4 << 20) // bb
+        if be == 1:
+            dt = {gguf.GGML_F32: torch.float32, gguf.GGML_F16: torch.float16,
+                  gguf.GGML_BF16: torch.bfloat16}[ttype]
+            raw = torch.randn((n_blocks,), generator=g, device=LOAD_DEVICE).to(dt).view(torch.uint8)
+        else:
+            raw = torch.randint(0, 256, (n_blocks, bb), generator=g, device=LOAD_DEVICE,
+                                dtype=torch.uint8)
+            for off in scale_at[ttype]:
+                d = (torch.randn((n_blocks,), generator=g, device=LOAD_DEVICE) * 0.05)
+                raw[:, off:off + 2] = d.to(torch.float16).view(torch.uint8).reshape(n_blocks, 2)
+        raw = raw.reshape(-1)
+        n = raw.numel() // bb * be
+        if not same_bits(gguf.dequantize_raw(raw, ttype, n),
+                         gguf.dequantize_raw(raw.cpu(), ttype, n)):
+            raise AssertionError(f"GGUF {name}: the card's decode differs from the CPU's")
+        done.append(f"{name} {raw.numel() / 2**20:.1f} MB")
+    print(f"[load] GGUF codecs bit-equal on the card and the CPU: {', '.join(done)}", flush=True)
+
+
+def load_phase():
+    """9. Checkpoints on disk: DeepSeek-V2-Lite in bf16 safetensors (3
+    layers) and GPT-OSS-20B in its MXFP4 layout (2 layers), at full width,
+    written into a temporary directory that also holds the weight cache
+    (KRASIS_TPU_HOME), removed at the end; then the GGUF codecs."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from krasis_tpu_torch.config import QuantConfig
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_load_")
+    home = os.environ.get("KRASIS_TPU_HOME")
+    os.environ["KRASIS_TPU_HOME"] = os.path.join(root, "home")
+    t0 = time.perf_counter()
+    try:
+        rng = np.random.default_rng(0)
+        load_family("DeepSeek-V2-Lite bf16 safetensors (3 layers)", "deepseek-v2-lite",
+                    V2LITE_CONFIG, v2lite_tensors, QuantConfig(expert_bits=4, group_size=128),
+                    root, ("K1", "K2", "K3", "K4"), rng)
+        for done in ("deepseek-v2-lite", "home"):
+            shutil.rmtree(os.path.join(root, done))
+        load_family("GPT-OSS-20B MXFP4 (2 layers)", "gpt-oss-20b", GPTOSS_CONFIG,
+                    gptoss_tensors, QuantConfig(expert_bits=4, group_size=32), root,
+                    ("K1", "K2", "K6", "K7"), rng)
+        f32_scale_moves()
+        gguf_card_checks()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if home is None:
+            os.environ.pop("KRASIS_TPU_HOME", None)
+        else:
+            os.environ["KRASIS_TPU_HOME"] = home
+    print(f"[time] load phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2050,6 +2567,7 @@ def main() -> int:
                prefill_off_names=K6_KERNELS + ("gmm_a8_kernel", moe_cuda.K6A_PRODUCT_KERNEL),
                prefill_on_names=("gmm_kernel",))
     probe_phase(results)
+    load_phase()
 
     print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "
           "launches that open its recorded steps")

@@ -8,13 +8,14 @@ both packages compute from the same values. It imports neither jax nor the
 reference package: the caller does the jax → numpy step.
 
 The reference's layout is ``prefix_layers`` plus ``pattern`` entries whose
-leaves carry a leading ``reps`` dim; the port's ``layers`` list holds
-prefix layers, then pattern × reps in the order of ``pattern_layer_index``.
-Expert stacks and dense leaves become per-layer views, GPT-OSS's sinks,
-projection and expert biases and router logit biases among them. A quantized
-attention / DeltaNet projection stack (``STACKED_PROJECTIONS``) stays
-whole: each layer of its pattern position holds the same stack and its own
-``_layer_idx``, as ``init_synthetic_params`` builds them.
+leaves carry a leading ``reps`` dim; ``params.params_from_stacked`` turns
+it into the port's ``layers`` list (prefix layers, then pattern × reps in
+the order of ``pattern_layer_index``) with views. Expert stacks and dense
+leaves become per-layer views, GPT-OSS's sinks, projection and expert
+biases and router logit biases among them. A quantized attention / DeltaNet
+projection stack (``STACKED_PROJECTIONS``) stays whole: each layer of its
+pattern position holds the same stack and its own ``_layer_idx``, as
+``init_synthetic_params`` builds them. An ``mtp`` entry is carried over.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..quant import QTensor
-from .params import STACKED_PROJECTIONS
+from .params import params_from_stacked
 
 
 def to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -45,24 +46,11 @@ def _leaf(v, device):
 
 
 def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    prefix = [{k: _leaf(v, device) for k, v in lp.items()}
-              for lp in tree["prefix_layers"]]
-    pattern = [{k: _leaf(v, device) for k, v in lp.items()}
-               for lp in tree["pattern"]]
-    layers = list(prefix)
-    if pattern:
-        reps = pattern[0]["input_norm"].shape[0]
-        for r in range(reps):
-            for lp in pattern:
-                whole = {k for k, v in lp.items()
-                         if k in STACKED_PROJECTIONS and isinstance(v, QTensor)}
-                layer = {k: (v if k in whole else v[r]) for k, v in lp.items()}  # views
-                if whole:
-                    layer["_layer_idx"] = r
-                layers.append(layer)
-    return {
-        "embed": to_torch(tree["embed"], device),
-        "final_norm": to_torch(tree["final_norm"], device),
-        "lm_head": _leaf(tree["lm_head"], device),
-        "layers": layers,
-    }
+    def conv(v):
+        if isinstance(v, dict) and not ("q" in v and "scales" in v):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return _leaf(v, device)
+
+    return params_from_stacked(conv(tree))

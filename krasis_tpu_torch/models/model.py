@@ -30,6 +30,7 @@ from ..ops.norm import gated_rms_norm, rms_norm
 from ..ops.qmm import linear
 from ..ops.rope import apply_rope, rope_cos_sin, yarn_softmax_scale
 from ..ops.routing import compute_routing
+from ..quant import QTensor
 from ..runtime.kv_cache import store
 from .params import GATED_ATTENTION_TYPES, layer_specs
 
@@ -150,7 +151,12 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     L = cfg.kv_lora_rank
 
     li = lp.get("_layer_idx")
-    q = linear(x, lp["q_proj"], layer_idx=li).reshape(B, S, hq, dn + dr)
+    if "q_a_proj" in lp:                                     # q-LoRA (DeepSeek V3)
+        qa = rms_norm(linear(x, lp["q_a_proj"], layer_idx=li), lp["q_a_norm"], cfg.rms_norm_eps)
+        q = linear(qa, lp["q_b_proj"], layer_idx=li)
+    else:
+        q = linear(x, lp["q_proj"], layer_idx=li)
+    q = q.reshape(B, S, hq, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     kv_a = linear(x, lp["kv_a_proj"], layer_idx=li)          # [B, S, L + dr]
     ckv = rms_norm(kv_a[..., :L], lp["kv_a_norm"], cfg.rms_norm_eps)
@@ -200,7 +206,8 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
         return mlp_forward(x2d, lp["mlp_w13"], lp["mlp_w2"], **act)
     routing = compute_routing(x2d, lp["gate_w"], cfg, lp.get("gate_bias"),
                               logit_bias=lp.get("gate_logit_bias"))
-    E_stack = lp["w13"].q.shape[0]
+    w13 = lp["w13"]
+    E_stack = (w13.q if isinstance(w13, QTensor) else w13).shape[0]
     n_virt = E_stack - cfg.n_routed_experts
     if n_virt > 0 and not prefill and not gpt_oss:
         # decode: the folded shared experts are always-picked virtual

@@ -16,6 +16,11 @@ quantized form on the target device from an explicit ``torch.Generator``,
 with the shared experts folded into the expert stacks at creation. GPT-OSS
 layers also hold ``sinks`` [Hq], ``gate_logit_bias`` [E], ``w13_bias``
 [E, 2I] and ``w2_bias`` [E, H] (f32, zero, as the reference makes them).
+
+``params_from_stacked`` turns the reference's stacked tree (what the
+weight cache stores) into this layout with views, and
+``fold_shared_experts`` folds the shared experts of loaded checkpoints,
+into stacks reserved for them (``fold_width``) or by concatenation.
 """
 
 from __future__ import annotations
@@ -87,6 +92,13 @@ def pattern_layer_index(info: PatternInfo, t: int, r: int) -> int:
     return info.prefix_n + r * info.period + t
 
 
+def mtp_layer_spec(cfg: ModelConfig) -> LayerSpec:
+    """The MTP module's layer (DeepSeek V3 / Kimi K2: one more MLA layer at
+    index num_hidden_layers, wrapped by enorm / hnorm / eh_proj)."""
+    return LayerSpec(cfg.attention_type, False,
+                     "moe" if cfg.layer_is_moe(cfg.num_hidden_layers) else "dense")
+
+
 # Quantized projections that stay whole as [reps, K(/2), N] stacks.
 STACKED_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "kv_a_proj",
                        "qkvz_proj", "ba_proj", "la_out_proj")
@@ -109,6 +121,32 @@ def stack_pattern_projections(layers: List[Dict[str, Any]],
             for r, lp in enumerate(group):
                 lp["_layer_idx"] = r
     return layers
+
+
+def params_from_stacked(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's tree (``prefix_layers``, ``pattern`` entries whose
+    leaves carry a leading reps dim, ``embed``, ``final_norm``, ``lm_head``
+    and, when present, ``mtp``) of torch leaves → this layout. Pattern
+    leaves become per-layer views; a quantized projection stack
+    (``STACKED_PROJECTIONS``) stays whole, and each layer of its position
+    holds it and its ``_layer_idx``."""
+    layers = [dict(lp) for lp in tree["prefix_layers"]]
+    pattern = tree["pattern"]
+    if pattern:
+        reps = pattern[0]["input_norm"].shape[0]
+        for r in range(reps):
+            for lp in pattern:
+                whole = {k for k, v in lp.items()
+                         if k in STACKED_PROJECTIONS and isinstance(v, QTensor)}
+                layer = {k: (v if k in whole else v[r]) for k, v in lp.items()}
+                if whole:
+                    layer["_layer_idx"] = r
+                layers.append(layer)
+    out = {k: tree[k] for k in ("embed", "final_norm", "lm_head")}
+    out["layers"] = layers
+    if "mtp" in tree:
+        out["mtp"] = {k: (dict(v) if k == "layer" else v) for k, v in tree["mtp"].items()}
+    return out
 
 
 def _maybe_quant(w: torch.Tensor, mode: str, group_size: int):
@@ -268,6 +306,86 @@ def init_synthetic_params(cfg: ModelConfig, quant: QuantConfig, seed: int = 0,
     return params
 
 
+def fold_width(cfg: ModelConfig, bits: int, w2_group_size: int, Is: int,
+               biased: bool = False) -> int:
+    """The number of virtual experts that a layer's Is-wide shared experts
+    fold into (the reference's conditions), 0 where the fold does not
+    apply: biased experts, 16-bit stacks, Is not a multiple of I, odd I
+    under int4, or I not a whole number of w2 groups."""
+    I = cfg.moe_intermediate_size
+    if (biased or bits not in (4, 8) or Is == 0 or Is % I or (I % 2 and bits == 4)
+            or I % w2_group_size):
+        return 0
+    return Is // I
+
+
+def _shared_width(sw13) -> int:
+    return (sw13.n_dim if isinstance(sw13, QTensor) else sw13.shape[-1]) // 2
+
+
+def layer_fold_width(lp: Dict[str, Any], cfg: ModelConfig) -> int:
+    """fold_width of a layer's leaves: 0 without quantized expert stacks or
+    shared experts, or with expert biases."""
+    w13, sw13 = lp.get("w13"), lp.get("shared_w13")
+    if not isinstance(w13, QTensor) or sw13 is None or "w13_bias" in lp:
+        return 0
+    return fold_width(cfg, w13.bits, lp["w2"].group_size, _shared_width(sw13))
+
+
+def fold_layer(lp: Dict[str, Any], cfg: ModelConfig, reserved: bool = False
+               ) -> Dict[str, Any]:
+    """One layer's shared experts as always-picked virtual experts at the
+    end of its expert stacks, the dense shared leaves requantized to the
+    stacks' bits and groups so that both paths hold the same values. A
+    stack of n_routed_experts rows is concatenated with them. With
+    `reserved`, a stack of n_routed_experts + fold_width rows has room
+    for them, and they are written into its tail in place (no second copy
+    of a stack); without it such a stack is already folded and kept."""
+    if "w13" not in lp or "shared_w13" not in lp or "w13_bias" in lp:
+        return lp
+    E, I = cfg.n_routed_experts, cfg.moe_intermediate_size
+    w13, w2 = lp["w13"], lp["w2"]
+    sw13, sw2 = lp["shared_w13"], lp["shared_w2"]
+    Is = _shared_width(sw13)
+    if not isinstance(w13, QTensor):
+        # 16-bit stacks: the slices are exact by nature; quantized shared
+        # leaves are dequantized to the stack's dtype first
+        if w13.shape[0] != E or Is == 0 or Is % I:
+            return lp
+        s13 = dequantize(sw13, w13.dtype) if isinstance(sw13, QTensor) else sw13.to(w13.dtype)
+        s2 = dequantize(sw2, w13.dtype) if isinstance(sw2, QTensor) else sw2.to(w13.dtype)
+        n_virt, H = Is // I, s13.shape[0]
+        gate = s13[:, :Is].reshape(H, n_virt, I)
+        up = s13[:, Is:].reshape(H, n_virt, I)
+        v13 = torch.cat([gate, up], dim=-1).transpose(0, 1)
+        return {**lp, "w13": torch.cat([w13, v13], dim=0),
+                "w2": torch.cat([w2, s2.reshape(n_virt, I, s2.shape[-1])], dim=0)}
+    n_virt = layer_fold_width(lp, cfg)
+    rows = w13.q.shape[0]
+    in_place = reserved and rows == E + n_virt
+    if n_virt == 0 or not (rows == E or in_place):
+        return lp
+
+    def requant(w, gs):
+        if isinstance(w, QTensor) and w.bits == w13.bits and w.group_size == gs:
+            return w
+        wf = dequantize(w, torch.float32) if isinstance(w, QTensor) else w.to(torch.float32)
+        return quantize(wf, w13.bits, gs)
+
+    sh13, sh2 = requant(sw13, w13.group_size), requant(sw2, w2.group_size)
+    v13, v2 = virtual_expert_slices(sh13, sh2, I)
+    out = dict(lp)
+    out["shared_w13"], out["shared_w2"] = sh13, sh2
+    if in_place:
+        for stack, v in ((w13, v13), (w2, v2)):
+            stack.q[E:] = v.q
+            stack.scales[E:] = v.scales
+    else:
+        out["w13"] = cat_leading([w13, v13], 0)
+        out["w2"] = cat_leading([w2, v2], 0)
+    return out
+
+
 def fold_shared_experts(params: Dict[str, Any], cfg: ModelConfig,
                         quant: QuantConfig) -> Dict[str, Any]:
     """Append each layer's shared experts to its expert stacks as
@@ -276,31 +394,7 @@ def fold_shared_experts(params: Dict[str, Any], cfg: ModelConfig,
     Idempotent: a stack already longer than n_routed_experts is kept."""
     if cfg.n_shared_experts <= 0:
         return params
-    I = cfg.moe_intermediate_size
-
-    def fold_layer(lp):
-        w13, w2 = lp.get("w13"), lp.get("w2")
-        if (not isinstance(w13, QTensor) or "shared_w13" not in lp
-                or w13.bits not in (4, 8) or w13.q.shape[0] != cfg.n_routed_experts):
-            return lp
-        sw13 = lp["shared_w13"]
-        Is = sw13.n_dim // 2 if isinstance(sw13, QTensor) else sw13.shape[-1] // 2
-        if Is % I or Is == 0 or (I % 2 and w13.bits == 4) or I % w2.group_size:
-            return lp
-
-        def requant(w, gs):
-            if isinstance(w, QTensor) and w.bits == w13.bits and w.group_size == gs:
-                return w
-            wf = dequantize(w, torch.float32) if isinstance(w, QTensor) else w.float()
-            return quantize(wf, w13.bits, gs)
-
-        sh13 = requant(sw13, w13.group_size)
-        sh2 = requant(lp["shared_w2"], w2.group_size)
-        v13, v2 = virtual_expert_slices(sh13, sh2, I)
-        out = dict(lp)
-        out["shared_w13"], out["shared_w2"] = sh13, sh2
-        out["w13"] = cat_leading([w13, v13], 0)
-        out["w2"] = cat_leading([w2, v2], 0)
-        return out
-
-    return {**params, "layers": [fold_layer(lp) for lp in params["layers"]]}
+    out = {**params, "layers": [fold_layer(lp, cfg) for lp in params["layers"]]}
+    if "mtp" in params:
+        out["mtp"] = {**params["mtp"], "layer": fold_layer(params["mtp"]["layer"], cfg)}
+    return out

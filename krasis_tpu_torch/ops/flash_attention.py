@@ -128,7 +128,8 @@ def flash_attention_plain(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Ten
     dot over the first qk_dim lanes (q's lanes past them are zeroed, so the
     sum keeps its shape), p rounded to bf16 for the PV product, f32 row
     sums, the sink term exp(sink − m) added to them once, and 0 for a row
-    that sees no key."""
+    that sees no key. The output is bf16, or f32 for f32 q (the reference
+    kernel's output takes q's dtype)."""
     B, Sq, Hq, D = q.shape
     Hkv, S = kv.shape[1], kv.shape[2]
     G = Hq // Hkv
@@ -150,7 +151,8 @@ def flash_attention_plain(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Ten
     o = torch.einsum("bhgqk,bhkd->bhgqd",
                      p.to(torch.bfloat16).to(torch.float32), _values(kv, v, v_dim))
     o = o / torch.where(l == 0.0, torch.ones_like(l), l)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, v_dim).to(torch.bfloat16)
+    odt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, v_dim).to(odt)
 
 
 def decode_split_plain(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Tensor,

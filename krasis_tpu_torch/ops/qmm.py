@@ -1,7 +1,8 @@
 """Quantized and plain linear layers.
 
-``linear`` takes a bf16 weight (projections the quant policy keeps at
-full precision) or a ``QTensor``. Few-row products of a quantized weight
+``linear`` takes an unquantized weight (projections the quant policy
+keeps at full precision: bf16, or f32 leaves, which f32 rows take as they
+are) or a ``QTensor``. Few-row products of a quantized weight
 go through the K1 kernel (``qmm_cuda``); many-row products dequantize and
 use one matrix product, as the reference leaves them to XLA
 (``krasis_tpu/ops/qmm.py`` ``qmm_ref``). Both compute the same function.
@@ -62,8 +63,10 @@ def linear(x: torch.Tensor, w: Weight, out_dtype=None, layer_idx=None) -> torch.
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QTensor):
         y = qmm(x2, w, out_dtype, layer_idx)
-    elif out_dtype in (None, torch.bfloat16):
+    elif x2.dtype == torch.bfloat16 and out_dtype in (None, torch.bfloat16):
         y = matmul_bf16(x2, w.to(torch.bfloat16))
     else:
-        y = torch.matmul(x2.to(torch.float32), w.to(torch.float32)).to(out_dtype)
+        # the weight in x's dtype, the product accumulated in f32
+        y = torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
+        y = y.to(out_dtype or x2.dtype)
     return y.reshape(*lead, y.shape[-1])

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -89,15 +90,18 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def quantize(w: torch.Tensor, bits: int, group_size: int = 128) -> QTensor:
-    """Same numerics as ``krasis_tpu.quant.quantize``: bf16 scale
-    ``amax/qmax`` (1 for an all-zero group), round half to even, clip."""
+    """Same numerics as ``krasis_tpu.quant.quantize_np``: bf16 scale
+    ``amax/qmax`` (1 for an all-zero group), round half to even, clip. qmax
+    is a 0-dim tensor on w's device: PyTorch's CUDA division by a Python
+    number multiplies by its reciprocal, which can round a quotient one
+    bit off the IEEE division the reference takes."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     *lead, K, N = w.shape
     group_size = pick_group_size(K, group_size)
     g = w.to(torch.float32).reshape(*lead, K // group_size, group_size, N)
     amax = g.abs().amax(dim=-2, keepdim=True)
-    qmax = 7.0 if bits == 4 else 127.0
+    qmax = torch.full((), 7.0 if bits == 4 else 127.0, device=w.device)
     scale = torch.where(amax == 0.0, torch.ones_like(amax), amax / qmax)
     scale = scale.to(torch.bfloat16)
     inv = 1.0 / scale.to(torch.float32)
@@ -107,6 +111,60 @@ def quantize(w: torch.Tensor, bits: int, group_size: int = 128) -> QTensor:
     if bits == 4:
         q = pack_int4(q)
     return QTensor(q, scale.squeeze(-2), bits, group_size)
+
+
+# e2m1 codes: the sign is the nibble's high bit
+FP4_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+              -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0)
+
+
+def e8m0_pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^(e - 127) in f32 for uint8 exponents, as the reference computes it:
+    numpy's f32 exp2, on the host, looked up on e's device. That function
+    is not exact everywhere (2^127 comes out one ulp high, and 255 gives
+    inf); a power of two built from the bits would differ there."""
+    with np.errstate(over="ignore"):
+        table = np.exp2(np.arange(-127, 129, dtype=np.int32).astype(np.float32))
+    return torch.from_numpy(table).to(e.device)[e.to(torch.int64)]
+
+
+def dequant_mxfp4(blocks: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """MXFP4 (GPT-OSS's experts) → f32 [..., G·2B], the bits of
+    ``krasis_tpu.quant.dequant_mxfp4_np``. blocks uint8 [..., G, B] hold two
+    e2m1 codes a byte, the low nibble first (out[0::2] low, out[1::2]
+    high); scales uint8 [..., G] are e8m0 exponents (bias 127)."""
+    *lead, G, B = blocks.shape
+    table = torch.tensor(FP4_VALUES, dtype=torch.float32, device=blocks.device)
+    b = blocks.to(torch.int64)
+    out = torch.stack([table[b & 0xF], table[b >> 4]], dim=-1).reshape(*lead, G, 2 * B)
+    out = out * e8m0_pow2(scales)[..., None]
+    return out.reshape(*lead, G * 2 * B)
+
+
+def dequant_compressed_int4(packed: torch.Tensor, scale: torch.Tensor,
+                            group_size: int) -> torch.Tensor:
+    """compressed-tensors "pack-quantized" symmetric int4 → f32 [out, in],
+    the bits of ``krasis_tpu.quant.dequant_compressed_int4_np``: packed
+    int32 [out, in/8] holds column w·8 + i in nibble i of word w (two's
+    complement), scale [out, in/gs] one per input group."""
+    out_dim, words = packed.shape
+    p = packed.to(torch.int32)
+    nib = torch.stack([(p >> (4 * i)) & 0xF for i in range(8)], dim=-1)
+    q = ((nib ^ 8) - 8).reshape(out_dim, words * 8)
+    w = q.to(torch.float32).reshape(out_dim, -1, group_size)
+    w = w * scale.to(torch.float32)[:, :, None]
+    return w.reshape(out_dim, words * 8)
+
+
+def dequant_fp8_block(w8: torch.Tensor, scale_inv: torch.Tensor,
+                      block: int = 128) -> torch.Tensor:
+    """DeepSeek-V3 fp8 block quantization → f32 [out, in], the bits of
+    ``krasis_tpu.quant.dequant_fp8_block_np``: e4m3 w8 [out, in] times
+    scale_inv [ceil(out/B), ceil(in/B)], one scale a B x B block."""
+    out_dim, in_dim = w8.shape
+    s = scale_inv.to(torch.float32)
+    s = s.repeat_interleave(block, dim=0)[:out_dim].repeat_interleave(block, dim=1)[:, :in_dim]
+    return w8.to(torch.float32) * s
 
 
 def random_qtensor(

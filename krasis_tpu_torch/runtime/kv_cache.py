@@ -66,7 +66,10 @@ def kv_dtype(quant: QuantConfig) -> torch.dtype:
 def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Rows rounded to the cache's dtype as the reference's cast of its
     bf16 rows rounds them: through bf16, and for e4m3 round to nearest
-    even with NaN where the value rounds past 448 (torch would saturate)."""
+    even with NaN where the value rounds past 448 (torch would saturate).
+    An f32 cache (the parity tests') takes the rows as they are."""
+    if dtype == torch.float32:
+        return x.to(dtype)
     x = x.to(torch.bfloat16)
     if dtype == torch.float8_e4m3fn:
         x = torch.where(x.abs() > _FP8_OVERFLOW, torch.full_like(x, float("nan")), x)

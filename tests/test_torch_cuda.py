@@ -1208,3 +1208,76 @@ def test_k7a_takes_groups_of_16_in_moe_prefill(dev):
     assert expert_class.grouped_int8(w8) and not gmm_cuda.gmm_a8_supported(w8)
     with pytest.raises(ValueError, match="gmm_a8"):
         gmm_cuda.moe_prefill(x, w8, w2, idx, wts, activation="int8")
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor):
+    """Bit for bit, except that a NaN may carry another payload."""
+    got, want = got.cpu().reshape(-1), want.cpu().reshape(-1)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    same = got.view(ints) == want.view(ints)
+    if got.dtype.is_floating_point:
+        same |= torch.isnan(got) & torch.isnan(want)
+    assert bool(same.all()), int((~same).sum())
+
+
+@pytest.mark.parametrize("K,N,bits,gs", [(2048, 2816, 4, 128), (1408, 2048, 4, 128),
+                                         (2048, 102400, 8, 128), (2880, 5760, 4, 32),
+                                         (2880, 2880, 8, 32)],
+                         ids=["v2lite-w13", "v2lite-w2", "v2lite-lm_head", "gptoss-w13-gs32",
+                              "gptoss-w2-int8-gs32"])
+def test_quantize_on_card_equals_cpu(dev, K, N, bits, gs):
+    """The loader's quantizer on the card gives the CPU's (quantize_np's)
+    bits at full-width shapes: scales by IEEE division, not a reciprocal."""
+    w = torch.randn((K, N), generator=_gen(dev, K + N), device=dev) * 0.02
+    got = quantize(w, bits, gs)
+    want = quantize(w.cpu(), bits, gs)
+    assert torch.equal(got.q.cpu(), want.q)
+    _same_bits(got.scales, want.scales)
+
+
+def test_prequant_decoders_on_card_equal_cpu(dev):
+    """MXFP4 on every (byte, scale) pair, fp8 blocks and compressed-tensors
+    int4 decode on the card to the CPU's bits."""
+    from krasis_tpu_torch.quant import dequant_compressed_int4, dequant_fp8_block, dequant_mxfp4
+
+    b = torch.arange(256, dtype=torch.uint8).repeat_interleave(256).reshape(-1, 1, 1)
+    s = torch.arange(256, dtype=torch.uint8).repeat(256).reshape(-1, 1)
+    _same_bits(dequant_mxfp4(b.to(dev), s.to(dev)), dequant_mxfp4(b, s))
+    g = _gen(dev, 7)
+    blocks = torch.randint(0, 256, (32, 64, 90, 16), generator=g, device=dev, dtype=torch.uint8)
+    scales = torch.randint(118, 128, (32, 64, 90), generator=g, device=dev, dtype=torch.uint8)
+    _same_bits(dequant_mxfp4(blocks, scales), dequant_mxfp4(blocks.cpu(), scales.cpu()))
+
+    w8 = (torch.randn((1000, 700), generator=g, device=dev) * 100).to(torch.float8_e4m3fn)
+    sinv = torch.rand((8, 6), generator=g, device=dev) * 1e-2
+    _same_bits(dequant_fp8_block(w8, sinv), dequant_fp8_block(w8.cpu(), sinv.cpu()))
+    packed = torch.randint(-2**31, 2**31 - 1, (512, 64), generator=g, device=dev,
+                           dtype=torch.int32)
+    scale = (torch.rand((512, 16), generator=g, device=dev) * 0.01).to(torch.float16)
+    _same_bits(dequant_compressed_int4(packed, scale, 32),
+               dequant_compressed_int4(packed.cpu(), scale.cpu(), 32))
+
+
+@pytest.mark.parametrize("ttype", [0, 1, 30, 8, 2, 6, 12, 13, 14],
+                         ids=["F32", "F16", "BF16", "Q8_0", "Q4_0", "Q5_0", "Q4_K", "Q5_K",
+                              "Q6_K"])
+def test_gguf_codecs_on_card_equal_cpu(dev, ttype):
+    from krasis_tpu_torch.utils import gguf
+
+    be, bb = gguf.BLOCK_INFO[ttype]
+    n_blocks = (1 << 20) // bb
+    g = _gen(dev, ttype)
+    raw = torch.randint(0, 256, (n_blocks, bb), generator=g, device=dev, dtype=torch.uint8)
+    if be == 1:     # finite values of the type
+        dt = {0: torch.float32, 1: torch.float16, 30: torch.bfloat16}[ttype]
+        vals = torch.randn((n_blocks * bb // dt.itemsize,), generator=g, device=dev).to(dt)
+        raw = vals.view(torch.uint8)
+    else:           # finite f16 scales
+        offs = {8: (0,), 2: (0,), 6: (0,), 12: (0, 2), 13: (0, 2), 14: (208,)}[ttype]
+        for off in offs:
+            d = (torch.randn((n_blocks,), generator=g, device=dev) * 0.05).to(torch.float16)
+            raw[:, off:off + 2] = d.view(torch.uint8).reshape(n_blocks, 2)
+    raw = raw.reshape(-1)
+    n = raw.numel() // bb * be
+    _same_bits(gguf.dequantize_raw(raw, ttype, n), gguf.dequantize_raw(raw.cpu(), ttype, n))

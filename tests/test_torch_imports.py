@@ -1,4 +1,6 @@
-"""The port imports neither jax nor the reference package, nor the TPU probes.
+"""The port imports neither jax nor the reference package, nor the TPU probes,
+nor the packages the card's machine lacks (ml_dtypes, safetensors,
+transformers).
 
 The source is scanned rather than sys.modules: the test process imports
 both packages, and an interpreter here may import jax at start-up."""
@@ -11,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = (sorted((ROOT / "krasis_tpu_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
          + [ROOT / "chip_smoke.py"])
-FORBIDDEN = ("jax", "jaxlib", "krasis_tpu", "benchmarks")
+FORBIDDEN = ("jax", "jaxlib", "krasis_tpu", "benchmarks", "ml_dtypes", "safetensors",
+             "transformers")
 
 
 def _imported(tree: ast.AST):
@@ -33,6 +36,9 @@ def test_scan_covers_the_package():
             "krasis_tpu_torch/ops/gmm_cuda.py", "krasis_tpu_torch/ops/moe_cuda.py",
             "krasis_tpu_torch/ops/probes_cuda.py", "krasis_tpu_torch/probes/_timing.py",
             "krasis_tpu_torch/probes/probe_gmm_terms.py", "krasis_tpu_torch/timing.py"} <= names
+    assert {"krasis_tpu_torch/models/loader.py", "krasis_tpu_torch/models/weight_cache.py",
+            "krasis_tpu_torch/utils/safetensors_io.py", "krasis_tpu_torch/utils/gguf.py",
+            "krasis_tpu_torch/utils/gguf_source.py"} <= names
     assert {"chip_smoke.py", "tools/sass_compare.py"} <= names
 
 

@@ -1,0 +1,99 @@
+"""The port's checkpoint loader against the reference's, bit for bit.
+
+Tiny checkpoints of every family the loader's name schema covers (Qwen3-MoE,
+DeepSeek-V2, Qwen3-Next, GPT-OSS in fused bf16 and in MXFP4 blocks,
+DeepSeek-V3, GLM-4 MoE) and the prequantized inputs (fp8 blocks,
+compressed-tensors int4) load through both packages, directly and through
+their weight caches, at the default QuantConfig and with int8 experts:
+every leaf of the port's load_params(device="cpu") equals the reference's
+load_params passed through bridge.params_from_numpy."""
+
+import pytest
+import torch
+
+from krasis_tpu.config import ModelConfig as JaxModelConfig
+from krasis_tpu.config import QuantConfig as JaxQuantConfig
+from krasis_tpu.models.loader import load_params as jax_load_params
+from krasis_tpu_torch.config import ModelConfig, QuantConfig
+from krasis_tpu_torch.models.loader import load_params, load_params_offload
+from krasis_tpu_torch.quant import dequant_mxfp4, quantize
+from krasis_tpu_torch.utils.safetensors_io import ShardedSafetensors
+
+from torch_ckpt_util import FAMILIES, assert_same_leaves, write_checkpoint
+from torch_port_util import port_params
+
+QUANTS = {"default": {}, "int8_experts": dict(expert_bits=8)}
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    return tmp_path_factory.mktemp("ckpts")
+
+
+@pytest.mark.parametrize("use_cache", [False, True], ids=["direct", "cache"])
+@pytest.mark.parametrize("quant", sorted(QUANTS))
+@pytest.mark.parametrize("family", FAMILIES)
+def test_leaves_equal_reference(root, tmp_path, monkeypatch, family, quant, use_cache):
+    monkeypatch.setenv("KRASIS_TPU_HOME", str(tmp_path / "home"))
+    path = write_checkpoint(family, root)
+    want = port_params(jax_load_params(JaxModelConfig.from_model_path(path),
+                                       JaxQuantConfig(**QUANTS[quant]), use_cache=use_cache))
+    got = load_params(ModelConfig.from_model_path(path), QuantConfig(**QUANTS[quant]),
+                      use_cache=use_cache, device="cpu")
+    assert_same_leaves(want, got)
+    if family in ("deepseek_v2", "qwen3_next"):
+        # shared experts folded at load: virtual experts after the routed ones
+        cfg = ModelConfig.from_model_path(path)
+        lp = got["layers"][-1]
+        assert lp["w13"].q.shape[0] > cfg.n_routed_experts
+
+
+@pytest.mark.parametrize("use_cache", [False, True], ids=["direct", "cache"])
+def test_mtp_leaves_equal_reference(root, tmp_path, monkeypatch, use_cache):
+    """A DeepSeek-V3-style MTP module (enorm, hnorm, eh_proj, the shared
+    head and its own MoE layer, shared expert folded) loads to the
+    reference's leaves under params["mtp"]."""
+    monkeypatch.setenv("KRASIS_TPU_HOME", str(tmp_path / "home"))
+    path = write_checkpoint("mtp", root)
+    want = port_params(jax_load_params(JaxModelConfig.from_model_path(path), JaxQuantConfig(),
+                                       use_cache=use_cache))
+    got = load_params(ModelConfig.from_model_path(path), QuantConfig(), use_cache=use_cache,
+                      device="cpu")
+    assert {"enorm", "hnorm", "eh_proj", "final_norm", "head", "layer"} <= set(got["mtp"])
+    assert got["mtp"]["layer"]["w13"].q.shape[0] == 8 + 1      # the folded shared expert
+    assert_same_leaves(want, got)
+
+
+def test_gpt_oss_mxfp4_gate_up_deinterleaved(root):
+    """The MXFP4 experts' gate / up columns arrive interleaved (even gate,
+    odd up); the loaded bias and stacks hold them gate first, then up."""
+    path = write_checkpoint("gpt_oss_mxfp4", root)
+    params = load_params(ModelConfig.from_model_path(path), QuantConfig(expert_bits=8),
+                         use_cache=False, device="cpu")
+    st = ShardedSafetensors(path)
+    M = "model.layers.0.mlp.experts"
+    gu = dequant_mxfp4(st.tensor(f"{M}.gate_up_proj_blocks")[1],
+                       st.tensor(f"{M}.gate_up_proj_scales")[1]).T      # [H, 2I]
+    bias = st.tensor(f"{M}.gate_up_proj_bias").float()
+    lp = params["layers"][0]
+    I = gu.shape[1] // 2
+    assert torch.equal(lp["w13_bias"][:, :I], bias[:, ::2])
+    assert torch.equal(lp["w13_bias"][:, I:], bias[:, 1::2])
+    want = quantize(torch.cat([gu[:, ::2], gu[:, 1::2]], dim=-1), 8, 128)
+    assert torch.equal(lp["w13"].q[1], want.q)
+
+
+def test_mesh_and_offload_name_their_roadmap_items(root):
+    path = write_checkpoint("qwen3_moe", root)
+    cfg = ModelConfig.from_model_path(path)
+    with pytest.raises(NotImplementedError, match="A-10"):
+        load_params(cfg, QuantConfig(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A-9"):
+        load_params_offload(cfg, QuantConfig())
+
+
+def test_load_without_card_raises(root, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = write_checkpoint("qwen3_moe", root)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_params(ModelConfig.from_model_path(path), QuantConfig(), use_cache=False)
