@@ -119,6 +119,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens); then the division on f32 inputs, and the GGUF codecs on the
    card against the CPU bit for bit.
 
+10. serving (krasis_tpu_torch/server.py): (b) inside phase 9, the V2-Lite
+   checkpoint's engine with the committed test tokenizer
+   (tests/data/torch_tokenizer, copied into the checkpoint) served in this
+   process through start_temp_server on the native and then the stdlib
+   transport: a chat message that templates to about 2048 ids and a short
+   one (16 greedy tokens each, logprobs) and the short one with 64, streamed
+   and in turns with direct generate calls; usage.prompt_tokens must equal
+   the template's length, the served text and logprobs Engine.generate's on
+   the same ids, and the served requests must launch K1, K2 (one-launch and
+   split), K3 and K4 with no plain MoE route; (a) after phase 9, python -m krasis_tpu_torch.server
+   --synthetic deepseek-v2-lite (27 layers, int4 gs 128, int8 expert
+   activations) on the native transport as a subprocess: /health,
+   /v1/models, a 404, a 512-id prompt + 64 greedy tokens unstreamed and
+   streamed (the same ids, logprobs, usage), a stop string across two
+   tokens that ends a stream where it first occurs, a stream the client drops (the next request must be
+   answered in about its own time), two concurrent requests (both answered,
+   one after the other), then SIGTERM and exit 0. The [serve] lines give the
+   role and first content chunk times and the served prefill / decode tok/s
+   beside a direct Engine.generate's.
+
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
 name and power limit and the JSON result; the line before them lists the
@@ -2484,9 +2504,13 @@ def load_phase():
     t0 = time.perf_counter()
     try:
         rng = np.random.default_rng(0)
+        quant = QuantConfig(expert_bits=4, group_size=128)
         load_family("DeepSeek-V2-Lite bf16 safetensors (3 layers)", "deepseek-v2-lite",
-                    V2LITE_CONFIG, v2lite_tensors, QuantConfig(expert_bits=4, group_size=128),
-                    root, ("K1", "K2", "K3", "K4"), rng)
+                    V2LITE_CONFIG, v2lite_tensors, quant, root, ("K1", "K2", "K3", "K4"), rng)
+        t_serve = time.perf_counter()
+        serve_checkpoint_phase(os.path.join(root, "deepseek-v2-lite"), quant)
+        print(f"[time] serve phase, in process: {time.perf_counter() - t_serve:.1f} s",
+              flush=True)
         for done in ("deepseek-v2-lite", "home"):
             shutil.rmtree(os.path.join(root, done))
         load_family("GPT-OSS-20B MXFP4 (2 layers)", "gpt-oss-20b", GPTOSS_CONFIG,
@@ -2501,6 +2525,374 @@ def load_phase():
         else:
             os.environ["KRASIS_TPU_HOME"] = home
     print(f"[time] load phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# --------------------------------------------------------------------------
+# 10. [serve]: the OpenAI-compatible server, in a subprocess and in process
+# --------------------------------------------------------------------------
+
+SERVE_TOKENIZER = "tests/data/torch_tokenizer"     # the committed test tokenizer
+SERVE_DEVICE = "cuda"    # where the in-process server's engine runs
+SERVE_SYNTHETIC = ("--synthetic", "deepseek-v2-lite", "--expert-activation", "int8")
+SERVE_ON_PATH = ("K1", "K2", "K3", "K4")
+SERVE_FORMS = ("one-launch", "split")
+
+
+def http_call(port, method, path, body=None, timeout=600.0):
+    """(status, content type, body bytes) of one request on its own connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        conn.close()
+
+
+def sse_stream(port, body, timeout=600.0):
+    """Stream one request: (chunks, seconds to the role chunk, seconds to
+    the first content chunk and its chunk index, seconds to [DONE])."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    if r.status != 200 or r.getheader("Content-Type") != "text/event-stream":
+        raise AssertionError(f"[serve] stream answered {r.status} {r.read()[:300]!r}")
+    chunks, t_role, t_content, done = [], None, None, False
+    for raw in r:
+        line = raw.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        if line == "data: [DONE]":
+            done = True
+            break
+        obj = json.loads(line[6:])
+        delta = (obj["choices"] or [{}])[0].get("delta", {})
+        if t_role is None and delta.get("role") == "assistant":
+            t_role = time.perf_counter() - t0
+        if t_content is None and delta.get("content"):
+            t_content = (time.perf_counter() - t0, len(chunks))
+        chunks.append(obj)
+    t_done = time.perf_counter() - t0
+    conn.close()
+    if not done or t_role is None:
+        raise AssertionError("[serve] the stream lacks its role chunk or [DONE]")
+    return chunks, t_role, t_content, t_done
+
+
+def stream_text(chunks) -> str:
+    return "".join((c["choices"] or [{}])[0].get("delta", {}).get("content", "") for c in chunks)
+
+
+def stream_usage(chunks):
+    return next((c["usage"] for c in chunks if c.get("usage")), None)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64):
+    """10a. ``python -m krasis_tpu_torch.server`` at full width on the native
+    transport, as a user starts it: health, models, a 404, a 512-id prompt
+    (the synthetic path's cap) with `new` greedy tokens unstreamed and then
+    streamed with logprobs and usage (the same ids), a stop string that ends
+    a stream early, a stream the client drops (the next request must be
+    answered promptly), two requests at once; then SIGTERM and exit 0."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    card = card_line()
+    home = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    port = free_port()
+    log_path = os.path.join(home, "server.log")
+    env = {**os.environ, "KRASIS_TPU_HOME": home}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "krasis_tpu_torch.server", *server_args,
+             "--server-backend", "native", "--port", str(port)],
+            stdout=log, stderr=subprocess.STDOUT, env=env)
+
+    def fail(msg):
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"[serve] {msg}; server log:\n{tail}")
+
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"the server exited with {proc.returncode} before answering")
+            try:
+                if http_call(port, "GET", "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 600:
+                fail("no /health within 600 s")
+            time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        status, _, body = http_call(port, "GET", "/v1/models")
+        model = json.loads(body)["data"][0]["id"]
+        if status != 200 or model != "synthetic/" + server_args[1]:
+            fail(f"/v1/models answered {status} {body!r}")
+        if http_call(port, "GET", "/nope")[0] != 404:
+            fail("/nope did not answer 404")
+        if json.loads(open(os.path.join(home, "servers", f"{port}.json")).read())["port"] != port:
+            fail("the registry entry is missing")
+
+        text = "".join(chr(0x41 + (i * 7) % 26) for i in range(600))      # hashes to 512 ids
+        req = {"messages": [{"role": "user", "content": text}], "max_tokens": new,
+               "temperature": 0.0}
+        status, _, body = http_call(port, "POST", "/v1/chat/completions", req)
+        if status != 200:
+            fail(f"the request answered {status} {body[:300]!r}")
+        full = json.loads(body)
+        ids = [int(t) for t in full["choices"][0]["message"]["content"].split()]
+        usage = full["usage"]
+        if len(ids) != new or usage != {"prompt_tokens": 512, "completion_tokens": new,
+                                        "total_tokens": 512 + new}:
+            fail(f"{len(ids)} tokens, usage {usage}")
+        chunks, t_role, t_content, t_done = sse_stream(port, {
+            **req, "stream": True, "logprobs": True, "stream_options": {"include_usage": True}})
+        streamed = [int(t) for t in stream_text(chunks).replace("<", " ").replace(">", " ").split()]
+        lps = [e for c in chunks if c["choices"] and c["choices"][0].get("logprobs")
+               for e in c["choices"][0]["logprobs"]["content"]]
+        if streamed != ids:
+            fail(f"streamed ids {streamed[:8]}... differ from the unstreamed {ids[:8]}...")
+        if stream_usage(chunks) != usage or len(lps) != new or not all(
+                -1e30 < e["logprob"] <= 0.0 for e in lps):
+            fail(f"stream usage {stream_usage(chunks)}, {len(lps)} logprob entries")
+
+        # the stop: text across the boundary of tokens 8 and 9; the stream
+        # must end where the stop's first occurrence completes (random weights
+        # repeat tokens, so that can be earlier)
+        pieces = [f"<{t}>" for t in ids]
+        whole = "".join(pieces)
+        cut = len("".join(pieces[:8]))
+        stop = whole[cut - 3:cut + 3]
+        at = whole.find(stop)
+        k = next(j for j in range(1, new + 1) if len("".join(pieces[:j])) >= at + len(stop))
+        cut_chunks, _, _, _ = sse_stream(port, {**req, "stream": True, "stop": [stop],
+                                                "stream_options": {"include_usage": True}})
+        got = stream_text(cut_chunks)
+        if got != whole[:at] or stream_usage(cut_chunks)["completion_tokens"] != k:
+            fail(f"the stop {stop!r} did not end the stream at token {k}: {got[:80]!r}, "
+                 f"{stream_usage(cut_chunks)}")
+
+        # a client that drops a long stream: its decode must stop, so a short
+        # request right after is answered in about its own time
+        t_short0 = time.perf_counter()
+        http_call(port, "POST", "/v1/chat/completions", {**req, "max_tokens": 4})
+        t_short = time.perf_counter() - t_short0
+        import socket
+        s = socket.create_connection(("127.0.0.1", port), timeout=60)
+        raw = json.dumps({**req, "max_tokens": 2048, "stream": True}).encode()
+        s.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                  b"application/json\r\nContent-Length: " + str(len(raw)).encode()
+                  + b"\r\n\r\n" + raw)
+        s.recv(256)
+        s.close()
+        t_next0 = time.perf_counter()
+        status, _, body = http_call(port, "POST", "/v1/chat/completions",
+                                    {**req, "max_tokens": 4})
+        t_next = time.perf_counter() - t_next0
+        if status != 200 or t_next > max(10.0, 4 * t_short):
+            fail(f"after a dropped stream the next request took {t_next:.2f} s "
+                 f"(alone {t_short:.2f} s)")
+
+        results = []
+
+        def worker():
+            results.append(http_call(port, "POST", "/v1/chat/completions",
+                                     {**req, "max_tokens": 16}))
+        ts = [threading.Thread(target=worker) for _ in range(2)]
+        t_pair0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        t_pair = time.perf_counter() - t_pair0
+        if len(results) != 2 or any(r[0] != 200 for r in results) or any(
+                [int(x) for x in json.loads(r[2])["choices"][0]["message"]["content"].split()]
+                != ids[:16] for r in results):
+            fail(f"two concurrent requests: {[(r[0], r[2][:120]) for r in results]}")
+
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            fail(f"the server exited with {rc} on SIGTERM")
+        if os.listdir(os.path.join(home, "servers")):
+            fail("the registry entry outlived the server")
+        timing = full["timing"]
+        print(f"[serve] subprocess {' '.join(server_args)}, native transport: up in "
+              f"{t_up:.1f} s; 512 + {new} greedy: unstreamed ids = streamed ids, usage right; "
+              f"role chunk at {1e3 * t_role:.1f} ms, first content chunk at "
+              f"{1e3 * t_content[0]:.1f} ms, [DONE] at {t_done:.2f} s; timing prefill "
+              f"{timing['prefill_tok_s']} tok/s, decode {timing['decode_tok_s']} tok/s; the stop "
+              f"{stop!r} ended the stream at token {k}; after a dropped 2048-token "
+              f"stream the next 4-token request took {t_next:.2f} s (alone {t_short:.2f} s); two "
+              f"concurrent 16-token requests {t_pair:.2f} s, both answered; exit 0 on SIGTERM; "
+              f"{card}", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(home, ignore_errors=True)
+
+
+def long_message(tok, target=2000) -> str:
+    """A user message whose chat template gives about `target` ids."""
+    words = ("The server streams tokens as they are decoded, and a client that "
+             "leaves cancels the rest of the request. ")
+    msg = words
+    while len(tok.apply_chat_template([{"role": "user", "content": msg}])) < target:
+        msg += words
+    return msg
+
+
+def serve_checkpoint_phase(path, quant):
+    """10b. The engine over the checkpoint at `path` (its weight cache warm)
+    with the committed test tokenizer, served in process on each transport:
+    a chat message that templates to about 2048 ids (a whole prefill chunk)
+    and a short one, 16 greedy tokens each with logprobs, and the short one
+    with 64 tokens streamed. usage.prompt_tokens must be the template's
+    length, the served text and per-token logprobs those of Engine.generate
+    on the same ids (the tokenizer knows only ids below 4096 of the model's
+    102400, so most tokens decode to no text and the logprobs carry the
+    check), and the served requests must launch K1, K2 (both forms), K3 and
+    K4 and no plain MoE route. Then the short request's 64 tokens in turns
+    direct, served, served, direct (unstreamed and streamed) for the
+    [serve] times."""
+    import gc
+    import os
+    import shutil
+    import statistics
+
+    import torch
+    from krasis_tpu_torch import server
+    from krasis_tpu_torch.config import ModelConfig
+    from krasis_tpu_torch.models.loader import load_params
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe
+    from krasis_tpu_torch.runtime.engine import Engine
+    from krasis_tpu_torch.runtime.tokenizer import Tokenizer
+
+    card = card_line()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), SERVE_TOKENIZER)
+    for f in os.listdir(src):
+        shutil.copy(os.path.join(src, f), path)
+    cfg = ModelConfig.from_model_path(path)
+    eng = Engine(cfg, quant, load_params(cfg, quant, device=SERVE_DEVICE), max_len=4096,
+                 device=SERVE_DEVICE)
+    tok = Tokenizer(path)
+    name = os.path.basename(path)
+    short = [{"role": "user", "content": "Explain the os module in two sentences."}]
+    cases = [([{"role": "user", "content": long_message(tok)}], 16), (short, 16)]
+    direct = []
+    for msgs, new in cases + [(short, 64)]:
+        ids = tok.apply_chat_template(msgs)
+        eng.generate(ids, max_new_tokens=new)                       # warm: the same shapes
+        direct.append((ids, eng.generate(ids, max_new_tokens=new)))
+    C = counters()
+    for backend in ("native", "python"):
+        httpd = server.start_temp_server(eng, tok, name, port=0, backend=backend)
+        try:
+            if httpd.backend != backend:
+                raise AssertionError(f"[serve] asked for {backend}, got {httpd.backend}")
+            for m, attr in C.values():
+                setattr(m, attr, 0)
+            fa.form_launches.clear()
+            moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+            served = [http_call(httpd.port, "POST", "/v1/chat/completions", {
+                "messages": msgs, "max_tokens": new, "temperature": 0.0, "logprobs": True})
+                for msgs, new in cases]
+            chunks, t_role, t_content, _ = sse_stream(httpd.port, {
+                "messages": short, "max_tokens": 64, "temperature": 0.0, "stream": True,
+                "stream_options": {"include_usage": True}})
+            counts = {k: getattr(m, attr) for k, (m, attr) in C.items()}
+            forms = dict(fa.form_launches)
+            missing = [k for k in SERVE_ON_PATH if counts[k] <= 0] + [
+                f for f in SERVE_FORMS if not any(k.split("+")[0] == f and n > 0
+                                                  for k, n in forms.items())]
+            if missing or any(moe.plain_routes.values()):
+                raise AssertionError(f"[serve] {backend}: not launched {missing}, plain MoE "
+                                     f"routes {moe.plain_routes}")
+            for (status, _, body), (ids, res) in zip(served, direct):
+                obj = json.loads(body) if status == 200 else None
+                if obj is None:
+                    raise AssertionError(f"[serve] {backend}: {status} {body[:300]!r}")
+                text = obj["choices"][0]["message"]["content"]
+                lps = [e["logprob"] for e in obj["choices"][0]["logprobs"]["content"]]
+                if obj["usage"]["prompt_tokens"] != len(ids) or \
+                        obj["usage"]["completion_tokens"] != len(res.tokens):
+                    raise AssertionError(f"[serve] {backend}: usage {obj['usage']}, template "
+                                         f"{len(ids)} ids, {len(res.tokens)} tokens")
+                if text != tok.decode(res.tokens) or len(lps) != len(res.tokens) or any(
+                        abs(a - round(b, 6)) > 1e-6 for a, b in zip(lps, res.logprobs)):
+                    raise AssertionError(f"[serve] {backend}: served text {text[:80]!r} or its "
+                                         "logprobs differ from Engine.generate's")
+                in_vocab = sum(t < len(tok.id_to_token) for t in res.tokens)
+                print(f"[serve] {backend}: {len(ids)} + {len(res.tokens)}: usage, text and "
+                      f"logprobs = Engine.generate's ({in_vocab} of {len(res.tokens)} tokens "
+                      "have text)", flush=True)
+            ids, res = direct[-1]
+            want, got = tok.decode(res.tokens), stream_text(chunks)
+            # the incremental decoder holds back a last incomplete character
+            if stream_usage(chunks)["completion_tokens"] != len(res.tokens) or not (
+                    got == want or (want.endswith("\ufffd") and want.startswith(got))):
+                raise AssertionError(f"[serve] {backend}: the stream differs from "
+                                     "Engine.generate's text")
+            print(f"[serve] {backend}: launches {json.dumps(counts)}, K2 by form "
+                  f"{json.dumps(forms)}, plain MoE routes {dict(moe.plain_routes)}", flush=True)
+
+            # times, in turns: direct, served, served, direct
+            req = {"messages": short, "max_tokens": 64, "temperature": 0.0}
+            d_pre, d_dec, d_wall, s_pre, s_dec, st_wall, st_role, st_first = ([] for _ in range(8))
+            for turn in ("direct", "served", "served", "direct"):
+                if turn == "direct":
+                    t0 = time.perf_counter()
+                    r = eng.generate(tok.apply_chat_template(short), max_new_tokens=64)
+                    d_wall.append(time.perf_counter() - t0)
+                    d_pre.append(r.prefill_tok_s)
+                    d_dec.append(r.decode_tok_s)
+                    continue
+                timing = json.loads(http_call(httpd.port, "POST", "/v1/chat/completions",
+                                              req)[2])["timing"]
+                s_pre.append(timing["prefill_tok_s"])
+                s_dec.append(timing["decode_tok_s"])
+                _, role, first, done = sse_stream(httpd.port, {**req, "stream": True})
+                st_wall.append(done)
+                st_role.append(role)
+                st_first.append(first[0] if first else float("nan"))
+            med = statistics.median
+            print(f"[serve] {backend}: {len(ids)} + 64, medians of two turns each: direct "
+                  f"generate prefill {med(d_pre):.2f} / decode {med(d_dec):.2f} tok/s, "
+                  f"{1e3 * med(d_wall):.1f} ms; served unstreamed timing prefill "
+                  f"{med(s_pre):.2f} / decode {med(s_dec):.2f} tok/s (decode "
+                  f"{100 * (med(s_dec) / med(d_dec) - 1):+.1f}%); served streamed: role chunk "
+                  f"{1e3 * med(st_role):.1f} ms, first content chunk {1e3 * med(st_first):.1f} "
+                  f"ms (the first token with text), [DONE] {1e3 * med(st_wall):.1f} ms "
+                  f"({100 * (med(st_wall) / med(d_wall) - 1):+.1f}% on the direct call's wall); "
+                  f"{card}", flush=True)
+        finally:
+            httpd.shutdown()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2545,8 +2937,8 @@ def main() -> int:
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"), (40, 16, "bf16")),
-               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=8,
-               profile_bf16=16)
+               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=4,
+               profile_bf16=8)
 
     run_family("DeepSeek-V2-Lite Q8 (two-stage expert class)", "deepseek-v2-lite",
                QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,
@@ -2568,6 +2960,9 @@ def main() -> int:
                prefill_on_names=("gmm_kernel",))
     probe_phase(results)
     load_phase()
+    t0 = time.perf_counter()
+    serve_subprocess_phase()
+    print(f"[time] serve phase, server subprocess: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "
           "launches that open its recorded steps")

@@ -1,0 +1,622 @@
+"""OpenAI-compatible HTTP server with SSE streaming (PyTorch port).
+
+The port of ``krasis_tpu/server.py``: ``/health``, ``/v1/models`` and
+``/v1/chat/completions`` (JSON and SSE, an immediate role chunk,
+``stop`` strings, ``logprobs`` / ``top_logprobs``,
+``stream_options.include_usage``, client-disconnect cancellation) and a
+registry of running servers under ``$KRASIS_TPU_HOME/servers``, over the
+port's ``Engine.generate``.
+
+    python -m krasis_tpu_torch.server --synthetic deepseek-v2-lite
+    python -m krasis_tpu_torch.server --model /path/to/checkpoint
+
+Two transports share the route handler (``handle_request``):
+
+* **native** (``--server-backend auto`` picks it when it builds): the C++
+  epoll server of ``native/serve.cpp``, built with g++ at first use;
+* **python**: the stdlib ``ThreadingHTTPServer``. ``auto`` falls back to it,
+  with one logged warning naming the failure, when the native library does
+  not build; ``native`` raises instead.
+
+Generation is serialized through an engine lock: one request at a time,
+the reference's default (``--slots 0``). Continuous batching
+(``--slots > 0``) is ROADMAP A-6's next slice. Synthetic models
+(``--synthetic``) have no tokenizer: message text is hashed into token ids
+and tokens come back as ``<id>`` (stream) or space-separated ids.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional
+
+from .chat import registry_dir
+from .ops.sampling import SamplingParams
+
+log = logging.getLogger("krasis_tpu_torch.server")
+
+
+class ServerState:
+    def __init__(self, engine, tokenizer, model_name: str):
+        self.engine = engine
+        self.tokenizer = tokenizer  # None for synthetic models
+        self.model_name = model_name
+        self.lock = threading.Lock()
+
+
+# ---- transport-independent route handlers ---------------------------------
+# Both transports provide a writer with:
+#   send_json(code, body_bytes) / sse_start() / sse_send(bytes) -> bool
+#   sse_end() / cancelled() -> bool
+
+
+def _json_bytes(obj: Dict[str, Any]) -> bytes:
+    return json.dumps(obj).encode()
+
+
+def _chunk(state: ServerState, rid, created, delta: Dict[str, Any],
+           finish=None, logprobs=None) -> bytes:
+    choice: Dict[str, Any] = {"index": 0, "delta": delta, "finish_reason": finish}
+    if logprobs is not None:
+        choice["logprobs"] = {"content": logprobs}
+    obj = {"id": rid, "object": "chat.completion.chunk", "created": created,
+           "model": state.model_name, "choices": [choice]}
+    return f"data: {json.dumps(obj)}\n\n".encode()
+
+
+def prompt_ids(state: ServerState, messages) -> list:
+    """The request's prompt: the chat template's ids, or for a synthetic
+    model its message text hashed into ids (at most 512)."""
+    if state.tokenizer is not None:
+        return state.tokenizer.apply_chat_template(messages)
+    text = " ".join(m.get("content", "") for m in messages)
+    vocab = state.engine.cfg.vocab_size
+    return [(7 + 31 * ord(c)) % (vocab - 2) + 1 for c in text[:512]] or [1]
+
+
+def handle_request(state: ServerState, method: str, path: str, body: bytes, w) -> None:
+    if method == "GET" and path == "/health":
+        w.send_json(200, _json_bytes({"status": "ok", "model": state.model_name}))
+        return
+    if method == "GET" and path == "/v1/models":
+        w.send_json(200, _json_bytes({
+            "object": "list",
+            "data": [{"id": state.model_name, "object": "model", "owned_by": "krasis-tpu"}],
+        }))
+        return
+    if method != "POST" or path != "/v1/chat/completions":
+        w.send_json(404, _json_bytes({"error": "not found"}))
+        return
+
+    try:
+        req = json.loads(body)
+        if not isinstance(req, dict):
+            raise ValueError("request body must be a JSON object")
+        # field validation inside the 400 envelope: a null max_tokens or a
+        # non-list stop is a client error, not a 500 or a dropped socket
+        stream = bool(req.get("stream", False))
+        max_tokens = int(req.get("max_tokens", req.get("max_completion_tokens", 512)))
+        sampling = SamplingParams(
+            temperature=float(req.get("temperature", 0.6)),
+            top_k=int(req.get("top_k", 20)),
+            top_p=float(req.get("top_p", 0.95)),
+            presence_penalty=float(req.get("presence_penalty", 0.0)),
+        )
+        stops = _parse_stops(req)
+        want_logprobs = bool(req.get("logprobs", False))
+        top_logprobs = int(req.get("top_logprobs", 0) or 0)
+        if not 0 <= top_logprobs <= 8:
+            raise ValueError("top_logprobs must be in [0, 8]")
+        seed = int(req.get("seed", 0) or 0)
+        include_usage = bool((req.get("stream_options") or {}).get("include_usage", False))
+        messages = req.get("messages", [])
+        if not isinstance(messages, list):
+            raise ValueError("messages must be a list")
+    except Exception as e:  # a malformed request
+        w.send_json(400, _json_bytes({"error": str(e)}))
+        return
+    ids = prompt_ids(state, messages)
+
+    rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
+    created = int(time.time())
+    with state.lock:
+        if stream:
+            _stream_single(state, w, rid, created, ids, max_tokens, sampling, stops, seed,
+                           include_usage, want_logprobs)
+        else:
+            _full_single(state, w, rid, created, ids, max_tokens, sampling, stops,
+                         want_logprobs, top_logprobs, seed)
+
+
+def _make_decoder(state: ServerState):
+    if state.tokenizer is None:
+        return None
+    from .runtime.tokenizer import IncrementalDecoder
+
+    return IncrementalDecoder(state.tokenizer)
+
+
+class StopMatcher:
+    """Streaming `stop`-string matcher: emits text only once it can no
+    longer be the prefix of a stop string, so a stop sequence straddling
+    chunk boundaries is still caught and never leaks to the client."""
+
+    def __init__(self, stops):
+        self.stops = [s for s in (stops or []) if s]
+        self.hold = max((len(s) for s in self.stops), default=0)
+        self.buf = ""
+        self.stopped = False
+
+    def push(self, text: str) -> str:
+        """Feed decoded text; returns the text safe to emit now."""
+        if self.stopped:
+            return ""
+        if not self.stops:
+            return text
+        self.buf += text
+        hits = [i for i in (self.buf.find(s) for s in self.stops) if i >= 0]
+        if hits:
+            self.stopped = True
+            out, self.buf = self.buf[:min(hits)], ""
+            return out
+        # emit everything except a tail that could still start a stop
+        keep = 0
+        for j in range(min(self.hold - 1, len(self.buf)), 0, -1):
+            tail = self.buf[-j:]
+            if any(s.startswith(tail) for s in self.stops):
+                keep = j
+                break
+        if keep:
+            out, self.buf = self.buf[:-keep], self.buf[-keep:]
+        else:
+            out, self.buf = self.buf, ""
+        return out
+
+    def flush(self) -> str:
+        """End of generation: release any held-back tail."""
+        out, self.buf = ("" if self.stopped else self.buf), ""
+        return out
+
+
+def _parse_stops(req) -> list:
+    stop = req.get("stop")
+    if stop is None:
+        return []
+    if isinstance(stop, str):
+        stop = [stop]
+    return [s for s in stop[:8] if isinstance(s, str) and s]
+
+
+def _usage_chunk(state, rid, created, prompt_tokens, completion) -> bytes:
+    obj = {"id": rid, "object": "chat.completion.chunk", "created": created,
+           "model": state.model_name, "choices": [],
+           "usage": {"prompt_tokens": prompt_tokens, "completion_tokens": completion,
+                     "total_tokens": prompt_tokens + completion}}
+    return f"data: {json.dumps(obj)}\n\n".encode()
+
+
+def _stream_single(state, w, rid, created, prompt_ids, max_tokens, sampling, stops=(),
+                   seed=0, include_usage=False, want_logprobs=False):
+    w.sse_start()
+    # the role chunk at once: the client sees the stream open before prefill
+    w.sse_send(_chunk(state, rid, created, {"role": "assistant"}))
+    dec = _make_decoder(state)
+    sm = StopMatcher(stops)
+    n_tok = 0
+    pending_lp: list = []  # (tok, lp) since the last emitted chunk
+
+    def on_token_lp(tok: int, lp: float):
+        nonlocal n_tok
+        n_tok += 1
+        if w.cancelled():
+            raise StopIteration  # the client went away: cancel decode
+        if want_logprobs:
+            pending_lp.append((tok, lp))
+        text = dec.push(tok) if dec is not None else f"<{tok}>"
+        text = sm.push(text)
+        if text:
+            lps = None
+            if want_logprobs:
+                lps = _logprobs_content(state, [t for t, _ in pending_lp],
+                                        [p for _, p in pending_lp])
+                pending_lp.clear()
+            if not w.sse_send(_chunk(state, rid, created, {"content": text}, logprobs=lps)):
+                raise StopIteration
+        if sm.stopped:
+            raise StopIteration  # a stop string: cancel decode
+
+    # the logprob values are unused unless the request asked for them, so
+    # the engine skips their math then
+    state.engine.generate(prompt_ids, max_new_tokens=max_tokens, sampling=sampling,
+                          on_token_lp=on_token_lp, seed=seed, want_logprobs=want_logprobs)
+    tail = sm.flush()
+    if tail:
+        w.sse_send(_chunk(state, rid, created, {"content": tail}))
+    w.sse_send(_chunk(state, rid, created, {}, finish="stop"))
+    if include_usage:
+        w.sse_send(_usage_chunk(state, rid, created, len(prompt_ids), n_tok))
+    w.sse_send(b"data: [DONE]\n\n")
+    w.sse_end()
+
+
+def _logprobs_content(state, tokens, lps, top=None):
+    """OpenAI ``logprobs.content`` entries: each token's text and its raw
+    model logprob (and the top-N alternatives when computed)."""
+    def tok_str(t):
+        return state.tokenizer.decode([t]) if state.tokenizer is not None else str(t)
+
+    out = []
+    for i, (t, lp) in enumerate(zip(tokens, lps or [])):
+        alts = []
+        if top is not None and i < len(top):
+            alts = [{"token": tok_str(tid), "logprob": round(tlp, 6)} for tid, tlp in top[i]]
+        out.append({"token": tok_str(t), "logprob": round(lp, 6), "top_logprobs": alts})
+    return out
+
+
+def _full_single(state, w, rid, created, prompt_ids, max_tokens, sampling, stops=(),
+                 want_logprobs=False, top_logprobs=0, seed=0):
+    # a stop string cancels generation rather than truncating afterwards: a
+    # stop on token 3 of a 512-token request does not pay for 512 tokens
+    sm = StopMatcher(stops)
+    dec = _make_decoder(state) if stops else None
+    pieces = []
+
+    def on_token(tok: int):
+        if not stops:
+            return
+        piece = dec.push(tok) if dec is not None else (("" if not pieces else " ") + str(tok))
+        pieces.append(sm.push(piece))
+        if sm.stopped:
+            raise StopIteration
+
+    res = state.engine.generate(prompt_ids, max_new_tokens=max_tokens, sampling=sampling,
+                                on_token=on_token, seed=seed,
+                                top_logprobs=(top_logprobs if want_logprobs else 0),
+                                want_logprobs=want_logprobs)
+    if stops:
+        pieces.append(sm.flush())
+        text = "".join(pieces)
+    elif state.tokenizer is not None:
+        text = state.tokenizer.decode(res.tokens)
+    else:
+        text = " ".join(str(t) for t in res.tokens)
+    n_tok = len(res.tokens)
+    choice = {"index": 0, "message": {"role": "assistant", "content": text},
+              "finish_reason": "stop"}
+    if want_logprobs:
+        choice["logprobs"] = {"content": _logprobs_content(state, res.tokens, res.logprobs,
+                                                           res.top_logprobs)}
+    w.send_json(200, _json_bytes({
+        "id": rid, "object": "chat.completion", "created": created,
+        "model": state.model_name,
+        "choices": [choice],
+        "usage": {"prompt_tokens": res.prompt_len, "completion_tokens": n_tok,
+                  "total_tokens": res.prompt_len + n_tok},
+        "timing": {"prefill_tok_s": round(res.prefill_tok_s, 2),
+                   "decode_tok_s": round(res.decode_tok_s, 2)},
+    }))
+
+
+# ---- stdlib transport ------------------------------------------------------
+
+
+class _StdlibWriter:
+    """The writer protocol over a BaseHTTPRequestHandler (chunked SSE)."""
+
+    def __init__(self, h: BaseHTTPRequestHandler):
+        self._h = h
+        self._dead = False
+
+    def send_json(self, code: int, body: bytes) -> None:
+        h = self._h
+        try:
+            h.send_response(code)
+            h.send_header("Content-Type", "application/json")
+            h.send_header("Content-Length", str(len(body)))
+            h.end_headers()
+            h.wfile.write(body)
+        except (BrokenPipeError, ConnectionResetError):
+            # the client left before or while the response was written:
+            # routine teardown, not an error
+            self._dead = True
+
+    def sse_start(self) -> None:
+        h = self._h
+        try:
+            h.send_response(200)
+            h.send_header("Content-Type", "text/event-stream")
+            h.send_header("Cache-Control", "no-cache")
+            h.send_header("Transfer-Encoding", "chunked")
+            h.end_headers()
+        except (BrokenPipeError, ConnectionResetError):
+            self._dead = True
+
+    def sse_send(self, data: bytes) -> bool:
+        if self._dead:
+            return False
+        try:
+            self._h.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+            self._h.wfile.flush()
+            return True
+        except (BrokenPipeError, ConnectionResetError):
+            self._dead = True
+            return False
+
+    def sse_end(self) -> None:
+        if self._dead:
+            return
+        try:
+            self._h.wfile.write(b"0\r\n\r\n")
+            self._h.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            self._dead = True
+
+    def cancelled(self) -> bool:
+        # a stdlib socket sees a disconnect only when a write fails (the
+        # native transport sees EPOLLRDHUP)
+        return self._dead
+
+
+class Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # quiet default logging
+        pass
+
+    def _dispatch(self):
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+        except ValueError:
+            n = 0
+        try:
+            body = self.rfile.read(n) if n else b""
+            handle_request(self.server.state, self.command, self.path, body,
+                           _StdlibWriter(self))
+        except (BrokenPipeError, ConnectionResetError):
+            # a mid-request disconnect: close quietly
+            self.close_connection = True
+
+    def do_GET(self):
+        self._dispatch()
+
+    def do_POST(self):
+        self._dispatch()
+
+
+class _QuietThreadingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer that treats client-gone errors as routine (the
+    default handle_error prints a traceback for a client that merely
+    disconnected mid-stream); real errors still get the default report."""
+
+    daemon_threads = True
+
+    def __init__(self, state: ServerState, address):
+        self.state = state
+        super().__init__(address, Handler)
+
+    @property
+    def port(self) -> int:
+        return self.server_address[1]
+
+    def handle_error(self, request, client_address):
+        exc = sys.exc_info()[1]
+        if isinstance(exc, (BrokenPipeError, ConnectionResetError, ConnectionAbortedError,
+                            TimeoutError)):
+            return
+        super().handle_error(request, client_address)
+
+
+# ---- lifecycle -------------------------------------------------------------
+
+
+def register_server(port: int, model_name: str) -> str:
+    """Server discovery registry: ``<registry_dir>/<port>.json``."""
+    d = registry_dir()
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{port}.json")
+    with open(path, "w") as f:
+        json.dump({"port": port, "model": model_name, "pid": os.getpid(),
+                   "started": time.time()}, f)
+    return path
+
+
+def _make_httpd(state: ServerState, host: str, port: int, backend: str = "auto"):
+    """Build the requested transport. Returns (httpd, backend used)."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown server backend {backend!r}")
+    if backend in ("auto", "native"):
+        from .native import build_error
+        from .native import serve as native_serve
+
+        try:
+            native_serve.load()
+        except (OSError, subprocess.SubprocessError) as exc:
+            if backend == "native":
+                raise RuntimeError("the native server was asked for but its C++ library "
+                                   f"did not build: {build_error(exc)}") from exc
+            log.warning("native HTTP transport (native/serve.cpp) did not build, serving "
+                        "on the stdlib transport: %s", build_error(exc))
+        else:
+            httpd = native_serve.NativeHTTPServer(
+                host, port, lambda m, p, b, w: handle_request(state, m, p, b, w))
+            return httpd, "native"
+    return _QuietThreadingHTTPServer(state, (host, port)), "python"
+
+
+def start_temp_server(engine, tokenizer, model_name: str, host="127.0.0.1", port=8398,
+                      backend: str = "auto"):
+    """A server that runs in the background of this process (port 0 picks a
+    free one; the httpd's ``port`` says which). Returns the httpd; call
+    ``.shutdown()`` when done."""
+    state = ServerState(engine, tokenizer, model_name)
+    httpd, used = _make_httpd(state, host, port, backend)
+    httpd.backend = used
+    if used == "python":
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def run_server(engine, tokenizer, model_name: str, host="127.0.0.1", port=8399,
+               backend: str = "auto"):
+    """Serve until SIGINT or SIGTERM, registered while it runs."""
+    state = ServerState(engine, tokenizer, model_name)
+    httpd, used = _make_httpd(state, host, port, backend)
+    reg = register_server(httpd.port, model_name)
+    if threading.current_thread() is threading.main_thread():
+        def stop(signum, frame):
+            # shutdown() waits for serve_forever, which runs on this thread
+            threading.Thread(target=httpd.shutdown, daemon=True).start()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, stop)
+    print(f"krasis-tpu (torch) serving {model_name} on http://{host}:{httpd.port} "
+          f"[{used} transport]", flush=True)
+    try:
+        httpd.serve_forever()
+    finally:
+        if used == "python":
+            httpd.server_close()
+        try:
+            os.unlink(reg)
+        except OSError:
+            pass
+
+
+def warmup(engine):
+    """Run a prefill and a few decode steps before accepting traffic, so the
+    first request does not pay for the kernels' build and the allocator."""
+    t0 = time.time()
+    n = min(256, engine.max_len // 4)
+    engine.generate(list(range(1, n + 1)), max_new_tokens=4,
+                    sampling=SamplingParams(temperature=0.0), stop_ids={-1})
+    print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
+
+
+def _not_ported(args) -> Optional[str]:
+    """The ROADMAP item a requested flag waits for, if any."""
+    if args.slots > 0:
+        return "--slots > 0: continuous batching is ROADMAP A-6 (its batching slice)"
+    if args.mesh:
+        return "--mesh: parallelism is ROADMAP A-10"
+    if args.offload == "experts" or args.hot_experts > 0:
+        return "--offload experts / --hot-experts: the expert offload tier is ROADMAP A-9"
+    if args.spec_k not in (None, 0) or args.spec_mode not in (None, "off"):
+        return "--spec-k / --spec-mode: speculative decoding is ROADMAP A-8"
+    return None
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m krasis_tpu_torch.server",
+        description="OpenAI-compatible server over krasis_tpu_torch's Engine on one CUDA "
+                    "device (or the CPU with --device cpu).")
+    ap.add_argument("--model", help="model checkpoint path")
+    ap.add_argument("--synthetic", help="synthetic preset (tiny | deepseek-v2-lite | ...)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8399)
+    ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                    help="where the engine runs: the card (default) or, when asked, the CPU "
+                         "through the kernels' plain versions")
+    ap.add_argument("--max-len", type=int, default=4096)
+    ap.add_argument("--expert-bits", type=int, default=4, choices=(4, 8))
+    ap.add_argument("--kv-dtype", default="auto", choices=("auto", "fp8", "bf16"))
+    ap.add_argument("--attention-quant", default="bf16", choices=("bf16", "int8", "int4"))
+    ap.add_argument("--expert-activation", default="bf16", choices=("bf16", "int8"),
+                    help="int8 = W4A8 decode MoE (int8 tensor-core dots; adds bounded "
+                         "activation rounding)")
+    ap.add_argument("--shared-expert-quant", default="int8", choices=("bf16", "int8"))
+    ap.add_argument("--dense-mlp-quant", default="int8", choices=("bf16", "int8"))
+    ap.add_argument("--lm-head-quant", default="int8", choices=("bf16", "int8"))
+    ap.add_argument("--mesh", default=None, metavar="DP,EP",
+                    help="shard over the local devices (not ported: ROADMAP A-10)")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="continuous-batching slots; 0 = single-request (only 0 is ported; "
+                         "batching is ROADMAP A-6's next slice)")
+    ap.add_argument("--decode-block", type=int, default=8,
+                    help="tokens per fused decode call of the batch scheduler (which needs "
+                         "--slots > 0)")
+    ap.add_argument("--spec-k", type=int, default=None, metavar="K",
+                    help="speculative draft depth (not ported: ROADMAP A-8; 0 = off)")
+    ap.add_argument("--spec-mode", default=None, choices=("auto", "mtp", "ngram", "off"),
+                    help="speculative draft source (not ported: ROADMAP A-8; only off)")
+    ap.add_argument("--server-backend", default="auto", choices=("auto", "native", "python"),
+                    help="HTTP transport: the C++ epoll server or the stdlib one; auto takes "
+                         "native when it builds")
+    ap.add_argument("--hot-experts", type=int, default=0, metavar="N",
+                    help="offload mode's hot-expert cache (not ported: ROADMAP A-9)")
+    ap.add_argument("--offload", default="auto", choices=("auto", "none", "experts"),
+                    help="experts: routed experts in host RAM (not ported: ROADMAP A-9). "
+                         "auto (default) and none keep the model resident: the port has no "
+                         "offload tier to fall back to")
+    ap.add_argument("--no-warmup", action="store_true", help="skip the pre-serve warmup")
+    return ap
+
+
+def main(argv=None) -> int:
+    from .config import ModelConfig, QuantConfig, preset_config
+
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if bool(args.model) == bool(args.synthetic):
+        ap.error("give one of --model and --synthetic")
+    missing = _not_ported(args)
+    if missing:
+        raise NotImplementedError(missing)
+
+    def make_quant(group_size=128):
+        return QuantConfig(expert_bits=args.expert_bits, group_size=group_size,
+                           kv_cache_dtype=args.kv_dtype, attention=args.attention_quant,
+                           expert_activation=args.expert_activation,
+                           shared_expert=args.shared_expert_quant,
+                           dense_mlp=args.dense_mlp_quant, lm_head=args.lm_head_quant)
+
+    if args.synthetic:
+        from .models.synthetic import build_synthetic_engine, tiny_config
+
+        if args.synthetic == "tiny":
+            cfg, quant = tiny_config("qwen3-moe"), make_quant(group_size=32)
+        else:
+            cfg, quant = preset_config(args.synthetic), make_quant()
+        engine = build_synthetic_engine(cfg, quant, max_len=args.max_len, device=args.device)
+        tok = None
+        name = f"synthetic/{args.synthetic}"
+    else:
+        from .models.loader import load_params
+        from .runtime.engine import Engine
+        from .runtime.tokenizer import Tokenizer
+
+        cfg = ModelConfig.from_model_path(args.model)
+        quant = make_quant()
+        params = load_params(cfg, quant, device=args.device)
+        engine = Engine(cfg, quant, params, max_len=args.max_len, device=args.device)
+        tok_files = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")
+        if os.path.isdir(args.model) and not any(
+                os.path.exists(os.path.join(args.model, f)) for f in tok_files):
+            # a checkpoint that ships no tokenizer files at all serves token
+            # ids as the synthetic path does; one whose files fail to load
+            # fails here
+            log.warning("no tokenizer files in %s; serving raw token ids", args.model)
+            tok = None
+        else:
+            tok = Tokenizer(args.model)
+        name = os.path.basename(os.path.normpath(args.model))
+
+    if not args.no_warmup:
+        warmup(engine)
+    run_server(engine, tok, name, args.host, args.port, backend=args.server_backend)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

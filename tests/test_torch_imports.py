@@ -1,6 +1,6 @@
 """The port imports neither jax nor the reference package, nor the TPU probes,
 nor the packages the card's machine lacks (ml_dtypes, safetensors,
-transformers).
+transformers, tokenizers, regex).
 
 The source is scanned rather than sys.modules: the test process imports
 both packages, and an interpreter here may import jax at start-up."""
@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FILES = (sorted((ROOT / "krasis_tpu_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
          + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "krasis_tpu", "benchmarks", "ml_dtypes", "safetensors",
-             "transformers")
+             "transformers", "tokenizers", "regex")
 
 
 def _imported(tree: ast.AST):
@@ -39,6 +39,10 @@ def test_scan_covers_the_package():
     assert {"krasis_tpu_torch/models/loader.py", "krasis_tpu_torch/models/weight_cache.py",
             "krasis_tpu_torch/utils/safetensors_io.py", "krasis_tpu_torch/utils/gguf.py",
             "krasis_tpu_torch/utils/gguf_source.py"} <= names
+    assert {"krasis_tpu_torch/runtime/tokenizer.py", "krasis_tpu_torch/runtime/chat_template.py",
+            "krasis_tpu_torch/utils/unicode_re.py", "krasis_tpu_torch/server.py",
+            "krasis_tpu_torch/chat.py", "krasis_tpu_torch/native/__init__.py",
+            "krasis_tpu_torch/native/serve.py"} <= names
     assert {"chip_smoke.py", "tools/sass_compare.py"} <= names
 
 

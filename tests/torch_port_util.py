@@ -17,6 +17,14 @@ from krasis_tpu_torch.models.synthetic import tiny_config
 from krasis_tpu_torch.ops import expert_class
 from krasis_tpu_torch.quant import QTensor
 
+# One PyTorch thread per test process. Tier-1 runs six xdist workers on the
+# machine's cores, and each worker's OpenMP pool (a thread per core) spins at
+# the barrier of every parallel region; at these tiny shapes that made six
+# concurrent runs of tests/test_torch_q8_engine.py take 412 s each, against
+# 31 s with one thread (8 cores). Every worker imports every collected test
+# module, this one included, so the whole run takes the setting.
+torch.set_num_threads(1)
+
 
 def to_numpy_tree(tree):
     """JAX parameter tree → numpy leaves, QTensors as {q, scales, bits, group_size}."""
