@@ -139,6 +139,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    role and first content chunk times and the served prefill / decode tok/s
    beside a direct Engine.generate's.
 
+11. continuous batching (krasis_tpu_torch/runtime/scheduler.py), at the end
+   of phase 4 on its V2-Lite Q4 engine (27 layers, int8 expert activations,
+   max_len 4096): (a) K1 on the lm_head at T = 4 and 8, K3 at T = 2 and 4,
+   K2's split form at B = 4 with kv_len 40 / 600 / 2048 / 2560 over bf16 and
+   e4m3 (and a row past the cache end, ROADMAP C-7), K4 at decode T = 8 (64
+   picks), each against its plain version and each row against the row run
+   alone; decode blocks of 1, 4 and 8 busy slots run directly (launches a
+   step, aggregate tok/s beside Engine.generate's, a profile of one 4-slot
+   block); (b) a 4-slot BatchScheduler: six requests at once (40, 512, 2048,
+   2500, 40, 600 ids, 32 greedy tokens), a 3000-id request cancelled after
+   its first chunk, the next request, and a turn that extends it (prefix
+   reuse); (d) that scheduler served on the native transport, four streams
+   one at a time and then at once; (c) an 8-slot scheduler, eight 40 + 16
+   requests, whose decode runs K4 and no K3. Each stream is held to the
+   same request run alone on the same shapes (batch-1 prefill, then decode
+   over as many cache rows as the scheduler has slots): equal up to a first
+   divergence, accepted only under a 0.02-nat top-two gap, logprobs before
+   it within 2e-2; (b)'s six are also compared with the batch-1
+   Engine.generate (reported). Phase 3 also runs its tiny hybrid
+   through a 2-slot scheduler on the card against Engine.generate on the
+   CPU.
+
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
 name and power limit and the JSON result; the line before them lists the
@@ -249,14 +271,7 @@ def reference_phase(label, cfg, quant, tol, prepare=None, launched=()):
     for m, attr in C.values():
         setattr(m, attr, 0)
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev) if hasattr(tree, "to") else tree
-
-    gpu = to(cpu, "cuda")
+    gpu = to_device(cpu, "cuda")
     prompt = torch.randint(1, cfg.vocab_size, (1, 160), generator=torch.Generator().manual_seed(3))
     worst, worst_rel = 0.0, 0.0
     for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
@@ -754,11 +769,10 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
     """K3 (and K5) at T = 1 with the routed picks plus the folded shared
     experts; K4 at T = 2048 over the whole stack."""
     import torch
-    from krasis_tpu_torch.ops import gmm_cuda, moe_cuda
+    from krasis_tpu_torch.ops import moe_cuda
     from krasis_tpu_torch.quant import qtensor_bytes
 
     dev = flush.device
-    C = counters()
     E_r, E_all, k = cfg.n_routed_experts, w13.q.shape[0], cfg.num_experts_per_tok
     Hd, I = cfg.hidden_size, cfg.moe_intermediate_size
     x = torch.randn((1, Hd), generator=g, device=dev).to(torch.bfloat16)
@@ -778,12 +792,27 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
     T = 2048
     x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
     topk = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    k4_checks(results, prefix, x, topk, w13, w2, cfg)
+
+
+def k4_checks(results, prefix, x, topk, w13, w2, cfg, iters=10):
+    """K4's two launches (w13 with the SwiGLU epilogue, w2 with the f32 one)
+    on the main path's tile plan for the picks topk [T, k], against their
+    plain versions, with grouped_mm as the yardstick of each product."""
+    import torch
+    from krasis_tpu_torch.ops import gmm_cuda
+    from krasis_tpu_torch.quant import qtensor_bytes
+
+    C = counters()
+    E_all = w13.q.shape[0]
+    T, k = topk.shape
+    Hd, I = cfg.hidden_size, cfg.moe_intermediate_size
     M = T * k
     plan = gmm_cuda.plan_tiles(topk, E_all, gmm_cuda.choose_tm(M, E_all))   # the main path's
     real = plan.row_src >= 0
     hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E_all) > 0).sum())
     print(f"[kernel] {prefix}gmm: {plan.tm}-row tiles, {int(plan.tile_valid.sum())} of "
-          f"{plan.n_tiles} computed", flush=True)
+          f"{plan.n_tiles} computed, {hit} of {E_all} experts hit", flush=True)
     a_plain = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True)
     h_plain = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, False)[real]
     lib13 = grouped_mm_library(prefix + "gmm:w13 (product alone, no SwiGLU)",
@@ -793,7 +822,7 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
                  lambda: gmm_cuda.gmm(x, plan.row_src, w13, plan, True),
                  lambda: gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True),
                  lib13, 3e-2, hit * qtensor_bytes(w13) / E_all + T * Hd * 2 + M * I * 2,
-                 2 * M * Hd * 2 * I, PEAK_BF16, 10, None, select=lambda o: o[real])
+                 2 * M * Hd * 2 * I, PEAK_BF16, iters, None, select=lambda o: o[real])
     o_plain = gmm_cuda.gmm_plain(a_plain, None, w2, plan, False)
     lib2 = grouped_mm_library(prefix + "gmm:w2", a_plain[real], w2, plan, torch.float32,
                               o_plain[real])
@@ -801,7 +830,7 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
                  lambda: gmm_cuda.gmm(a_plain, None, w2, plan, False),
                  lambda: gmm_cuda.gmm_plain(a_plain, None, w2, plan, False),
                  lib2, 3e-2, hit * qtensor_bytes(w2) / E_all + M * I * 2 + M * Hd * 4,
-                 2 * M * I * Hd, PEAK_BF16, 10, None, select=lambda o: o[real])
+                 2 * M * I * Hd, PEAK_BF16, iters, None, select=lambda o: o[real])
 
 
 def v2lite_kernel_phase(params, cfg, results, g, flush):
@@ -1574,8 +1603,9 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
     eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
     wall_ms = (time.perf_counter() - t0) * 1e3
     # the second step is recorded: the first, one small kernel, warms the
-    # tracer up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+    # tracer up. Device activity alone: the rows are device kernels, and
+    # host-side events of a 60,000-launch request only add tracing work
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         torch.ones(1, device="cuda").add_(1)
         recorded_step(prof)
@@ -1614,7 +1644,7 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
-               prefill_off_names=(), prefill_on_names=(), profile_bf16=0):
+               prefill_off_names=(), prefill_on_names=(), profile_bf16=0, batched=None):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1631,7 +1661,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     family's bits) and neither K3's nor K5's earlier ones. No MoE call may
     take a plain form (``moe.plain_routes``). Fills the launch counts into
     this family's entries of `results` (by form for K2 entries that name
-    one)."""
+    one). Then `batched(eng, cfg, results, rng)`, the continuous-batching
+    phase on the same weights, when given."""
     import gc
     from dataclasses import replace
 
@@ -1757,6 +1788,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
           f"requests {t_requests - t_kernels:.1f} s, other entry points "
           f"{t_entries - t_requests:.1f} s, profiles {time.perf_counter() - t_entries:.1f} s",
           flush=True)
+    if batched is not None:
+        batched(eng, cfg, results, rng)
     del eng, engines, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2604,7 +2637,8 @@ def free_port() -> int:
 
 def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64):
     """10a. ``python -m krasis_tpu_torch.server`` at full width on the native
-    transport, as a user starts it: health, models, a 404, a 512-id prompt
+    transport, as a user starts it (with ``--slots N`` among `server_args`,
+    through a BatchScheduler): health, models, a 404, a 512-id prompt
     (the synthetic path's cap) with `new` greedy tokens unstreamed and then
     streamed with logprobs and usage (the same ids), a stop string that ends
     a stream early, a stream the client drops (the next request must be
@@ -2651,7 +2685,20 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64):
             fail(f"/v1/models answered {status} {body!r}")
         if http_call(port, "GET", "/nope")[0] != 404:
             fail("/nope did not answer 404")
-        if json.loads(open(os.path.join(home, "servers", f"{port}.json")).read())["port"] != port:
+        # the native transport answers while run_server is still writing the
+        # registry entry (it needs the bound port): give it a moment
+        entry = os.path.join(home, "servers", f"{port}.json")
+
+        def registered():
+            try:
+                with open(entry) as f:
+                    return json.load(f)["port"] == port
+            except (OSError, ValueError):
+                return False
+        deadline = time.perf_counter() + 10
+        while not registered() and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        if not registered():
             fail("the registry entry is missing")
 
         text = "".join(chr(0x41 + (i * 7) % 26) for i in range(600))      # hashes to 512 ids
@@ -2737,12 +2784,14 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64):
             fail(f"the server exited with {rc} on SIGTERM")
         if os.listdir(os.path.join(home, "servers")):
             fail("the registry entry outlived the server")
-        timing = full["timing"]
+        # the single-request path reports its engine's timing; the scheduler's does not
+        timing = full.get("timing")
+        timing = (f"timing prefill {timing['prefill_tok_s']} tok/s, decode "
+                  f"{timing['decode_tok_s']} tok/s; " if timing else "")
         print(f"[serve] subprocess {' '.join(server_args)}, native transport: up in "
               f"{t_up:.1f} s; 512 + {new} greedy: unstreamed ids = streamed ids, usage right; "
               f"role chunk at {1e3 * t_role:.1f} ms, first content chunk at "
-              f"{1e3 * t_content[0]:.1f} ms, [DONE] at {t_done:.2f} s; timing prefill "
-              f"{timing['prefill_tok_s']} tok/s, decode {timing['decode_tok_s']} tok/s; the stop "
+              f"{1e3 * t_content[0]:.1f} ms, [DONE] at {t_done:.2f} s; {timing}the stop "
               f"{stop!r} ended the stream at token {k}; after a dropped 2048-token "
               f"stream the next 4-token request took {t_next:.2f} s (alone {t_short:.2f} s); two "
               f"concurrent 16-token requests {t_pair:.2f} s, both answered; exit 0 on SIGTERM; "
@@ -2895,6 +2944,714 @@ def serve_checkpoint_phase(path, quant):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# 11. [batch]: continuous batching (runtime/scheduler.py) on V2-Lite Q4
+# --------------------------------------------------------------------------
+
+BATCH_PROMPTS = (40, 512, 2048, 2500, 40, 600)   # (b): six requests at once on 4 slots
+BATCH_NEW = 32
+GAP_NATS = 0.02     # a batched stream may leave its solo stream only under this top-2 gap
+STREAM_LP_TOL = 2e-2
+# A batched row against the batch-1 decode from the same state, on the steps
+# where every MoE layer picked the same experts for it: cuBLAS takes other
+# algorithms at M = 1 than at M = slots, and 27 random layers carry the
+# rounding on. Set from card readings of V2-Lite Q4 at 4 / 8 slots: token
+# logprobs median 0.0003 / 0.0015 nats, largest 0.068 / 0.055; written cache
+# rows median 0.005 / 0.011, largest 0.076 / 0.041 (0.08-0.8 where routers
+# picked other experts). A decode row written one position off moves its
+# cache rows by more than 1.
+FORCED_LP_TOL = 0.15       # each held step
+FORCED_LP_MEDIAN = 5e-3    # the median of a run's held steps
+FORCED_ROW_TOL = 0.25      # a cache row the step wrote, relative to its largest value
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev) if hasattr(tree, "to") else tree
+
+
+def stream_check(label, tokens, logprobs, solo, gap=GAP_NATS, lp_tol=STREAM_LP_TOL):
+    """A batched stream against a solo run of the same ids (`solo`: tokens,
+    logprobs and each step's top two (token, logprob), or None where the
+    solo run gives none): tokens equal up to a first divergence, accepted
+    only where the solo run's top-two logprob gap at that step is under
+    `gap`, and logprobs before it within `lp_tol`. Returns (the step of the
+    divergence or None, the worst logprob difference before it)."""
+    if len(tokens) != len(solo.tokens):
+        raise AssertionError(f"{label}: {len(tokens)} tokens, the solo run {len(solo.tokens)}")
+    first = next((i for i, (a, b) in enumerate(zip(tokens, solo.tokens)) if a != b), None)
+    upto = len(tokens) if first is None else first
+    worst = max((abs(a - b) for a, b in zip(logprobs[:upto], solo.logprobs[:upto])),
+                default=0.0)
+    if not worst <= lp_tol:
+        raise AssertionError(f"{label}: logprobs {worst:.3g} from the solo run's")
+    if first is not None:
+        if solo.top_logprobs is None:
+            raise AssertionError(f"{label}: left the solo stream at step {first}")
+        (_, top1), (_, top2) = solo.top_logprobs[first][:2]
+        if not top1 - top2 < gap:
+            raise AssertionError(f"{label}: left the solo stream at step {first}, where its "
+                                 f"top-two gap is {top1 - top2:.4f} nats")
+    return first, worst
+
+
+def teacher_forced(eng, prompt, toks, slots, chunk):
+    """A scheduler's stream `toks` teacher-forced through two decode paths
+    that start every step from one state. The wide path has the
+    scheduler's shapes: the prompt prefilled at batch 1 in `chunk`-token
+    chunks (the batch-1 engine's prefill), its cache copied into row 0 of a
+    `slots`-row cache, decode forwards over every row, the others idle. The
+    narrow path is Engine.generate's batch-1 decode forward, with bf16
+    expert activations where `slots` rows take the grouped MoE regime and
+    one row the gathered (``moe.use_grouped_path``), as the grouped regime's
+    rows are bf16 (for V2-Lite: 8 slots, K4 against K5). Both are fed
+    the stream's previous token; after each step the wide cache's row 0 is
+    copied over the batch-1 cache, so a step's difference is that one
+    forward's; and the cache rows the step wrote for row 0 are compared
+    before that copy, as the batch-1 path reads the wide path's cache. Per
+    step: each path's greedy token, top two logprobs and logprob of the
+    stream's token, the largest logprob difference over the vocabulary, how
+    many MoE layers picked other experts for row 0 (``compute_routing``),
+    and the largest difference of a written cache row relative to the
+    row's largest value. Returns the narrow path's expert activation and
+    the steps."""
+    from dataclasses import replace
+
+    import torch
+    from krasis_tpu_torch.models import model as M
+    from krasis_tpu_torch.ops.moe import use_grouped_path
+    from krasis_tpu_torch.runtime.kv_cache import init_cache, insert_slot
+
+    cfg, quant, dev = eng.cfg, eng.quant, eng.device
+    E = next(lp["w13"] for lp in eng.params["layers"] if "w13" in lp).q.shape[0]
+    k = cfg.num_experts_per_tok + E - cfg.n_routed_experts     # the folded shared experts
+    narrow_quant = (replace(quant, expert_activation="bf16")
+                    if use_grouped_path(slots, k, E) and not use_grouped_path(1, k, E)
+                    else quant)
+    picks = []
+    real = M.compute_routing
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        picks.append(out.topk_idx[:1].sort(dim=-1).values)
+        return out
+
+    def decode(cur, ones, cache, quant):
+        return M.forward(eng.params, cur, ones, cache, cfg, quant, prefill=False)
+
+    def read(logits, tok):
+        lsm = torch.log_softmax(logits[0].to(torch.float32), -1)
+        top = torch.topk(lsm, 2)
+        return lsm, torch.cat([top.indices.to(torch.float64), top.values.to(torch.float64),
+                               lsm[tok][None].to(torch.float64)])
+
+    engine_chunk = eng.chunk
+    M.compute_routing = recorded
+    try:
+        with torch.inference_mode():
+            eng.chunk = chunk
+            try:
+                eng.reset(eng.max_len)
+                logits = eng._prefill_prompt(prompt)
+            finally:
+                eng.chunk = engine_chunk
+            narrow = eng.cache
+            wide = init_cache(cfg, quant, slots, eng.max_len, dev)
+            insert_slot(wide, narrow, 0)
+            cur_w = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+            cur_n = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+            ones_w = torch.ones(slots, dtype=torch.int32, device=dev)
+            ones_n = torch.ones(1, dtype=torch.int32, device=dev)
+            lsm, w = read(logits, toks[0])
+            steps = [torch.cat([w, w, torch.zeros(3, dtype=torch.float64, device=dev)])]
+
+            def written(cache, at):
+                """What row 0's step wrote: each layer's cache row at `at`
+                (a DeltaNet state, the whole of it)."""
+                return [(buf[0] if name in ("state", "conv") else buf[0, :, at]).float()
+                        for lc in cache["layers"] for name, buf in lc.items()]
+
+            for s in range(1, len(toks)):
+                cur_w[0, 0] = cur_n[0, 0] = toks[s - 1]
+                picks.clear()
+                lw, w = read(decode(cur_w, ones_w, wide, quant), toks[s])
+                pw = list(picks)
+                picks.clear()
+                ln, n = read(decode(cur_n, ones_n, narrow, narrow_quant), toks[s])
+                flips = sum((a != b).any().to(torch.float64) for a, b in zip(pw, picks))
+                at = len(prompt) + s - 1
+                row = torch.stack([(a - b).abs().max() / b.abs().max().clamp(min=1e-30)
+                                   for a, b in zip(written(wide, at), written(narrow, at))]).max()
+                steps.append(torch.cat([w, n, (lw - ln).abs().max()[None].to(torch.float64),
+                                        torch.as_tensor(flips, dtype=torch.float64,
+                                                        device=dev)[None],
+                                        row[None].to(torch.float64)]))
+                # the forward may put new buffers in the cache: view them now
+                insert_slot(narrow, {"layers": [{name: buf[:1] for name, buf in lc.items()}
+                                                for lc in wide["layers"]],
+                                     "length": wide["length"][:1]}, 0)
+            rows = torch.stack(steps).tolist()
+            del wide
+    finally:
+        M.compute_routing = real
+    return narrow_quant.expert_activation, [
+        {"wide": (int(r[0]), r[2], r[3], r[4]), "narrow": (int(r[5]), r[7], r[8], r[9]),
+         "vocab_diff": r[10], "flips": int(r[11]), "row_diff": r[12]} for r in rows]
+
+
+def hold_teacher_forced(label, toks, lps, steps):
+    """Hold a scheduler stream to ``teacher_forced``'s two paths. The wide
+    path (the scheduler's shapes): at every step its greedy token is the
+    stream's unless its top-two gap is under GAP_NATS, and its logprob of
+    the stream's token is the scheduler's within STREAM_LP_TOL. The batch-1
+    path, on every step where no MoE layer picked other experts for the row:
+    its logprob of the stream's token is the wide path's within
+    FORCED_LP_TOL, and its greedy token is the stream's unless its top-two
+    gap is under twice that (the caller holds the median, FORCED_LP_MEDIAN),
+    and the cache rows the step wrote are the wide path's within
+    FORCED_ROW_TOL of their largest value. Returns (steps, the held steps'
+    logprob differences, their largest logprob difference over the
+    vocabulary, their largest cache row difference, the steps with other
+    picks and their count of layers)."""
+    if len(toks) != len(steps):
+        raise AssertionError(f"{label}: {len(toks)} tokens, {len(steps)} steps forced")
+    held, vocab, row, flipped = [], 0.0, 0.0, []
+    for s, (tok, lp, st) in enumerate(zip(toks, lps, steps)):
+        w_tok, w1, w2, w_lp = st["wide"]
+        n_tok, n1, n2, n_lp = st["narrow"]
+        if (w_tok != tok and not w1 - w2 < GAP_NATS) or not abs(w_lp - lp) <= STREAM_LP_TOL:
+            raise AssertionError(f"{label}: step {s} on the scheduler's shapes gives token "
+                                 f"{w_tok} (the stream {tok}, top-two gap {w1 - w2:.4f}), "
+                                 f"logprob {w_lp:.5f} against the scheduler's {lp:.5f}")
+        if st["flips"]:
+            flipped.append((s, st["flips"]))
+            continue
+        held.append(abs(n_lp - w_lp))
+        vocab, row = max(vocab, st["vocab_diff"]), max(row, st["row_diff"])
+        if ((n_tok != tok and not n1 - n2 < 2 * FORCED_LP_TOL) or not held[-1] <= FORCED_LP_TOL
+                or not st["row_diff"] <= FORCED_ROW_TOL):
+            raise AssertionError(f"{label}: step {s}, same experts in every layer: the batch-1 "
+                                 f"decode gives token {n_tok} (the stream {tok}, top-two gap "
+                                 f"{n1 - n2:.4f}), logprob {n_lp:.5f} against {w_lp:.5f}, "
+                                 f"cache rows {st['row_diff']:.3g} apart")
+    return len(steps), held, vocab, row, flipped
+
+
+def row_alone(entry, batched, alone):
+    """Whether each row of a batched kernel call equals the row run alone."""
+    import torch
+
+    diff = float((batched.float() - alone.float()).abs().max())
+    entry["row_alone_max_abs_diff"] = diff
+    entry["row_alone_bit_equal"] = bool(torch.equal(batched, alone))
+    print(f"[kernel] {entry['name']}: each row against the row alone: "
+          f"{'equal bit for bit' if entry['row_alone_bit_equal'] else f'max|Δ| {diff:.3g}'}",
+          flush=True)
+
+
+def batch_kernel_checks(params, cfg, g, flush):
+    """(a) The kernels at the shapes batched decode gives them on V2-Lite Q4:
+    K1 on the lm_head at T = 4 and 8, K3 at T = 2 and 4, K2's split form at
+    B = 4 over a 4096-row view with a different kv_len a row (bf16 and e4m3;
+    and a row past the cache end, ROADMAP C-7), K4 at T = 8 (64 picks); each
+    against its plain version, and each row against the row run alone."""
+    import torch
+    import torch.nn.functional as F
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import gmm_cuda, moe_cuda, qmm_cuda
+    from krasis_tpu_torch.ops.rope import yarn_softmax_scale
+    from krasis_tpu_torch.quant import qtensor_bytes
+    from krasis_tpu_torch.runtime.kv_cache import to_cache
+
+    dev = flush.device
+    mine = []
+    lm_head = params["lm_head"]
+    for T in (4, 8):
+        qmm_checks(mine, "batch/", ((f"qmm:lm_head_T{T}", lm_head, None, torch.float32, T),),
+                   g, flush)
+        x = torch.randn((T, lm_head.k_dim), generator=g, device=dev).to(torch.bfloat16)
+        row_alone(mine[-1][1], qmm_cuda.qmm(x, lm_head, torch.float32),
+                  torch.cat([qmm_cuda.qmm(x[r:r + 1], lm_head, torch.float32)
+                             for r in range(T)]))
+
+    moe = next(lp for lp in params["layers"] if "w13" in lp)
+    w13, w2 = moe["w13"], moe["w2"]
+    E_r, E_all, k = cfg.n_routed_experts, w13.q.shape[0], cfg.num_experts_per_tok
+    Hd, I = cfg.hidden_size, cfg.moe_intermediate_size
+    per_expert = (qtensor_bytes(w13) + qtensor_bytes(w2)) / E_all
+
+    def picks(T):
+        """A decode step's picks: each row's k routed experts and the folded shared ones."""
+        routed = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices
+        shared = torch.arange(E_r, E_all, device=dev).expand(T, E_all - E_r)
+        wts = torch.cat([torch.rand((T, k), generator=g, device=dev) * 0.3,
+                         torch.ones((T, E_all - E_r), device=dev)], dim=1)
+        return torch.cat([routed, shared], dim=1).to(torch.int32), wts
+
+    for T in (2, 4):
+        x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
+        idx, wts = picks(T)
+        hit = int(torch.unique(idx).numel())
+        k3_checks(mine, f"batch/moe_decode_T{T}", x, w13, w2, idx, wts, moe_cuda.REPLACES,
+                  hit * per_expert + T * Hd * 4, 2 * idx.numel() * (Hd * 2 * I + I * Hd), flush)
+        mine[-1][1]["experts_hit"] = hit
+        row_alone(mine[-1][1], moe_cuda.moe_w4a8(x, w13, w2, idx, wts),
+                  torch.cat([moe_cuda.moe_w4a8(x[r:r + 1], w13, w2, idx[r:r + 1], wts[r:r + 1])
+                             for r in range(T)]))
+
+    # K2's split form over each slot's cache row: 16 heads on one [ckv; kpe]
+    # row, unit-scale keys (score std 3.2), kv_len 40 / 600 / 2048 / 2560
+    L, DR = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    lanes, Dp, Hq, S, B = L + DR, 640, cfg.num_attention_heads, 4096, 4
+    scale = yarn_softmax_scale((cfg.qk_nope_head_dim + DR) ** -0.5, cfg.rope_scaling)
+    lens = torch.tensor([40, 600, 2048, 2560], dtype=torch.int32, device=dev)
+
+    def rows(shape):
+        t = torch.zeros(shape[:-1] + (Dp,), dtype=torch.bfloat16, device=dev)
+        t[..., :lanes] = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return t
+
+    kv16, q = rows((B, 1, S, lanes)), rows((B, 1, Hq, lanes))
+    qo = lens - 1
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    qh = q.transpose(1, 2)[..., :lanes]
+    total = int(lens.sum())
+    chunk, n = fa.split_plan(S, 1, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"[kernel] batch/attention: split_plan at B = {B}: {n} splits of {chunk} rows "
+          f"(B = 1: {fa.split_plan(S, 1, 1)[0]}-row splits)", flush=True)
+    for suffix, kv in (("", kv16), (":fp8", to_cache(kv16, torch.float8_e4m3fn))):
+        kh = kv.to(torch.bfloat16)[..., :lanes].expand(B, Hq, S, lanes)
+
+        def run(kv=kv, qo=qo, lens=lens):
+            return fa.flash_attention(q, kv, qo, lens, scale, L, qk_dim=lanes)
+        check_kernel(mine, "batch/attention:decode_B4_kv_40_600_2048_2560" + suffix,
+                     counters()["K2"], fa.REPLACES_DECODE, run,
+                     lambda kv=kv: fa.flash_attention_plain(q, kv, qo, lens, scale, L, None,
+                                                            lanes),
+                     lambda kh=kh: F.scaled_dot_product_attention(qh, kh, kh[..., :L],
+                                                                  attn_mask=mask, scale=scale),
+                     2e-2, B * Hq * lanes * 2 + total * lanes * kv.element_size()
+                     + B * Hq * L * 2, 2 * Hq * total * (lanes + L), PEAK_BF16, 50, flush)
+        mine[-1][1]["form"] = "split" + ("+fp8" if suffix else "")
+        row_alone(mine[-1][1], run(), torch.cat([
+            fa.flash_attention(q[b:b + 1], kv[b:b + 1], qo[b:b + 1], lens[b:b + 1], scale, L,
+                               qk_dim=lanes) for b in range(B)]))
+        # ROADMAP C-7: a row whose kv_len runs past the cache end (its row was
+        # dropped) reads the whole cache and nothing past it
+        over = lens.clone()
+        over[3] = S + 3
+        at_end = lens.clone()
+        at_end[3] = S
+        past, end = run(qo=over - 1, lens=over), run(qo=at_end - 1, lens=at_end)
+        want = fa.flash_attention_plain(q, kv, at_end - 1, at_end, scale, L, None, lanes)
+        print(f"[kernel] batch/attention{suffix}: a row at kv_len S + 3 "
+              f"{'equals' if torch.equal(past, end) else 'differs from'} the row at kv_len S "
+              f"bit for bit; {max_err(past, want, 2e-2)[1]:.3g} of the limit from the plain "
+              "version", flush=True)
+        if not torch.equal(past, end):
+            raise AssertionError("C-7: K2 read past the cache end")
+
+    T = 8
+    x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
+    idx, wts = picks(T)
+    k4_checks(mine, "batch/decode_T8_", x, idx, w13, w2, cfg, iters=50)
+    row_alone(mine[-1][1], gmm_cuda.moe_prefill(x, w13, w2, idx, wts),
+              torch.cat([gmm_cuda.moe_prefill(x[r:r + 1], w13, w2, idx[r:r + 1], wts[r:r + 1])
+                         for r in range(T)]))
+    return mine
+
+
+def batch_phase(eng, cfg, results, rng):
+    """11. Continuous batching on phase 4's V2-Lite Q4 engine (its weights,
+    27 layers at full width, int8 expert activations, max_len 4096): (a) the
+    kernels at batched shapes; decode blocks of 1, 4 and 8 busy slots run
+    directly (launches a step by kernel, the aggregate rate beside
+    Engine.generate's, a profile of one 4-slot block); (b) a 4-slot
+    BatchScheduler with six requests submitted at once, a 3000-id request
+    cancelled mid-prefill, the next request, and a turn that extends it
+    (prefix reuse); (d) that scheduler served on the native transport, four
+    streams one at a time and then at once; (c) an 8-slot scheduler with
+    eight requests at once, whose decode runs K4 and no K3. Every scheduler
+    stream is teacher-forced through the scheduler's shapes and the batch-1
+    decode from one state each step (``teacher_forced``) and held to both
+    (``hold_teacher_forced``); a served stream is held to the same request
+    served alone (``stream_check``). (b)'s six are also compared with the
+    free-running batch-1 Engine.generate (reported, not held). The launch
+    counts are set to 0 before (b) and (c) and read after each."""
+    import statistics
+    import threading
+    from types import SimpleNamespace
+
+    import torch
+    from krasis_tpu_torch import server
+    from krasis_tpu_torch.models.model import decode_block_batched
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe
+    from krasis_tpu_torch.ops.sampling import SamplingParams
+    from krasis_tpu_torch.runtime.kv_cache import init_cache, insert_slot
+    from krasis_tpu_torch.runtime.scheduler import BatchScheduler
+    from krasis_tpu_torch.timing import recorded_step, traced_kernels
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    t0 = time.perf_counter()
+    card = card_line()
+    V = cfg.vocab_size
+    dev = eng.device        # the card; the CPU in a rehearsal at tiny widths
+    on_card = dev.type == "cuda"      # the plain versions a CPU rehearsal runs count nothing
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    mine = []
+    if on_card:
+        g = torch.Generator(device=dev)
+        g.manual_seed(4321)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        mine = batch_kernel_checks(eng.params, cfg, g, flush)
+        del flush
+    t_kernels = time.perf_counter()
+
+    C = counters()
+    greedy = SamplingParams(temperature=0.0)
+
+    def zero():
+        for m, attr in C.values():
+            setattr(m, attr, 0)
+        fa.form_launches.clear()
+        moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+
+    def read():
+        if any(moe.plain_routes.values()):
+            raise AssertionError(f"[batch] MoE calls on a plain form {moe.plain_routes}")
+        return {name: getattr(m, attr) for name, (m, attr) in C.items()}
+
+    def ids(n):
+        return rng.integers(100, V - 100, n).tolist()
+
+    def drain(req):
+        toks = []
+        while (t := req.out_queue.get(timeout=600)) is not None:
+            toks.append(t)
+        if req.error is not None:
+            raise AssertionError(f"[batch] the scheduler failed: {req.error!r}")
+        return toks
+
+    checked = []          # (label, step of divergence or None, worst logprob difference)
+    forced = []           # (label, hold_teacher_forced's summary)
+
+    def check(label, prompt, toks, lps, new, slots, chunk=None):
+        """Hold a scheduler stream to ``teacher_forced``'s two paths (`chunk`:
+        where the scheduler prefilled in other chunks than the engine's, a
+        prefix reused from its cache)."""
+        if len(toks) != new:
+            raise AssertionError(f"[batch] {label}: {len(toks)} tokens, not {new}")
+        act, steps = teacher_forced(eng, prompt, toks, slots, chunk or sched_chunk)
+        forced.append((f"{label} (batch-1 at {act} expert activations)",
+                       hold_teacher_forced(label, toks, lps, steps)))
+
+    # --- decode blocks run directly: launches a step, aggregate rate, profile
+    solo_rate = eng.generate(ids(40), max_new_tokens=BATCH_NEW, stop_ids={-1}).decode_tok_s
+    per_step, rates = {}, {}
+    with torch.inference_mode():
+        for B in (1, 4, 8):
+            cache = init_cache(cfg, eng.quant, B, eng.max_len, dev)
+            state = dict(tok=torch.full((B,), 100, dtype=torch.int64, device=dev),
+                         seen=torch.zeros((B, V), dtype=torch.bool, device=dev),
+                         temperature=torch.zeros(B, device=dev),
+                         top_p=torch.ones(B, device=dev),
+                         presence_penalty=torch.zeros(B, device=dev),
+                         top_k=torch.zeros(B, dtype=torch.int32, device=dev))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+
+            def block(steps):
+                cache["length"].fill_(600)
+                toks, _ = decode_block_batched(eng.params, cache=cache, cfg=cfg,
+                                               quant=eng.quant, steps=steps, generator=gen,
+                                               need_logprobs=False, **state)
+                return toks.tolist()
+
+            block(1)
+            zero()
+            block(1)
+            per_step[B] = read()
+            walls = []
+            for _ in range(3):
+                sync()
+                t = time.perf_counter()
+                block(8)
+                walls.append(time.perf_counter() - t)
+            wall = sorted(walls)[1]
+            rates[B] = B * 8 / wall
+            if B == 4 and on_card:
+                with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                             schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+                    torch.ones(1, device=dev).add_(1)
+                    recorded_step(prof)
+                    block(8)
+                    torch.cuda.synchronize()
+                    prof.step()
+                rows = sorted(((key, us / 1e3, n) for key, us, n in traced_kernels(prof) if us > 0),
+                              key=lambda r: -r[1])
+                busy = sum(r[1] for r in rows)
+                print(f"[profile] one 4-slot decode block (8 steps, kv_len 600): wall "
+                      f"{1e3 * wall:.1f} ms unprofiled, device kernels {busy:.1f} ms "
+                      f"({100 * busy / (1e3 * wall):.1f}% busy), "
+                      f"{sum(r[2] for r in rows)} launches", flush=True)
+                for key, ms, n in rows[:10]:
+                    print(f"[profile]   {ms:9.2f} ms {n:6d}x  {key[:90]}")
+            del cache
+    print(f"[batch] launches a decode step by slots: {json.dumps(per_step)}", flush=True)
+    print(f"[batch] aggregate decode tok/s (blocks of 8 steps run directly, kv_len 600): "
+          + ", ".join(f"{B} slots {r:.2f}" for B, r in rates.items())
+          + f"; Engine.generate one slot (40 + {BATCH_NEW}) {solo_rate:.2f}; {card}", flush=True)
+    for name in ("K1", "K2", "K3"):
+        if on_card and per_step[4][name] <= 0:
+            raise AssertionError(f"[batch] a 4-slot decode step launched no {name}")
+    if on_card and (per_step[4]["K4"] != 0 or per_step[8]["K3"] != 0 or per_step[8]["K4"] <= 0):
+        raise AssertionError("[batch] 4 slots must decode on K3 and 8 slots on K4")
+    t_blocks = time.perf_counter()
+
+    # --- (b) a 4-slot scheduler: six requests at once, a cancel, prefix reuse
+    sched = BatchScheduler(cfg, eng.quant, eng.params, max_len=eng.max_len, num_slots=4,
+                           decode_block=8, device=dev)
+    sched_chunk = sched.chunk
+    try:
+        drain(sched.submit(ids(256), max_new_tokens=4, sampling=greedy))     # warm-up
+        prompts = [ids(n) for n in BATCH_PROMPTS]
+        zero()
+        t = time.perf_counter()
+        reqs = [sched.submit(p, max_new_tokens=BATCH_NEW, sampling=greedy, stop_ids={-1},
+                             want_logprobs=True) for p in prompts]
+        outs = [drain(r) for r in reqs]
+        wall_b = time.perf_counter() - t
+        # a 3000-id request (two chunks) cancelled after its first chunk: a
+        # request decoding beside it puts a decode block between the chunks
+        beside = sched.submit(ids(40), max_new_tokens=BATCH_NEW, sampling=greedy,
+                              stop_ids={-1})
+        if beside.out_queue.get(timeout=600) is None:
+            raise AssertionError("[batch] the request beside the cancelled one ended at once")
+        chunks = sched.stats["prefill_chunks"]
+        long = sched.submit(ids(3000), max_new_tokens=16, sampling=greedy, stop_ids={-1})
+        deadline = time.perf_counter() + 600
+        while sched.stats["prefill_chunks"] == chunks and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        long.cancelled.set()
+        cancelled = drain(long)
+        cancelled_chunks = sched.stats["prefill_chunks"] - chunks
+        drain(beside)
+        turn1 = ids(300)
+        r1 = sched.submit(turn1, max_new_tokens=16, sampling=greedy, stop_ids={-1},
+                          want_logprobs=True)
+        out1 = drain(r1)
+        reused = sched.stats["prefix_reused_tokens"]
+        turn2 = turn1 + ids(200)
+        r2 = sched.submit(turn2, max_new_tokens=16, sampling=greedy, stop_ids={-1},
+                          want_logprobs=True)
+        out2 = drain(r2)
+        reused = sched.stats["prefix_reused_tokens"] - reused
+        counts_b, forms_b = read(), dict(fa.form_launches)
+        print(f"[batch] 4 slots: {len(BATCH_PROMPTS)} requests ({'+'.join(map(str, BATCH_PROMPTS))} "
+              f"ids, {BATCH_NEW} greedy tokens each) answered in {wall_b:.2f} s "
+              f"({len(BATCH_PROMPTS) * BATCH_NEW / wall_b:.2f} tok/s); a 3000-id request "
+              f"cancelled after its first chunk ran {cancelled_chunks} of its 2 chunks and gave "
+              f"{len(cancelled)} tokens, and the next request was answered; the next turn "
+              f"reused {reused} cached tokens; "
+              f"{sched.stats['prefill_chunks']} prefill chunks, "
+              f"{sched.stats['decode_blocks']} decode blocks; launches {json.dumps(counts_b)}; "
+              f"K2 by form {json.dumps(forms_b)}; {card}", flush=True)
+        if cancelled or cancelled_chunks != 1 or reused != len(turn1):
+            raise AssertionError(f"[batch] the cancel ran {cancelled_chunks} chunks and gave "
+                                 f"{len(cancelled)} tokens; the reuse took {reused}")
+        for name in ("K1", "K2", "K3", "K4"):
+            if on_card and counts_b[name] <= 0:
+                raise AssertionError(f"[batch] the 4-slot run launched no {name}")
+        t_b = time.perf_counter()
+        for n, p, r, out in zip(BATCH_PROMPTS, prompts, reqs, outs):
+            check(f"4 slots, {n} ids", p, out, r.logprobs, BATCH_NEW, 4)
+        check("4 slots, the turn before", turn1, out1, r1.logprobs, 16, 4)
+        check("4 slots, prefix reuse", turn2, out2, r2.logprobs, 16, 4, chunk=len(turn1))
+        # the same six against the batch-1 Engine.generate over their first 16
+        # tokens, reported: its decode runs the cuBLAS products at M = 1, not 4
+        apart = []
+        for n, p, r, out in zip(BATCH_PROMPTS, prompts, reqs, outs):
+            one = eng.generate(p, max_new_tokens=16, stop_ids={-1}, top_logprobs=2)
+            first = next((i for i, (a, b) in enumerate(zip(out, one.tokens)) if a != b), None)
+            upto = 16 if first is None else first
+            gap = None if first is None else one.top_logprobs[first][0][1] - one.top_logprobs[first][1][1]
+            apart.append({"ids": n, "first_divergence": first, "solo_top2_gap": gap,
+                          "lp_max_abs_diff_before": max(abs(a - b) for a, b in
+                                                        zip(r.logprobs[:upto], one.logprobs[:upto]))
+                          if upto else 0.0})
+        print(f"[batch] 4 slots against the batch-1 Engine.generate (reported, not held): "
+              f"{json.dumps(apart)}", flush=True)
+        t_b_check = time.perf_counter() - t_b
+
+        # --- (d) served through the scheduler, native transport
+        httpd = server.start_temp_server(eng, None, "synthetic/deepseek-v2-lite", port=0,
+                                         backend="native", scheduler=sched)
+        try:
+            texts = ["".join(chr(0x41 + (i * m) % 26) for i in range(600)) for m in (3, 5, 7, 11)]
+            bodies = [{"messages": [{"role": "user", "content": s}], "max_tokens": BATCH_NEW,
+                       "temperature": 0.0, "stream": True, "logprobs": True} for s in texts]
+            solo = [sse_stream(httpd.port, b) for b in bodies]
+            solo_walls = [x[3] for x in solo]
+            got = [None] * 4
+
+            def worker(i):
+                got[i] = sse_stream(httpd.port, bodies[i])
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall_d = time.perf_counter() - t
+        finally:
+            httpd.shutdown()
+        if any(x is None for x in got):
+            raise AssertionError("[batch] a concurrent served stream was not answered")
+        def served(chunks):
+            toks = [int(x) for x in stream_text(chunks).replace("<", " ").replace(">", " ")
+                    .split()]
+            lps = [e["logprob"] for c in chunks if c["choices"] and c["choices"][0].get("logprobs")
+                   for e in c["choices"][0]["logprobs"]["content"]]
+            if len(toks) != BATCH_NEW or len(lps) != BATCH_NEW:
+                raise AssertionError(f"[batch] a served stream gave {len(toks)} tokens")
+            return SimpleNamespace(tokens=toks, logprobs=lps, top_logprobs=None)
+        # each concurrent stream against the same request served alone
+        for i, (x, alone) in enumerate(zip(got, solo)):
+            x, alone = served(x[0]), served(alone[0])
+            checked.append((f"served stream {i}",)
+                           + stream_check(f"served stream {i}", x.tokens, x.logprobs, alone))
+        print(f"[batch] served, native transport, 4 slots: four concurrent streams of 512 ids + "
+              f"{BATCH_NEW} tokens in {wall_d:.2f} s against {sum(solo_walls):.2f} s for the "
+              f"same four one at a time ({', '.join(f'{w:.2f}' for w in solo_walls)} s); "
+              f"{4 * BATCH_NEW / wall_d:.2f} tok/s at once, "
+              f"{4 * BATCH_NEW / sum(solo_walls):.2f} one at a time; {card}", flush=True)
+    finally:
+        sched.shutdown()
+    del sched
+    torch.cuda.empty_cache()
+
+    # --- (c) 8 slots: eight 40 + 16 requests at once; decode on K4, no K3
+    sched = BatchScheduler(cfg, eng.quant, eng.params, max_len=eng.max_len, num_slots=8,
+                           decode_block=8, device=dev)
+    try:
+        drain(sched.submit(ids(256), max_new_tokens=4, sampling=greedy))     # warm-up
+        prompts8 = [ids(40) for _ in range(8)]
+        zero()
+        t = time.perf_counter()
+        reqs = [sched.submit(p, max_new_tokens=16, sampling=greedy, stop_ids={-1},
+                             want_logprobs=True) for p in prompts8]
+        outs = [drain(r) for r in reqs]
+        wall_c = time.perf_counter() - t
+        counts_c = read()
+    finally:
+        sched.shutdown()
+    del sched
+    torch.cuda.empty_cache()
+    print(f"[batch] 8 slots: eight 40 + 16 requests in {wall_c:.2f} s "
+          f"({8 * 16 / wall_c:.2f} tok/s); launches {json.dumps(counts_c)}; {card}", flush=True)
+    if on_card and (counts_c["K3"] != 0 or counts_c["K4"] <= 0):
+        raise AssertionError(f"[batch] 8-slot decode must run K4 and no K3: {counts_c}")
+    for i, (p, r, out) in enumerate(zip(prompts8, reqs, outs)):
+        check(f"8 slots, request {i}", p, out, r.logprobs, 16, 8)
+
+    diverged = [(label, step) for label, step, _ in checked if step is not None]
+    print(f"[batch] served streams: {len(checked)}, each against the same request served "
+          f"alone; {len(diverged)} left it, each at a top-two gap under {GAP_NATS} nats: "
+          f"{diverged}; logprobs before that within {max(w for _, _, w in checked):.3g} "
+          f"(limit {STREAM_LP_TOL})", flush=True)
+    for label, (n, held, vocab, row, flipped) in forced:
+        print(f"[batch] teacher-forced {label}: {n} steps, {len(held)} with the same experts as "
+              f"the batch-1 decode in every MoE layer, held there: token logprobs within "
+              f"{max(held, default=0.0):.3g} (limit {FORCED_LP_TOL}), median "
+              f"{statistics.median(held) if held else 0.0:.3g}, vocabulary within {vocab:.3g}, "
+              f"written cache rows within {row:.3g} (limit {FORCED_ROW_TOL}); steps with other "
+              f"picks (step, layers): {flipped}", flush=True)
+    for slots in (4, 8):
+        runs = [f for label, f in forced if label.startswith(f"{slots} slots")]
+        held = [d for f in runs for d in f[1]]
+        total = sum(f[0] for f in runs)
+        median = statistics.median(held) if held else None
+        print(f"[batch] teacher-forced stream check, {slots} slots: {len(runs)} scheduler "
+              f"streams, {total} steps; the scheduler's shapes gave each stream's tokens and "
+              f"logprobs; {len(held)} steps picked the same experts as the batch-1 decode "
+              f"in every MoE layer and were held to it: token logprobs within "
+              f"{max(held, default=0.0):.3g} (limit {FORCED_LP_TOL}), median {median} "
+              f"(limit {FORCED_LP_MEDIAN}), written cache rows within "
+              f"{max(f[3] for f in runs):.3g}; {total - len(held)} picked others in 1 or more "
+              f"layers; {card}", flush=True)
+        if median is None or not median <= FORCED_LP_MEDIAN:
+            raise AssertionError(f"[batch] {slots} slots against the batch-1 decode: median "
+                                 f"{median} over {len(held)} held steps")
+
+    slot_counts = {"K1": (counts_b, counts_c), "K2": (counts_b, None), "K3": (counts_b, None),
+                   "K4": (None, counts_c)}
+    by_counter = {C[name]: name for name in slot_counts}
+    for counter, res in mine:
+        name = by_counter[counter]
+        four, eight = slot_counts[name]
+        if "form" in res:
+            res["launches"] = forms_b.get(res["form"], 0)
+        else:
+            res["launches"] = (eight if "_T8" in res["name"] else four or eight)[name]
+        res["launches_4slot_step"] = per_step[4][name]
+        res["launches_8slot_step"] = per_step[8][name]
+    results.extend(mine)
+    print(f"[time] batch phase {time.perf_counter() - t0:.1f} s: kernel checks "
+          f"{t_kernels - t0:.1f} s, decode blocks {t_blocks - t_kernels:.1f} s, stream checks "
+          f"of (b) {t_b_check:.1f} s", flush=True)
+
+
+def hybrid_scheduler_reference():
+    """Phase 3's tiny hybrid (every expert picked) through a 2-slot
+    BatchScheduler on the card, three requests at once, against the port's
+    Engine.generate on the CPU (``stream_check`` at the phase's limit)."""
+    import torch
+    from krasis_tpu_torch.config import QuantConfig
+    from krasis_tpu_torch.models.params import init_synthetic_params
+    from krasis_tpu_torch.models.synthetic import tiny_config
+    from krasis_tpu_torch.ops.sampling import SamplingParams
+    from krasis_tpu_torch.runtime.engine import Engine
+    from krasis_tpu_torch.runtime.scheduler import BatchScheduler
+
+    cfg = tiny_config("qwen3-coder-next", num_experts_per_tok=8)
+    quant = QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16", attention="int8")
+    cpu = init_synthetic_params(cfg, quant, seed=1, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (24, 60, 100)]
+    sched = BatchScheduler(cfg, quant, to_device(cpu, "cuda"), max_len=256, num_slots=2,
+                           decode_block=4)
+    try:
+        reqs = [sched.submit(p, max_new_tokens=8, sampling=SamplingParams(temperature=0.0),
+                             stop_ids={-1}, want_logprobs=True) for p in prompts]
+        outs = []
+        for r in reqs:
+            toks = []
+            while (t := r.out_queue.get(timeout=300)) is not None:
+                toks.append(t)
+            if r.error is not None:
+                raise AssertionError(f"[reference] hybrid scheduler failed: {r.error!r}")
+            outs.append(toks)
+    finally:
+        sched.shutdown()
+    ref = Engine(cfg, quant, cpu, max_len=256, device="cpu")
+    checked = [stream_check(f"tiny hybrid scheduler, {len(p)} ids", toks, r.logprobs,
+                            ref.generate(p, max_new_tokens=8, stop_ids={-1}, top_logprobs=2),
+                            gap=5e-2, lp_tol=5e-2)
+               for p, r, toks in zip(prompts, reqs, outs)]
+    print(f"[reference] tiny Qwen3-Coder-Next hybrid through a 2-slot BatchScheduler on the card "
+          f"vs Engine.generate on the CPU: {len(checked)} streams of 8 tokens, divergences "
+          f"{[c[0] for c in checked]} (only under a 0.05-nat top-two gap), logprobs within "
+          f"{max(c[1] for c in checked):.3g} (limit 5e-2)", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2922,6 +3679,7 @@ def main() -> int:
                 print(f"[ptxas] {name}: {line.strip()}")
 
     reference_phases()
+    hybrid_scheduler_reference()
     c2_phase()
     c3_phase()
 
@@ -2932,7 +3690,8 @@ def main() -> int:
                ((2048, 64, "int8"), (2500, 32, "int8"), (40, 32, "int8"),
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "bf16")),
                ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=16,
-               forms=("one-launch", "split", "one-launch+fp8", "split+fp8"))
+               forms=("one-launch", "split", "one-launch+fp8", "split+fp8"),
+               batched=batch_phase)
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
@@ -2960,9 +3719,11 @@ def main() -> int:
                prefill_on_names=("gmm_kernel",))
     probe_phase(results)
     load_phase()
-    t0 = time.perf_counter()
-    serve_subprocess_phase()
-    print(f"[time] serve phase, server subprocess: {time.perf_counter() - t0:.1f} s", flush=True)
+    for server_args in (SERVE_SYNTHETIC, SERVE_SYNTHETIC + ("--slots", "4")):
+        t0 = time.perf_counter()
+        serve_subprocess_phase(server_args)
+        print(f"[time] serve phase, server subprocess {' '.join(server_args[2:])}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "
           "launches that open its recorded steps")

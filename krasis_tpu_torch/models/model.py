@@ -16,7 +16,7 @@ written to the cache; later chunks and decode read the cache, bf16 or fp8.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,17 +30,19 @@ from ..ops.norm import gated_rms_norm, rms_norm
 from ..ops.qmm import linear
 from ..ops.rope import apply_rope, rope_cos_sin, yarn_softmax_scale
 from ..ops.routing import compute_routing
+from ..ops.sampling import sample_batched
 from ..quant import QTensor
-from ..runtime.kv_cache import store
+from ..runtime.kv_cache import CacheRows, cache_rows, store_rows
 from .params import GATED_ATTENTION_TYPES, layer_specs
 
 
 def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor, kv_len: torch.Tensor,
                    cfg: ModelConfig, sliding: bool = False,
-                   fresh: bool = False) -> torch.Tensor:
+                   fresh: bool = False, at: Optional[CacheRows] = None) -> torch.Tensor:
     """`sliding`: the layer sees the last cfg.sliding_window keys only.
-    `fresh`: the first prefill chunk, which attends to its own k / v."""
+    `fresh`: the first prefill chunk, which attends to its own k / v. `at`:
+    where the new rows go in the cache (from `positions` when not given)."""
     B, S, _ = x.shape
     d = cfg.qk_head_dim
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -73,12 +75,10 @@ def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
 
     # caches are [B, Hkv, Smax, Dp] with the feature dim lane-padded
     Dp = lc["k"].shape[-1]
-    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)
-    # padding rows past the cache end are dropped, as XLA drops them
-    keep = positions < lc["k"].shape[2]
+    if at is None:
+        at = cache_rows(positions, lc["k"].shape[2])
     for name, new in (("k", k), ("v", v)):
-        store(lc[name], (bidx[keep], slice(None), positions[keep]),
-              F.pad(new, (0, Dp - d))[keep])
+        store_rows(lc[name], at, F.pad(new, (0, Dp - d)))
 
     if fresh:   # the chunk's own bf16 rows, padded as the cache's are
         kk, vv = (F.pad(t, (0, Dp - d)).transpose(1, 2) for t in (k, v))
@@ -144,7 +144,8 @@ def _la_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
 
 def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor, kv_len: torch.Tensor,
-                   cfg: ModelConfig, prefill: bool, fresh: bool = False) -> torch.Tensor:
+                   cfg: ModelConfig, fresh: bool = False,
+                   at: Optional[CacheRows] = None) -> torch.Tensor:
     B, S, _ = x.shape
     hq = cfg.num_attention_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -170,13 +171,8 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     cache = lc["kv"]                                         # [B, 1, Smax, Dp]
     Dp = cache.shape[-1]
     row = F.pad(torch.cat([ckv, kpe], dim=-1), (0, Dp - (L + dr)))
-    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)
-    if prefill:
-        # padding rows past the cache end are dropped, as XLA drops them
-        keep = positions < cache.shape[2]
-        store(cache, (bidx[keep], 0, positions[keep]), row[keep])
-    else:
-        store(cache, (bidx, 0, positions), row)
+    store_rows(cache, at if at is not None else cache_rows(positions, cache.shape[2]), row,
+               head=0)
 
     scale = yarn_softmax_scale((dn + dr) ** -0.5, cfg.rope_scaling)
     # absorbed MQA form: q_nope @ w_kc joins q_pe against the single-head
@@ -257,14 +253,18 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
     # prefill MoE stays bf16: the int8-activation numerics belong to decode
     activation = "bf16" if prefill else quant.expert_activation
     fresh = prefill and history == 0
+    # every attention layer writes its rows at the same places
+    S_cache = next((lc[k].shape[2] for lc in cache["layers"] for k in ("kv", "k") if k in lc),
+                   None)
+    at = None if S_cache is None else cache_rows(positions, S_cache)
 
     x = params["embed"][tokens]
     for lp, lc, spec in zip(params["layers"], cache["layers"], layer_specs(cfg)):
         normed = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
         if spec.attn_kind == "gqa":
-            attn = _gqa_attention(lp, lc, normed, positions, kv_len, cfg, spec.sliding, fresh)
+            attn = _gqa_attention(lp, lc, normed, positions, kv_len, cfg, spec.sliding, fresh, at)
         elif spec.attn_kind == "mla":
-            attn = _mla_attention(lp, lc, normed, positions, kv_len, cfg, prefill, fresh)
+            attn = _mla_attention(lp, lc, normed, positions, kv_len, cfg, fresh, at)
         else:
             attn = _la_attention(lp, lc, normed, valid, cfg, prefill)
         x = x + attn
@@ -277,3 +277,39 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
         x = x[torch.arange(B, device=x.device), last]
     cache["length"] = kv_len
     return linear(x, params["lm_head"], out_dtype=torch.float32)
+
+
+def chosen_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """log P(tok) under log_softmax(logits): [B, V], [B] → [B] f32."""
+    lsm = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return torch.gather(lsm, -1, tok[:, None].to(torch.int64))[:, 0]
+
+
+def decode_block_batched(params: Dict[str, Any], tok: torch.Tensor, cache: Dict[str, Any],
+                         cfg: ModelConfig, quant: QuantConfig, steps: int,
+                         generator: torch.Generator, seen: torch.Tensor,
+                         temperature: torch.Tensor, top_p: torch.Tensor,
+                         presence_penalty: torch.Tensor, top_k: torch.Tensor,
+                         need_logprobs: bool = True, max_top_k: int = 64):
+    """`steps` decode forwards over every row of the cache (the
+    continuous-batching block; the reference's
+    ``make_multi_decode_batched_fn``): each step feeds tok [B], samples the
+    next token of every row with its own temperature, top_p,
+    presence_penalty and top_k [B] (``sample_batched``, draws from
+    `generator`), marks it in seen [B, V] (in place) and, with
+    `need_logprobs`, takes its logprob under the raw model distribution
+    (zeros otherwise). Returns tokens [steps, B] int64 and logprobs
+    [steps, B] f32, left on the device: the block never waits for it."""
+    B = tok.shape[0]
+    rows = torch.arange(B, device=tok.device)
+    seq1 = torch.ones((B,), dtype=torch.int32, device=tok.device)
+    toks, lps = [], []
+    for _ in range(steps):
+        logits = forward(params, tok[:, None], seq1, cache, cfg, quant, prefill=False)
+        tok = sample_batched(logits, temperature, top_p, presence_penalty, seen, top_k,
+                             max_top_k, generator)
+        lps.append(chosen_logprob(logits, tok) if need_logprobs
+                   else torch.zeros((B,), dtype=torch.float32, device=tok.device))
+        seen[rows, tok] = True
+        toks.append(tok)
+    return torch.stack(toks), torch.stack(lps)

@@ -221,9 +221,12 @@ def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
     elif spec.attn_kind == "mla":
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         L, dv = cfg.kv_lora_rank, cfg.v_head_dim
-        if cfg.q_lora_rank:
-            raise NotImplementedError("q-LoRA MLA is not ported yet")
-        lp["q_proj"] = attn_w((H, hq * (dn + dr)))
+        if cfg.q_lora_rank:                                  # q-LoRA (DeepSeek V3)
+            lp["q_a_proj"] = attn_w((H, cfg.q_lora_rank))
+            lp["q_a_norm"] = plain_ones(cfg.q_lora_rank)
+            lp["q_b_proj"] = attn_w((cfg.q_lora_rank, hq * (dn + dr)))
+        else:
+            lp["q_proj"] = attn_w((H, hq * (dn + dr)))
         lp["kv_a_proj"] = attn_w((H, L + dr), floor8)
         lp["kv_a_norm"] = plain_ones(L)
         lp["w_kc"] = rnd((hq, dn, L))

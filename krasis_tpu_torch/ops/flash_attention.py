@@ -291,7 +291,9 @@ def flash_attention(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Tensor,
     if (q.data_ptr() | kv.data_ptr() | vptr) % 16:
         raise ValueError("attention: q and the cache must be 16-byte aligned")
     qo = q_offset.to(device=q.device, dtype=torch.int32).contiguous()
-    kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    # the kernel walks keys up to kv_len, not to S: a decode row past the
+    # cache end (whose row was dropped) must not read past the buffer
+    kl = torch.clamp(kv_len.to(device=q.device, dtype=torch.int32), max=S).contiguous()
     out = torch.empty((B, Sq, Hq, v_dim), dtype=torch.bfloat16, device=q.device)
     R = Sq * (Hq // Hkv)
     ws = 0

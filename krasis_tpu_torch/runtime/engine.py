@@ -14,6 +14,7 @@ MoE regime, as the reference's smallest bucket guarantees.
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -29,7 +30,40 @@ from .kv_cache import init_cache, resolve_kv_quant
 
 CHUNK = 2048
 MIN_PREFILL_ROWS = 128
+MIN_CHUNK = 128          # OOM halving stops here
 HISTORY_BUCKETS = (2048, 4096, 8192, 16384, 32768, 65536)
+
+log = logging.getLogger("krasis_tpu_torch.engine")
+
+
+def _is_oom(e: BaseException) -> bool:
+    """True for the card running out of memory."""
+    return isinstance(e, torch.cuda.OutOfMemoryError)
+
+
+def halved_chunk(e: BaseException, chunk: int, what: str) -> Optional[int]:
+    """The prefill chunk to retry with after `e`: half of `chunk` when the
+    card ran out of memory and `chunk` is above MIN_CHUNK, else None (the
+    caller re-raises)."""
+    if not _is_oom(e) or chunk <= MIN_CHUNK:
+        return None
+    log.warning("%s ran the card out of memory; retrying with chunk=%d", what, chunk // 2)
+    return chunk // 2
+
+
+def prefill_rows(params: Dict[str, Any], ids: Sequence[int], cache: Dict[str, Any],
+                 cfg: ModelConfig, quant: QuantConfig, history: int = 0,
+                 return_all_logits: bool = False) -> torch.Tensor:
+    """One prefill forward of `ids` into the batch-1 `cache` after `history`
+    cached tokens, padded to at least MIN_PREFILL_ROWS rows so that it takes
+    the grouped MoE regime."""
+    m = len(ids)
+    dev = cache["length"].device
+    tokens = torch.zeros((1, max(m, MIN_PREFILL_ROWS)), dtype=torch.int64)
+    tokens[0, :m] = torch.tensor(ids, dtype=torch.int64)
+    return forward(params, tokens.to(dev), torch.tensor([m], dtype=torch.int32, device=dev),
+                   cache, cfg, quant, prefill=True, return_all_logits=return_all_logits,
+                   history=history)
 
 
 def pick_cache_len(needed: int, max_len: int) -> int:
@@ -61,7 +95,8 @@ class GenerationResult:
 
 
 class Engine:
-    """Single-sequence inference engine (one cache slot)."""
+    """Single-sequence inference engine (one cache slot; continuous batching
+    is ``runtime/scheduler.py``)."""
 
     def __init__(self, cfg: ModelConfig, quant: QuantConfig, params: Dict[str, Any],
                  max_len: int = 4096, device=None):
@@ -73,7 +108,7 @@ class Engine:
         self.params = params
         self.max_len = max_len
         self.decode_block = 8       # tokens per host synchronisation
-        self.chunk = CHUNK
+        self.chunk = CHUNK          # prefill chunk; halves when the card runs out of memory
         self._cache_len = max_len
         self.cache = init_cache(cfg, quant, 1, max_len, self.device)
 
@@ -87,24 +122,26 @@ class Engine:
         return forward(self.params, tokens, seq_lens, self.cache, self.cfg,
                        self.quant, prefill, return_all_logits, history)
 
-    def _prefill_rows(self, ids: Sequence[int], return_all_logits: bool = False,
-                      history: int = 0) -> torch.Tensor:
-        """One prefill forward over `ids` after `history` cached tokens,
-        padded to at least MIN_PREFILL_ROWS rows so that it takes the
-        grouped MoE regime."""
-        m = len(ids)
-        tokens = torch.zeros((1, max(m, MIN_PREFILL_ROWS)), dtype=torch.int64)
-        tokens[0, :m] = torch.tensor(ids, dtype=torch.int64)
-        seq_lens = torch.tensor([m], dtype=torch.int32)
-        return self._forward(tokens.to(self.device), seq_lens.to(self.device),
-                             prefill=True, return_all_logits=return_all_logits,
-                             history=history)
-
     def _prefill_prompt(self, prompt_ids: Sequence[int]) -> torch.Tensor:
-        """Prefill in chunks of self.chunk; returns last-position logits."""
+        """Prefill in chunks of self.chunk; returns last-position logits. A
+        chunk that runs the card out of memory halves self.chunk (down to
+        MIN_CHUNK) and prefills the prompt again on a fresh cache."""
+        while True:
+            try:
+                return self._prefill_prompt_once(prompt_ids)
+            except Exception as e:
+                chunk = halved_chunk(e, self.chunk, "prefill")
+                if chunk is None:
+                    raise
+            # out of the handler, so the failed chunk's tensors are released
+            self.chunk = chunk
+            self.reset(self._cache_len)
+
+    def _prefill_prompt_once(self, prompt_ids: Sequence[int]) -> torch.Tensor:
         logits = None
         for pos in range(0, len(prompt_ids), self.chunk):
-            logits = self._prefill_rows(prompt_ids[pos:pos + self.chunk], history=pos)
+            logits = prefill_rows(self.params, prompt_ids[pos:pos + self.chunk], self.cache,
+                                  self.cfg, self.quant, history=pos)
         return logits
 
     @torch.inference_mode()
@@ -116,7 +153,8 @@ class Engine:
         n = len(prompt_ids)
         if not 0 < n <= self.max_len:
             raise ValueError(f"window of {n} tokens does not fit max_len={self.max_len}")
-        return self._prefill_rows(prompt_ids, return_all_logits=True)[0, :n]
+        return prefill_rows(self.params, prompt_ids, self.cache, self.cfg, self.quant,
+                            return_all_logits=True)[0, :n]
 
     @torch.inference_mode()
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int = 64,

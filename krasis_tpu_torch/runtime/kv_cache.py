@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import replace
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -83,6 +83,59 @@ def store(buf: torch.Tensor, index, rows: torch.Tensor) -> None:
     if buf.dtype == torch.float8_e4m3fn:
         buf, rows = buf.view(torch.uint8), rows.view(torch.uint8)
     buf[index] = rows
+
+
+class CacheRows(NamedTuple):
+    """Where one pass writes its new rows in the cache buffers [B, H, S, D]:
+    batch row `b` and position `pos` of each row written. Decode (one
+    position a batch row) writes every row, a position past the end clamped
+    to the last with `keep` False there; prefill writes the rows inside the
+    cache, `take` their flat indices among the pass's B·n rows."""
+    b: torch.Tensor
+    pos: torch.Tensor
+    keep: Optional[torch.Tensor] = None
+    take: Optional[torch.Tensor] = None
+
+
+def cache_rows(positions: torch.Tensor, S: int) -> CacheRows:
+    """The writes of rows at positions [B, n] into buffers of S rows: rows
+    at positions ≥ S are dropped, as the reference's scatter drops them.
+    Decode takes no host sync; prefill one (the count of rows kept). Every
+    layer's buffers share S, so a pass computes this once."""
+    B, n = positions.shape
+    bidx = torch.arange(B, device=positions.device)[:, None].expand(B, n)
+    keep = positions < S
+    if n == 1:
+        return CacheRows(bidx, positions.clamp(max=S - 1), keep)
+    take = keep.reshape(-1).nonzero()[:, 0]
+    return CacheRows(bidx.reshape(-1)[take], positions.reshape(-1)[take], take=take)
+
+
+def store_rows(buf: torch.Tensor, at: CacheRows, rows: torch.Tensor,
+               head=slice(None)) -> None:
+    """buf[b, head, pos] = rows [B, n, ...] where `at` writes them; in decode
+    a dropped row rewrites the last cache row with its own bytes."""
+    if at.take is not None:
+        store(buf, (at.b, head, at.pos), rows.reshape((-1,) + rows.shape[2:])[at.take])
+        return
+    rows = to_cache(rows, buf.dtype)
+    if buf.dtype == torch.float8_e4m3fn:
+        buf, rows = buf.view(torch.uint8), rows.view(torch.uint8)
+    index = (at.b, head, at.pos)
+    old = buf[index]
+    buf[index] = torch.where(at.keep.reshape(at.keep.shape + (1,) * (old.dim() - 2)), rows, old)
+
+
+def insert_slot(decode_cache: Dict[str, Any], prefill_cache: Dict[str, Any],
+                slot: int) -> None:
+    """Copy the batch-1 `prefill_cache` into row `slot` of `decode_cache`, in
+    place: every layer's buffers (MLA kv, GQA k / v, DeltaNet state and
+    conv) and the slot's length. The counterpart of the reference's
+    ``krasis_tpu/runtime/scheduler.py`` ``insert_slot``."""
+    for dlc, plc in zip(decode_cache["layers"], prefill_cache["layers"]):
+        for name, buf in dlc.items():
+            buf[slot].copy_(plc[name][0])
+    decode_cache["length"][slot] = prefill_cache["length"][0]
 
 
 def init_cache(cfg: ModelConfig, quant: QuantConfig, batch: int, max_len: int,

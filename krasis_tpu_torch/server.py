@@ -18,11 +18,12 @@ Two transports share the route handler (``handle_request``):
   with one logged warning naming the failure, when the native library does
   not build; ``native`` raises instead.
 
-Generation is serialized through an engine lock: one request at a time,
-the reference's default (``--slots 0``). Continuous batching
-(``--slots > 0``) is ROADMAP A-6's next slice. Synthetic models
-(``--synthetic``) have no tokenizer: message text is hashed into token ids
-and tokens come back as ``<id>`` (stream) or space-separated ids.
+Generation is serialized through an engine lock, one request at a time
+(``--slots 0``, the reference's default), unless a continuous-batching
+``BatchScheduler`` is attached (``--slots N``): then requests take no lock
+and share its N decode slots. Synthetic models (``--synthetic``) have no
+tokenizer: message text is hashed into token ids and tokens come back as
+``<id>`` (stream) or space-separated ids.
 """
 
 from __future__ import annotations
@@ -47,10 +48,11 @@ log = logging.getLogger("krasis_tpu_torch.server")
 
 
 class ServerState:
-    def __init__(self, engine, tokenizer, model_name: str):
+    def __init__(self, engine, tokenizer, model_name: str, scheduler=None):
         self.engine = engine
         self.tokenizer = tokenizer  # None for synthetic models
         self.model_name = model_name
+        self.scheduler = scheduler  # continuous batching; None: one request at a time
         self.lock = threading.Lock()
 
 
@@ -129,6 +131,20 @@ def handle_request(state: ServerState, method: str, path: str, body: bytes, w) -
 
     rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
     created = int(time.time())
+    if state.scheduler is not None:
+        # continuous batching: no lock, the scheduler shares its slots
+        try:
+            req = state.scheduler.submit(ids, max_new_tokens=max_tokens, sampling=sampling,
+                                         want_logprobs=want_logprobs)
+        except RuntimeError as e:                      # the scheduler has stopped
+            w.send_json(500, _json_bytes({"error": str(e)}))
+            return
+        if stream:
+            _stream_batched(state, w, rid, created, ids, req, stops, include_usage,
+                            want_logprobs)
+        else:
+            _full_batched(state, w, rid, created, ids, req, stops, want_logprobs)
+        return
     with state.lock:
         if stream:
             _stream_single(state, w, rid, created, ids, max_tokens, sampling, stops, seed,
@@ -205,48 +221,111 @@ def _usage_chunk(state, rid, created, prompt_tokens, completion) -> bytes:
     return f"data: {json.dumps(obj)}\n\n".encode()
 
 
-def _stream_single(state, w, rid, created, prompt_ids, max_tokens, sampling, stops=(),
-                   seed=0, include_usage=False, want_logprobs=False):
-    w.sse_start()
-    # the role chunk at once: the client sees the stream open before prefill
-    w.sse_send(_chunk(state, rid, created, {"role": "assistant"}))
-    dec = _make_decoder(state)
-    sm = StopMatcher(stops)
-    n_tok = 0
-    pending_lp: list = []  # (tok, lp) since the last emitted chunk
+class _Stream:
+    """One streamed answer, token by token: the role chunk at once, each
+    token's text once it can no longer start a stop string, and its logprob
+    in the chunk that carries its text."""
 
-    def on_token_lp(tok: int, lp: float):
-        nonlocal n_tok
-        n_tok += 1
-        if w.cancelled():
-            raise StopIteration  # the client went away: cancel decode
-        if want_logprobs:
-            pending_lp.append((tok, lp))
-        text = dec.push(tok) if dec is not None else f"<{tok}>"
-        text = sm.push(text)
+    def __init__(self, state, w, rid, created, stops, want_logprobs):
+        self.state, self.w, self.rid, self.created = state, w, rid, created
+        self.want_logprobs = want_logprobs
+        self.dec = _make_decoder(state)
+        self.sm = StopMatcher(stops)
+        self.n_tok = 0
+        self.pending_lp: list = []  # (tok, lp) since the last chunk sent
+        w.sse_start()
+        # the role chunk at once: the client sees the stream open before prefill
+        w.sse_send(self._chunk({"role": "assistant"}))
+
+    def _chunk(self, delta, finish=None, logprobs=None) -> bytes:
+        return _chunk(self.state, self.rid, self.created, delta, finish, logprobs)
+
+    def push(self, tok: int, lp: float) -> bool:
+        """Send what `tok` makes safe to send; False once the answer ends (a
+        stop string, or a send the client is gone for)."""
+        self.n_tok += 1
+        if self.want_logprobs:
+            self.pending_lp.append((tok, lp))
+        text = self.sm.push(self.dec.push(tok) if self.dec is not None else f"<{tok}>")
         if text:
             lps = None
-            if want_logprobs:
-                lps = _logprobs_content(state, [t for t, _ in pending_lp],
-                                        [p for _, p in pending_lp])
-                pending_lp.clear()
-            if not w.sse_send(_chunk(state, rid, created, {"content": text}, logprobs=lps)):
-                raise StopIteration
-        if sm.stopped:
-            raise StopIteration  # a stop string: cancel decode
+            if self.want_logprobs:
+                lps = _logprobs_content(self.state, [t for t, _ in self.pending_lp],
+                                        [p for _, p in self.pending_lp])
+                self.pending_lp.clear()
+            if not self.w.sse_send(self._chunk({"content": text}, logprobs=lps)):
+                return False
+        return not self.sm.stopped
+
+    def finish(self, prompt_len: int, include_usage: bool) -> None:
+        tail = self.sm.flush()
+        if tail:
+            self.w.sse_send(self._chunk({"content": tail}))
+        self.w.sse_send(self._chunk({}, finish="stop"))
+        if include_usage:
+            self.w.sse_send(_usage_chunk(self.state, self.rid, self.created, prompt_len,
+                                         self.n_tok))
+        self.w.sse_send(b"data: [DONE]\n\n")
+        self.w.sse_end()
+
+
+class _Text:
+    """An unstreamed answer's text, token by token: a stop string ends it
+    where the string first occurs, and is left out. The text is built as
+    the tokens come only when there are stops to watch for."""
+
+    def __init__(self, state, stops):
+        self.state, self.stops = state, stops
+        self.sm = StopMatcher(stops)
+        self.dec = _make_decoder(state) if stops else None
+        self.pieces: list = []
+
+    def push(self, tok: int) -> bool:
+        """True once a stop string has completed."""
+        if not self.stops:
+            return False
+        piece = self.dec.push(tok) if self.dec is not None else (
+            ("" if not self.pieces else " ") + str(tok))
+        self.pieces.append(self.sm.push(piece))
+        return self.sm.stopped
+
+    def text(self, tokens) -> str:
+        if self.stops:
+            return "".join(self.pieces) + self.sm.flush()
+        if self.state.tokenizer is not None:
+            return self.state.tokenizer.decode(tokens)
+        return " ".join(str(t) for t in tokens)
+
+
+def _completion(state, rid, created, text, tokens, logprobs, prompt_len, top=None, **extra):
+    """The chat.completion body of an unstreamed answer."""
+    choice = {"index": 0, "message": {"role": "assistant", "content": text},
+              "finish_reason": "stop"}
+    if logprobs is not None:
+        choice["logprobs"] = {"content": _logprobs_content(state, tokens, logprobs, top)}
+    n = len(tokens)
+    return _json_bytes({
+        "id": rid, "object": "chat.completion", "created": created,
+        "model": state.model_name, "choices": [choice],
+        "usage": {"prompt_tokens": prompt_len, "completion_tokens": n,
+                  "total_tokens": prompt_len + n},
+        **extra})
+
+
+def _stream_single(state, w, rid, created, prompt_ids, max_tokens, sampling, stops=(),
+                   seed=0, include_usage=False, want_logprobs=False):
+    out = _Stream(state, w, rid, created, stops, want_logprobs)
+
+    def on_token_lp(tok: int, lp: float):
+        # the client went away, or a stop string: cancel decode
+        if w.cancelled() or not out.push(tok, lp):
+            raise StopIteration
 
     # the logprob values are unused unless the request asked for them, so
     # the engine skips their math then
     state.engine.generate(prompt_ids, max_new_tokens=max_tokens, sampling=sampling,
                           on_token_lp=on_token_lp, seed=seed, want_logprobs=want_logprobs)
-    tail = sm.flush()
-    if tail:
-        w.sse_send(_chunk(state, rid, created, {"content": tail}))
-    w.sse_send(_chunk(state, rid, created, {}, finish="stop"))
-    if include_usage:
-        w.sse_send(_usage_chunk(state, rid, created, len(prompt_ids), n_tok))
-    w.sse_send(b"data: [DONE]\n\n")
-    w.sse_end()
+    out.finish(len(prompt_ids), include_usage)
 
 
 def _logprobs_content(state, tokens, lps, top=None):
@@ -268,44 +347,66 @@ def _full_single(state, w, rid, created, prompt_ids, max_tokens, sampling, stops
                  want_logprobs=False, top_logprobs=0, seed=0):
     # a stop string cancels generation rather than truncating afterwards: a
     # stop on token 3 of a 512-token request does not pay for 512 tokens
-    sm = StopMatcher(stops)
-    dec = _make_decoder(state) if stops else None
-    pieces = []
+    text = _Text(state, stops)
 
     def on_token(tok: int):
-        if not stops:
-            return
-        piece = dec.push(tok) if dec is not None else (("" if not pieces else " ") + str(tok))
-        pieces.append(sm.push(piece))
-        if sm.stopped:
+        if text.push(tok):
             raise StopIteration
 
     res = state.engine.generate(prompt_ids, max_new_tokens=max_tokens, sampling=sampling,
                                 on_token=on_token, seed=seed,
                                 top_logprobs=(top_logprobs if want_logprobs else 0),
                                 want_logprobs=want_logprobs)
-    if stops:
-        pieces.append(sm.flush())
-        text = "".join(pieces)
-    elif state.tokenizer is not None:
-        text = state.tokenizer.decode(res.tokens)
+    w.send_json(200, _completion(
+        state, rid, created, text.text(res.tokens), res.tokens,
+        res.logprobs if want_logprobs else None, res.prompt_len, res.top_logprobs,
+        timing={"prefill_tok_s": round(res.prefill_tok_s, 2),
+                "decode_tok_s": round(res.decode_tok_s, 2)}))
+
+
+def _stream_batched(state, w, rid, created, prompt_ids, req, stops=(), include_usage=False,
+                    want_logprobs=False):
+    """Stream a request submitted to the scheduler: its tokens arrive on its
+    queue; a stop string or a dropped client cancels it, and its queue is
+    drained to the end sentinel either way."""
+    out = _Stream(state, w, rid, created, stops, want_logprobs)
+    ended = False
+    while (tok := req.out_queue.get()) is not None:
+        if ended:
+            continue                 # drain to the scheduler's end sentinel
+        # logprobs[i] is appended before token i reaches the queue
+        if w.cancelled() or not out.push(tok, req.logprobs[out.n_tok]):
+            req.cancelled.set()      # frees the slot at its next token
+            ended = True
+    if req.error is not None:
+        # the status line has gone: the stream ends on an error event
+        w.sse_send(f"data: {json.dumps({'error': str(req.error)})}\n\n".encode())
+        w.sse_end()
+    elif ended and not out.sm.stopped:
+        # the client left: sse_end all the same, which releases the request
+        # on the native transport
+        w.sse_end()
     else:
-        text = " ".join(str(t) for t in res.tokens)
-    n_tok = len(res.tokens)
-    choice = {"index": 0, "message": {"role": "assistant", "content": text},
-              "finish_reason": "stop"}
-    if want_logprobs:
-        choice["logprobs"] = {"content": _logprobs_content(state, res.tokens, res.logprobs,
-                                                           res.top_logprobs)}
-    w.send_json(200, _json_bytes({
-        "id": rid, "object": "chat.completion", "created": created,
-        "model": state.model_name,
-        "choices": [choice],
-        "usage": {"prompt_tokens": res.prompt_len, "completion_tokens": n_tok,
-                  "total_tokens": res.prompt_len + n_tok},
-        "timing": {"prefill_tok_s": round(res.prefill_tok_s, 2),
-                   "decode_tok_s": round(res.decode_tok_s, 2)},
-    }))
+        out.finish(len(prompt_ids), include_usage)
+
+
+def _full_batched(state, w, rid, created, prompt_ids, req, stops=(), want_logprobs=False):
+    """Answer a request submitted to the scheduler in one JSON body; a stop
+    string cancels the rest of it."""
+    text = _Text(state, stops)
+    toks = []
+    while (tok := req.out_queue.get()) is not None:
+        if text.sm.stopped:
+            continue                 # draining after a stop (the slot is cancelled)
+        toks.append(tok)
+        if text.push(tok):
+            req.cancelled.set()
+    if req.error is not None:
+        w.send_json(500, _json_bytes({"error": str(req.error)}))
+        return
+    w.send_json(200, _completion(state, rid, created, text.text(toks), toks,
+                                 req.logprobs[:len(toks)] if want_logprobs else None,
+                                 len(prompt_ids)))
 
 
 # ---- stdlib transport ------------------------------------------------------
@@ -448,18 +549,22 @@ def _make_httpd(state: ServerState, host: str, port: int, backend: str = "auto")
             log.warning("native HTTP transport (native/serve.cpp) did not build, serving "
                         "on the stdlib transport: %s", build_error(exc))
         else:
+            # every slot's request holds a worker while it runs; the headroom
+            # keeps /health and queued requests answerable
+            slots = state.scheduler.num_slots if state.scheduler is not None else 0
             httpd = native_serve.NativeHTTPServer(
-                host, port, lambda m, p, b, w: handle_request(state, m, p, b, w))
+                host, port, lambda m, p, b, w: handle_request(state, m, p, b, w),
+                workers=max(32, 2 * slots + 8))
             return httpd, "native"
     return _QuietThreadingHTTPServer(state, (host, port)), "python"
 
 
 def start_temp_server(engine, tokenizer, model_name: str, host="127.0.0.1", port=8398,
-                      backend: str = "auto"):
+                      backend: str = "auto", scheduler=None):
     """A server that runs in the background of this process (port 0 picks a
-    free one; the httpd's ``port`` says which). Returns the httpd; call
-    ``.shutdown()`` when done."""
-    state = ServerState(engine, tokenizer, model_name)
+    free one; the httpd's ``port`` says which), through `scheduler` when one
+    is given. Returns the httpd; call ``.shutdown()`` when done."""
+    state = ServerState(engine, tokenizer, model_name, scheduler)
     httpd, used = _make_httpd(state, host, port, backend)
     httpd.backend = used
     if used == "python":
@@ -468,9 +573,9 @@ def start_temp_server(engine, tokenizer, model_name: str, host="127.0.0.1", port
 
 
 def run_server(engine, tokenizer, model_name: str, host="127.0.0.1", port=8399,
-               backend: str = "auto"):
+               backend: str = "auto", scheduler=None):
     """Serve until SIGINT or SIGTERM, registered while it runs."""
-    state = ServerState(engine, tokenizer, model_name)
+    state = ServerState(engine, tokenizer, model_name, scheduler)
     httpd, used = _make_httpd(state, host, port, backend)
     reg = register_server(httpd.port, model_name)
     if threading.current_thread() is threading.main_thread():
@@ -492,20 +597,25 @@ def run_server(engine, tokenizer, model_name: str, host="127.0.0.1", port=8399,
             pass
 
 
-def warmup(engine):
+def warmup(engine, scheduler=None):
     """Run a prefill and a few decode steps before accepting traffic, so the
-    first request does not pay for the kernels' build and the allocator."""
+    first request does not pay for the kernels' build and the allocator;
+    through the scheduler too when one is attached."""
     t0 = time.time()
     n = min(256, engine.max_len // 4)
-    engine.generate(list(range(1, n + 1)), max_new_tokens=4,
-                    sampling=SamplingParams(temperature=0.0), stop_ids={-1})
+    greedy = SamplingParams(temperature=0.0)
+    engine.generate(list(range(1, n + 1)), max_new_tokens=4, sampling=greedy, stop_ids={-1})
+    if scheduler is not None:
+        r = scheduler.submit(list(range(1, n + 1)), max_new_tokens=4, sampling=greedy)
+        while r.out_queue.get(timeout=600) is not None:
+            pass
+        if r.error is not None:
+            raise RuntimeError("the scheduler's warmup failed") from r.error
     print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
 
 
 def _not_ported(args) -> Optional[str]:
     """The ROADMAP item a requested flag waits for, if any."""
-    if args.slots > 0:
-        return "--slots > 0: continuous batching is ROADMAP A-6 (its batching slice)"
     if args.mesh:
         return "--mesh: parallelism is ROADMAP A-10"
     if args.offload == "experts" or args.hot_experts > 0:
@@ -540,8 +650,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None, metavar="DP,EP",
                     help="shard over the local devices (not ported: ROADMAP A-10)")
     ap.add_argument("--slots", type=int, default=0,
-                    help="continuous-batching slots; 0 = single-request (only 0 is ported; "
-                         "batching is ROADMAP A-6's next slice)")
+                    help="continuous-batching slots (BatchScheduler); 0 = one request at a "
+                         "time through Engine.generate")
     ap.add_argument("--decode-block", type=int, default=8,
                     help="tokens per fused decode call of the batch scheduler (which needs "
                          "--slots > 0)")
@@ -612,9 +722,21 @@ def main(argv=None) -> int:
             tok = Tokenizer(args.model)
         name = os.path.basename(os.path.normpath(args.model))
 
-    if not args.no_warmup:
-        warmup(engine)
-    run_server(engine, tok, name, args.host, args.port, backend=args.server_backend)
+    sched = None
+    if args.slots > 0:
+        from .runtime.scheduler import BatchScheduler
+
+        sched = BatchScheduler(cfg, quant, engine.params, max_len=args.max_len,
+                               num_slots=args.slots, decode_block=args.decode_block,
+                               device=engine.device)
+    try:
+        if not args.no_warmup:
+            warmup(engine, sched)
+        run_server(engine, tok, name, args.host, args.port, backend=args.server_backend,
+                   scheduler=sched)
+    finally:
+        if sched is not None:
+            sched.shutdown()
     return 0
 
 

@@ -42,7 +42,7 @@ def test_scan_covers_the_package():
     assert {"krasis_tpu_torch/runtime/tokenizer.py", "krasis_tpu_torch/runtime/chat_template.py",
             "krasis_tpu_torch/utils/unicode_re.py", "krasis_tpu_torch/server.py",
             "krasis_tpu_torch/chat.py", "krasis_tpu_torch/native/__init__.py",
-            "krasis_tpu_torch/native/serve.py"} <= names
+            "krasis_tpu_torch/native/serve.py", "krasis_tpu_torch/runtime/scheduler.py"} <= names
     assert {"chip_smoke.py", "tools/sass_compare.py"} <= names
 
 

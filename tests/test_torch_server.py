@@ -346,7 +346,7 @@ def test_channel_filter_matches_reference(stream):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--slots", "2"], "A-6"), (["--mesh", "1,8"], "A-10"),
+    (["--mesh", "1,8"], "A-10"),
     (["--offload", "experts"], "A-9"), (["--hot-experts", "4"], "A-9"),
     (["--spec-k", "2"], "A-8"), (["--spec-mode", "mtp"], "A-8")])
 def test_main_raises_for_flags_not_ported(flags, item):
