@@ -161,6 +161,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    through a 2-slot scheduler on the card against Engine.generate on the
    CPU.
 
+12. speculative decoding (krasis_tpu_torch/models/mtp.py, spec_ngram.py):
+   (a) after phase 3, a tiny V2-Lite with an MTP module at k = 1 and 3 and
+   the tiny hybrid under prompt lookup at k = 3 through Engine.generate and
+   a 2-slot BatchScheduler on the card, each stream held to the CPU's
+   vanilla stream (gap and logprob 5e-2); (b) K2's split form at the verify
+   shapes Sq = 2 and 4 (kv_len 40, 600, 2560; V2-Lite's MLA over bf16 and
+   e4m3, the hybrid's GQA), the window's later keys scaled so that a control
+   without the in-window causal mask must be refused; K1s at T = 4 on the
+   hybrid's six projections and K3 at its T = 4; (c) after phase 11, a
+   synthetic MTP module at V2-Lite's widths on phase 4's weights (V2-Lite's
+   checkpoint has none): forced acceptance and rejection at k = 1 and 3
+   through the engine's own verify block (commit k + 1, but at a near-tie,
+   and 1; the cache lengths; each committed token the verify argmax), each
+   committed position teacher-forced against the batch-1 decode at the batch
+   phase's limits; launches a verify step and one profiled verify block; 2048 + 64
+   and 40 + 32 at k = 1 and 3 and prompt lookup on a 200-id block repeated
+   four times + 64, each beside the vanilla path; 4-slot schedulers under
+   MTP k = 1 and prompt lookup k = 3 with six requests each, every stream
+   teacher-forced at the scheduler's shapes; one request through the
+   in-process server, whose answer carries timing.spec; (d) after phase 5,
+   prompt lookup on the hybrid (40 + 16, the repeated block + 16) with
+   every DeltaNet commit held to the recurrence over the committed prefix,
+   and the forced controls at k = 3.
+
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
 name and power limit and the JSON result; the line before them lists the
@@ -169,7 +193,9 @@ kernels.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -537,7 +563,7 @@ def qmm_split_checks(name, qt, layer, g):
 
 
 def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, scale, q_std,
-                     g, flush, fp8=False):
+                     g, flush, fp8=False, cases=None):
     """K2 at the main path's shapes: a 2048-row prefill, a 452-row chunk
     over 2048 rows of history (one launch each), and decode at kv_len 2560,
     2500 and 40 over the engine's 4096-row cache view (split-KV: two
@@ -571,16 +597,23 @@ def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, sca
     if fp8:
         caches.append((":fp8", to_cache(k_cache, torch.float8_e4m3fn),
                        None if v_cache is None else to_cache(v_cache, torch.float8_e4m3fn)))
-    cases = [("attention:prefill_2048", 2048, 0, 2048, 2048, fa.REPLACES),
+    cases = cases or [("attention:prefill_2048", 2048, 0, 2048, 2048, fa.REPLACES),
              ("attention:chunk_452_at_2048", 452, 2048, 2500, 2500, fa.REPLACES),
              ("attention:decode_kv_2560", 1, 2559, 2560, 4096, fa.REPLACES_DECODE),
              ("attention:decode_kv_2500", 1, 2499, 2500, 4096, fa.REPLACES_DECODE),
              ("attention:decode_kv_40", 1, 39, 40, 4096, fa.REPLACES_DECODE)]
     for suffix, k_all, v_all in caches:
         elem = k_all.element_size()
-        for name, sq, q_off, kv_len, view, replaces in cases:
+        for name, sq, q_off, kv_len, view, replaces, *boost in cases:
             q = rows((1, sq, Hq, lanes), q_std)
             kv = k_all[:, :, :view]
+            if boost:
+                # a verify window: its keys after the first query scaled by
+                # `boost` (scores of std ~13), so that a query seeing them
+                # against the causal mask moves far off
+                kv = kv.clone()
+                win = slice(kv_len - sq + 1, kv_len)
+                kv[:, :, win] = (kv[:, :, win].to(torch.bfloat16) * boost[0]).to(kv.dtype)
             v = v_all[:, :, :view] if separate_v else None
             qo = torch.tensor([q_off], dtype=torch.int32, device=dev)
             kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
@@ -615,7 +648,7 @@ def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, sca
                     raise AssertionError(f"{prefix}{name}{suffix}: K2 over the e4m3 cache "
                                          "differs from K2 over it cast to bf16")
                 continue
-            if kv_len == 2560:
+            if kv_len == 2560 and sq == 1:
                 # the same check must refuse a combine that lost the split holding
                 # each row's largest score
                 chunk, n = fa.split_plan(view, Hkv, 1, torch.cuda.get_device_properties(dev)
@@ -1644,7 +1677,8 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
 
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
-               prefill_off_names=(), prefill_on_names=(), profile_bf16=0, batched=None):
+               prefill_off_names=(), prefill_on_names=(), profile_bf16=0, batched=None,
+               spec=None):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1662,7 +1696,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     take a plain form (``moe.plain_routes``). Fills the launch counts into
     this family's entries of `results` (by form for K2 entries that name
     one). Then `batched(eng, cfg, results, rng)`, the continuous-batching
-    phase on the same weights, when given."""
+    phase on the same weights, and `spec(eng, cfg, results, rng)`, the
+    speculative-decoding phase, when given."""
     import gc
     from dataclasses import replace
 
@@ -1790,6 +1825,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
           flush=True)
     if batched is not None:
         batched(eng, cfg, results, rng)
+    if spec is not None:
+        spec(eng, cfg, results, rng)
     del eng, engines, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3652,6 +3689,901 @@ def hybrid_scheduler_reference():
           f"{max(c[1] for c in checked):.3g} (limit 5e-2)", flush=True)
 
 
+SPEC_STEPS = 10         # forced verify steps a run
+SPEC_SCHED_NEW = 16     # tokens a scheduler stream
+REPEAT_BLOCK = 200      # the ngram request: a block of ids repeated four times
+
+
+@contextlib.contextmanager
+def spec_env(mode, k=None):
+    """The reference's environment names set for `mode` / `k` (k None
+    leaves KRASIS_TPU_SPEC_K unset) and KRASIS_TPU_NO_SPEC unset while an
+    engine or a scheduler is built: ``spec_config`` reads them there."""
+    names = ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC")
+    saved = {n: os.environ.pop(n, None) for n in names}
+    os.environ["KRASIS_TPU_SPEC_MODE"] = mode
+    if k is not None:
+        os.environ["KRASIS_TPU_SPEC_K"] = str(k)
+    try:
+        yield
+    finally:
+        for n in names:
+            os.environ.pop(n, None)
+            if saved[n] is not None:
+                os.environ[n] = saved[n]
+
+
+def clone_cache(cache):
+    return {"layers": [{name: t.clone() for name, t in lc.items()} for lc in cache["layers"]],
+            "length": cache["length"].clone()}
+
+
+def spec_reference():
+    """12 (a). Tiny models on the card against the port's CPU engine: a tiny
+    V2-Lite with an MTP module at k = 1 and 3, and the tiny hybrid under
+    prompt lookup at k = 3 (every expert picked, as phase 3's), each through
+    Engine.generate and a 2-slot BatchScheduler on the card; each stream
+    held by ``stream_check`` to the CPU's vanilla greedy stream at the
+    limits of ``hybrid_scheduler_reference`` (gap 5e-2, logprob 5e-2)."""
+    import torch
+    from krasis_tpu_torch.config import QuantConfig
+    from krasis_tpu_torch.models.params import init_synthetic_params
+    from krasis_tpu_torch.models.synthetic import tiny_config
+    from krasis_tpu_torch.ops.sampling import SamplingParams
+    from krasis_tpu_torch.runtime.engine import Engine
+    from krasis_tpu_torch.runtime.scheduler import BatchScheduler
+
+    t0 = time.perf_counter()
+    greedy = SamplingParams(temperature=0.0)
+    cases = (("tiny V2-Lite + MTP", tiny_config(
+        "deepseek-v2-lite", moe_intermediate_size=128, num_hidden_layers=4,
+        num_experts_per_tok=8, num_nextn_predict_layers=1),
+        QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16"),
+        (("mtp", 1), ("mtp", 3))),
+        ("tiny Qwen3-Coder-Next hybrid", tiny_config("qwen3-coder-next", num_experts_per_tok=8),
+         QuantConfig(expert_bits=4, group_size=128, kv_cache_dtype="bf16", attention="int8"),
+         (("ngram", 3),)))
+    summary = []
+    for label, cfg, quant, modes in cases:
+        cpu = init_synthetic_params(cfg, quant, seed=1, device="cpu")
+        card = to_device(cpu, "cuda")
+        with spec_env("off"):
+            ref = Engine(cfg, quant, cpu, max_len=256, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        # each prompt ends on a repeat of its start, so prompt lookup drafts
+        prompts = [(lambda p: p + p[:12])(torch.randint(1, cfg.vocab_size, (n,),
+                                                        generator=g).tolist())
+                   for n in (24, 60, 100)]
+        solos = [ref.generate(p, max_new_tokens=8, stop_ids={-1}, top_logprobs=2)
+                 for p in prompts]
+        for mode, k in modes:
+            with spec_env(mode, k):
+                eng = Engine(cfg, quant, card, max_len=256)
+                sched = BatchScheduler(cfg, quant, card, max_len=256, num_slots=2,
+                                       decode_block=4)
+            try:
+                reqs = [sched.submit(p, max_new_tokens=8, sampling=greedy, stop_ids={-1},
+                                     want_logprobs=True) for p in prompts]
+                outs = []
+                for r in reqs:
+                    toks = []
+                    while (tk := r.out_queue.get(timeout=300)) is not None:
+                        toks.append(tk)
+                    if r.error is not None:
+                        raise AssertionError(f"[spec] {label} scheduler failed: {r.error!r}")
+                    outs.append(toks)
+                steps = dict(sched.stats_spec)
+            finally:
+                sched.shutdown()
+            for p, solo, r, toks in zip(prompts, solos, reqs, outs):
+                res = eng.generate(p, max_new_tokens=8, stop_ids={-1})
+                if eng.last_spec_stats is None or not res.finite:
+                    raise AssertionError(f"[spec] {label}: Engine.generate left the spec path")
+                summary.append(stream_check(f"{label} {mode} k={k} generate, {len(p)} ids",
+                                            res.tokens, res.logprobs, solo, gap=5e-2,
+                                            lp_tol=5e-2))
+                summary.append(stream_check(f"{label} {mode} k={k} scheduler, {len(p)} ids",
+                                            toks, r.logprobs, solo, gap=5e-2, lp_tol=5e-2))
+            print(f"[spec] {label}, {mode} k = {k}, on the card vs the CPU's vanilla "
+                  f"Engine.generate: scheduler {json.dumps(steps)}", flush=True)
+        del card
+    print(f"[spec] tiny references: {len(summary)} streams of 8 tokens, divergences "
+          f"{[s[0] for s in summary]} (only under a 0.05-nat top-two gap), logprobs within "
+          f"{max(s[1] for s in summary):.3g} (limit 5e-2); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+class SpecHooks:
+    """While active: the verify logits of every verify step (``mtp.
+    verify_and_sample``'s input), each MoE layer's picks for row 0
+    (``compute_routing``), forced prompt-lookup drafts (``spec_ngram.
+    ngram_draft``) when `drafts` is set, and every DeltaNet commit held to
+    the recurrence (``check_commit``)."""
+
+    def __init__(self, check_commit=False):
+        self.logits, self.picks, self.drafts = [], [], None
+        self.check_commit = check_commit
+        self.commits = []          # (bit-equal, largest difference over the state's largest)
+
+    def __enter__(self):
+        from krasis_tpu_torch.models import model as M
+        from krasis_tpu_torch.models import mtp, spec_ngram
+
+        self.saved = (M.compute_routing, mtp.verify_and_sample, spec_ngram.ngram_draft,
+                      mtp.la_spec_commit)
+        real_route, real_verify, real_draft, real_commit = self.saved
+
+        def route(*a, **kw):
+            out = real_route(*a, **kw)
+            self.picks.append(out.topk_idx.sort(dim=-1).values)
+            return out
+
+        def verify(logits, *a, **kw):
+            self.logits.append(logits.detach().clone())
+            return real_verify(logits, *a, **kw)
+
+        def draft(hist, hlen, k, n_max=3):
+            return real_draft(hist, hlen, k, n_max) if self.drafts is None else self.drafts
+
+        def commit(cache, ncommit):
+            pre = ([{n: t.clone() for n, t in lc.items()} if "p_k" in lc else None
+                    for lc in cache["layers"]] if self.check_commit else None)
+            real_commit(cache, ncommit)
+            if pre is not None:
+                self.hold_commit(pre, cache, ncommit)
+
+        M.compute_routing, mtp.verify_and_sample = route, verify
+        spec_ngram.ngram_draft, mtp.la_spec_commit = draft, commit
+        return self
+
+    def hold_commit(self, pre, cache, ncommit):
+        """Each DeltaNet layer's committed state and conv window against
+        ``gated_delta_rule_recurrent`` over each row's committed prefix from
+        the pre-window state."""
+        import torch
+        from krasis_tpu_torch.ops.deltanet import gated_delta_rule_recurrent
+
+        for b, n in enumerate(ncommit.tolist()):
+            for old, lc in zip(pre, cache["layers"]):
+                if old is None:
+                    continue
+                sl = slice(b, b + 1)
+                k_ = old["p_k"][sl, :n]
+                _, want = gated_delta_rule_recurrent(k_, k_, old["p_v"][sl, :n],
+                                                     old["p_g"][sl, :n], old["p_b"][sl, :n],
+                                                     old["state"][sl])
+                hist = torch.cat([old["conv"][sl].to(old["p_x"].dtype), old["p_x"][sl, :n]], 1)
+                conv = hist[:, n:].to(old["conv"].dtype)
+                got = lc["state"][sl]
+                equal = torch.equal(got, want) and torch.equal(lc["conv"][sl], conv)
+                diff = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+                self.commits.append((equal, diff))
+                if not torch.equal(lc["conv"][sl], conv) or not diff <= 1e-5:
+                    raise AssertionError(f"[spec] a DeltaNet commit of {n} tokens: state "
+                                         f"{diff:.3g} of its largest value from the recurrence")
+
+    def __exit__(self, *exc):
+        from krasis_tpu_torch.models import model as M
+        from krasis_tpu_torch.models import mtp, spec_ngram
+
+        (M.compute_routing, mtp.verify_and_sample, spec_ngram.ngram_draft,
+         mtp.la_spec_commit) = self.saved
+        return False
+
+
+def forced_verify(label, eng, prompt, k, steps, accept, run_step, hooks):
+    """Verify steps with forced drafts through the engine's own block
+    (`run_step(tok, drafts)` → (tokens [S], committed, next tok), one step
+    from the engine's caches). Each step's drafts are the tokens that the
+    batch-1 greedy decode gives from the same state (forced acceptance) or
+    those plus one (forced rejection). Exact mechanics: a step commits one
+    more token than its leading drafts equal to the verify argmax, each
+    committed token is that argmax, and the cache lengths (the MTP cache's
+    too) end at the committed count; forced rejection commits 1, forced
+    acceptance k + 1 except where the verify's top-two gap at a mismatch is
+    under 2·FORCED_LP_TOL. With acceptance, each committed position is also
+    teacher-forced against the batch-1 decode forward fed the same tokens
+    from the same state (``teacher_forced``'s measures). Returns (steps
+    taking k + 1, position records)."""
+    import torch
+    from krasis_tpu_torch.models.model import forward
+
+    cfg, params, dev = eng.cfg, eng.params, eng.device
+    V = cfg.vocab_size
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    n0 = len(prompt)
+    full, records, committed = 0, [], 0
+    tok = hooks.first_tok
+
+    def written(cache, at):
+        """(whether it is DeltaNet state, what row 0 holds): each layer's
+        cache row at `at`, a DeltaNet state and conv window whole."""
+        return [(name in ("state", "conv"),
+                 (buf[0] if name in ("state", "conv") else buf[0, :, at]).float().clone())
+                for lc in cache["layers"] for name, buf in lc.items()]
+
+    for step in range(steps):
+        narrow = clone_cache(eng.cache)
+        feed, n_lsm, n_picks, n_rows = [tok], [], [], []
+        for i in range(k + 1):
+            hooks.picks.clear()
+            lg = forward(params, feed[-1].reshape(1, 1), one, narrow, cfg, eng.quant,
+                         prefill=False)
+            n_picks.append([p[0] for p in hooks.picks])
+            n_lsm.append(torch.log_softmax(lg[0].float(), -1))
+            n_rows.append(written(narrow, n0 + committed + i))
+            feed.append(torch.argmax(lg, dim=-1))
+        b = torch.cat(feed[1:])                                          # [k + 1]
+        drafts = b[:k] if accept else (b[:k] + 1) % V
+        hooks.picks.clear()
+        hooks.logits.clear()
+        ts, nc, tok = run_step(tok, drafts[None])
+        vl = torch.log_softmax(hooks.logits[-1][0].float(), -1)          # [S, V]
+        top = torch.topk(vl, 2, dim=-1)
+        arg = top.indices[:, 0]
+        match = 0
+        while match < k and int(drafts[match]) == int(arg[match]):
+            match += 1
+        if nc != match + 1 or ts[:nc].tolist() != arg[:nc].tolist():
+            raise AssertionError(f"[spec] {label} step {step}: committed {nc} of tokens "
+                                 f"{ts.tolist()}, the verify argmax {arg.tolist()}, drafts "
+                                 f"{drafts.tolist()}")
+        committed += nc
+        lens = [int(eng.cache["length"][0])] + (
+            [int(eng.mtp_cache["length"][0])] if eng.mtp_cache is not None else [])
+        if any(n != n0 + committed for n in lens):
+            raise AssertionError(f"[spec] {label} step {step}: cache lengths {lens}, "
+                                 f"{n0 + committed} committed")
+        if not accept:
+            if nc != 1:
+                raise AssertionError(f"[spec] {label} step {step}: forced rejection committed {nc}")
+            continue
+        if nc == k + 1:
+            full += 1
+        else:
+            gap = float(top.values[match, 0] - top.values[match, 1])
+            if not gap < 2 * FORCED_LP_TOL:
+                raise AssertionError(f"[spec] {label} step {step}: forced acceptance committed "
+                                     f"{nc} of {k + 1}, the verify's top-two gap at the "
+                                     f"mismatch {gap:.4f}")
+        w_rows = [written(eng.cache, n0 + committed - nc + i) for i in range(nc)]
+        for i in range(nc):
+            flips = sum(int(not torch.equal(wp[i], npk))
+                        for wp, npk in zip(hooks.picks, n_picks[i]))
+            t_i = int(ts[i])
+            n_top = torch.topk(n_lsm[i], 2)
+            # a DeltaNet state is compared after the step's last committed token
+            rows = [(a - c).abs().max() / c.abs().max().clamp(min=1e-30)
+                    for (state, a), (_, c) in zip(w_rows[i], n_rows[i])
+                    if not state or i == nc - 1]
+            records.append({"i": i, "flips": flips, "narrow_tok": int(n_top.indices[0]),
+                            "vocab_diff": float((vl[i] - n_lsm[i]).abs().max()),
+                            "narrow_gap": float(n_top.values[0] - n_top.values[1]),
+                            "tok": t_i, "lp_diff": float((vl[i, t_i] - n_lsm[i][t_i]).abs()),
+                            "row_diff": float(torch.stack(rows).max())})
+    return full, records
+
+
+def hold_forced(label, records):
+    """``hold_teacher_forced``'s batch-1 rule on forced verify positions:
+    where every MoE layer picked the same experts, the batch-1 logprob of
+    the committed token within FORCED_LP_TOL, the written rows within
+    FORCED_ROW_TOL, the batch-1 greedy token the committed one unless its
+    top-two gap is under 2·FORCED_LP_TOL. Returns (held lp differences,
+    positions with other picks, largest row difference)."""
+    held, other, row = [], 0, 0.0
+    for i, r in enumerate(records):
+        if r["flips"]:
+            other += 1
+            continue
+        held.append(r["lp_diff"])
+        row = max(row, r["row_diff"])
+        if ((r["narrow_tok"] != r["tok"] and not r["narrow_gap"] < 2 * FORCED_LP_TOL)
+                or not r["lp_diff"] <= FORCED_LP_TOL or not r["row_diff"] <= FORCED_ROW_TOL):
+            raise AssertionError(f"[spec] {label} position {i}, same experts in every layer: "
+                                 f"{r}")
+    return held, other, row
+
+
+def forced_runs(label, eng, prompt, ks, steps, prefill, run_step, check_commit=False):
+    """Forced acceptance and rejection at each draft depth in `ks` from the
+    prompt's prefill (`prefill(k)` → the first token, resetting the
+    engine's caches), printed and held; returns the held differences."""
+    import statistics
+
+    held_all = []
+    for k in ks:
+        commits, runs = [], {}
+        for accept in (True, False):
+            with SpecHooks(check_commit) as hooks:
+                hooks.first_tok = prefill(k)
+                runs[accept] = forced_verify(label, eng, prompt, k, steps, accept,
+                                             lambda tok, d, k=k: run_step(k, tok, d, hooks),
+                                             hooks)
+            commits += hooks.commits
+        full, records = runs[True]
+        held, other, row = hold_forced(f"{label} k={k}", records)
+        held_all += held
+        # where in the window the other picks fall, and how far they move
+        at = [(i, sum(1 for r in records if r["i"] == i),
+               sum(1 for r in records if r["i"] == i and r["flips"]),
+               max((r["lp_diff"] for r in records if r["i"] == i and r["flips"]), default=0.0),
+               max(r["vocab_diff"] for r in records if r["i"] == i))
+              for i in range(k + 1) if any(r["i"] == i for r in records)]
+        line = (f"k = {k}: forced acceptance {full} of {steps} steps committed {k + 1} (the "
+                f"rest at a near-tie), teacher-forced {len(records)} positions: {len(held)} "
+                f"held, logprobs within {max(held, default=0.0):.3g} (median "
+                f"{statistics.median(held) if held else None}), rows within {row:.3g}, "
+                f"{other} ({100 * other / max(1, len(records)):.0f}%) with other picks (window "
+                f"position, positions, with other picks, their largest logprob difference, the "
+                f"largest over the vocabulary: "
+                f"{[(i, n, f, round(d, 4), round(v, 4)) for i, n, f, d, v in at]}); "
+                f"forced rejection {steps} of {steps} steps committed 1")
+        if commits:
+            line += (f"; {len(commits)} DeltaNet commits held to the recurrence, "
+                     f"{sum(e for e, _ in commits)} bit-equal, largest difference "
+                     f"{max(d for _, d in commits):.3g} of the state's largest value")
+        print(f"[spec] {label}, {line}", flush=True)
+    return held_all
+
+
+def replay_at_slots(eng, prompt, toks, lps, slots, k, chunk):
+    """A scheduler stream teacher-forced at the scheduler's shapes: the
+    prompt prefilled at batch 1 in `chunk`-token chunks, its cache in row 0
+    of a `slots`-row cache, then verify forwards of k + 1 rows a slot fed
+    the stream's own tokens (every draft accepted, the other rows idle).
+    Returns per token (stream token, greedy token, top-two gap, logprob
+    difference)."""
+    import torch
+    from krasis_tpu_torch.models.model import forward
+    from krasis_tpu_torch.runtime.kv_cache import init_cache, insert_slot
+
+    cfg, quant, dev = eng.cfg, eng.quant, eng.device
+    S = k + 1
+    out = []
+
+    def take(lsm, i):
+        top = torch.topk(lsm, 2)
+        return (toks[i], int(top.indices[0]), float(top.values[0] - top.values[1]),
+                abs(float(lsm[toks[i]]) - lps[i]))
+
+    saved = eng.chunk
+    eng.chunk = chunk
+    try:
+        eng.reset(eng.max_len)
+        logits = eng._prefill_prompt(prompt)
+    finally:
+        eng.chunk = saved
+    out.append(take(torch.log_softmax(logits[0].float(), -1), 0))
+    wide = init_cache(cfg, quant, slots, eng.max_len, dev)
+    insert_slot(wide, eng.cache, 0)
+    seq = torch.full((slots,), S, dtype=torch.int32, device=dev)
+    for j in range(0, len(toks) - 1, S):
+        x = torch.zeros((slots, S), dtype=torch.int64, device=dev)
+        feed = toks[j:j + S]
+        x[0, :len(feed)] = torch.tensor(feed, device=dev)
+        wide["length"][1:] = 0
+        lsm = torch.log_softmax(forward(eng.params, x, seq, wide, cfg, quant, prefill=False,
+                                        return_all_logits=True)[0].float(), -1)
+        for i in range(S):
+            if j + i + 1 < len(toks):
+                out.append(take(lsm[i], j + i + 1))
+    return out
+
+
+def spec_kernel_profile(label, eng, prompt, k, on_card):
+    """Launches a verify step and a vanilla decode step by kernel, and one
+    profiled block of 8 verify steps (busy share) from the prompt's state."""
+    import torch
+    from krasis_tpu_torch.models import mtp
+    from krasis_tpu_torch.models.model import forward
+    from krasis_tpu_torch.timing import recorded_step, traced_kernels
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    C = counters()
+    dev, V = eng.device, eng.cfg.vocab_size
+    args = (None, torch.zeros((1, V), dtype=torch.bool, device=dev), torch.zeros(1, device=dev),
+            torch.ones(1, device=dev), torch.zeros(1, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    eng.spec_k = k
+    eng.reset(eng.max_len)
+    logits, h = eng._prefill_prompt(prompt, mtp=True)
+    tok = torch.argmax(logits, dim=-1)
+    drafts = mtp.first_draft(eng.params, tok, h, eng.mtp_cache, eng.cfg, eng.quant, k)
+    # V2-Lite has no DeltaNet state: a block starts again from the lengths
+    base = eng.cache["length"].clone(), eng.mtp_cache["length"].clone()
+
+    def block(steps):
+        eng.cache["length"], eng.mtp_cache["length"] = base[0].clone(), base[1].clone()
+        out = mtp.spec_decode_block(eng.params, tok, drafts, eng.cache, eng.mtp_cache, eng.cfg,
+                                    eng.quant, steps, *args)
+        return out[2].tolist()
+
+    def measured(fn, n):
+        """(launches a step by kernel, the median of three walls of `fn` in
+        ms): the counts set to 0 before the first of the three runs and read
+        after it."""
+        walls = []
+        for i in range(3):
+            if i == 0:
+                for m, attr in C.values():
+                    setattr(m, attr, 0)
+            if on_card:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            if on_card:
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                launched = {name: getattr(m, attr) / n for name, (m, attr) in C.items()
+                            if getattr(m, attr)}
+        return launched, sorted(walls)[1]
+
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+
+    def vanilla(steps=8):
+        eng.cache["length"] = base[0].clone()
+        for _ in range(steps):
+            forward(eng.params, tok[:, None], one, eng.cache, eng.cfg, eng.quant, prefill=False)
+
+    block(1)
+    spec_step, wall = measured(lambda: block(8), 8)
+    vanilla_step, v_wall = measured(vanilla, 8)
+    # derived, not measured: were every draft accepted, a step would give
+    # k + 1 tokens for the same wall
+    print(f"[spec] {label}: a verify step at k = {k} {wall / 8:.2f} ms, a vanilla decode step "
+          f"{v_wall / 8:.2f} ms (host clock, from {len(prompt)} ids): {wall / v_wall:.3f} vanilla "
+          f"steps; derived for full acceptance ((k + 1) x vanilla wall / verify wall): "
+          f"{(k + 1) * v_wall / wall:.3f}x vanilla decode tok/s", flush=True)
+    busy = None
+    if on_card:
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            torch.ones(1, device=dev).add_(1)
+            recorded_step(prof)
+            block(8)
+            torch.cuda.synchronize()
+            prof.step()
+        rows = [(key, us / 1e3, n) for key, us, n in traced_kernels(prof) if us > 0]
+        dev_ms = sum(r[1] for r in rows)
+        busy = 100 * dev_ms / wall
+        print(f"[profile] {label}: one block of 8 verify steps at k = {k} from "
+              f"{len(prompt)} ids: wall {wall:.1f} ms unprofiled, device kernels {dev_ms:.1f} ms "
+              f"({busy:.1f}% busy), {sum(r[2] for r in rows)} launches", flush=True)
+        for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"[profile]   {ms:9.2f} ms {n:6d}x  {key[:90]}")
+    print(f"[spec] {label}: launches a verify step at k = {k} {json.dumps(spec_step)}; a "
+          f"vanilla decode step {json.dumps(vanilla_step)}", flush=True)
+    return spec_step, vanilla_step, busy, wall / v_wall
+
+
+def spec_phase(eng, cfg, results, rng):
+    """12 (b)-(c). Speculative decoding on phase 4's V2-Lite Q4 weights
+    (27 layers at full width, int8 expert activations, max_len 4096) with a
+    synthetic MTP module at V2-Lite's widths attached (seed 0; V2-Lite's
+    checkpoint has none: DeepSeek-V3's MTP layer at V2-Lite's widths): K2's
+    split form at the verify shapes Sq = 2 and 4 over the MLA cache (bf16
+    and e4m3, kv_len 40 / 600 / 2560, and a control without the in-window
+    causal mask that the check must refuse); forced acceptance and
+    rejection at k = 1 and 3, teacher-forced against the batch-1 decode;
+    launches a verify step and one profiled verify block; requests 2048 +
+    64 and 40 + 32 at k = 1 and 3 and prompt lookup at k = 3 on a repeated
+    block, each beside the vanilla path in this call; a 4-slot
+    BatchScheduler under MTP k = 1 and prompt lookup k = 3 with six requests
+    at once, each stream teacher-forced at the scheduler's shapes; one
+    request through the in-process server. Launch counts are set to 0 just
+    before each spec request and each scheduler and read just after, before
+    any vanilla or checking run (a scheduler's K4 from its verify blocks
+    alone); no MoE call takes a plain form."""
+    import statistics
+    from dataclasses import replace
+
+    import torch
+    from krasis_tpu_torch import server
+    from krasis_tpu_torch.models import mtp
+    from krasis_tpu_torch.models.params import init_mtp_params
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe
+    from krasis_tpu_torch.ops.rope import yarn_softmax_scale
+    from krasis_tpu_torch.ops.sampling import SamplingParams
+    from krasis_tpu_torch.runtime.engine import Engine
+    from krasis_tpu_torch.runtime.scheduler import BatchScheduler
+
+    t0 = time.perf_counter()
+    card = card_line()
+    dev = eng.device
+    on_card = dev.type == "cuda"
+    V = cfg.vocab_size
+    mine = []
+    if on_card:
+        g = torch.Generator(device=dev)
+        g.manual_seed(5678)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        L, DR = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        scale = yarn_softmax_scale((cfg.qk_nope_head_dim + DR) ** -0.5, cfg.rope_scaling)
+        attention_checks(mine, "spec/", cfg.num_attention_heads, 1, L + DR, 640, L, False, scale,
+                         1.0, g, flush, fp8=True, cases=verify_cases())
+        # K1 at a verify step's rows (the lm_head at T = 4 is the batch
+        # phase's line); K4 at the 4-slot prompt-lookup verify, T = 16 (T = 8,
+        # MTP k = 1 on 4 slots, is the batch phase's 8-slot decode shape)
+        dense = eng.params["layers"][0]
+        qmm_checks(mine, "spec/", (
+            ("qmm:lm_head_T2", eng.params["lm_head"], None, torch.float32, 2),
+            ("qmm:mlp_w13_T2", dense["mlp_w13"], None, torch.bfloat16, 2),
+            ("qmm:mlp_w13_T4", dense["mlp_w13"], None, torch.bfloat16, 4),
+            ("qmm:mlp_w2_T2", dense["mlp_w2"], None, torch.bfloat16, 2),
+            ("qmm:mlp_w2_T4", dense["mlp_w2"], None, torch.bfloat16, 4)), g, flush)
+        moe_lp = next(lp for lp in eng.params["layers"] if "w13" in lp)
+        w13, E_all, T = moe_lp["w13"], moe_lp["w13"].q.shape[0], 16
+        E_r, k_r = cfg.n_routed_experts, cfg.num_experts_per_tok
+        x = torch.randn((T, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+        routed = torch.rand((T, E_r), generator=g, device=dev).topk(k_r, dim=-1).indices
+        idx = torch.cat([routed, torch.arange(E_r, E_all, device=dev).expand(T, E_all - E_r)],
+                        dim=1).to(torch.int32)
+        k4_checks(mine, "spec/decode_T16_", x, idx, w13, moe_lp["w2"], cfg, iters=50)
+        del flush
+    t_kernels = time.perf_counter()
+
+    cfg1 = replace(cfg, num_nextn_predict_layers=1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = {**eng.params, "mtp": init_mtp_params(cfg1, eng.quant, gen, dev)}
+    with spec_env("mtp", 1):
+        se = Engine(cfg1, eng.quant, params, max_len=eng.max_len, device=dev)
+    greedy = SamplingParams(temperature=0.0)
+    V = cfg.vocab_size
+
+    def ids(n):
+        return rng.integers(100, V - 100, n).tolist()
+
+    # --- forced acceptance / rejection, teacher-forced against batch-1 decode
+    prompt = ids(40)
+    zargs = (torch.zeros((1, V), dtype=torch.bool, device=dev), torch.zeros(1, device=dev),
+             torch.ones(1, device=dev), torch.zeros(1, device=dev),
+             torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def prefill(k):
+        se.spec_k = k
+        se.reset(se.max_len)
+        logits, h = se._prefill_prompt(prompt, mtp=True)
+        tok = torch.argmax(logits, dim=-1)
+        se._drafts = mtp.first_draft(params, tok, h, se.mtp_cache, cfg1, se.quant, k)
+        return tok
+
+    def run_step(k, tok, drafts, hooks):
+        ts, _, nc, _, nxt, _ = mtp.spec_decode_block(params, tok, drafts, se.cache, se.mtp_cache,
+                                                     cfg1, se.quant, 1, None, *zargs)
+        return ts[0, 0], int(nc[0, 0]), nxt
+
+    with torch.inference_mode():
+        held = forced_runs("V2-Lite Q4 + MTP", se, prompt, (1, 3), SPEC_STEPS, prefill, run_step)
+    median = statistics.median(held) if held else None
+    if median is None or not median <= FORCED_LP_MEDIAN:
+        raise AssertionError(f"[spec] forced verify against the batch-1 decode: median {median}")
+    t_forced = time.perf_counter()
+
+    # --- launches a step, one profiled verify block
+    with torch.inference_mode():
+        launches = {k: spec_kernel_profile("V2-Lite Q4 + MTP", se, ids(600), k, on_card)
+                    for k in (1, 3)}
+
+    # --- requests: spec beside vanilla, in this call. The counts are set to
+    # 0 just before each spec request and read just after: they count the
+    # spec path alone, never a vanilla or a checking run
+    C = counters()
+
+    def zero():
+        for m, attr in C.values():
+            setattr(m, attr, 0)
+        fa.form_launches.clear()
+        moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+
+    def read():
+        if any(moe.plain_routes.values()):
+            raise AssertionError(f"[spec] MoE calls on a plain form {moe.plain_routes}")
+        return {name: getattr(m, attr) for name, (m, attr) in C.items()}
+
+    def add(total, got):
+        for name, c in got.items():
+            total[name] = total.get(name, 0) + c
+
+    def nonzero(c):
+        return json.dumps({name: v for name, v in c.items() if v})
+
+    with spec_env("ngram", 3):
+        ng = Engine(cfg, eng.quant, eng.params, max_len=eng.max_len, device=dev)
+    with spec_env("mtp", 3):
+        fp8 = Engine(cfg1, replace(eng.quant, kv_cache_dtype="fp8"), params,
+                     max_len=eng.max_len, device=dev)
+    block = ids(REPEAT_BLOCK)
+    se.generate(ids(256), max_new_tokens=8, stop_ids={-1})                   # warm-up
+    rates, counts, forms = [], {}, {}
+    # one vanilla run a prompt, then the spec runs of that prompt at each k
+    for label, e, ks, n, new, p in (
+            ("mtp", se, (1, 3), 2048, 64, None), ("mtp", se, (1, 3), 40, 32, None),
+            ("ngram", ng, (3,), 4 * REPEAT_BLOCK, 64, block * 4),
+            ("mtp fp8 cache", fp8, (3,), 40, 16, None)):
+        p = p or ids(n)
+        e.spec_available = False
+        van = e.generate(p, max_new_tokens=new, stop_ids={-1})
+        e.spec_available = True
+        for k in ks:
+            e.spec_k = k
+            zero()
+            spec = e.generate(p, max_new_tokens=new, stop_ids={-1})
+            launched = read()
+            add(counts, launched)
+            add(forms, fa.form_launches)
+            stats = e.last_spec_stats
+            if not (spec.finite and van.finite) or len(spec.tokens) != new or stats is None:
+                raise AssertionError(f"[spec] {label} k={k} {n} + {new}: {stats}")
+            first = next((i for i, (a, b) in enumerate(zip(spec.tokens, van.tokens)) if a != b),
+                         None)
+            rates.append((label, k, n, new, van.decode_tok_s, spec.decode_tok_s))
+            print("[spec] " + json.dumps({
+                "request": f"{n} + {new}", "draft": label, "k": k,
+                "vanilla": {"prefill_tok_s": van.prefill_tok_s, "decode_tok_s": van.decode_tok_s},
+                "spec": {"prefill_tok_s": spec.prefill_tok_s, "decode_tok_s": spec.decode_tok_s,
+                         "stats": stats},
+                "decode_ratio": spec.decode_tok_s / van.decode_tok_s,
+                "first_divergence_from_vanilla": first,
+                "launches_spec_request": {name: c for name, c in launched.items() if c},
+                "k2_forms": dict(fa.form_launches)}), flush=True)
+    del fp8, e
+    for name in ("K1", "K2", "K3"):
+        if on_card and counts.get(name, 0) <= 0:
+            raise AssertionError(f"[spec] the spec requests launched no {name}")
+    for form in ("split", "split+fp8"):
+        if on_card and forms.get(form, 0) <= 0:
+            raise AssertionError(f"[spec] the spec requests never launched K2's {form} form")
+    t_requests = time.perf_counter()
+
+    # --- a 4-slot scheduler under each draft source: six requests at once.
+    # The counts are set to 0 before each scheduler and read when it is shut
+    # down, before the replay; the verify blocks' own launches are summed
+    # over its _spec_decode_block calls (admission prefills excluded)
+    forced_sched, block_counts = [], {}
+    for mode, k, p_params, p_cfg in (("mtp", 1, params, cfg1), ("ngram", 3, eng.params, cfg)):
+        zero()
+        with spec_env(mode, k):
+            sched = BatchScheduler(p_cfg, eng.quant, p_params, max_len=eng.max_len,
+                                   num_slots=4, decode_block=8, device=dev)
+        in_blocks = {}
+
+        def counted_block(real=sched._spec_decode_block, in_blocks=in_blocks):
+            before = {name: getattr(m, attr) for name, (m, attr) in C.items()}
+            real()
+            add(in_blocks, {name: getattr(m, attr) - before[name]
+                            for name, (m, attr) in C.items()})
+        sched._spec_decode_block = counted_block
+        try:
+            prompts = [ids(n) for n in BATCH_PROMPTS]
+            prompts[-1] = (prompts[-1][:150] * 4)[:600]            # one that lookup can draft
+            t = time.perf_counter()
+            reqs = [sched.submit(p, max_new_tokens=SPEC_SCHED_NEW, sampling=greedy,
+                                 stop_ids={-1}, want_logprobs=True) for p in prompts]
+            outs = []
+            for r in reqs:
+                toks = []
+                while (tk := r.out_queue.get(timeout=600)) is not None:
+                    toks.append(tk)
+                if r.error is not None or len(toks) != SPEC_SCHED_NEW:
+                    raise AssertionError(f"[spec] the {mode} scheduler: {r.error!r}, "
+                                         f"{len(toks)} tokens")
+                outs.append(toks)
+            wall = time.perf_counter() - t
+            stats = dict(sched.stats_spec)
+            chunk = sched.chunk
+        finally:
+            sched.shutdown()
+        del sched
+        launched = read()
+        add(block_counts, in_blocks)
+        if on_card and in_blocks.get("K4", 0) <= 0:
+            raise AssertionError(f"[spec] the {mode} scheduler's 4-slot verify blocks "
+                                 f"launched no K4")
+        worst, apart = 0.0, []
+        with torch.inference_mode():
+            for n, p, r, toks in zip(BATCH_PROMPTS, prompts, reqs, outs):
+                for i, (tok, w_tok, gap, lp_diff) in enumerate(
+                        replay_at_slots(se if mode == "mtp" else ng, p, toks, r.logprobs, 4, k,
+                                        chunk)):
+                    if (w_tok != tok and not gap < GAP_NATS) or not lp_diff <= STREAM_LP_TOL:
+                        raise AssertionError(f"[spec] {mode} scheduler, {n} ids, token {i}: "
+                                             f"the scheduler's shapes give {w_tok} (the stream "
+                                             f"{tok}, gap {gap:.4f}), logprob {lp_diff:.3g} off")
+                    worst = max(worst, lp_diff)
+                    if w_tok != tok:
+                        apart.append((n, i))
+        forced_sched.append(f"{mode} k = {k}: {len(BATCH_PROMPTS)} requests "
+                            f"({'+'.join(map(str, BATCH_PROMPTS))} ids, {SPEC_SCHED_NEW} greedy "
+                            f"tokens) in {wall:.2f} s "
+                            f"({len(BATCH_PROMPTS) * SPEC_SCHED_NEW / wall:.2f} tok/s), "
+                            f"{json.dumps(stats)}; each stream teacher-forced at the "
+                            f"scheduler's shapes: logprobs within {worst:.3g}, tokens apart "
+                            f"(under a {GAP_NATS}-nat gap) {apart}; launches in the run "
+                            f"{nonzero(launched)}, of them in its verify blocks "
+                            f"{nonzero(in_blocks)}")
+    for line in forced_sched:
+        print(f"[spec] 4-slot BatchScheduler, {line}; {card}", flush=True)
+    t_sched = time.perf_counter()
+
+    # --- one request through the in-process server over the spec engine
+    se.spec_k = 1
+    httpd = server.start_temp_server(se, None, "synthetic/deepseek-v2-lite+mtp", port=0,
+                                     backend="native")
+    try:
+        status, _, body = http_call(httpd.port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "speculative " * 40}], "max_tokens": 16,
+            "temperature": 0.0})
+    finally:
+        httpd.shutdown()
+    answer = json.loads(body)
+    spec_stats = answer.get("timing", {}).get("spec")
+    if status != 200 or not spec_stats or spec_stats["emitted"] != 16:
+        raise AssertionError(f"[spec] the served request: {status} {answer}")
+    print(f"[spec] served through the spec engine (native transport): timing "
+          f"{json.dumps(answer['timing'])}", flush=True)
+
+    name_of = {v: n for n, v in C.items()}
+    for counter, res in mine:
+        name = name_of[counter]
+        if "form" in res:
+            res["launches"] = forms.get(res["form"], 0)
+        else:        # K1 in the spec requests, K4 in the 4-slot verify blocks
+            res["launches"] = (block_counts if name == "K4" else counts).get(name, 0)
+        res["launches_verify_step"] = {k: launches[k][0].get(name, 0) for k in launches}
+    results.extend(mine)
+    print(f"[spec] decode tok/s, spec against vanilla in this call (request, draft, k: "
+          f"vanilla / spec): " + "; ".join(f"{n} + {new} {lab} k={k}: {v:.2f} / {s:.2f}"
+                                            for lab, k, n, new, v, s in rates)
+          + f"; busy share of a verify block k=1 / k=3: {launches[1][2]} / {launches[3][2]}; "
+          f"{card}", flush=True)
+    print(f"[time] spec phase {time.perf_counter() - t0:.1f} s: kernel checks "
+          f"{t_kernels - t0:.1f} s, forced verify {t_forced - t_kernels:.1f} s, requests "
+          f"{t_requests - t_forced:.1f} s, schedulers {t_sched - t_requests:.1f} s", flush=True)
+    del se, ng
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def verify_cases():
+    """K2's cases at the verify shapes: Sq = 2 and 4 at kv_len 40, 600 and
+    2560 over the engine's 4096-row view (the split form), the window's
+    later keys scaled by 4 so that the causal mask inside it matters."""
+    from krasis_tpu_torch.ops import flash_attention as fa
+
+    return [(f"attention:verify_Sq{sq}_kv_{kv}", sq, kv - sq, kv, 4096, fa.REPLACES_DECODE, 4.0)
+            for sq in (2, 4) for kv in (40, 600, 2560)]
+
+
+def hybrid_spec_phase(eng, cfg, results, rng):
+    """12 (d). Prompt lookup on phase 5's Qwen3-Coder-Next Q4 (int8
+    projections), k = 3: K2's split form at Sq = 2 and 4 on its GQA layers
+    (with the no-mask control), K1s at T = 4 on the six stacked
+    projections, K3 at T = 4 (44 picks of 513); requests 40 + 16 and a
+    200-id block repeated four times + 16, beside the vanilla path, with
+    every DeltaNet commit held to the recurrence over the committed prefix
+    from the pre-window state; forced acceptance and rejection, teacher-
+    forced against the batch-1 decode."""
+    import statistics
+
+    import torch
+    from krasis_tpu_torch.models import spec_ngram
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe, moe_cuda
+    from krasis_tpu_torch.quant import qtensor_bytes
+    from krasis_tpu_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    card = card_line()
+    dev = eng.device
+    on_card = dev.type == "cuda"
+    V = cfg.vocab_size
+    mine = []
+    if on_card:
+        g = torch.Generator(device=dev)
+        g.manual_seed(8765)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        la, gqa = eng.params["layers"][0], eng.params["layers"][3]
+        layer = la["qkvz_proj"].q.shape[0] - 1
+        qmm_checks(mine, "qcn/spec/", tuple(
+            (f"qmm_stacked:{name}_T4", lp[name], layer, torch.bfloat16, 4)
+            for lp, name in ((la, "qkvz_proj"), (la, "ba_proj"), (la, "la_out_proj"),
+                             (gqa, "q_proj"), (gqa, "k_proj"), (gqa, "o_proj"))), g, flush)
+        d = cfg.qk_head_dim
+        attention_checks(mine, "qcn/spec/", cfg.num_attention_heads, cfg.num_key_value_heads,
+                         d, d, d, True, d ** -0.5, 3.0, g, flush, cases=verify_cases())
+        w13, w2 = la["w13"], la["w2"]
+        E_r, E_all, k = cfg.n_routed_experts, w13.q.shape[0], cfg.num_experts_per_tok
+        Hd, I, T = cfg.hidden_size, cfg.moe_intermediate_size, 4
+        x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
+        routed = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices
+        idx = torch.cat([routed, torch.arange(E_r, E_all, device=dev).expand(T, E_all - E_r)],
+                        dim=1).to(torch.int32)
+        wts = torch.cat([torch.rand((T, k), generator=g, device=dev) * 0.3,
+                         torch.ones((T, E_all - E_r), device=dev)], dim=1)
+        hit = int(torch.unique(idx).numel())
+        k3_checks(mine, "qcn/spec/moe_decode_T4", x, w13, w2, idx, wts, moe_cuda.REPLACES,
+                  hit * (qtensor_bytes(w13) + qtensor_bytes(w2)) / E_all + T * Hd * 4,
+                  2 * idx.numel() * (Hd * 2 * I + I * Hd), flush)
+        mine[-1][1]["experts_hit"] = hit
+        del flush
+    t_kernels = time.perf_counter()
+
+    with spec_env("ngram", 3):
+        ng = Engine(cfg, eng.quant, eng.params, max_len=eng.max_len, device=dev)
+    C = counters()
+    counts, forms = {}, {}
+    block = rng.integers(100, V - 100, REPEAT_BLOCK).tolist()
+    rates = []
+    with SpecHooks(check_commit=True) as hooks:
+        for label, p in (("40 + 16", rng.integers(100, V - 100, 40).tolist()),
+                         (f"{REPEAT_BLOCK} ids x 4 + 16", block * 4)):
+            ng.spec_available = False
+            van = ng.generate(p, max_new_tokens=16, stop_ids={-1})
+            ng.spec_available = True
+            # the counts are set to 0 just before the spec request and read
+            # just after: the spec path alone
+            for m, attr in C.values():
+                setattr(m, attr, 0)
+            fa.form_launches.clear()
+            moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+            spec = ng.generate(p, max_new_tokens=16, stop_ids={-1})
+            if any(moe.plain_routes.values()):
+                raise AssertionError(f"[spec] qcn: MoE calls on a plain form {moe.plain_routes}")
+            for name, (m, attr) in C.items():
+                counts[name] = counts.get(name, 0) + getattr(m, attr)
+            for form, c in fa.form_launches.items():
+                forms[form] = forms.get(form, 0) + c
+            if not spec.finite or len(spec.tokens) != 16 or ng.last_spec_stats is None:
+                raise AssertionError(f"[spec] qcn {label}: {ng.last_spec_stats}")
+            rates.append((label, van.decode_tok_s, spec.decode_tok_s, ng.last_spec_stats))
+        commits = list(hooks.commits)
+    for name in ("K1", "K1s", "K2", "K3"):
+        if on_card and counts[name] <= 0:
+            raise AssertionError(f"[spec] qcn: the spec requests launched no {name}")
+    print(f"[spec] Qwen3-Coder-Next, prompt lookup k = 3 (decode tok/s vanilla / spec): "
+          + "; ".join(f"{lab}: {v:.2f} / {s:.2f} {json.dumps(st)}" for lab, v, s, st in rates)
+          + f"; {len(commits)} DeltaNet commits held to the recurrence, "
+          f"{sum(e for e, _ in commits)} bit-equal, largest difference "
+          f"{max((d for _, d in commits), default=0.0):.3g} of the state's largest value; "
+          f"launches of the spec requests {json.dumps(counts)}; {card}", flush=True)
+    t_requests = time.perf_counter()
+
+    prompt = rng.integers(100, V - 100, 40).tolist()
+    zargs = (torch.zeros((1, V), dtype=torch.bool, device=dev), torch.zeros(1, device=dev),
+             torch.ones(1, device=dev), torch.zeros(1, device=dev),
+             torch.zeros(1, dtype=torch.int32, device=dev))
+    hist = torch.zeros((1, ng.max_len), dtype=torch.int64, device=dev)
+
+    def prefill(k):
+        ng.reset(ng.max_len)
+        return torch.argmax(ng._prefill_prompt(prompt), dim=-1)
+
+    def run_step(k, tok, drafts, hooks):
+        hooks.drafts = drafts
+        ts, _, nc, _, nxt = spec_ngram.ngram_decode_block(ng.params, tok, ng.cache, hist, cfg,
+                                                          ng.quant, 1, k, None, *zargs)
+        return ts[0, 0], int(nc[0, 0]), nxt
+
+    with torch.inference_mode():
+        held = forced_runs("Qwen3-Coder-Next, prompt lookup", ng, prompt, (3,), SPEC_STEPS,
+                           prefill, run_step, check_commit=True)
+    median = statistics.median(held) if held else None
+    if median is None or not median <= FORCED_LP_MEDIAN:
+        raise AssertionError(f"[spec] qcn forced verify against the batch-1 decode: median "
+                             f"{median}")
+    for counter, res in mine:
+        res["launches"] = (forms.get(res["form"], 0) if "form" in res
+                           else counts[{v: n for n, v in C.items()}[counter]])
+    results.extend(mine)
+    del ng
+    print(f"[time] hybrid spec phase {time.perf_counter() - t0:.1f} s: kernel checks "
+          f"{t_kernels - t0:.1f} s, requests {t_requests - t_kernels:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3680,6 +4612,7 @@ def main() -> int:
 
     reference_phases()
     hybrid_scheduler_reference()
+    spec_reference()
     c2_phase()
     c3_phase()
 
@@ -3691,13 +4624,13 @@ def main() -> int:
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "bf16")),
                ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=16,
                forms=("one-launch", "split", "one-launch+fp8", "split+fp8"),
-               batched=batch_phase)
+               batched=batch_phase, spec=spec_phase)
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"), (40, 16, "bf16")),
                ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=4,
-               profile_bf16=8)
+               profile_bf16=8, spec=hybrid_spec_phase)
 
     run_family("DeepSeek-V2-Lite Q8 (two-stage expert class)", "deepseek-v2-lite",
                QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,

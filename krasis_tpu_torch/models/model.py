@@ -22,8 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig, QuantConfig
-from ..ops.deltanet import (DeltaNetDims, causal_conv, fix_qkvz_ordering,
-                            gated_delta_rule_chunked, gated_delta_rule_recurrent)
+from ..ops.deltanet import (DeltaNetDims, causal_conv, delta_state_update,
+                            fix_qkvz_ordering, gated_delta_rule_chunked,
+                            gated_delta_rule_recurrent)
 from ..ops.flash_attention import flash_attention
 from ..ops.moe import mlp_forward, moe_forward
 from ..ops.norm import gated_rms_norm, rms_norm
@@ -97,9 +98,16 @@ def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
 
 
 def _la_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
-                  valid: torch.Tensor, cfg: ModelConfig, prefill: bool) -> torch.Tensor:
+                  valid: torch.Tensor, cfg: ModelConfig, prefill: bool,
+                  spec: bool = False) -> torch.Tensor:
     """Gated DeltaNet layer; `valid` [B, S] masks padded query positions,
-    which must neither enter the conv window nor advance the recurrence."""
+    which must neither enter the conv window nor advance the recurrence.
+
+    `spec` (a speculative verify step, in decode): the outputs are computed as usual,
+    but `state` and `conv` stay as they were; the layer's cache holds the
+    replay inputs instead (post-conv k and v, decay, beta and the conv
+    inputs as ``p_k``, ``p_v``, ``p_g``, ``p_b``, ``p_x``) until
+    ``la_spec_commit`` advances them by each row's committed prefix."""
     B, S, _ = x.shape
     dims = DeltaNetDims(cfg.linear_num_key_heads, cfg.linear_num_value_heads,
                         cfg.linear_key_head_dim, cfg.linear_value_head_dim,
@@ -114,11 +122,10 @@ def _la_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     mixed = torch.where(valid[..., None], mixed, torch.zeros((), dtype=mixed.dtype,
                                                              device=mixed.device))
     conv_out, _ = causal_conv(mixed, lp["conv_w"], lc["conv"])
-    # new conv window = the last K-1 *valid* inputs of each row
-    Kc = dims.conv_kernel
-    hist = torch.cat([lc["conv"].to(mixed.dtype), mixed], dim=1)
-    take = valid.sum(dim=-1)[:, None] + torch.arange(Kc - 1, device=x.device)
-    lc["conv"] = hist[torch.arange(B, device=x.device)[:, None], take].to(lc["conv"].dtype)
+    spec = spec and not prefill
+    if not spec:
+        # new conv window = the last K-1 *valid* inputs of each row
+        lc["conv"] = _conv_window(lc["conv"], mixed, valid.sum(dim=-1))
 
     kd = dims.key_dim
     qc = conv_out[..., :kd].reshape(B, S, dims.num_k_heads, dims.head_k_dim)
@@ -135,11 +142,42 @@ def _la_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
         # fast=True: the numerics the reference runs on its accelerator
         core, lc["state"] = gated_delta_rule_chunked(qc, kc, vc, g, beta, lc["state"],
                                                      fast=True)
+    elif spec:
+        core, _ = gated_delta_rule_recurrent(qc, kc, vc, g, beta, lc["state"])
+        lc.update(p_k=kc, p_v=vc, p_g=g, p_b=beta, p_x=mixed)
     else:
         core, lc["state"] = gated_delta_rule_recurrent(qc, kc, vc, g, beta, lc["state"])
     core = gated_rms_norm(core.to(x.dtype), z, lp["la_norm"], cfg.rms_norm_eps,
                           plus_one=False)
     return linear(core.reshape(B, S, -1), lp["la_out_proj"], layer_idx=li)
+
+
+def _conv_window(conv: torch.Tensor, mixed: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The conv window after each row's first n [B] inputs of mixed [B, S,
+    C]: the last K-1 of concat(conv, mixed[:, :n]), in conv's dtype."""
+    B, K1 = conv.shape[0], conv.shape[1]
+    hist = torch.cat([conv.to(mixed.dtype), mixed], dim=1)
+    take = n.to(torch.int64)[:, None] + torch.arange(K1, device=mixed.device)
+    return hist[torch.arange(B, device=mixed.device)[:, None], take].to(conv.dtype)
+
+
+def la_spec_commit(cache: Dict[str, Any], ncommit: torch.Tensor) -> None:
+    """After a speculative verify step (``forward(spec_la=True)``), advance
+    every DeltaNet layer's state and conv window by each row's committed
+    token count ncommit [B] (1 to S), in place, and drop the replay stash.
+    The rejected tail is masked (g = beta = 0, exact no-ops), so the state
+    is the one the committed tokens decoded one at a time give. A no-op for
+    caches without DeltaNet layers."""
+    for lc in cache["layers"]:
+        if "p_k" not in lc:
+            continue
+        p_k, p_v, p_g, p_b, p_x = (lc.pop(n) for n in ("p_k", "p_v", "p_g", "p_b", "p_x"))
+        S = p_x.shape[1]
+        mask = (torch.arange(S, device=p_x.device)[None, :] < ncommit[:, None])[..., None]
+        zero = torch.zeros((), dtype=torch.float32, device=p_x.device)
+        lc["state"] = delta_state_update(p_k, p_v, torch.where(mask, p_g, zero),
+                                         torch.where(mask, p_b, zero), lc["state"])
+        lc["conv"] = _conv_window(lc["conv"], p_x, ncommit)
 
 
 def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
@@ -233,50 +271,77 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
     return out
 
 
-def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor,
-            cache: Dict[str, Any], cfg: ModelConfig, quant: QuantConfig,
-            prefill: bool, return_all_logits: bool = False,
-            history: int = 0) -> torch.Tensor:
-    """One pass over tokens [B, S] with seq_lens [B] valid tokens per row,
-    after cache["length"] cached ones. Writes the new cache rows, advances
-    cache["length"], and returns f32 logits [B, V] at each row's last valid
-    token, or [B, S, V] at every position with return_all_logits (the
-    perplexity path). `history` is the host's count of tokens cached
-    before a prefill chunk: 0 marks the first chunk (read on the host, so
-    the cache's device-side length is never synchronised)."""
-    B, S = tokens.shape
-    length = cache["length"]
-    steps = torch.arange(S, device=tokens.device)
-    positions = length.to(torch.int64)[:, None] + steps
-    valid = steps[None, :] < seq_lens[:, None]
-    kv_len = length + seq_lens.to(length.dtype)
-    # prefill MoE stays bf16: the int8-activation numerics belong to decode
-    activation = "bf16" if prefill else quant.expert_activation
-    fresh = prefill and history == 0
-    # every attention layer writes its rows at the same places
-    S_cache = next((lc[k].shape[2] for lc in cache["layers"] for k in ("kv", "k") if k in lc),
-                   None)
-    at = None if S_cache is None else cache_rows(positions, S_cache)
-
-    x = params["embed"][tokens]
-    for lp, lc, spec in zip(params["layers"], cache["layers"], layer_specs(cfg)):
+def make_layer_step(cfg: ModelConfig, *, prefill: bool, positions: torch.Tensor,
+                    valid: torch.Tensor, kv_len: torch.Tensor, activation: str,
+                    fresh: bool, at: Optional[CacheRows], spec_la: bool = False):
+    """One layer as a function, ``step(x, lp, lc, spec) → x`` (norm →
+    attention → norm → MLP, the cache updated in place): the body of
+    ``forward``'s layer loop, which the MTP module (``models/mtp.py``) runs
+    on its own layer too. The reference's ``make_layer_step``."""
+    def step(x: torch.Tensor, lp: Dict[str, Any], lc: Dict[str, Any], spec) -> torch.Tensor:
+        B, S = x.shape[:2]
         normed = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
         if spec.attn_kind == "gqa":
             attn = _gqa_attention(lp, lc, normed, positions, kv_len, cfg, spec.sliding, fresh, at)
         elif spec.attn_kind == "mla":
             attn = _mla_attention(lp, lc, normed, positions, kv_len, cfg, fresh, at)
         else:
-            attn = _la_attention(lp, lc, normed, valid, cfg, prefill)
+            attn = _la_attention(lp, lc, normed, valid, cfg, prefill, spec=spec_la)
         x = x + attn
         normed = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
-        x = x + _mlp(lp, normed.reshape(B * S, -1), cfg, prefill,
-                     activation).reshape(B, S, -1)
+        return x + _mlp(lp, normed.reshape(B * S, -1), cfg, prefill,
+                        activation).reshape(B, S, -1)
+
+    return step
+
+
+def step_inputs(length: torch.Tensor, seq_lens: torch.Tensor, S: int, buffers, prefill: bool):
+    """(positions [B, S], valid [B, S], kv_len [B], where the rows go) of a
+    pass over S tokens after `length` cached ones, `seq_lens` of them valid,
+    into the layer caches `buffers` (each layer's attention writes its rows
+    at the same places; None without attention buffers)."""
+    steps = torch.arange(S, device=length.device)
+    positions = length.to(torch.int64)[:, None] + steps
+    valid = steps[None, :] < seq_lens[:, None]
+    kv_len = length + seq_lens.to(length.dtype)
+    S_cache = next((lc[k].shape[2] for lc in buffers for k in ("kv", "k") if k in lc), None)
+    at = None if S_cache is None else cache_rows(positions, S_cache, decode=not prefill)
+    return positions, valid, kv_len, at
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor,
+            cache: Dict[str, Any], cfg: ModelConfig, quant: QuantConfig,
+            prefill: bool, return_all_logits: bool = False,
+            history: int = 0, return_hidden: bool = False, spec_la: bool = False):
+    """One pass over tokens [B, S] with seq_lens [B] valid tokens per row,
+    after cache["length"] cached ones. Writes the new cache rows, advances
+    cache["length"], and returns f32 logits [B, V] at each row's last valid
+    token, or [B, S, V] at every position with return_all_logits (the
+    perplexity path and the verify step). `history` is the host's count of
+    tokens cached before a prefill chunk: 0 marks the first chunk (read on
+    the host, so the cache's device-side length is never synchronised).
+    With `return_hidden`, returns (logits, the final-norm hidden [B, S, H]
+    at every position: the MTP module's input). `spec_la` (a verify step)
+    leaves the DeltaNet layers' state for ``la_spec_commit``."""
+    B, S = tokens.shape
+    positions, valid, kv_len, at = step_inputs(cache["length"], seq_lens, S, cache["layers"],
+                                               prefill)
+    # prefill MoE stays bf16: the int8-activation numerics belong to decode
+    step = make_layer_step(cfg, prefill=prefill, positions=positions, valid=valid,
+                           kv_len=kv_len,
+                           activation="bf16" if prefill else quant.expert_activation,
+                           fresh=prefill and history == 0, at=at, spec_la=spec_la)
+    x = params["embed"][tokens]
+    for lp, lc, spec in zip(params["layers"], cache["layers"], layer_specs(cfg)):
+        x = step(x, lp, lc, spec)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
+    hidden = x
     if not return_all_logits:
         last = torch.clamp(seq_lens.to(torch.int64) - 1, min=0)
         x = x[torch.arange(B, device=x.device), last]
     cache["length"] = kv_len
-    return linear(x, params["lm_head"], out_dtype=torch.float32)
+    logits = linear(x, params["lm_head"], out_dtype=torch.float32)
+    return (logits, hidden) if return_hidden else logits
 
 
 def chosen_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:

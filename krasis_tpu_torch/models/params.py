@@ -306,7 +306,25 @@ def init_synthetic_params(cfg: ModelConfig, quant: QuantConfig, seed: int = 0,
     del lm
     params["layers"] = stack_pattern_projections(
         [_init_layer(cfg, quant, spec, g, device) for spec in layer_specs(cfg)], cfg)
+    if cfg.num_nextn_predict_layers > 0:
+        params["mtp"] = init_mtp_params(cfg, quant, g, device)
     return params
+
+
+def init_mtp_params(cfg: ModelConfig, quant: QuantConfig, g: torch.Generator,
+                    device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """A random MTP module (depth 1; the reference's leaves): enorm, hnorm
+    and final_norm, eh_proj [2H, H] quantized as the attention projections,
+    and one layer of ``mtp_layer_spec(cfg)``. It shares the model's
+    embedding and head."""
+    device = torch.device(device or "cpu")
+    H = cfg.hidden_size
+    one = (torch.zeros if cfg.norm_plus_one else torch.ones)(H, dtype=torch.bfloat16,
+                                                             device=device)
+    eh = torch.randn((2 * H, H), generator=g, device=device, dtype=torch.float32) * 0.02
+    return {"enorm": one, "hnorm": one.clone(), "final_norm": one.clone(),
+            "eh_proj": _maybe_quant(eh, quant.attention, quant.group_size),
+            "layer": _init_layer(cfg, quant, mtp_layer_spec(cfg), g, device)}
 
 
 def fold_width(cfg: ModelConfig, bits: int, w2_group_size: int, Is: int,

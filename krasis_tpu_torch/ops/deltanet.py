@@ -111,6 +111,24 @@ def gated_delta_rule_recurrent(q, k, v, g, beta, state):
     return torch.stack(outs, dim=1), state
 
 
+def delta_state_update(k, v, g, beta, state):
+    """The recurrence's state alone, no outputs: the speculative verify
+    step's rollback (``models/model.py`` ``la_spec_commit``) replays a
+    window's committed prefix onto the pre-window state. k [B,S,Hk,dk]; v
+    [B,S,Hv,dv]; g, beta [B,S,Hv], 0 at masked positions; state
+    [B,Hv,dk,dv] f32. The op order is ``gated_delta_rule_recurrent``'s, so a
+    position with g = beta = 0 is an exact no-op (S·e^0 = S, k⊗0 = 0) and a
+    row's state advances by exactly its unmasked prefix."""
+    _, k, v, g, beta = _prep(k, k, v, g, beta, state.shape[1])
+    for t in range(k.shape[1]):
+        k_t = k[:, t]
+        state = state * torch.exp(g[:, t])[..., None, None]
+        kv_mem = torch.einsum("bhkv,bhk->bhv", state, k_t)
+        delta = (v[:, t] - kv_mem) * beta[:, t][..., None]
+        state = state + torch.einsum("bhk,bhv->bhkv", k_t, delta)
+    return state
+
+
 def _mm(eq: str, a: torch.Tensor, b: torch.Tensor, fast: bool) -> torch.Tensor:
     """f32 product; `fast` rounds both operands to bf16 first (exact bf16
     products, f32 accumulation: the reference's bf16-input f32-output dot)."""

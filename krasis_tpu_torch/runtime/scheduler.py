@@ -1,8 +1,8 @@
 """Continuous batching: prefill at batch 1, insert into a slot, decode every
 slot at once (PyTorch).
 
-The port of ``krasis_tpu/runtime/scheduler.py`` without its speculative and
-offload branches (ROADMAP A-8, A-9):
+The port of ``krasis_tpu/runtime/scheduler.py`` without its offload branch
+(ROADMAP A-9):
 
 * a request's prompt is prefilled at batch 1 into one reusable prefill
   cache, one chunk per loop turn, so the active slots keep decoding while a
@@ -10,7 +10,12 @@ offload branches (ROADMAP A-8, A-9):
 * the prefilled cache rows and state are copied into a free slot of the
   batched decode cache (``kv_cache.insert_slot``);
 * one ``decode_block_batched`` call advances every slot by ``decode_block``
-  tokens, each slot with its own sampling parameters, and is read back once.
+  tokens, each slot with its own sampling parameters, and is read back once;
+* with speculative decoding (``models/mtp.spec_config``: MTP drafts, or
+  prompt lookup on any model) a block is ``decode_block`` verify steps
+  instead, each committing 1 to k + 1 tokens a slot: the MTP module's
+  cache is prefilled beside the main one and inserted with it, and prompt
+  lookup keeps each slot's token history on the device.
 
 One scheduler thread owns the device; request threads submit and read their
 tokens from per-request queues. A fault in that thread ends every waiting
@@ -20,6 +25,7 @@ request with the error recorded on it, and later submits raise.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -31,10 +37,13 @@ import torch
 from ..config import ModelConfig, QuantConfig
 from ..device import resolve_device
 from ..models.model import chosen_logprob, decode_block_batched
+from ..models.mtp import first_draft, spec_config, spec_decode_block
 from ..models.params import fold_shared_experts
+from ..models.spec_ngram import ngram_decode_block
 from ..ops.sampling import SamplingParams, sample_batched
-from .engine import CHUNK, halved_chunk, prefill_rows
-from .kv_cache import init_cache, insert_slot, resolve_kv_quant
+from .engine import CHUNK, halved_chunk, prefill_rows, spec_prefill_rows
+from .kv_cache import (init_cache, init_mtp_cache, insert_mtp_slot, insert_slot,
+                       resolve_kv_quant)
 
 log = logging.getLogger("krasis_tpu_torch.scheduler")
 
@@ -66,13 +75,11 @@ class BatchScheduler:
 
     def __init__(self, cfg: ModelConfig, quant: QuantConfig, params: Dict[str, Any],
                  max_len: int = 4096, num_slots: int = 4, decode_block: int = 8,
-                 device=None, mesh=None, offload=None, spec_mode: Optional[str] = None):
+                 device=None, mesh=None, offload=None):
         if mesh is not None:
             raise NotImplementedError("a mesh: parallelism is ROADMAP A-10")
         if offload is not None:
             raise NotImplementedError("offload: the expert offload tier is ROADMAP A-9")
-        if spec_mode not in (None, "off"):
-            raise NotImplementedError("spec_mode: speculative decoding is ROADMAP A-8")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.quant = quant = resolve_kv_quant(cfg, quant, num_slots, max_len)
@@ -89,6 +96,18 @@ class BatchScheduler:
         # one reusable batch-1 prefill cache: rows past its length are
         # masked and later overwritten
         self.prefill_cache = init_cache(cfg, quant, 1, max_len, dev)
+        # speculative decoding, gated as the engine is
+        self.spec_mode, self.spec_k = spec_config(cfg, params)
+        self.spec = self.spec_mode == "mtp"
+        self.spec_ngram_n = int(os.environ.get("KRASIS_TPU_NGRAM_N", "3"))
+        self.stats_spec = {"steps": 0, "accepted": 0}
+        if self.spec_mode == "ngram":
+            # each slot's token history, on the device
+            self._hist = torch.zeros((num_slots, max_len), dtype=torch.int64, device=dev)
+        if self.spec:
+            self.mtp_decode_cache = init_mtp_cache(cfg, quant, num_slots, max_len, dev)
+            self.mtp_prefill_cache = init_mtp_cache(cfg, quant, 1, max_len, dev)
+            self._drafts = torch.zeros((num_slots, self.spec_k), dtype=torch.int64, device=dev)
         self._active: List[Optional[Request]] = [None] * num_slots
         self._tokens = [0] * num_slots
         self._seen = torch.zeros((num_slots, cfg.vocab_size), dtype=torch.bool, device=dev)
@@ -177,8 +196,15 @@ class BatchScheduler:
                     lc["state"].zero_()
                     lc["conv"].zero_()
             self._pc_tokens = []
+            if self.spec:
+                self.mtp_prefill_cache["length"].zero_()
         else:
             self.stats["prefix_reused_tokens"] += reuse
+            if self.spec:
+                # the MTP rows up to the shared prefix are kept: the one at
+                # reuse - 1 came from the earlier turn's sampled token, which
+                # only lowers acceptance
+                self.mtp_prefill_cache["length"].clamp_(max=reuse)
         self._pending = {"req": req, "ids": ids, "pos": reuse, "logits": None}
         return True
 
@@ -196,8 +222,13 @@ class BatchScheduler:
             return
         ids, pos = p["ids"], p["pos"]
         m = min(self.chunk, len(ids) - pos)
-        p["logits"] = prefill_rows(self.params, ids[pos:pos + m], self.prefill_cache,
-                                   self.cfg, self.quant, history=pos)
+        if self.spec:
+            p["logits"], p["h_last"] = spec_prefill_rows(
+                self.params, ids, pos, m, self.prefill_cache, self.mtp_prefill_cache,
+                self.cfg, self.quant)
+        else:
+            p["logits"] = prefill_rows(self.params, ids[pos:pos + m], self.prefill_cache,
+                                       self.cfg, self.quant, history=pos)
         p["pos"] = pos + m
         self.stats["prefill_chunks"] += 1
         self._pc_tokens = ids[:p["pos"]]
@@ -217,6 +248,17 @@ class BatchScheduler:
         tok, lp = torch.stack([tok_t.to(torch.float64), lp_t.to(torch.float64)])[:, 0].tolist()
         tok = int(tok)
         req.logprobs.append(lp)
+        if self.spec:
+            self._drafts[slot] = first_draft(self.params, tok_t, p["h_last"],
+                                             self.mtp_prefill_cache, self.cfg, self.quant,
+                                             self.spec_k)[0]
+            insert_mtp_slot(self.mtp_decode_cache, self.mtp_prefill_cache, slot)
+        elif self.spec_mode == "ngram":
+            # the slot's history: the prompt and the first token
+            row = torch.zeros((self.max_len,), dtype=torch.int64)
+            row[:len(ids)] = torch.tensor(ids, dtype=torch.int64)
+            row[len(ids)] = tok
+            self._hist[slot] = row.to(dev)
         self._seen[slot] = False
         self._seen[slot, tok] = True
         self._temp[slot], self._top_p[slot] = sp.temperature, sp.top_p
@@ -249,6 +291,9 @@ class BatchScheduler:
         # out of the handler, so the failed chunk's tensors are released
         self.chunk = chunk
         self.prefill_cache = init_cache(self.cfg, self.quant, 1, self.max_len, self.device)
+        if self.spec:
+            self.mtp_prefill_cache = init_mtp_cache(self.cfg, self.quant, 1, self.max_len,
+                                                    self.device)
         self._pc_tokens = []
         p = self._pending
         self._pending = {"req": p["req"], "ids": p["ids"], "pos": 0, "logits": None}
@@ -262,6 +307,11 @@ class BatchScheduler:
         idle = [slot for slot, r in enumerate(self._active) if r is None]
         if idle:
             self.decode_cache["length"][idle] = 0
+            if self.spec:
+                self.mtp_decode_cache["length"][idle] = 0
+        if self.spec_mode is not None:
+            self._spec_decode_block()
+            return
         need_lp = any(r is not None and r.want_logprobs for r in self._active)
         toks, lps = decode_block_batched(
             self.params, torch.tensor(self._tokens, dtype=torch.int64, device=dev),
@@ -281,6 +331,45 @@ class BatchScheduler:
                 self._tokens[slot] = tok
                 req.logprobs.append(lps_h[step][slot])
                 self._emit(req, tok)
+
+    def _spec_decode_block(self):
+        """One block of verify steps over every slot, read back once: each
+        step commits 1 to spec_k + 1 tokens a slot, emitted in order until
+        the slot's stop (``spec_decode_block`` / ``ngram_decode_block``)."""
+        dev = self.device
+        tok = torch.tensor(self._tokens, dtype=torch.int64, device=dev)
+        args = (self._gen, self._seen, torch.tensor(self._temp, dtype=torch.float32, device=dev),
+                torch.tensor(self._top_p, dtype=torch.float32, device=dev),
+                torch.tensor(self._pres, dtype=torch.float32, device=dev),
+                torch.tensor(self._top_k, dtype=torch.int32, device=dev))
+        if self.spec:
+            ts, lps, ncommit, _, _, self._drafts = spec_decode_block(
+                self.params, tok, self._drafts, self.decode_cache, self.mtp_decode_cache,
+                self.cfg, self.quant, self.decode_block, *args)
+        else:
+            ts, lps, ncommit, _, _ = ngram_decode_block(
+                self.params, tok, self.decode_cache, self._hist, self.cfg, self.quant,
+                self.decode_block, self.spec_k, *args, n_max=self.spec_ngram_n)
+        self.stats["decode_blocks"] += 1
+        S = self.spec_k + 1
+        # f64 holds token ids and f32 logprobs exactly: one readback
+        rows = torch.cat([ts.to(torch.float64), lps.to(torch.float64),
+                          ncommit[..., None].to(torch.float64)], dim=2).tolist()
+        for step in rows:                           # [slots][S tokens, S logprobs, n]
+            for slot, req in enumerate(self._active):
+                if req is None:
+                    continue
+                row = step[slot]
+                n = int(row[-1])
+                self.stats_spec["steps"] += 1
+                self.stats_spec["accepted"] += n - 1
+                for j in range(n):
+                    if self._active[slot] is not req:       # ended inside the step
+                        break
+                    tok_j = int(row[j])
+                    self._tokens[slot] = tok_j
+                    req.logprobs.append(row[S + j])
+                    self._emit(req, tok_j)
 
     def _loop(self):
         while not self._stop.is_set():

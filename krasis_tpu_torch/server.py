@@ -361,7 +361,10 @@ def _full_single(state, w, rid, created, prompt_ids, max_tokens, sampling, stops
         state, rid, created, text.text(res.tokens), res.tokens,
         res.logprobs if want_logprobs else None, res.prompt_len, res.top_logprobs,
         timing={"prefill_tok_s": round(res.prefill_tok_s, 2),
-                "decode_tok_s": round(res.decode_tok_s, 2)}))
+                "decode_tok_s": round(res.decode_tok_s, 2),
+                # the verify steps' counts when the request ran a spec path
+                **({"spec": state.engine.last_spec_stats}
+                   if getattr(state.engine, "last_spec_stats", None) else {})}))
 
 
 def _stream_batched(state, w, rid, created, prompt_ids, req, stops=(), include_usage=False,
@@ -620,8 +623,6 @@ def _not_ported(args) -> Optional[str]:
         return "--mesh: parallelism is ROADMAP A-10"
     if args.offload == "experts" or args.hot_experts > 0:
         return "--offload experts / --hot-experts: the expert offload tier is ROADMAP A-9"
-    if args.spec_k not in (None, 0) or args.spec_mode not in (None, "off"):
-        return "--spec-k / --spec-mode: speculative decoding is ROADMAP A-8"
     return None
 
 
@@ -656,9 +657,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tokens per fused decode call of the batch scheduler (which needs "
                          "--slots > 0)")
     ap.add_argument("--spec-k", type=int, default=None, metavar="K",
-                    help="speculative draft depth (not ported: ROADMAP A-8; 0 = off)")
+                    help="speculative draft depth: each verify step commits 1 to K + 1 "
+                         "tokens (0 turns speculative decoding off)")
     ap.add_argument("--spec-mode", default=None, choices=("auto", "mtp", "ngram", "off"),
-                    help="speculative draft source (not ported: ROADMAP A-8; only off)")
+                    help="speculative draft source: mtp = the checkpoint's MTP module, "
+                         "ngram = prompt lookup (any model, the DeltaNet hybrids too), "
+                         "auto = mtp where the module is, else off (models/mtp.py "
+                         "spec_config)")
     ap.add_argument("--server-backend", default="auto", choices=("auto", "native", "python"),
                     help="HTTP transport: the C++ epoll server or the stdlib one; auto takes "
                          "native when it builds")
@@ -683,6 +688,14 @@ def main(argv=None) -> int:
     missing = _not_ported(args)
     if missing:
         raise NotImplementedError(missing)
+    # the engine and the scheduler read these when they are built
+    if args.spec_k is not None:
+        if args.spec_k <= 0:
+            os.environ["KRASIS_TPU_NO_SPEC"] = "1"
+        else:
+            os.environ["KRASIS_TPU_SPEC_K"] = str(args.spec_k)
+    if args.spec_mode is not None:
+        os.environ["KRASIS_TPU_SPEC_MODE"] = args.spec_mode
 
     def make_quant(group_size=128):
         return QuantConfig(expert_bits=args.expert_bits, group_size=group_size,

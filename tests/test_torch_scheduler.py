@@ -498,7 +498,7 @@ def test_fault_during_concurrent_submits_ends_every_request(models, monkeypatch)
     assert len(ended) + len(refused) == 64 and all(ended) and refused
 
 
-@pytest.mark.parametrize("kw,item", [({"spec_mode": "ngram"}, "A-8"),
+@pytest.mark.parametrize("kw,item", [({"offload": object(), "mesh": object()}, "A-10"),
                                      ({"offload": object()}, "A-9"),
                                      ({"mesh": object()}, "A-10")])
 def test_branches_not_ported_raise(models, kw, item):

@@ -348,7 +348,8 @@ def test_channel_filter_matches_reference(stream):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "1,8"], "A-10"),
     (["--offload", "experts"], "A-9"), (["--hot-experts", "4"], "A-9"),
-    (["--spec-k", "2"], "A-8"), (["--spec-mode", "mtp"], "A-8")])
+    (["--spec-k", "2", "--mesh", "1,8"], "A-10"),
+    (["--spec-mode", "mtp", "--offload", "experts"], "A-9")])
 def test_main_raises_for_flags_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         server.main(["--synthetic", "tiny", "--device", "cpu", *flags])

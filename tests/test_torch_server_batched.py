@@ -283,7 +283,8 @@ def test_module_entry_point_with_slots(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--spec-k", "2"], "A-8"), (["--offload", "experts"], "A-9"), (["--mesh", "1,8"], "A-10")])
+    (["--spec-k", "2", "--offload", "experts"], "A-9"), (["--offload", "experts"], "A-9"),
+    (["--mesh", "1,8"], "A-10")])
 def test_slots_with_flags_not_ported_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         server.main(["--synthetic", "tiny", "--device", "cpu", "--slots", "2", *flags])

@@ -8,7 +8,17 @@ every call the forward makes through ``linear``, ``flash_attention``,
 printed: the steps' logprob differences, the first call whose row-0 output
 differs, and the MoE layers whose row-0 expert picks differ.
 
+With ``--verify K`` the wide side is a speculative verify step instead: one
+forward of the 1-row cache at Sq = K + 1 fed [t, b_1..b_K], against K + 1
+one-row decode steps from the same state fed the same tokens (b the
+one-row greedy tokens, so every draft is the one the decode takes). Each
+window position p is compared with decode step p, call by call: the first
+call whose row differs (its kind, width and largest difference over its
+largest value), the MoE layers whose picks differ, and the logprob of the
+fed token; a position is held where no layer picked other experts.
+
     python tools/batch_rows.py [--slots 4] [--steps 8] [--prompt 40]   # on the card
+    python tools/batch_rows.py --verify 1 [--steps 10]                 # on the card
 
 One JSON line at the end; the card's name and power limit beside it.
 """
@@ -38,6 +48,8 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=40)
+    ap.add_argument("--verify", type=int, default=0, metavar="K",
+                    help="compare a verify step at Sq = K + 1 with K + 1 decode steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("batch_rows: no CUDA device")
@@ -51,12 +63,15 @@ def main() -> None:
     ids = np.random.default_rng(0).integers(100, cfg.vocab_size - 100, args.prompt).tolist()
 
     calls = []          # (kind, row-0 output) of the running forward, in call order
+    window = [0]        # > 0: the forward is a 1-row verify step; keep its window's rows
 
     def recorded(kind, fn, pick=lambda out: out):
         def wrapper(*a, **kw):
             out = fn(*a, **kw)
             row = pick(out)
-            calls.append((kind, row.reshape(row.shape[0], -1)[:1].detach().clone()))
+            row = (row.reshape(window[0], -1) if window[0]
+                   else row.reshape(row.shape[0], -1)[:1])
+            calls.append((kind, row.detach().clone()))
             return out
         return wrapper
 
@@ -64,6 +79,10 @@ def main() -> None:
     M.moe_forward = recorded("moe", M.moe_forward)
     M.flash_attention = recorded("attention", M.flash_attention)
     M.compute_routing = recorded("routing", M.compute_routing, lambda r: r.topk_idx)
+
+    if args.verify:
+        verify_steps(args, cfg, params, quant, eng, ids, calls, window, card)
+        return
 
     with torch.inference_mode():
         eng.reset(eng.max_len)
@@ -97,6 +116,77 @@ def main() -> None:
             tok = int(torch.argmax(l1))
     print(json.dumps({"tool": "batch_rows", "slots": args.slots, "prompt": args.prompt,
                       "card": card, "steps": steps}))
+
+
+def verify_steps(args, cfg, params, quant, eng, ids, calls, window, card) -> None:
+    """``--verify K``: each step from the committed state, K + 1 one-row
+    decode steps (fed t and the greedy tokens they give) on one copy of the
+    cache and the verify forward at Sq = K + 1 fed the same tokens on
+    another; the decode copy becomes the next step's state."""
+    import torch
+
+    from krasis_tpu_torch.models import model as M
+
+    S, dev = args.verify + 1, eng.device
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+
+    def copy(cache):
+        return {"layers": [{n: t.clone() for n, t in lc.items()} for lc in cache["layers"]],
+                "length": cache["length"].clone()}
+
+    positions, held = [], {p: [0, 0] for p in range(S)}
+    with torch.inference_mode():
+        eng.reset(eng.max_len)
+        tok = int(torch.argmax(eng._prefill_prompt(ids)[0]))
+        for step in range(args.steps):
+            narrow, feed, n_calls, n_lsm = copy(eng.cache), [tok], [], []
+            window[0] = 0
+            for _ in range(S):
+                calls.clear()
+                lg = M.forward(params, torch.tensor([[feed[-1]]], device=dev), one, narrow, cfg,
+                               quant, prefill=False)
+                n_calls.append(list(calls))
+                n_lsm.append(torch.log_softmax(lg[0].float(), -1))
+                feed.append(int(torch.argmax(lg[0])))
+            wide = copy(eng.cache)
+            window[0] = S
+            calls.clear()
+            lg = M.forward(params, torch.tensor([feed[:S]], device=dev),
+                           torch.full((1,), S, dtype=torch.int32, device=dev), wide, cfg, quant,
+                           prefill=False, return_all_logits=True)
+            window[0] = 0
+            w_calls, w_lsm = list(calls), torch.log_softmax(lg[0].float(), -1)
+            for p in range(S):
+                first = None
+                for i, ((kind, a), (_, b)) in enumerate(zip(w_calls, n_calls[p])):
+                    wa, nb = a[p], b[0]
+                    if kind == "routing":
+                        wa, nb = wa.sort().values, nb.sort().values
+                    if not torch.equal(wa, nb):
+                        d = float((wa.float() - nb.float()).abs().max()
+                                  / nb.float().abs().max().clamp(min=1e-30))
+                        first = [i, kind, int(nb.numel()), d]
+                        break
+                flips = sum(1 for (kind, a), (_, b) in zip(w_calls, n_calls[p])
+                            if kind == "routing"
+                            and not torch.equal(a[p].sort().values, b[0].sort().values))
+                t_p = feed[p + 1]
+                held[p][0] += 1
+                held[p][1] += int(flips == 0)
+                positions.append({
+                    "step": step, "position": p, "token": t_p,
+                    "logprob_diff": float((w_lsm[p, t_p] - n_lsm[p][t_p]).abs()),
+                    "logits_max_abs_diff": float((w_lsm[p] - n_lsm[p]).abs().max()),
+                    "calls": [len(w_calls), len(n_calls[p])],
+                    "first_call_that_differs": first,
+                    "routing_layers_with_other_picks": flips})
+                print(f"[batch_rows] verify k={args.verify}: {json.dumps(positions[-1])}",
+                      flush=True)
+            eng.cache, tok = narrow, feed[S]
+    print(json.dumps({"tool": "batch_rows", "verify_k": args.verify, "prompt": args.prompt,
+                      "card": card, "held_positions": {p: f"{h} of {n}"
+                                                       for p, (n, h) in held.items()},
+                      "positions": positions}))
 
 
 if __name__ == "__main__":
