@@ -175,7 +175,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the engine's own verify block (commit k + 1, but at a near-tie,
    and 1; the cache lengths; each committed token the verify argmax), each
    committed position teacher-forced against the batch-1 decode at the batch
-   phase's limits; launches a verify step and one profiled verify block; 2048 + 64
+   phase's limits; launches a verify step and one profiled verify block; 2048 + 32
    and 40 + 32 at k = 1 and 3 and prompt lookup on a 200-id block repeated
    four times + 64, each beside the vanilla path; 4-slot schedulers under
    MTP k = 1 and prompt lookup k = 3 with six requests each, every stream
@@ -184,6 +184,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt lookup on the hybrid (40 + 16, the repeated block + 16) with
    every DeltaNet commit held to the recurrence over the committed prefix,
    and the forced controls at k = 3.
+
+13. the host-RAM expert offload tier (krasis_tpu_torch/offload.py,
+   runtime/offload_engine.py, native/hostmoe.cpp): (d) first, the host's
+   memory and CPUs and format_budget of Qwen3-235B at Q4 (resident bytes
+   and the offload split); (a) after phase 3, tiny V2-Lite, Qwen3-MoE,
+   hybrid and GPT-OSS OffloadEngines on the card (streamed prefill, n_hot
+   0, half and all) against the same engines on the CPU through the plain
+   versions, at phase 3's rule; (b) after phase 12, on phase 4's V2-Lite
+   weights copied into a pinned host store (7.42 GB): the host engine
+   against its plain version, K4 on a streamed slot and K5 on a 16-expert
+   hot substack with masked picks, each MoE layer's offloaded sublayer
+   against the plain gathered MoE, the streamed prefill of 2048 and 2500
+   ids against the resident one, requests at n_hot 0, 16 (after
+   update_hot_cache) and 64 with their launch counts, a profiled decode,
+   device bytes, and a 2-slot offloaded BatchScheduler teacher-forced
+   (``offload_phase``); (c) after phase 10's servers, python -m
+   krasis_tpu_torch.server --offload experts --hot-experts 16 as a
+   subprocess (phase 10a's requests); phase 10a's first server must log
+   that --offload auto kept V2-Lite resident.
 
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
@@ -330,6 +349,23 @@ def reference_phase(label, cfg, quant, tol, prepare=None, launched=()):
             raise AssertionError(f"{label}: {name} was never launched on the card")
 
 
+def lift_four(params):
+    """Each GPT-OSS layer's router logit bias lifts 4 of 8 experts by 8
+    above the others (the logits span about ±0.8), so the pick set cannot
+    sit on a near-tie that two devices' summation orders would break
+    differently; random expert biases."""
+    import torch
+
+    g = torch.Generator().manual_seed(4)
+    for lp in params["layers"]:
+        lift = torch.tensor([4.0] * 4 + [-4.0] * 4)[torch.randperm(8, generator=g)]
+        lp["gate_logit_bias"] = lp["gate_logit_bias"] + lift
+        lp["w13_bias"] = (torch.randn(lp["w13_bias"].shape, generator=g) * 0.05).to(
+            lp["w13_bias"].dtype)
+        lp["w2_bias"] = (torch.randn(lp["w2_bias"].shape, generator=g) * 0.05).to(
+            lp["w2_bias"].dtype)
+
+
 def reference_phases():
     from krasis_tpu_torch.config import QuantConfig
     from krasis_tpu_torch.models.synthetic import tiny_config
@@ -375,18 +411,6 @@ def reference_phases():
     # takes the same 4 experts in a layer here; K6 under picks that change
     # from token to token is held by the biased-chain check of the GPT-OSS
     # phase (random picks a token) and run by its full-width requests.
-    def lift_four(params):
-        import torch
-
-        g = torch.Generator().manual_seed(4)
-        for lp in params["layers"]:
-            lift = torch.tensor([4.0] * 4 + [-4.0] * 4)[torch.randperm(8, generator=g)]
-            lp["gate_logit_bias"] = lp["gate_logit_bias"] + lift
-            lp["w13_bias"] = (torch.randn(lp["w13_bias"].shape, generator=g) * 0.05).to(
-                lp["w13_bias"].dtype)
-            lp["w2_bias"] = (torch.randn(lp["w2_bias"].shape, generator=g) * 0.05).to(
-                lp["w2_bias"].dtype)
-
     reference_phase(
         "tiny GPT-OSS, fp8 cache",
         tiny_config("gpt-oss-20b", num_hidden_layers=4, sliding_window=4,
@@ -755,12 +779,14 @@ def core_checks(results, name, counter, kernels, replaces, run, plain, wts, nbyt
             dropped[:, j] = 0
             ratios[j] = max_err(got, plain(dropped), tol)[1]
     res["dropped_pick_over_limit"] = ratios
+    tried = [r for r in ratios if r is not None]         # picks a control dropped
+    low = ratios.index(min(tried))
+    last = next(r for r in reversed(ratios) if r is not None)
     print(f"[kernel] {name}: two calls equal bit for bit; the plain version with one pick's "
-          f"weight set to 0 is {min(ratios):.3g} (pick {ratios.index(min(ratios))}) to "
-          f"{max(ratios):.3g} of the limit away, the last pick {ratios[-1]:.3g}", flush=True)
-    if not min(ratios) > 1.0:
-        raise AssertionError(f"{name}: the check cannot see pick {ratios.index(min(ratios))} "
-                             "dropped")
+          f"weight set to 0 is {min(tried):.3g} (pick {low}) to "
+          f"{max(tried):.3g} of the limit away, the last pick dropped {last:.3g}", flush=True)
+    if not min(tried) > 1.0:
+        raise AssertionError(f"{name}: the check cannot see pick {low} dropped")
 
 
 def k3_checks(results, name, x, w13, w2, idx, wts, replaces, nbytes, ops, flush, iters=50):
@@ -1678,7 +1704,7 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
                prefill_off_names=(), prefill_on_names=(), profile_bf16=0, batched=None,
-               spec=None):
+               spec=None, offload=None):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1696,8 +1722,9 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     take a plain form (``moe.plain_routes``). Fills the launch counts into
     this family's entries of `results` (by form for K2 entries that name
     one). Then `batched(eng, cfg, results, rng)`, the continuous-batching
-    phase on the same weights, and `spec(eng, cfg, results, rng)`, the
-    speculative-decoding phase, when given."""
+    phase on the same weights, `spec(eng, cfg, results, rng)`, the
+    speculative-decoding phase, and `offload(eng, cfg, results, rng)`, the
+    offload tier's, when given."""
     import gc
     from dataclasses import replace
 
@@ -1827,6 +1854,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
         batched(eng, cfg, results, rng)
     if spec is not None:
         spec(eng, cfg, results, rng)
+    if offload is not None:
+        offload(eng, cfg, results, rng)
     del eng, engines, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2581,6 +2610,7 @@ def load_phase():
         serve_checkpoint_phase(os.path.join(root, "deepseek-v2-lite"), quant)
         print(f"[time] serve phase, in process: {time.perf_counter() - t_serve:.1f} s",
               flush=True)
+        offload_load_check(os.path.join(root, "deepseek-v2-lite"), quant, rng)
         for done in ("deepseek-v2-lite", "home"):
             shutil.rmtree(os.path.join(root, done))
         load_family("GPT-OSS-20B MXFP4 (2 layers)", "gpt-oss-20b", GPTOSS_CONFIG,
@@ -2672,19 +2702,86 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64):
+def serve_more_requests(port, req, ids, new, fail):
+    """Phase 10a's requests after the first two: a stop string that ends a
+    stream early, a stream the client drops (the next request must be
+    answered promptly), two requests at once. Returns (the stop, the token
+    it ended at, the request after the drop and alone, s; the pair, s)."""
+    import threading
+
+    # the stop: text across the boundary of tokens 8 and 9; the stream
+    # must end where the stop's first occurrence completes (random weights
+    # repeat tokens, so that can be earlier)
+    pieces = [f"<{t}>" for t in ids]
+    whole = "".join(pieces)
+    cut = len("".join(pieces[:8]))
+    stop = whole[cut - 3:cut + 3]
+    at = whole.find(stop)
+    k = next(j for j in range(1, new + 1) if len("".join(pieces[:j])) >= at + len(stop))
+    cut_chunks, _, _, _ = sse_stream(port, {**req, "stream": True, "stop": [stop],
+                                            "stream_options": {"include_usage": True}})
+    got = stream_text(cut_chunks)
+    if got != whole[:at] or stream_usage(cut_chunks)["completion_tokens"] != k:
+        fail(f"the stop {stop!r} did not end the stream at token {k}: {got[:80]!r}, "
+             f"{stream_usage(cut_chunks)}")
+
+    # a client that drops a long stream: its decode must stop, so a short
+    # request right after is answered in about its own time
+    t_short0 = time.perf_counter()
+    http_call(port, "POST", "/v1/chat/completions", {**req, "max_tokens": 4})
+    t_short = time.perf_counter() - t_short0
+    import socket
+    s = socket.create_connection(("127.0.0.1", port), timeout=60)
+    raw = json.dumps({**req, "max_tokens": 2048, "stream": True}).encode()
+    s.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\nContent-Type: "
+              b"application/json\r\nContent-Length: " + str(len(raw)).encode()
+              + b"\r\n\r\n" + raw)
+    s.recv(256)
+    s.close()
+    t_next0 = time.perf_counter()
+    status, _, body = http_call(port, "POST", "/v1/chat/completions",
+                                {**req, "max_tokens": 4})
+    t_next = time.perf_counter() - t_next0
+    if status != 200 or t_next > max(10.0, 4 * t_short):
+        fail(f"after a dropped stream the next request took {t_next:.2f} s "
+             f"(alone {t_short:.2f} s)")
+
+    results = []
+
+    def worker():
+        results.append(http_call(port, "POST", "/v1/chat/completions",
+                                 {**req, "max_tokens": 16}))
+    ts = [threading.Thread(target=worker) for _ in range(2)]
+    t_pair0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    t_pair = time.perf_counter() - t_pair0
+    if len(results) != 2 or any(r[0] != 200 for r in results) or any(
+            [int(x) for x in json.loads(r[2])["choices"][0]["message"]["content"].split()]
+            != ids[:16] for r in results):
+        fail(f"two concurrent requests: {[(r[0], r[2][:120]) for r in results]}")
+
+    return stop, k, t_next, t_short, t_pair
+
+
+def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
+                           every_request=True):
     """10a. ``python -m krasis_tpu_torch.server`` at full width on the native
     transport, as a user starts it (with ``--slots N`` among `server_args`,
     through a BatchScheduler): health, models, a 404, a 512-id prompt
     (the synthetic path's cap) with `new` greedy tokens unstreamed and then
     streamed with logprobs and usage (the same ids), a stop string that ends
     a stream early, a stream the client drops (the next request must be
-    answered promptly), two requests at once; then SIGTERM and exit 0."""
+    answered promptly), two requests at once; then SIGTERM and exit 0. Each
+    tuple of `expect_log` must have all its strings in one line of the
+    server's log, which is printed. Without `every_request`, only the unstreamed and
+    streamed 512-id requests run between the start and SIGTERM."""
     import os
     import shutil
     import signal
     import tempfile
-    import threading
 
     card = card_line()
     home = tempfile.mkdtemp(prefix="chip_smoke_serve_")
@@ -2761,59 +2858,8 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64):
                 -1e30 < e["logprob"] <= 0.0 for e in lps):
             fail(f"stream usage {stream_usage(chunks)}, {len(lps)} logprob entries")
 
-        # the stop: text across the boundary of tokens 8 and 9; the stream
-        # must end where the stop's first occurrence completes (random weights
-        # repeat tokens, so that can be earlier)
-        pieces = [f"<{t}>" for t in ids]
-        whole = "".join(pieces)
-        cut = len("".join(pieces[:8]))
-        stop = whole[cut - 3:cut + 3]
-        at = whole.find(stop)
-        k = next(j for j in range(1, new + 1) if len("".join(pieces[:j])) >= at + len(stop))
-        cut_chunks, _, _, _ = sse_stream(port, {**req, "stream": True, "stop": [stop],
-                                                "stream_options": {"include_usage": True}})
-        got = stream_text(cut_chunks)
-        if got != whole[:at] or stream_usage(cut_chunks)["completion_tokens"] != k:
-            fail(f"the stop {stop!r} did not end the stream at token {k}: {got[:80]!r}, "
-                 f"{stream_usage(cut_chunks)}")
-
-        # a client that drops a long stream: its decode must stop, so a short
-        # request right after is answered in about its own time
-        t_short0 = time.perf_counter()
-        http_call(port, "POST", "/v1/chat/completions", {**req, "max_tokens": 4})
-        t_short = time.perf_counter() - t_short0
-        import socket
-        s = socket.create_connection(("127.0.0.1", port), timeout=60)
-        raw = json.dumps({**req, "max_tokens": 2048, "stream": True}).encode()
-        s.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\nContent-Type: "
-                  b"application/json\r\nContent-Length: " + str(len(raw)).encode()
-                  + b"\r\n\r\n" + raw)
-        s.recv(256)
-        s.close()
-        t_next0 = time.perf_counter()
-        status, _, body = http_call(port, "POST", "/v1/chat/completions",
-                                    {**req, "max_tokens": 4})
-        t_next = time.perf_counter() - t_next0
-        if status != 200 or t_next > max(10.0, 4 * t_short):
-            fail(f"after a dropped stream the next request took {t_next:.2f} s "
-                 f"(alone {t_short:.2f} s)")
-
-        results = []
-
-        def worker():
-            results.append(http_call(port, "POST", "/v1/chat/completions",
-                                     {**req, "max_tokens": 16}))
-        ts = [threading.Thread(target=worker) for _ in range(2)]
-        t_pair0 = time.perf_counter()
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join(timeout=600)
-        t_pair = time.perf_counter() - t_pair0
-        if len(results) != 2 or any(r[0] != 200 for r in results) or any(
-                [int(x) for x in json.loads(r[2])["choices"][0]["message"]["content"].split()]
-                != ids[:16] for r in results):
-            fail(f"two concurrent requests: {[(r[0], r[2][:120]) for r in results]}")
+        if every_request:
+            stop, k, t_next, t_short, t_pair = serve_more_requests(port, req, ids, new, fail)
 
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
@@ -2821,18 +2867,26 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64):
             fail(f"the server exited with {rc} on SIGTERM")
         if os.listdir(os.path.join(home, "servers")):
             fail("the registry entry outlived the server")
+        with open(log_path) as f:
+            log_lines = f.read().splitlines()
+        for want in expect_log:
+            hits = [line for line in log_lines if all(part in line for part in want)]
+            if not hits:
+                fail(f"no line of the server's log holds {want}")
+            print(f"[serve] server log: {hits[0]}", flush=True)
         # the single-request path reports its engine's timing; the scheduler's does not
         timing = full.get("timing")
         timing = (f"timing prefill {timing['prefill_tok_s']} tok/s, decode "
                   f"{timing['decode_tok_s']} tok/s; " if timing else "")
+        more = (f"the stop {stop!r} ended the stream at token {k}; after a dropped 2048-token "
+                f"stream the next 4-token request took {t_next:.2f} s (alone {t_short:.2f} s); "
+                f"two concurrent 16-token requests {t_pair:.2f} s, both answered; "
+                if every_request else "")
         print(f"[serve] subprocess {' '.join(server_args)}, native transport: up in "
               f"{t_up:.1f} s; 512 + {new} greedy: unstreamed ids = streamed ids, usage right; "
               f"role chunk at {1e3 * t_role:.1f} ms, first content chunk at "
-              f"{1e3 * t_content[0]:.1f} ms, [DONE] at {t_done:.2f} s; {timing}the stop "
-              f"{stop!r} ended the stream at token {k}; after a dropped 2048-token "
-              f"stream the next 4-token request took {t_next:.2f} s (alone {t_short:.2f} s); two "
-              f"concurrent 16-token requests {t_pair:.2f} s, both answered; exit 0 on SIGTERM; "
-              f"{card}", flush=True)
+              f"{1e3 * t_content[0]:.1f} ms, [DONE] at {t_done:.2f} s; {timing}{more}exit 0 on "
+              f"SIGTERM; {card}", flush=True)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -3063,8 +3117,11 @@ def teacher_forced(eng, prompt, toks, slots, chunk):
     from krasis_tpu_torch.runtime.kv_cache import init_cache, insert_slot
 
     cfg, quant, dev = eng.cfg, eng.quant, eng.device
-    E = next(lp["w13"] for lp in eng.params["layers"] if "w13" in lp).q.shape[0]
-    k = cfg.num_experts_per_tok + E - cfg.n_routed_experts     # the folded shared experts
+    offload = getattr(eng, "offload", None)
+    # the folded shared experts (none under offload)
+    E = cfg.n_routed_experts if offload is not None else next(
+        lp["w13"] for lp in eng.params["layers"] if "w13" in lp).q.shape[0]
+    k = cfg.num_experts_per_tok + E - cfg.n_routed_experts
     narrow_quant = (replace(quant, expert_activation="bf16")
                     if use_grouped_path(slots, k, E) and not use_grouped_path(1, k, E)
                     else quant)
@@ -3077,7 +3134,8 @@ def teacher_forced(eng, prompt, toks, slots, chunk):
         return out
 
     def decode(cur, ones, cache, quant):
-        return M.forward(eng.params, cur, ones, cache, cfg, quant, prefill=False)
+        return M.forward(eng.params, cur, ones, cache, cfg, quant, prefill=False,
+                         offload=offload)
 
     def read(logits, tok):
         lsm = torch.log_softmax(logits[0].to(torch.float32), -1)
@@ -4168,7 +4226,7 @@ def spec_phase(eng, cfg, results, rng):
     causal mask that the check must refuse); forced acceptance and
     rejection at k = 1 and 3, teacher-forced against the batch-1 decode;
     launches a verify step and one profiled verify block; requests 2048 +
-    64 and 40 + 32 at k = 1 and 3 and prompt lookup at k = 3 on a repeated
+    32 and 40 + 32 at k = 1 and 3 and prompt lookup at k = 3 on a repeated
     block, each beside the vanilla path in this call; a 4-slot
     BatchScheduler under MTP k = 1 and prompt lookup k = 3 with six requests
     at once, each stream teacher-forced at the scheduler's shapes; one
@@ -4301,7 +4359,7 @@ def spec_phase(eng, cfg, results, rng):
     rates, counts, forms = [], {}, {}
     # one vanilla run a prompt, then the spec runs of that prompt at each k
     for label, e, ks, n, new, p in (
-            ("mtp", se, (1, 3), 2048, 64, None), ("mtp", se, (1, 3), 40, 32, None),
+            ("mtp", se, (1, 3), 2048, 32, None), ("mtp", se, (1, 3), 40, 32, None),
             ("ngram", ng, (3,), 4 * REPEAT_BLOCK, 64, block * 4),
             ("mtp fp8 cache", fp8, (3,), 40, 16, None)):
         p = p or ids(n)
@@ -4584,6 +4642,591 @@ def hybrid_spec_phase(eng, cfg, results, rng):
           f"{t_kernels - t0:.1f} s, requests {t_requests - t_kernels:.1f} s", flush=True)
 
 
+OFFLOAD_HOT = 16           # the partial hot-expert cache of phase 13's requests
+OFFLOAD_SUBLAYER_TOL = 3e-2
+HOST_REL_TOL = 2e-6        # the host engine against its plain version, relative to the max
+SERVE_OFFLOAD = ("--synthetic", "deepseek-v2-lite", "--offload", "experts", "--hot-experts",
+                 str(OFFLOAD_HOT))
+
+
+def host_line() -> str:
+    """The host's memory (/proc/meminfo) and the CPUs this process may use."""
+    import os
+
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                mem[key] = int(value.split()[0]) * 1024
+    return (f"host MemTotal {mem['MemTotal'] / 2**30:.1f} GiB, MemAvailable "
+            f"{mem['MemAvailable'] / 2**30:.1f} GiB, nproc {len(os.sched_getaffinity(0))}")
+
+
+def budget_phase():
+    """13 (d). The budget of a model that does not fit the card (Qwen3-235B
+    at Q4): resident bytes, and the device / host split under offload."""
+    from krasis_tpu_torch.budget import card_memory, format_budget
+    from krasis_tpu_torch.config import QuantConfig, preset_config
+
+    text = format_budget(preset_config("qwen3-235b"), QuantConfig(expert_bits=4, group_size=128),
+                         1, card_memory())
+    for line in text.splitlines():
+        print(f"[budget] {line}", flush=True)
+    print(f"[budget] {host_line()}; {card_line()}", flush=True)
+
+
+def offload_reference():
+    """13 (a). Tiny V2-Lite, Qwen3-MoE, Qwen3-Coder-Next hybrid and GPT-OSS
+    (phase 3's configurations, their weights from seed 1) with the routed
+    experts offloaded: the OffloadEngine on the card (streamed prefill, the
+    C++ host engine, n_hot 0, half and all) against the same engine on the
+    CPU through the plain versions (the host engine's too), at phase 3's
+    rule: a 160-id streamed prefill and three decode steps on fixed tokens,
+    logits within the case's tolerance of the larger of 1 and the largest
+    logit; then a 40 + 8 greedy stream, equal to the CPU's up to a step
+    where the CPU's top two logprobs are within twice that tolerance. K2 and
+    K4 must have launched, and no MoE call may take a plain form."""
+    import torch
+    from krasis_tpu_torch.config import QuantConfig
+    from krasis_tpu_torch.models.params import init_synthetic_params
+    from krasis_tpu_torch.models.synthetic import tiny_config
+    from krasis_tpu_torch.offload import store_from_params
+    from krasis_tpu_torch.ops import moe
+    from krasis_tpu_torch.runtime.offload_engine import OffloadEngine
+
+    t0 = time.perf_counter()
+    q = dict(expert_bits=4, group_size=128, kv_cache_dtype="bf16")
+    cases = (
+        ("tiny V2-Lite", tiny_config("deepseek-v2-lite", moe_intermediate_size=128,
+                                     num_hidden_layers=4, num_experts_per_tok=8),
+         QuantConfig(**q), 2e-2, None),
+        ("tiny Qwen3-MoE", tiny_config("qwen3-moe", moe_intermediate_size=128,
+                                       num_experts_per_tok=8), QuantConfig(**q), 2e-2, None),
+        ("tiny Qwen3-Coder-Next hybrid", tiny_config("qwen3-coder-next", num_experts_per_tok=8),
+         QuantConfig(**q, attention="int8"), 5e-2, None),
+        ("tiny GPT-OSS, fp8 cache", tiny_config("gpt-oss-20b", num_hidden_layers=4,
+                                                sliding_window=4, num_experts_per_tok=4),
+         QuantConfig(expert_bits=4, group_size=32, kv_cache_dtype="fp8"), 5e-2, lift_four))
+    C = counters()
+    for m, attr in C.values():
+        setattr(m, attr, 0)
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+    prompt = torch.randint(1, 500, (160,), generator=torch.Generator().manual_seed(3)).tolist()
+    for label, cfg, quant, tol, prepare in cases:
+        cpu = init_synthetic_params(cfg, quant, seed=1, device="cpu")
+        if prepare is not None:
+            prepare(cpu)
+        sp_cpu, store_cpu = store_from_params(cfg, quant, cpu)
+        store_cpu.plain = True
+        _, store_gpu = store_from_params(cfg, quant, cpu, pin=True)
+        sp_gpu = to_device(sp_cpu, "cuda")
+        E = cfg.n_routed_experts
+        for n_hot in (0, E // 2, E):
+            worst, diverged = 0.0, None
+            engines = [OffloadEngine(cfg, quant, sp, st, hot_experts=n_hot, max_len=512,
+                                     device=dev)
+                       for sp, st, dev in ((sp_cpu, store_cpu, "cpu"),
+                                           (sp_gpu, store_gpu, "cuda"))]
+            runs = []
+            with torch.inference_mode():
+                for e in engines:
+                    e.reset(512)
+                    logits = [e._prefill_prompt(prompt)]
+                    for tok in (7, 11, 13):
+                        logits.append(e._forward(torch.tensor([[tok]], device=e.device),
+                                                 torch.ones(1, dtype=torch.int32,
+                                                            device=e.device), prefill=False))
+                    runs.append([x.float().cpu() for x in logits])
+            for step, (r, g) in enumerate(zip(*runs)):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"[offload] {label} n_hot {n_hot} step {step}: "
+                                         "non-finite logits")
+                err = float((g - r).abs().max())
+                worst = max(worst, err)
+                if not err <= tol * max(1.0, float(r.abs().max())):
+                    raise AssertionError(f"[offload] {label} n_hot {n_hot} step {step}: card "
+                                         f"vs CPU {err}")
+            want = engines[0].generate(prompt[:40], max_new_tokens=8, stop_ids={-1},
+                                       top_logprobs=2)
+            got = engines[1].generate(prompt[:40], max_new_tokens=8, stop_ids={-1})
+            diverged = next((i for i, (a, b) in enumerate(zip(got.tokens, want.tokens))
+                             if a != b), None)
+            if diverged is not None:
+                (_, t1), (_, t2) = want.top_logprobs[diverged][:2]
+                if not t1 - t2 < 2 * tol:
+                    raise AssertionError(f"[offload] {label} n_hot {n_hot}: the card's stream "
+                                         f"left the CPU's at step {diverged}, top-two gap "
+                                         f"{t1 - t2:.4f}")
+            print(f"[offload] reference {label}, n_hot {n_hot} of {E}: streamed prefill + 3 "
+                  f"decode steps on the card vs the CPU plain path, max|Δ| logits "
+                  f"{worst:.3g} (limit {tol}); 40 + 8 greedy "
+                  + ("equal" if diverged is None else f"equal up to a near-tie at step "
+                     f"{diverged}") + f"; host calls on the card {store_gpu.host_calls}",
+                  flush=True)
+            del engines
+    counts = {name: getattr(*C[name]) for name in ("K2", "K4")}
+    print(f"[offload] reference phase {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(counts)}; MoE calls on a plain route {moe.plain_routes}", flush=True)
+    if min(counts.values()) <= 0 or any(moe.plain_routes.values()):
+        raise AssertionError(f"[offload] reference: launches {counts}, plain routes "
+                             f"{moe.plain_routes}")
+
+
+def offload_load_check(path, quant, rng):
+    """13 (b), from disk: load_params_offload on phase 9's V2-Lite checkpoint
+    through its weight cache. The store is the cache's mmap'd pages
+    (pageable, no pinned copy), so the streamed prefill stages them through
+    pinned buffers: the H2D time of one group alone and the rate with
+    overlap; then a 2048 + 8 greedy request, finite, on no plain MoE form."""
+    import torch
+    from krasis_tpu_torch.config import ModelConfig
+    from krasis_tpu_torch.models.loader import load_params_offload
+    from krasis_tpu_torch.ops import moe
+    from krasis_tpu_torch.runtime.offload_engine import OffloadEngine
+
+    card = card_line()
+    cfg = ModelConfig.from_model_path(path)
+    t = time.perf_counter()
+    params, store = load_params_offload(cfg, quant)
+    t_load = time.perf_counter() - t
+    if any(a.is_pinned() for e in store._layers.values() for a in e if a is not None):
+        raise AssertionError("[offload] load_params_offload copied the store into pinned memory")
+    eng = OffloadEngine(cfg, quant, params, store, max_len=4096)
+    prompt = rng.integers(100, cfg.vocab_size - 100, 2048).tolist()
+    with torch.inference_mode():
+        eng.reset()
+        eng.streamer.measure_h2d = True
+        eng._prefill_prompt(prompt)
+        alone = dict(eng.last_stream_stats)
+        eng.streamer.measure_h2d = False
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+    res = eng.generate(prompt, max_new_tokens=8, stop_ids={-1})
+    st = eng.last_stream_stats
+    print(f"[offload] load_params_offload, {os.path.basename(path)} ({cfg.num_hidden_layers} "
+          f"layers) through its weight cache: {store.nbytes() / 1e9:.3f} GB of experts in the "
+          f"cache's pages (pageable), loaded in {t_load:.2f} s; streamed prefill staged through "
+          f"pinned buffers: one group alone {alone['h2d_first_rep_s'] * 1e3:.2f} ms, "
+          f"{alone['h2d_gbps_measured']:.2f} GB/s (staging included), "
+          f"{st['effective_gbps_with_overlap']:.2f} GB/s with overlap over {st['groups']} "
+          f"groups; 2048 + 8: prefill {res.prefill_tok_s:.1f} tok/s, decode "
+          f"{res.decode_tok_s:.2f} tok/s; {card}", flush=True)
+    if not (st["staged"] and res.finite and len(res.tokens) == 8) or any(
+            moe.plain_routes.values()):
+        raise AssertionError(f"[offload] from disk: staged {st['staged']}, finite {res.finite}, "
+                             f"{len(res.tokens)} tokens, plain routes {moe.plain_routes}")
+    del eng, params, store
+    torch.cuda.empty_cache()
+
+
+def device_bytes(tree) -> int:
+    """Bytes of the distinct device storages a parameter tree holds."""
+    import torch
+    from krasis_tpu_torch.quant import QTensor
+
+    seen = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+        elif isinstance(t, QTensor):
+            walk(t.q)
+            walk(t.scales)
+        elif isinstance(t, torch.Tensor) and t.is_cuda:
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    walk(tree)
+    return sum(seen.values())
+
+
+def offload_phase(eng, cfg, results, rng):
+    """13 (b). The offload tier on phase 4's V2-Lite Q4 weights (27 layers at
+    full width): its 26 MoE layers' routed experts (folded shared rows cut
+    off) copied into a pinned host store, 7.42 GB. The host engine against
+    its plain version on a real layer at T = 1 and 4 (2e-6 relative), with
+    every one-pick-dropped control refused, and its time a layer; K4 on a
+    streamed slot (E = 64) at T = 2048 and K5 on a 16-expert hot substack
+    with 3 of 6 picks masked (a dropped hot pick refused); each MoE layer's
+    offloaded sublayer (16 hot + host) at one decode step against the plain
+    gathered MoE over the full stack; the streamed prefill of 2048 and 2500
+    ids against the resident prefill (K4's tolerance; bit-equality
+    reported), with the H2D rate of one group alone and with overlap; then,
+    with the launch counts set to 0 just before and read just after,
+    requests 2048 + 32 at n_hot 0, update_hot_cache from its heatmap (the
+    same device buffers), 40 + 32 at n_hot 16 (fewer host picks a token
+    than 40 + 16 at n_hot 0), 40 + 16 all hot (no host call) and 40 + 16 at
+    n_hot 0; K1, K2 (both forms), K4 and K5 launched, K3, K6, K6a, K7, K7a
+    not, no plain MoE form. A profiled 40 + 8 decode (busy share), the
+    device bytes offloaded against resident, and a 2-slot BatchScheduler
+    with offload on two 40 + 16 requests, each stream held teacher-forced."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from krasis_tpu_torch.models import model as M
+    from krasis_tpu_torch.offload import build_hot_params, store_from_params
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe, moe_cuda
+    from krasis_tpu_torch.ops.moe import moe_forward_gathered
+    from krasis_tpu_torch.ops.routing import compute_routing
+    from krasis_tpu_torch.ops.sampling import SamplingParams
+    from krasis_tpu_torch.quant import QTensor
+    from krasis_tpu_torch.runtime.engine import CHUNK
+    from krasis_tpu_torch.runtime.offload_engine import OffloadEngine
+    from krasis_tpu_torch.runtime.scheduler import BatchScheduler
+
+    t0 = time.perf_counter()
+    card = card_line()
+    dev = eng.device
+    on_card = dev.type == "cuda"
+    H, I, E, k = cfg.hidden_size, cfg.moe_intermediate_size, cfg.n_routed_experts, \
+        cfg.num_experts_per_tok
+    V = cfg.vocab_size
+    mine = []
+    quant = eng.quant
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    sync()
+    t = time.perf_counter()
+    sp, store = store_from_params(cfg, quant, eng.params, pin=on_card)
+    sync()
+    t_store = time.perf_counter() - t
+    layer_bytes = store.layer_nbytes()
+    pick_bytes = layer_bytes / E
+    n_moe = len(store.layers)
+    print(f"[offload] store: {n_moe} MoE layers, {store.nbytes() / 1e9:.3f} GB of host memory "
+          f"({'pinned' if on_card else 'pageable'}; {layer_bytes / 1e6:.2f} MB a layer, "
+          f"{pick_bytes / 1e6:.3f} MB a pick), copied from the card in {t_store:.2f} s; host "
+          f"engine tier {store.native_tier()}, {store.native_threads()} threads; {host_line()}; "
+          f"{card}", flush=True)
+
+    # --- the host engine against its plain version on a real layer
+    layer = store.layers[0]
+    host_ms = {}
+    for T in (1, 4):
+        x = torch.randn((T, H), generator=torch.Generator().manual_seed(T)).to(
+            torch.bfloat16).float().numpy()
+        idx = np.stack([rng.choice(E, k, replace=False) for _ in range(T)]).astype(np.int32)
+        w = rng.random((T, k)).astype(np.float32)
+        w /= w.sum(axis=1, keepdims=True)
+        got = store.forward(layer, x, idx, w)
+        want = store.forward(layer, x, idx, w, plain=True)
+        scale = float(np.abs(want).max())
+        rel = float(np.abs(got - want).max()) / scale
+        dropped = []
+        for j in range(k):
+            w0 = w.copy()
+            w0[:, j] = 0.0
+            dropped.append(float(np.abs(got - store.forward(layer, x, idx, w0, plain=True)).max())
+                           / scale / HOST_REL_TOL)
+        times = []
+        for _ in range(20 if T == 1 else 10):
+            t = time.perf_counter()
+            store.forward(layer, x, idx, w)
+            times.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        store.forward(layer, x, idx, w, plain=True)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        host_ms[T] = statistics.median(times) * 1e3
+        print(f"[offload] host engine, layer {layer}, T = {T} ({T * k} picks): max|Δ| "
+              f"{rel:.3g} of the largest value against its plain version (limit "
+              f"{HOST_REL_TOL}); the plain version without one pick is {min(dropped):.3g} to "
+              f"{max(dropped):.3g} of the limit away; {host_ms[T]:.3f} ms a call (median of "
+              f"{len(times)}), plain {plain_ms:.1f} ms; "
+              f"{T * k * pick_bytes / (host_ms[T] / 1e3) / 1e9:.2f} GB/s of pick bytes; {card}",
+              flush=True)
+        if not rel < HOST_REL_TOL:
+            raise AssertionError(f"[offload] host engine vs plain {rel} >= {HOST_REL_TOL}")
+        if not min(dropped) > 1.0:
+            raise AssertionError("[offload] the host check cannot see a pick dropped")
+    # a decode token's pattern: each call another layer and other picks, so
+    # the picks come from DRAM, not from a cache the repeated call warmed
+    xs1 = torch.randn((1, H), generator=torch.Generator().manual_seed(5)).to(
+        torch.bfloat16).float().numpy()
+    cycle = []
+    for _ in range(3):
+        for li in store.layers:
+            idx = rng.choice(E, k, replace=False).astype(np.int32)[None]
+            t = time.perf_counter()
+            store.forward(li, xs1, idx, np.full((1, k), 1.0 / k, np.float32))
+            cycle.append(time.perf_counter() - t)
+    cold_ms = statistics.median(cycle) * 1e3
+    print(f"[offload] host engine, T = 1, every layer in turn with fresh picks (3 sweeps): "
+          f"{cold_ms:.3f} ms a call (median), {k * pick_bytes / (cold_ms / 1e3) / 1e9:.2f} GB/s "
+          f"of pick bytes (the repeated call above: {host_ms[1]:.3f} ms); a decode token at "
+          f"n_hot 0: {n_moe} x {cold_ms:.3f} = {n_moe * cold_ms:.1f} ms of host compute for "
+          f"{n_moe * k * pick_bytes / 1e6:.0f} MB of picks; {card}", flush=True)
+    store.heatmap.clear()
+
+    if on_card:
+        g = torch.Generator(device=dev)
+        g.manual_seed(4321)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        w13q, w13s, w2q, w2s, _, _ = store._layers[layer]
+        # K4 on a streamed slot: the group's 64 routed experts as the
+        # streamed prefill holds them, at the 2048-row chunk
+        slot13 = QTensor(w13q.to(dev), w13s.to(dev), store.bits, store.gs13)
+        slot2 = QTensor(w2q.to(dev), w2s.to(dev), store.bits, store.gs2)
+        xs = torch.randn((2048, H), generator=g, device=dev).to(torch.bfloat16)
+        topk = torch.rand((2048, E), generator=g, device=dev).topk(k, dim=-1).indices.to(
+            torch.int32)
+        k4_checks(mine, "offload/slot ", xs, topk, slot13, slot2, cfg)
+        del slot13, slot2, xs
+        # K5 on a 16-expert hot substack, 3 of the 6 picks hot, the cold 3
+        # masked (id 0, weight 0)
+        hot_ids = torch.arange(0, E, E // OFFLOAD_HOT)[:OFFLOAD_HOT]
+        hw13 = QTensor(w13q[hot_ids].to(dev), w13s[hot_ids].to(dev), store.bits, store.gs13)
+        hw2 = QTensor(w2q[hot_ids].to(dev), w2s[hot_ids].to(dev), store.bits, store.gs2)
+        remap = torch.full((E,), -1, dtype=torch.int32)
+        remap[hot_ids] = torch.arange(OFFLOAD_HOT, dtype=torch.int32)
+        picks = torch.tensor([int(hot_ids[1]), 1, int(hot_ids[6]), 3, int(hot_ids[11]), 5])
+        local = remap[picks].to(dev)[None]
+        valid = local >= 0
+        idx = torch.where(valid, local, torch.zeros_like(local))
+        x1 = torch.randn((1, H), generator=g, device=dev).to(torch.bfloat16)
+        wts = torch.where(valid, torch.rand((1, k), generator=g, device=dev) * 0.3 + 0.05,
+                          torch.zeros((1, k), device=dev))
+        n_valid = int(valid.sum())
+        alone = torch.where(valid, torch.full_like(wts, 1.0 / n_valid), torch.zeros_like(wts))
+        casts = moe_cuda.k5_casts
+        core_checks(mine, "offload/hot16 moe_decode_bf16", counters()["K5"], moe_cuda.K5_KERNELS,
+                    moe_cuda.REPLACES_BF16, lambda w: moe_cuda.moe_bf16(x1, hw13, hw2, idx, w),
+                    lambda w: moe_cuda.moe_bf16_plain(x1, hw13, hw2, idx, w), wts,
+                    n_valid * pick_bytes + H * 4, 2 * n_valid * (H * 2 * I + I * H), flush,
+                    controls=[(alone, [j for j in range(k) if bool(valid[0, j])])], tol=3e-2,
+                    peak=PEAK_BF16, source=moe_cuda.SOURCE)
+        if moe_cuda.k5_casts != casts:
+            raise AssertionError("[offload] K5 cast its rows or picks with PyTorch first")
+        del hw13, hw2, flush
+        torch.cuda.empty_cache()
+    t_kernels = time.perf_counter()
+
+    # --- each MoE layer's offloaded sublayer at one decode step
+    hot16 = build_hot_params(cfg, quant, sp, store, OFFLOAD_HOT, device=dev)
+    worst = 0.0
+    gx = torch.Generator(device=dev)
+    gx.manual_seed(77)
+    with torch.inference_mode():
+        for li in store.layers:
+            full, off = eng.params["layers"][li], hot16["layers"][li]
+            x = torch.randn((1, H), generator=gx, device=dev).to(torch.bfloat16)
+            r = compute_routing(x, full["gate_w"], cfg, full.get("gate_bias"))
+            got = M._offload_mlp(off, x, cfg, r, store, li)
+            want = moe_forward_gathered(x, full["w13"], full["w2"], r.topk_idx,
+                                        r.topk_weights) + M._shared_expert(full, x)
+            err, ratio = max_err(got, want, OFFLOAD_SUBLAYER_TOL)
+            worst = max(worst, ratio)
+            if not ratio <= 1.0:
+                raise AssertionError(f"[offload] layer {li}: the offloaded sublayer is {ratio:.3g} "
+                                     "of the limit from the plain gathered MoE")
+    print(f"[offload] one decode step, each of the {n_moe} MoE layers: offloaded sublayer "
+          f"({OFFLOAD_HOT} hot on the card + the host) against the plain gathered MoE over the "
+          f"full stack (+ the shared expert), worst {worst:.3g} of the limit (tol "
+          f"{OFFLOAD_SUBLAYER_TOL}); {card}", flush=True)
+    del hot16
+    store.heatmap.clear()
+
+    # --- the streamed prefill against the resident prefill
+    off0 = OffloadEngine(cfg, quant, sp, store, max_len=eng.max_len, device=dev)
+    for n in (2048, 2500):
+        prompt = rng.integers(100, V - 100, n).tolist()
+        with torch.inference_mode():
+            off0.reset()
+            off0.streamer.measure_h2d = True
+            off0._prefill_prompt(prompt)           # the H2D of one group alone
+            alone = dict(off0.last_stream_stats)
+            off0.streamer.measure_h2d = False
+            walls = {"resident": [], "streamed": []}
+            # resident, streamed, streamed, resident: each rate the faster of two
+            for name, e in (("resident", eng), ("streamed", off0), ("streamed", off0),
+                            ("resident", eng)):
+                e.reset()
+                sync()
+                t = time.perf_counter()
+                out = e._prefill_prompt(prompt)
+                sync()
+                walls[name].append(time.perf_counter() - t)
+                if name == "resident":
+                    want = out
+                else:
+                    got, st = out, dict(off0.last_stream_stats)
+            t_res, t_off = min(walls["resident"]), min(walls["streamed"])
+        err, ratio = max_err(got, want, 3e-2)
+        bit = bool(torch.equal(got, want))
+        one = (f"{alone['h2d_first_rep_s'] * 1e3:.2f} ms, {alone['h2d_gbps_measured']:.2f} GB/s"
+               if "h2d_first_rep_s" in alone else "not measured (no card)")
+        print(f"[offload] streamed prefill {n} ids: {n / t_off:.1f} tok/s against resident "
+              f"{n / t_res:.1f} tok/s (each the faster of two, in turns); logits max|Δ| "
+              f"{err:.3g} from the resident prefill's, {ratio:.3g} of K4's limit, {'bit-equal' if bit else 'not bit-equal'}; "
+              f"{st['groups']} groups of {st['rep_bytes'] / 1e6:.1f} MB, "
+              f"{st['streamed_bytes'] / 1e9:.3f} GB streamed in {st['phase2_s']:.3f} s: "
+              f"{st['effective_gbps_with_overlap']:.2f} GB/s with overlap; one group alone "
+              f"{one} ({'staged' if st['staged'] else 'no staging'}); {card}", flush=True)
+        if not ratio <= 1.0:
+            raise AssertionError(f"[offload] streamed prefill of {n} ids: {ratio:.3g} of the "
+                                 "limit from the resident prefill")
+    t_prefill = time.perf_counter()
+
+    # --- requests; the launch counts over them alone
+    off16 = OffloadEngine(cfg, quant, sp, store, hot_experts=OFFLOAD_HOT, max_len=eng.max_len,
+                          device=dev)
+    off64 = OffloadEngine(cfg, quant, sp, store, hot_experts=E, max_len=eng.max_len, device=dev)
+    ptrs = [off16.params["layers"][li]["hot_w13"].q.data_ptr() for li in store.layers]
+    warm = rng.integers(100, V - 100, 40).tolist()
+    for e in (off0, off16, off64):
+        e.generate(warm, max_new_tokens=4, stop_ids={-1})          # warm-up
+    store.heatmap.clear()
+    C = counters()
+    for m, attr in C.values():
+        setattr(m, attr, 0)
+    fa.form_launches.clear()
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+    rates = {}
+
+    def request(label, e, n, new):
+        prompt = rng.integers(100, V - 100, n).tolist()
+        c0, p0, s0 = store.host_calls, store.host_picks, store.host_time_s
+        res = e.generate(prompt, max_new_tokens=new, stop_ids={-1})
+        if not res.finite or len(res.tokens) != new:
+            raise AssertionError(f"[offload] {label}: {len(res.tokens)} tokens, finite "
+                                 f"{res.finite}")
+        calls, picks = store.host_calls - c0, store.host_picks - p0
+        # decode forwards after the prefill's token: whole blocks
+        steps = -(-(new - 1) // e.decode_block) * e.decode_block
+        out = dict(prefill_tok_s=res.prefill_tok_s, decode_tok_s=res.decode_tok_s,
+                   host_calls=calls, host_picks=picks,
+                   host_ms_token=(store.host_time_s - s0) * 1e3 / max(steps, 1),
+                   picks_token=picks / max(steps, 1))
+        rates[label] = out
+        print("[offload] request " + json.dumps({"request": label, "prompt": n, "tokens": new,
+                                                  **out}) + f"; {card}", flush=True)
+        return res
+
+    request("2048 + 32, n_hot 0", off0, 2048, 32)
+    off16.update_hot_cache()
+    if [off16.params["layers"][li]["hot_w13"].q.data_ptr() for li in store.layers] != ptrs:
+        raise AssertionError("[offload] update_hot_cache reallocated the hot buffers")
+    request(f"40 + 32, n_hot {OFFLOAD_HOT}", off16, 40, 32)
+    request(f"40 + 16, n_hot {E} (all)", off64, 40, 16)
+    request("40 + 16, n_hot 0", off0, 40, 16)
+    counts = {name: getattr(m, attr) for name, (m, attr) in C.items()}
+    by_form = dict(fa.form_launches)
+    print(f"[offload] launches over the requests {json.dumps(counts)}; K2 by form "
+          f"{json.dumps(by_form)}; MoE calls on a plain route {moe.plain_routes}", flush=True)
+    if rates[f"40 + 16, n_hot {E} (all)"]["host_calls"] != 0:
+        raise AssertionError("[offload] the all-hot request called the host")
+    if not (rates[f"40 + 32, n_hot {OFFLOAD_HOT}"]["picks_token"]
+            < rates["40 + 16, n_hot 0"]["picks_token"]):
+        raise AssertionError(f"[offload] host picks a token did not fall at n_hot "
+                             f"{OFFLOAD_HOT}: {rates}")
+    if on_card:
+        for name in ("K1", "K2", "K4", "K5"):
+            if counts[name] <= 0:
+                raise AssertionError(f"[offload] {name} was never launched on the offload path")
+        for name in ("K3", "K6", "K6a", "K6a product", "K7", "K7a"):
+            if counts[name] != 0:
+                raise AssertionError(f"[offload] {name} was launched {counts[name]} times")
+        for form in ("one-launch", "split"):
+            if by_form.get(form, 0) <= 0:
+                raise AssertionError(f"[offload] K2's {form} form was never launched")
+    if any(moe.plain_routes.values()):
+        raise AssertionError(f"[offload] MoE calls on a plain form {moe.plain_routes}")
+    res_rate = eng.generate(rng.integers(100, V - 100, 40).tolist(), max_new_tokens=16,
+                            stop_ids={-1})
+    print(f"[offload] decode tok/s at n_hot 0 / {OFFLOAD_HOT} / {E}: "
+          f"{rates['40 + 16, n_hot 0']['decode_tok_s']:.2f} / "
+          f"{rates[f'40 + 32, n_hot {OFFLOAD_HOT}']['decode_tok_s']:.2f} / "
+          f"{rates[f'40 + 16, n_hot {E} (all)']['decode_tok_s']:.2f}, resident (its "
+          f"{quant.expert_activation} expert activations) {res_rate.decode_tok_s:.2f}; {card}",
+          flush=True)
+    name_of = {v: n for n, v in C.items()}
+    for counter, res in mine:
+        res["launches"] = counts[name_of[counter]]
+    results.extend(mine)
+    t_requests = time.perf_counter()
+
+    # --- device memory, offloaded against resident; the busy share
+    slots = off0.streamer.slot_bytes()
+    res_b, off_b = device_bytes(eng.params), device_bytes(sp)
+    hot_b = device_bytes(off16.params) - off_b
+    del off64
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        off0.generate(rng.integers(100, V - 100, 2048).tolist(), max_new_tokens=8,
+                      stop_ids={-1})
+        peak_off = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng.generate(rng.integers(100, V - 100, 2048).tolist(), max_new_tokens=8,
+                     stop_ids={-1})
+        peak_res = torch.cuda.max_memory_allocated() - base
+    else:
+        peak_off = peak_res = 0
+    print(f"[offload] device memory: resident weights {res_b / 2**30:.2f} GiB; offloaded "
+          f"weights {off_b / 2**30:.2f} GiB + the two slots {slots / 2**30:.3f} GiB "
+          f"(+ {hot_b / 2**30:.2f} GiB for {OFFLOAD_HOT} hot experts a layer); "
+          f"{(res_b - off_b - slots) / 2**30:.2f} GiB less at n_hot 0; a 2048 + 8 request's "
+          f"peak above the weights and caches held: offloaded {peak_off / 2**30:.2f} GiB, "
+          f"resident {peak_res / 2**30:.2f} GiB; {card}", flush=True)
+    if on_card:
+        print("[profile] offloaded V2-Lite Q4, n_hot 0, 40 + 8:", flush=True)
+        profile_phase(off0, rng.integers(100, V - 100, 40).tolist(), 8,
+                      moe_cuda.K3_KERNELS)
+
+    # --- a 2-slot BatchScheduler with offload, each stream teacher-forced
+    greedy = SamplingParams(temperature=0.0)
+    sched = BatchScheduler(cfg, quant, sp, max_len=eng.max_len, num_slots=2, decode_block=8,
+                           device=dev, offload=store)
+    try:
+        prompts = [rng.integers(100, V - 100, 40).tolist() for _ in range(2)]
+        t = time.perf_counter()
+        reqs = [sched.submit(p, max_new_tokens=16, sampling=greedy, stop_ids={-1},
+                             want_logprobs=True) for p in prompts]
+        outs = []
+        for r in reqs:
+            toks = []
+            while (tok := r.out_queue.get(timeout=600)) is not None:
+                toks.append(tok)
+            if r.error is not None:
+                raise AssertionError("[offload] the scheduler failed") from r.error
+            outs.append(toks)
+        wall = time.perf_counter() - t
+    finally:
+        sched.shutdown()
+    lines = []
+    for i, (p, r, toks) in enumerate(zip(prompts, reqs, outs)):
+        if len(toks) != 16:
+            raise AssertionError(f"[offload] scheduler stream {i}: {len(toks)} tokens")
+        act, steps = teacher_forced(off0, p, toks, 2, CHUNK)     # the same streamed prefill
+        n, held, vocab, row, flipped = hold_teacher_forced(f"[offload] 2-slot stream {i}", toks,
+                                                           r.logprobs, steps)
+        median = statistics.median(held) if held else None
+        if median is None or not median <= FORCED_LP_MEDIAN:
+            raise AssertionError(f"[offload] 2-slot stream {i}: median logprob difference "
+                                 f"{median} (limit {FORCED_LP_MEDIAN})")
+        lines.append(f"stream {i}: {n} steps, {len(held)} held (median {median:.3g}, max "
+                     f"{max(held):.3g}), rows within {row:.3g}, other picks at {flipped}")
+    print(f"[offload] 2-slot BatchScheduler with offload (streamed admission prefill): two 40 "
+          f"+ 16 requests at once in "
+          f"{wall:.2f} s ({32 / wall:.2f} tok/s), teacher-forced: " + "; ".join(lines)
+          + f"; {card}", flush=True)
+    print(f"[time] offload phase {time.perf_counter() - t0:.1f} s: store {t_store:.1f} s, "
+          f"kernel checks {t_kernels - t0:.1f} s, prefill {t_prefill - t_kernels:.1f} s, "
+          f"requests {t_requests - t_prefill:.1f} s", flush=True)
+    del off0, off16, sp, store
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4610,9 +5253,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
+    budget_phase()
     reference_phases()
     hybrid_scheduler_reference()
     spec_reference()
+    offload_reference()
     c2_phase()
     c3_phase()
 
@@ -4620,11 +5265,11 @@ def main() -> int:
     rng = np.random.default_rng(0)
     run_family("DeepSeek-V2-Lite Q4", "deepseek-v2-lite",
                QuantConfig(expert_bits=4, group_size=128), v2lite_kernel_phase,
-               ((2048, 64, "int8"), (2500, 32, "int8"), (40, 32, "int8"),
+               ((2048, 32, "int8"), (2500, 32, "int8"), (40, 32, "int8"),
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "bf16")),
                ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=16,
                forms=("one-launch", "split", "one-launch+fp8", "split+fp8"),
-               batched=batch_phase, spec=spec_phase)
+               batched=batch_phase, spec=spec_phase, offload=offload_phase)
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
@@ -4652,9 +5297,15 @@ def main() -> int:
                prefill_on_names=("gmm_kernel",))
     probe_phase(results)
     load_phase()
-    for server_args in (SERVE_SYNTHETIC, SERVE_SYNTHETIC + ("--slots", "4")):
+    # the default --offload auto must keep V2-Lite resident; then 13 (c), the
+    # offload tier as a user starts it
+    for server_args, new, expect, every_request in (
+            (SERVE_SYNTHETIC, 64, (("--offload auto:", "GiB: resident"),), True),
+            (SERVE_SYNTHETIC + ("--slots", "4"), 64, (), True),
+            (SERVE_OFFLOAD, 32, (("--offload experts:", "GB of routed experts in host RAM"),),
+             False)):
         t0 = time.perf_counter()
-        serve_subprocess_phase(server_args)
+        serve_subprocess_phase(server_args, new, expect, every_request)
         print(f"[time] serve phase, server subprocess {' '.join(server_args[2:])}: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 

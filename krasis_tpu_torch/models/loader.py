@@ -42,7 +42,8 @@ from ..quant import (QTensor, dequant_compressed_int4, dequant_fp8_block, dequan
                      pick_group_size, quantize)
 from ..utils.safetensors_io import ShardedSafetensors
 from .params import (fold_layer, fold_width, layer_fold_width, layer_specs, mtp_layer_spec,
-                     params_from_stacked, pattern_info, stack_pattern_projections)
+                     params_from_stacked, pattern_info, pattern_layer_index,
+                     stack_pattern_projections)
 
 CACHE_VERSION = 2
 
@@ -176,18 +177,21 @@ class WeightLoader:
 
     # -- main ---------------------------------------------------------------
 
-    def load(self, fold: bool = False) -> Dict[str, Any]:
+    def load(self, fold: bool = False, expert_sink=None) -> Dict[str, Any]:
         """The port's parameters on the device; with `fold`, each layer's
-        shared experts are folded into its reserved stack tail."""
+        shared experts are folded into its reserved stack tail. With
+        `expert_sink(i)`, layer i's routed experts go to the sink it returns
+        (``_load_moe``) and not into a stack on the device."""
         cfg = self.cfg
         params: Dict[str, Any] = self.load_head()
         layers = []
         for i, spec in enumerate(layer_specs(cfg)):
-            lp = self._load_layer(i, spec, fold=fold)
+            lp = self._load_layer(i, spec, fold=fold, expert_sink=expert_sink and expert_sink(i))
             layers.append(fold_layer(lp, cfg, reserved=True) if fold else lp)
         params["layers"] = stack_pattern_projections(layers, cfg)
         if self.has_mtp():
-            params["mtp"] = self._load_mtp(fold=fold)
+            params["mtp"] = self._load_mtp(
+                fold=fold, expert_sink=expert_sink and expert_sink(cfg.num_hidden_layers))
             if fold:
                 params["mtp"]["layer"] = fold_layer(params["mtp"]["layer"], cfg, reserved=True)
         return params
@@ -587,6 +591,65 @@ def load_params(cfg: ModelConfig, quant: QuantConfig, dtype=torch.bfloat16,
 
 
 def load_params_offload(cfg: ModelConfig, quant: QuantConfig, dtype=torch.bfloat16,
-                        use_cache: bool = True):
-    """The host-RAM expert offload tier's load."""
-    raise NotImplementedError("the expert offload tier is ROADMAP A-9")
+                        use_cache: bool = True, device=None, threads: int = 0):
+    """Load for the host-RAM expert offload tier: (device params without the
+    routed experts, ``offload.HostExpertStore`` holding them). Through the
+    weight cache (bf16 and `use_cache`), the store points into the cache's
+    mmap'd stacks in place: the page cache is the store, no second copy in
+    RAM, and the streamed prefill stages those pageable pages through
+    pinned buffers; the rest of the cache's tree is placed as
+    ``load_params`` places it. Otherwise the checkpoint is loaded onto
+    `device` with each routed expert quantized there and copied into host
+    stacks (pinned when `device` is the card). An MTP module's experts go
+    into the store at index num_hidden_layers. The shared experts are not
+    folded. `threads` is the host engine's thread count (0: every core)."""
+    from ..offload import EXPERT_LEAVES, HostExpertStore, expert_leaves, without_experts
+
+    dev = resolve_device(device)
+    E = cfg.n_routed_experts
+    if not (use_cache and dtype == torch.bfloat16):
+        pin = dev.type == "cuda"
+        store = HostExpertStore(cfg, quant, pin=pin, threads=threads)
+        stacks: Dict[Any, QTensor] = {}
+
+        def sink_for(i):
+            def sink(e, w13_e, w2_e):
+                for name, w in (("w13", w13_e), ("w2", w2_e)):
+                    qt = quantize(w, quant.expert_bits, quant.group_size)
+                    if (i, name) not in stacks:
+                        stacks[i, name] = QTensor(*(
+                            torch.empty((E, *a.shape), dtype=a.dtype, pin_memory=pin)
+                            for a in (qt.q, qt.scales)), qt.bits, qt.group_size)
+                    stacks[i, name].q[e].copy_(qt.q)
+                    stacks[i, name].scales[e].copy_(qt.scales)
+            return sink
+
+        params = WeightLoader(cfg, quant, dtype=dtype, device=dev).load(expert_sink=sink_for)
+        layers = params["layers"] + ([params["mtp"]["layer"]] if "mtp" in params else [])
+        for i, lp in enumerate(layers):
+            if (i, "w13") in stacks:
+                store.add_layer(i, *expert_leaves({**lp, "w13": stacks[i, "w13"],
+                                                   "w2": stacks[i, "w2"]}, E))
+        params["layers"] = [without_experts(lp) for lp in params["layers"]]
+        if "mtp" in params:
+            params["mtp"]["layer"] = without_experts(params["mtp"]["layer"])
+        return params, store
+
+    tree = cached_tree(cfg, quant, dev)
+    store = HostExpertStore(cfg, quant, threads=threads)
+    info = pattern_info(cfg)
+    for i, lp in enumerate(tree["prefix_layers"]):
+        if "w13" in lp:
+            store.add_layer(i, *expert_leaves(lp, E))
+    for t, lp in enumerate(tree["pattern"]):
+        if "w13" in lp:
+            for r in range(info.reps):
+                rep = {k: v[r] for k, v in lp.items() if k in EXPERT_LEAVES}
+                store.add_layer(pattern_layer_index(info, t, r), *expert_leaves(rep, E))
+    tree = {**tree, "prefix_layers": [without_experts(lp) for lp in tree["prefix_layers"]],
+            "pattern": [without_experts(lp) for lp in tree["pattern"]]}
+    mtp = tree.get("mtp", {}).get("layer", {})
+    if "w13" in mtp:
+        store.add_layer(cfg.num_hidden_layers, *expert_leaves(mtp, E))
+        tree["mtp"] = {**tree["mtp"], "layer": without_experts(mtp)}
+    return place_params(tree, cfg, dev), store

@@ -12,6 +12,17 @@ place and returns the logits.
 As in the reference, the first prefill chunk (``history == 0``) attends to
 its freshly projected bf16 keys and values, never to the rows it has just
 written to the cache; later chunks and decode read the cache, bf16 or fp8.
+
+With ``offload`` (``offload.HostExpertStore``: the routed experts live in
+host memory and the layers hold no ``w13`` / ``w2``), a MoE layer routes on
+the card and its routed picks run on the host engine between launches (the
+reference's segmented decode; PyTorch needs no ``pure_callback``, so the
+port has this one form for every backend and no ``segmented`` switch). The
+layer overlaps the two sides (``_offload_mlp``): its activations, ids and
+weights go down in one pinned copy, the card runs the hot-expert cache's
+picks (``hot_w13`` / ``hot_w2`` / ``hot_remap``) and the shared expert
+meanwhile, then the host computes the cold picks and its result comes up and
+is added.
 """
 
 from __future__ import annotations
@@ -232,14 +243,62 @@ def _shared_gate(lp: Dict[str, Any], x2d: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(linear(x2d, lp["shared_gate_w"]).to(torch.float32))
 
 
+def _shared_expert(lp: Dict[str, Any], x2d: torch.Tensor) -> Optional[torch.Tensor]:
+    """The layer's shared experts as one dense product (gated in the
+    Qwen3-Next family), None without them."""
+    if "shared_w13" not in lp:
+        return None
+    shared = mlp_forward(x2d, lp["shared_w13"], lp["shared_w2"])
+    if "shared_gate_w" in lp:
+        shared = shared * _shared_gate(lp, x2d).to(shared.dtype)
+    return shared
+
+
+def _offload_mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig, routing,
+                 offload, layer: int) -> torch.Tensor:
+    """A MoE layer whose routed experts are in host memory: hot picks on the
+    card (bf16 rows, as the reference's hot call passes no activation), cold
+    picks (id -1, weight 0 for the card's side) on the host, overlapped.
+    The sum is the reference's: (hot + host) + shared, in x's dtype. A layer
+    whose hot set holds every expert has no cold pick and skips the host
+    (the reference calls it with none live; adding its zeros changes
+    nothing)."""
+    gpt_oss = cfg.model_type == "gpt_oss"
+    idx, wts = routing.topk_idx, routing.topk_weights
+    hot = "hot_w13" in lp
+    handle = None
+    if hot:
+        local = lp["hot_remap"][idx.to(torch.int64)]
+        valid = local >= 0
+        if lp["hot_w13"].q.shape[0] < cfg.n_routed_experts:
+            handle = offload.dispatch(x2d, torch.where(valid, torch.full_like(idx, -1), idx),
+                                      torch.where(valid, torch.zeros_like(wts), wts))
+        out = moe_forward(x2d, lp["hot_w13"], lp["hot_w2"],
+                          torch.where(valid, local, torch.zeros_like(local)),
+                          torch.where(valid, wts, torch.zeros_like(wts)),
+                          swiglu_limit=cfg.swiglu_limit, gpt_oss=gpt_oss,
+                          w13_bias=lp.get("hot_w13_bias"), w2_bias=lp.get("hot_w2_bias"),
+                          pick_valid=valid)
+    else:
+        handle = offload.dispatch(x2d, idx, wts)     # one copy down, then an event
+        out = None
+    shared = _shared_expert(lp, x2d)                 # the card works while the host does
+    if handle is not None:
+        cold = offload.collect(layer, handle, x2d.device).to(x2d.dtype)
+        out = cold if out is None else out + cold
+    return out if shared is None else out + shared
+
+
 def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
-         prefill: bool, activation: str) -> torch.Tensor:
+         prefill: bool, activation: str, offload=None, layer: int = -1) -> torch.Tensor:
     gpt_oss = cfg.model_type == "gpt_oss"
     act = dict(swiglu_limit=cfg.swiglu_limit, gpt_oss=gpt_oss)
     if "mlp_w13" in lp:
         return mlp_forward(x2d, lp["mlp_w13"], lp["mlp_w2"], **act)
     routing = compute_routing(x2d, lp["gate_w"], cfg, lp.get("gate_bias"),
                               logit_bias=lp.get("gate_logit_bias"))
+    if "w13" not in lp:
+        return _offload_mlp(lp, x2d, cfg, routing, offload, layer)
     w13 = lp["w13"]
     E_stack = (w13.q if isinstance(w13, QTensor) else w13).shape[0]
     n_virt = E_stack - cfg.n_routed_experts
@@ -261,24 +320,23 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
     out = moe_forward(x2d, lp["w13"], lp["w2"], routing.topk_idx,
                       routing.topk_weights, w13_bias=lp.get("w13_bias"),
                       w2_bias=lp.get("w2_bias"), activation=activation, **act)
-    if "shared_w13" in lp:
-        # prefill: shared experts as one dense product, from the same
-        # values the virtual experts were sliced from
-        shared = mlp_forward(x2d, lp["shared_w13"], lp["shared_w2"])
-        if "shared_gate_w" in lp:
-            shared = shared * _shared_gate(lp, x2d).to(shared.dtype)
-        out = out + shared
-    return out
+    # prefill: shared experts as one dense product, from the same values the
+    # virtual experts were sliced from
+    shared = _shared_expert(lp, x2d)
+    return out if shared is None else out + shared
 
 
 def make_layer_step(cfg: ModelConfig, *, prefill: bool, positions: torch.Tensor,
                     valid: torch.Tensor, kv_len: torch.Tensor, activation: str,
-                    fresh: bool, at: Optional[CacheRows], spec_la: bool = False):
-    """One layer as a function, ``step(x, lp, lc, spec) → x`` (norm →
+                    fresh: bool, at: Optional[CacheRows], spec_la: bool = False,
+                    offload=None):
+    """One layer as a function, ``step(x, lp, lc, spec, layer) → x`` (norm →
     attention → norm → MLP, the cache updated in place): the body of
     ``forward``'s layer loop, which the MTP module (``models/mtp.py``) runs
-    on its own layer too. The reference's ``make_layer_step``."""
-    def step(x: torch.Tensor, lp: Dict[str, Any], lc: Dict[str, Any], spec) -> torch.Tensor:
+    on its own layer too. The reference's ``make_layer_step``. `layer`, the
+    absolute index, names the host store's entry of an offloaded MoE layer."""
+    def step(x: torch.Tensor, lp: Dict[str, Any], lc: Dict[str, Any], spec,
+             layer: int = -1) -> torch.Tensor:
         B, S = x.shape[:2]
         normed = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
         if spec.attn_kind == "gqa":
@@ -290,7 +348,7 @@ def make_layer_step(cfg: ModelConfig, *, prefill: bool, positions: torch.Tensor,
         x = x + attn
         normed = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
         return x + _mlp(lp, normed.reshape(B * S, -1), cfg, prefill,
-                        activation).reshape(B, S, -1)
+                        activation, offload, layer).reshape(B, S, -1)
 
     return step
 
@@ -312,7 +370,8 @@ def step_inputs(length: torch.Tensor, seq_lens: torch.Tensor, S: int, buffers, p
 def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor,
             cache: Dict[str, Any], cfg: ModelConfig, quant: QuantConfig,
             prefill: bool, return_all_logits: bool = False,
-            history: int = 0, return_hidden: bool = False, spec_la: bool = False):
+            history: int = 0, return_hidden: bool = False, spec_la: bool = False,
+            offload=None):
     """One pass over tokens [B, S] with seq_lens [B] valid tokens per row,
     after cache["length"] cached ones. Writes the new cache rows, advances
     cache["length"], and returns f32 logits [B, V] at each row's last valid
@@ -322,7 +381,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
     the host, so the cache's device-side length is never synchronised).
     With `return_hidden`, returns (logits, the final-norm hidden [B, S, H]
     at every position: the MTP module's input). `spec_la` (a verify step)
-    leaves the DeltaNet layers' state for ``la_spec_commit``."""
+    leaves the DeltaNet layers' state for ``la_spec_commit``. `offload`: the
+    host store of a model whose routed experts are offloaded."""
     B, S = tokens.shape
     positions, valid, kv_len, at = step_inputs(cache["length"], seq_lens, S, cache["layers"],
                                                prefill)
@@ -330,10 +390,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
     step = make_layer_step(cfg, prefill=prefill, positions=positions, valid=valid,
                            kv_len=kv_len,
                            activation="bf16" if prefill else quant.expert_activation,
-                           fresh=prefill and history == 0, at=at, spec_la=spec_la)
+                           fresh=prefill and history == 0, at=at, spec_la=spec_la,
+                           offload=offload)
     x = params["embed"][tokens]
-    for lp, lc, spec in zip(params["layers"], cache["layers"], layer_specs(cfg)):
-        x = step(x, lp, lc, spec)
+    for i, (lp, lc, spec) in enumerate(zip(params["layers"], cache["layers"], layer_specs(cfg))):
+        x = step(x, lp, lc, spec, i)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
     hidden = x
     if not return_all_logits:
@@ -355,7 +416,7 @@ def decode_block_batched(params: Dict[str, Any], tok: torch.Tensor, cache: Dict[
                          generator: torch.Generator, seen: torch.Tensor,
                          temperature: torch.Tensor, top_p: torch.Tensor,
                          presence_penalty: torch.Tensor, top_k: torch.Tensor,
-                         need_logprobs: bool = True, max_top_k: int = 64):
+                         need_logprobs: bool = True, max_top_k: int = 64, offload=None):
     """`steps` decode forwards over every row of the cache (the
     continuous-batching block; the reference's
     ``make_multi_decode_batched_fn``): each step feeds tok [B], samples the
@@ -364,13 +425,15 @@ def decode_block_batched(params: Dict[str, Any], tok: torch.Tensor, cache: Dict[
     `generator`), marks it in seen [B, V] (in place) and, with
     `need_logprobs`, takes its logprob under the raw model distribution
     (zeros otherwise). Returns tokens [steps, B] int64 and logprobs
-    [steps, B] f32, left on the device: the block never waits for it."""
+    [steps, B] f32, left on the device: the block never waits for it (an
+    offloaded model's MoE layers wait on their own copies down)."""
     B = tok.shape[0]
     rows = torch.arange(B, device=tok.device)
     seq1 = torch.ones((B,), dtype=torch.int32, device=tok.device)
     toks, lps = [], []
     for _ in range(steps):
-        logits = forward(params, tok[:, None], seq1, cache, cfg, quant, prefill=False)
+        logits = forward(params, tok[:, None], seq1, cache, cfg, quant, prefill=False,
+                         offload=offload)
         tok = sample_batched(logits, temperature, top_p, presence_penalty, seen, top_k,
                              max_top_k, generator)
         lps.append(chosen_logprob(logits, tok) if need_logprobs

@@ -178,7 +178,8 @@ def _n_virtual(cfg: ModelConfig, quant: QuantConfig, Is: int) -> int:
 
 
 def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
-                g: torch.Generator, device: torch.device) -> Dict[str, Any]:
+                g: torch.Generator, device: torch.device,
+                skip_experts: bool = False) -> Dict[str, Any]:
     H, gs = cfg.hidden_size, quant.group_size
     gpt_oss = cfg.model_type == "gpt_oss"
 
@@ -264,6 +265,8 @@ def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
         lp["shared_w2"] = _maybe_quant(src2, quant.shared_expert, gs)
         if cfg.model_type in GATED_ATTENTION_TYPES:
             lp["shared_gate_w"] = rnd((H, 1))
+    if skip_experts:
+        return lp
     n_virt = _n_virtual(cfg, quant, Is)
     bits = quant.expert_bits
     lp["w13"] = random_qtensor((E + n_virt, H, 2 * I), bits, gs, g, device)
@@ -287,8 +290,12 @@ def _init_layer(cfg: ModelConfig, quant: QuantConfig, spec: LayerSpec,
 
 
 def init_synthetic_params(cfg: ModelConfig, quant: QuantConfig, seed: int = 0,
-                          device: Optional[torch.device] = None) -> Dict[str, Any]:
-    """Random parameters made on `device` from a generator seeded `seed`."""
+                          device: Optional[torch.device] = None,
+                          skip_experts: bool = False) -> Dict[str, Any]:
+    """Random parameters made on `device` from a generator seeded `seed`.
+    `skip_experts` leaves out the routed expert stacks (and GPT-OSS's expert
+    biases): the offload tier's device tree, whose experts a host store
+    holds (``offload.build_synthetic_store``)."""
     device = torch.device(device or "cpu")
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -305,7 +312,8 @@ def init_synthetic_params(cfg: ModelConfig, quant: QuantConfig, seed: int = 0,
     }
     del lm
     params["layers"] = stack_pattern_projections(
-        [_init_layer(cfg, quant, spec, g, device) for spec in layer_specs(cfg)], cfg)
+        [_init_layer(cfg, quant, spec, g, device, skip_experts) for spec in layer_specs(cfg)],
+        cfg)
     if cfg.num_nextn_predict_layers > 0:
         params["mtp"] = init_mtp_params(cfg, quant, g, device)
     return params

@@ -38,10 +38,34 @@ def tiny_config(preset: str = "deepseek-v2-lite", **overrides) -> ModelConfig:
 
 
 def build_synthetic_engine(cfg: ModelConfig, quant: Optional[QuantConfig] = None,
-                           max_len: int = 4096, seed: int = 0,
-                           device=None) -> Engine:
-    """Random weights made on the card (or on `device`) from `seed`."""
+                           max_len: int = 4096, seed: int = 0, device=None,
+                           offload: bool = False, offload_engine: bool = False,
+                           hot_experts: int = 0) -> Engine:
+    """Random weights made on the card (or on `device`) from `seed`.
+
+    `offload`: the same weights, the routed experts copied into a host store
+    (``offload.store_from_params``) and left out of the device tree, served
+    by ``Engine(offload=store)``: offloaded equals resident, bit for bit in
+    the weights. `offload_engine`: the serving ``OffloadEngine`` (streamed
+    prefill, `hot_experts` on the card) over a store filled on the host
+    (``offload.build_synthetic_store``, the reference's bytes for `seed`), so
+    the expert weights never touch the card at build time; its experts
+    differ from the `offload` path's."""
     quant = quant or QuantConfig()
     dev = resolve_device(device)
+    pin = dev.type == "cuda"
+    if offload_engine:
+        from ..offload import build_synthetic_store
+        from ..runtime.offload_engine import OffloadEngine
+
+        store = build_synthetic_store(cfg, quant, seed=seed, pin=pin)
+        params = init_synthetic_params(cfg, quant, seed=seed, device=dev, skip_experts=True)
+        return OffloadEngine(cfg, quant, params, store, hot_experts=hot_experts,
+                             max_len=max_len, device=dev)
     params = init_synthetic_params(cfg, quant, seed=seed, device=dev)
-    return Engine(cfg, quant, params, max_len=max_len, device=dev)
+    store = None
+    if offload:
+        from ..offload import store_from_params
+
+        params, store = store_from_params(cfg, quant, params, pin=pin)
+    return Engine(cfg, quant, params, max_len=max_len, device=dev, offload=store)

@@ -1,5 +1,8 @@
 """Host C++ code of the port, built with g++ at first use.
 
+``load_hostmoe`` builds and binds the offload tier's host expert engine
+(``hostmoe.cpp``); a failed build raises.
+
 ``build_library`` compiles one source into ``lib<name>.so`` under the
 port's ignored build directory (``build/krasis_tpu_torch`` at the
 repository root, ``krasis_tpu_torch/build.py``) and loads it. Processes
@@ -57,3 +60,38 @@ def build_error(exc: BaseException) -> str:
     if isinstance(exc, FileNotFoundError):
         return f"{exc} (is g++ installed and on PATH?)"
     return repr(exc)
+
+
+HOSTMOE_SRC = Path(__file__).resolve().parent / "hostmoe.cpp"
+HOSTMOE_FLAGS = ("-O3", "-march=native", "-fopenmp", "-std=c++17", "-shared", "-fPIC")
+_hostmoe: Optional[ctypes.CDLL] = None
+
+
+def load_hostmoe() -> ctypes.CDLL:
+    """The host expert engine (``libkrasis_hostmoe.so``), built on first use
+    with the reference's flags and its six C entry points bound. Raises
+    when the build fails: the offload tier has no silent fallback."""
+    global _hostmoe
+    if _hostmoe is not None:
+        return _hostmoe
+    try:
+        lib = build_library(HOSTMOE_SRC, "krasis_hostmoe", HOSTMOE_FLAGS)
+    except Exception as exc:
+        raise RuntimeError("the host expert engine (native/hostmoe.cpp) did not build: "
+                           + build_error(exc)) from exc
+    c_void_p, c_int, c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.krasish_create.restype = c_void_p
+    lib.krasish_create.argtypes = [c_int64, c_int64, c_int64, c_int64, c_int, c_int, c_int,
+                                   c_int, ctypes.c_float, c_int]
+    lib.krasish_set_layer.restype = c_int
+    lib.krasish_set_layer.argtypes = [c_void_p, c_int64] + [c_void_p] * 6
+    lib.krasish_forward.restype = c_int
+    lib.krasish_forward.argtypes = [c_void_p, c_int64, c_int64, c_int64] + [c_void_p] * 4
+    lib.krasish_destroy.restype = None
+    lib.krasish_destroy.argtypes = [c_void_p]
+    lib.krasish_tier.restype = c_int
+    lib.krasish_tier.argtypes = [c_void_p]
+    lib.krasish_threads.restype = c_int
+    lib.krasish_threads.argtypes = [c_void_p]
+    _hostmoe = lib
+    return lib

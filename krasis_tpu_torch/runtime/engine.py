@@ -17,6 +17,14 @@ committing 1 to k + 1 tokens (``_generate_spec``; MTP drafts, whose module
 is prefilled beside the model, or prompt lookup); one that asks for
 ``top_logprobs``, or whose spec block would overshoot the cache where
 vanilla decode would not, takes the vanilla path.
+
+``Engine(..., offload=store)`` serves a model whose routed experts live in
+host memory (``offload.HostExpertStore``; the layers hold no expert
+stacks): every forward hands each MoE layer's routed picks to the host
+engine (``models/model.py`` ``_offload_mlp``), prefill included. The shared
+experts are not folded and speculative decoding is off, as in the
+reference. ``runtime/offload_engine.py`` ``OffloadEngine`` streams the
+expert weights through the card for prefill instead.
 """
 
 from __future__ import annotations
@@ -73,14 +81,15 @@ def padded_rows(rows: Sequence[Sequence[int]], width: int, device) -> torch.Tens
 
 def prefill_rows(params: Dict[str, Any], ids: Sequence[int], cache: Dict[str, Any],
                  cfg: ModelConfig, quant: QuantConfig, history: int = 0,
-                 return_all_logits: bool = False) -> torch.Tensor:
+                 return_all_logits: bool = False, offload=None) -> torch.Tensor:
     """One prefill forward of `ids` into the batch-1 `cache` after `history`
     cached tokens, padded to at least MIN_PREFILL_ROWS rows so that it takes
     the grouped MoE regime."""
     dev = cache["length"].device
     return forward(params, padded_rows([ids], len(ids), dev),
                    torch.tensor([len(ids)], dtype=torch.int32, device=dev), cache, cfg, quant,
-                   prefill=True, return_all_logits=return_all_logits, history=history)
+                   prefill=True, return_all_logits=return_all_logits, history=history,
+                   offload=offload)
 
 
 def spec_prefill_rows(params: Dict[str, Any], prompt_ids: Sequence[int], pos: int, m: int,
@@ -141,11 +150,13 @@ class Engine:
     is ``runtime/scheduler.py``)."""
 
     def __init__(self, cfg: ModelConfig, quant: QuantConfig, params: Dict[str, Any],
-                 max_len: int = 4096, device=None):
+                 max_len: int = 4096, device=None, offload=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.quant = quant = resolve_kv_quant(cfg, quant, 1, max_len)
-        if quant.fold_shared_decode:
+        # the host store of an offloaded model's routed experts
+        self.offload = offload
+        if quant.fold_shared_decode and offload is None:
             params = fold_shared_experts(params, cfg, quant)
         self.params = params
         self.max_len = max_len
@@ -154,6 +165,8 @@ class Engine:
         # speculative decoding (models/mtp.py, models/spec_ngram.py): the
         # gate and the depth from spec_config
         self.spec_mode, self.spec_k = spec_config(cfg, params)
+        if offload is not None:
+            self.spec_mode = None       # the reference has no spec path under offload
         self.spec_available = self.spec_mode is not None
         self.spec_ngram_n = int(os.environ.get("KRASIS_TPU_NGRAM_N", "3"))
         self.last_spec_stats: Optional[Dict[str, int]] = None
@@ -171,7 +184,7 @@ class Engine:
                  prefill: bool, return_all_logits: bool = False,
                  history: int = 0) -> torch.Tensor:
         return forward(self.params, tokens, seq_lens, self.cache, self.cfg,
-                       self.quant, prefill, return_all_logits, history)
+                       self.quant, prefill, return_all_logits, history, offload=self.offload)
 
     def _prefill_prompt(self, prompt_ids: Sequence[int], mtp: bool = False):
         """Prefill in chunks of self.chunk; returns last-position logits, and
@@ -199,7 +212,7 @@ class Engine:
                                         self.mtp_cache, self.cfg, self.quant)
             else:
                 out = prefill_rows(self.params, prompt_ids[pos:pos + self.chunk], self.cache,
-                                   self.cfg, self.quant, history=pos)
+                                   self.cfg, self.quant, history=pos, offload=self.offload)
         return out
 
     @torch.inference_mode()
@@ -212,7 +225,7 @@ class Engine:
         if not 0 < n <= self.max_len:
             raise ValueError(f"window of {n} tokens does not fit max_len={self.max_len}")
         return prefill_rows(self.params, prompt_ids, self.cache, self.cfg, self.quant,
-                            return_all_logits=True)[0, :n]
+                            return_all_logits=True, offload=self.offload)[0, :n]
 
     @torch.inference_mode()
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int = 64,

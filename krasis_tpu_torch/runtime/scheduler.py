@@ -1,8 +1,7 @@
 """Continuous batching: prefill at batch 1, insert into a slot, decode every
 slot at once (PyTorch).
 
-The port of ``krasis_tpu/runtime/scheduler.py`` without its offload branch
-(ROADMAP A-9):
+The port of ``krasis_tpu/runtime/scheduler.py``:
 
 * a request's prompt is prefilled at batch 1 into one reusable prefill
   cache, one chunk per loop turn, so the active slots keep decoding while a
@@ -15,7 +14,14 @@ The port of ``krasis_tpu/runtime/scheduler.py`` without its offload branch
   prompt lookup on any model) a block is ``decode_block`` verify steps
   instead, each committing 1 to k + 1 tokens a slot: the MTP module's
   cache is prefilled beside the main one and inserted with it, and prompt
-  lookup keeps each slot's token history on the device.
+  lookup keeps each slot's token history on the device;
+* with ``offload`` (``offload.HostExpertStore``), a model whose routed experts
+  live in host memory: the batched decode (T = slots rows) runs each MoE
+  layer's cold picks on the host engine (``models/model.py``
+  ``_offload_mlp``; hot-expert leaves in `params` run on the card), and
+  each admission chunk streams the expert weights through the card
+  (``offload_engine.WeightStreamer``). The shared experts are not folded
+  and speculative decoding is off, as in the reference.
 
 One scheduler thread owns the device; request threads submit and read their
 tokens from per-request queues. A fault in that thread ends every waiting
@@ -38,7 +44,7 @@ from ..config import ModelConfig, QuantConfig
 from ..device import resolve_device
 from ..models.model import chosen_logprob, decode_block_batched
 from ..models.mtp import first_draft, spec_config, spec_decode_block
-from ..models.params import fold_shared_experts
+from ..models.params import fold_shared_experts, pattern_info
 from ..models.spec_ngram import ngram_decode_block
 from ..ops.sampling import SamplingParams, sample_batched
 from .engine import CHUNK, halved_chunk, prefill_rows, spec_prefill_rows
@@ -78,12 +84,16 @@ class BatchScheduler:
                  device=None, mesh=None, offload=None):
         if mesh is not None:
             raise NotImplementedError("a mesh: parallelism is ROADMAP A-10")
-        if offload is not None:
-            raise NotImplementedError("offload: the expert offload tier is ROADMAP A-9")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.quant = quant = resolve_kv_quant(cfg, quant, num_slots, max_len)
-        if quant.fold_shared_decode:
+        self.offload = offload
+        self.streamer = None
+        if offload is not None and pattern_info(cfg).reps > 0:
+            from .offload_engine import WeightStreamer
+
+            self.streamer = WeightStreamer(cfg, offload, self.device)
+        if quant.fold_shared_decode and offload is None:
             params = fold_shared_experts(params, cfg, quant)
         self.params = params
         self.max_len = max_len
@@ -98,6 +108,8 @@ class BatchScheduler:
         self.prefill_cache = init_cache(cfg, quant, 1, max_len, dev)
         # speculative decoding, gated as the engine is
         self.spec_mode, self.spec_k = spec_config(cfg, params)
+        if offload is not None:
+            self.spec_mode = None       # the reference has no spec path under offload
         self.spec = self.spec_mode == "mtp"
         self.spec_ngram_n = int(os.environ.get("KRASIS_TPU_NGRAM_N", "3"))
         self.stats_spec = {"steps": 0, "accepted": 0}
@@ -226,9 +238,12 @@ class BatchScheduler:
             p["logits"], p["h_last"] = spec_prefill_rows(
                 self.params, ids, pos, m, self.prefill_cache, self.mtp_prefill_cache,
                 self.cfg, self.quant)
+        elif self.streamer is not None:
+            p["logits"] = self.streamer.prefill(self.params, self.prefill_cache,
+                                                ids[pos:pos + m], m, start=pos)
         else:
             p["logits"] = prefill_rows(self.params, ids[pos:pos + m], self.prefill_cache,
-                                       self.cfg, self.quant, history=pos)
+                                       self.cfg, self.quant, history=pos, offload=self.offload)
         p["pos"] = pos + m
         self.stats["prefill_chunks"] += 1
         self._pc_tokens = ids[:p["pos"]]
@@ -319,7 +334,8 @@ class BatchScheduler:
             torch.tensor(self._temp, dtype=torch.float32, device=dev),
             torch.tensor(self._top_p, dtype=torch.float32, device=dev),
             torch.tensor(self._pres, dtype=torch.float32, device=dev),
-            torch.tensor(self._top_k, dtype=torch.int32, device=dev), need_logprobs=need_lp)
+            torch.tensor(self._top_k, dtype=torch.int32, device=dev), need_logprobs=need_lp,
+            offload=self.offload)
         self.stats["decode_blocks"] += 1
         # f64 holds token ids and f32 logprobs exactly: one readback
         toks_h, lps_h = torch.stack([toks.to(torch.float64), lps.to(torch.float64)]).tolist()

@@ -24,6 +24,12 @@ Generation is serialized through an engine lock, one request at a time
 and share its N decode slots. Synthetic models (``--synthetic``) have no
 tokenizer: message text is hashed into token ids and tokens come back as
 ``<id>`` (stream) or space-separated ids.
+
+``--offload experts`` keeps the routed experts in host RAM
+(``runtime/offload_engine.py`` ``OffloadEngine``: streamed-weight prefill,
+the host engine for decode, ``--hot-experts N`` of each MoE layer on the
+card); ``--offload auto`` (the default) takes it only when the model's
+resident bytes (``budget.compute_budget``) pass 0.92 of the card's memory.
 """
 
 from __future__ import annotations
@@ -621,9 +627,28 @@ def _not_ported(args) -> Optional[str]:
     """The ROADMAP item a requested flag waits for, if any."""
     if args.mesh:
         return "--mesh: parallelism is ROADMAP A-10"
-    if args.offload == "experts" or args.hot_experts > 0:
-        return "--offload experts / --hot-experts: the expert offload tier is ROADMAP A-9"
     return None
+
+
+AUTO_OFFLOAD_FRACTION = 0.92     # of the card's memory, for the resident weights
+
+
+def choose_offload(args, cfg, quant, device) -> bool:
+    """--offload: experts → True, none → False; auto → True when the
+    model's resident weight bytes pass AUTO_OFFLOAD_FRACTION of the card's
+    memory (the CPU is never short of it: resident)."""
+    if args.offload != "auto":
+        return args.offload == "experts"
+    if device.type != "cuda":
+        return False
+    from .budget import card_memory, compute_budget
+
+    need, have = compute_budget(cfg, quant).per_chip(1), card_memory(device)
+    fits = need <= AUTO_OFFLOAD_FRACTION * have
+    print(f"--offload auto: resident weights {need / 2**30:.2f} GiB, card "
+          f"{have / 2**30:.2f} GiB: {'resident' if fits else 'experts in host RAM'}",
+          flush=True)
+    return not fits
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -668,11 +693,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="HTTP transport: the C++ epoll server or the stdlib one; auto takes "
                          "native when it builds")
     ap.add_argument("--hot-experts", type=int, default=0, metavar="N",
-                    help="offload mode's hot-expert cache (not ported: ROADMAP A-9)")
+                    help="offload mode: the N most picked experts of each MoE layer on the "
+                         "card (the host serves only the cold picks)")
     ap.add_argument("--offload", default="auto", choices=("auto", "none", "experts"),
-                    help="experts: routed experts in host RAM (not ported: ROADMAP A-9). "
-                         "auto (default) and none keep the model resident: the port has no "
-                         "offload tier to fall back to")
+                    help="experts: routed expert weights in host RAM (prefill streams them "
+                         "a layer group at a time, decode computes them on the host). auto "
+                         "(default): resident when the model fits the card, else experts")
     ap.add_argument("--no-warmup", action="store_true", help="skip the pre-serve warmup")
     return ap
 
@@ -704,6 +730,9 @@ def main(argv=None) -> int:
                            shared_expert=args.shared_expert_quant,
                            dense_mlp=args.dense_mlp_quant, lm_head=args.lm_head_quant)
 
+    from .device import resolve_device
+
+    dev = resolve_device(args.device)
     if args.synthetic:
         from .models.synthetic import build_synthetic_engine, tiny_config
 
@@ -711,18 +740,27 @@ def main(argv=None) -> int:
             cfg, quant = tiny_config("qwen3-moe"), make_quant(group_size=32)
         else:
             cfg, quant = preset_config(args.synthetic), make_quant()
-        engine = build_synthetic_engine(cfg, quant, max_len=args.max_len, device=args.device)
+        offload = choose_offload(args, cfg, quant, dev)
+        engine = build_synthetic_engine(cfg, quant, max_len=args.max_len, device=dev,
+                                        offload_engine=offload, hot_experts=args.hot_experts)
         tok = None
         name = f"synthetic/{args.synthetic}"
     else:
-        from .models.loader import load_params
+        from .models.loader import load_params, load_params_offload
         from .runtime.engine import Engine
         from .runtime.tokenizer import Tokenizer
 
         cfg = ModelConfig.from_model_path(args.model)
         quant = make_quant()
-        params = load_params(cfg, quant, device=args.device)
-        engine = Engine(cfg, quant, params, max_len=args.max_len, device=args.device)
+        if choose_offload(args, cfg, quant, dev):
+            from .runtime.offload_engine import OffloadEngine
+
+            params, store = load_params_offload(cfg, quant, device=dev)
+            engine = OffloadEngine(cfg, quant, params, store, hot_experts=args.hot_experts,
+                                   max_len=args.max_len, device=dev)
+        else:
+            params = load_params(cfg, quant, device=dev)
+            engine = Engine(cfg, quant, params, max_len=args.max_len, device=dev)
         tok_files = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")
         if os.path.isdir(args.model) and not any(
                 os.path.exists(os.path.join(args.model, f)) for f in tok_files):
@@ -735,13 +773,17 @@ def main(argv=None) -> int:
             tok = Tokenizer(args.model)
         name = os.path.basename(os.path.normpath(args.model))
 
+    if engine.offload is not None:
+        print(f"--offload experts: {engine.offload.nbytes() / 1e9:.2f} GB of routed experts in "
+              f"host RAM ({engine.offload.native_tier()}, {engine.offload.native_threads()} "
+              f"threads), {args.hot_experts} hot a layer on the card", flush=True)
     sched = None
     if args.slots > 0:
         from .runtime.scheduler import BatchScheduler
 
         sched = BatchScheduler(cfg, quant, engine.params, max_len=args.max_len,
                                num_slots=args.slots, decode_block=args.decode_block,
-                               device=engine.device)
+                               device=engine.device, offload=engine.offload)
     try:
         if not args.no_warmup:
             warmup(engine, sched)

@@ -83,13 +83,18 @@ def test_gpt_oss_mxfp4_gate_up_deinterleaved(root):
     assert torch.equal(lp["w13"].q[1], want.q)
 
 
-def test_mesh_and_offload_name_their_roadmap_items(root):
+def test_mesh_and_offload_name_their_roadmap_items(root, tmp_path, monkeypatch):
+    """A mesh stays refused (ROADMAP A-10); the offload load (A-9, ported)
+    gives a device tree without routed stacks and a store holding them
+    (tests/test_torch_offload_engine.py holds both against the reference)."""
+    monkeypatch.setenv("KRASIS_TPU_HOME", str(tmp_path / "home"))
     path = write_checkpoint("qwen3_moe", root)
     cfg = ModelConfig.from_model_path(path)
     with pytest.raises(NotImplementedError, match="A-10"):
         load_params(cfg, QuantConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A-9"):
-        load_params_offload(cfg, QuantConfig())
+    params, store = load_params_offload(cfg, QuantConfig(), device="cpu")
+    assert store.layers == [i for i in range(cfg.num_hidden_layers) if cfg.layer_is_moe(i)]
+    assert all("w13" not in lp for lp in params["layers"])
 
 
 def test_load_without_card_raises(root, monkeypatch):

@@ -502,5 +502,15 @@ def test_fault_during_concurrent_submits_ends_every_request(models, monkeypatch)
                                      ({"offload": object()}, "A-9"),
                                      ({"mesh": object()}, "A-10")])
 def test_branches_not_ported_raise(models, kw, item):
+    """A mesh stays refused (ROADMAP A-10). The offload branch (A-9) is
+    ported: it takes the store, folds nothing and turns spec decoding off
+    (tests/test_torch_offload_engine.py drives it)."""
+    if item == "A-9":
+        sch = scheduler(models, "qwen3-moe", **kw)
+        try:
+            assert sch.offload is kw["offload"] and sch.spec_mode is None
+        finally:
+            sch.shutdown()
+        return
     with pytest.raises(NotImplementedError, match=item):
         scheduler(models, "qwen3-moe", **kw)

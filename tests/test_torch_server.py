@@ -350,7 +350,25 @@ def test_channel_filter_matches_reference(stream):
     (["--offload", "experts"], "A-9"), (["--hot-experts", "4"], "A-9"),
     (["--spec-k", "2", "--mesh", "1,8"], "A-10"),
     (["--spec-mode", "mtp", "--offload", "experts"], "A-9")])
-def test_main_raises_for_flags_not_ported(flags, item):
+def test_main_raises_for_flags_not_ported(flags, item, monkeypatch):
+    """--mesh stays refused (ROADMAP A-10). The offload flags (A-9) are
+    ported: main builds an OffloadEngine, with spec decoding off."""
+    if item == "A-9":
+        from krasis_tpu_torch.runtime.offload_engine import OffloadEngine
+
+        for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
+            monkeypatch.setenv(name, "")        # main sets them: restored afterwards
+            monkeypatch.delenv(name)
+        seen = {}
+        monkeypatch.setattr(server, "run_server",
+                            lambda engine, *a, **kw: seen.update(engine=engine))
+        assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
+                            *flags]) == 0
+        eng = seen["engine"]
+        assert eng.spec_mode is None
+        # --hot-experts alone keeps the model resident (--offload auto, on the CPU)
+        assert isinstance(eng, OffloadEngine) == ("--offload" in flags)
+        return
     with pytest.raises(NotImplementedError, match=item):
         server.main(["--synthetic", "tiny", "--device", "cpu", *flags])
 

@@ -285,6 +285,23 @@ def test_module_entry_point_with_slots(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--spec-k", "2", "--offload", "experts"], "A-9"), (["--offload", "experts"], "A-9"),
     (["--mesh", "1,8"], "A-10")])
-def test_slots_with_flags_not_ported_raise(flags, item):
+def test_slots_with_flags_not_ported_raise(flags, item, monkeypatch):
+    """--mesh stays refused (ROADMAP A-10). --offload experts (A-9) is
+    ported: the scheduler shares the OffloadEngine's store, spec off."""
+    if item == "A-9":
+        for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
+            monkeypatch.setenv(name, "")        # main sets them: restored afterwards
+            monkeypatch.delenv(name)
+        seen = {}
+
+        def serve(engine, tok, name, host, port, backend="auto", scheduler=None):
+            seen.update(engine=engine, scheduler=scheduler)
+        monkeypatch.setattr(server, "run_server", serve)
+        assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
+                            "--slots", "2", *flags]) == 0
+        eng, sch = seen["engine"], seen["scheduler"]
+        assert eng.offload is not None and sch.offload is eng.offload
+        assert eng.spec_mode is None and sch.spec_mode is None
+        return
     with pytest.raises(NotImplementedError, match=item):
         server.main(["--synthetic", "tiny", "--device", "cpu", "--slots", "2", *flags])

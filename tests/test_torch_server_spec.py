@@ -68,7 +68,21 @@ def test_main_accepts_spec_flags(monkeypatch, flags, mode, k, slots):
 @pytest.mark.parametrize("flags,item", [
     (["--spec-mode", "ngram", "--spec-k", "3", "--mesh", "1,8"], "A-10"),
     (["--spec-mode", "ngram", "--offload", "experts"], "A-9")])
-def test_spec_flags_with_flags_not_ported_raise(flags, item):
+def test_spec_flags_with_flags_not_ported_raise(flags, item, monkeypatch):
+    """--mesh stays refused (ROADMAP A-10). Under --offload experts (A-9,
+    ported) spec decoding is off, as in the reference."""
+    if item == "A-9":
+        for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
+            monkeypatch.setenv(name, "")        # main sets them: restored afterwards
+            monkeypatch.delenv(name)
+        seen = {}
+        monkeypatch.setattr(server, "run_server",
+                            lambda engine, *a, **kw: seen.update(engine=engine))
+        assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
+                            *flags]) == 0
+        assert seen["engine"].offload is not None
+        assert (seen["engine"].spec_mode, seen["engine"].spec_available) == (None, False)
+        return
     with pytest.raises(NotImplementedError, match=item):
         server.main(["--synthetic", "tiny", "--device", "cpu", *flags])
 
