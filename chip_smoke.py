@@ -131,7 +131,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    split), K3 and K4 with no plain MoE route; (a) after phase 9, python -m krasis_tpu_torch.server
    --synthetic deepseek-v2-lite (27 layers, int4 gs 128, int8 expert
    activations) on the native transport as a subprocess: /health,
-   /v1/models, a 404, a 512-id prompt + 64 greedy tokens unstreamed and
+   /v1/models, a 404, a 512-id prompt + 32 greedy tokens unstreamed and
    streamed (the same ids, logprobs, usage), a stop string across two
    tokens that ends a stream where it first occurs, a stream the client drops (the next request must be
    answered in about its own time), two concurrent requests (both answered,
@@ -148,10 +148,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone; decode blocks of 1, 4 and 8 busy slots run directly (launches a
    step, aggregate tok/s beside Engine.generate's, a profile of one 4-slot
    block); (b) a 4-slot BatchScheduler: six requests at once (40, 512, 2048,
-   2500, 40, 600 ids, 32 greedy tokens), a 3000-id request cancelled after
+   2500, 40, 600 ids, 8 greedy tokens), a 3000-id request cancelled after
    its first chunk, the next request, and a turn that extends it (prefix
    reuse); (d) that scheduler served on the native transport, four streams
-   one at a time and then at once; (c) an 8-slot scheduler, eight 40 + 16
+   one at a time and then at once; (c) an 8-slot scheduler, eight 40 + 8
    requests, whose decode runs K4 and no K3. Each stream is held to the
    same request run alone on the same shapes (batch-1 prefill, then decode
    over as many cache rows as the scheduler has slots): equal up to a first
@@ -175,9 +175,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the engine's own verify block (commit k + 1, but at a near-tie,
    and 1; the cache lengths; each committed token the verify argmax), each
    committed position teacher-forced against the batch-1 decode at the batch
-   phase's limits; launches a verify step and one profiled verify block; 2048 + 32
-   and 40 + 32 at k = 1 and 3 and prompt lookup on a 200-id block repeated
-   four times + 64, each beside the vanilla path; 4-slot schedulers under
+   phase's limits; launches a verify step and one profiled verify block; 2048 + 16
+   and 40 + 16 at k = 1 and 3 and prompt lookup on a 200-id block repeated
+   four times + 32, each beside the vanilla path; 4-slot schedulers under
    MTP k = 1 and prompt lookup k = 3 with six requests each, every stream
    teacher-forced at the scheduler's shapes; one request through the
    in-process server, whose answer carries timing.spec; (d) after phase 5,
@@ -203,6 +203,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    krasis_tpu_torch.server --offload experts --hot-experts 16 as a
    subprocess (phase 10a's requests); phase 10a's first server must log
    that --offload auto kept V2-Lite resident.
+
+14. the measurement entry points (krasis_tpu_torch/benchmark.py, prompts.py,
+   quality.py, perplexity.py), after phase 13 (b) on phase 4's V2-Lite Q4
+   weights (``measure_phase``): (a) run_engine_benchmark at 2048 and 8192
+   corpus ids and 3 x 32 decode tokens, [bench] lines with median, IQR and
+   flagged runs, and K2's chunk at q_off 6144 against its plain version;
+   (b) run_network_benchmark on both transports, whose streamed chunks must
+   equal the engine's tokens; (c) run_slots_benchmark at 1 and 4 slots;
+   (d) the quality matrix on the card (a tiny Qwen3-MoE trained there from
+   the corpus with a byte-level BPE trained there too, an MTP head), eight
+   modes' prefill PPL each within 1e-2 of the CPU plain path, the bf16
+   forced decode against its prefill log-probabilities, exact ngram and MTP
+   spec, no plain MoE form in a quantized mode; verdicts printed.
+   ``python tools/measure_phases.py`` runs it alone and then the full
+   protocols.
 
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
@@ -615,8 +630,9 @@ def attention_checks(results, prefix, Hq, Hkv, lanes, Dp, v_dim, separate_v, sca
                           ).to(torch.bfloat16)
         return t
 
-    k_cache = rows((1, Hkv, 4096, lanes))
-    v_cache = rows((1, Hkv, 4096, lanes)) if separate_v else None
+    S_cache = max([4096] + [case[4] for case in cases or ()])
+    k_cache = rows((1, Hkv, S_cache, lanes))
+    v_cache = rows((1, Hkv, S_cache, lanes)) if separate_v else None
     caches = [("", k_cache, v_cache)]
     if fp8:
         caches.append((":fp8", to_cache(k_cache, torch.float8_e4m3fn),
@@ -824,9 +840,9 @@ def k5_checks(results, name, x, w13, w2, idx, wts, nbytes, ops, flush, n_routed)
         raise AssertionError(f"{name}: K5 cast its rows or picks with PyTorch first")
 
 
-def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
+def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too, T=2048):
     """K3 (and K5) at T = 1 with the routed picks plus the folded shared
-    experts; K4 at T = 2048 over the whole stack."""
+    experts; K4 at T rows (2048) over the whole stack."""
     import torch
     from krasis_tpu_torch.ops import moe_cuda
     from krasis_tpu_torch.quant import qtensor_bytes
@@ -848,7 +864,6 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too):
         k5_checks(results, prefix + "moe_decode_bf16", x, w13, w2, idx, wts,
                   P * per_pick + Hd * 4, decode_ops, flush, k)
 
-    T = 2048
     x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
     topk = torch.rand((T, E_r), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
     k4_checks(results, prefix, x, topk, w13, w2, cfg)
@@ -1704,13 +1719,14 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
                prefill_off_names=(), prefill_on_names=(), profile_bf16=0, batched=None,
-               spec=None, offload=None):
+               spec=None, offload=None, measure=None, profile_prefill=2048):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
     the engine's own, a dtype, or (dtype, max_len) for an engine of that
     length) and run `entry_points` with the launch counts set to 0 just
-    before and read just after, then profile one prefill and one decode.
+    before and read just after, then profile one prefill (`profile_prefill`
+    ids + 1) and one decode.
     Kernels named in `on_path`, and the K2 launch forms in `forms`, must
     have been launched in that run, those in `off_path` must not, nor may the
     profiles show a device kernel whose name holds one of `off_names` (the
@@ -1723,8 +1739,9 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     this family's entries of `results` (by form for K2 entries that name
     one). Then `batched(eng, cfg, results, rng)`, the continuous-batching
     phase on the same weights, `spec(eng, cfg, results, rng)`, the
-    speculative-decoding phase, and `offload(eng, cfg, results, rng)`, the
-    offload tier's, when given."""
+    speculative-decoding phase, `offload(eng, cfg, results, rng)`, the
+    offload tier's, and `measure(eng, cfg, results, rng)`, the measurement
+    entry points', when given."""
     import gc
     from dataclasses import replace
 
@@ -1833,7 +1850,7 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
         res["launches"] = by_form.get(res["form"], 0) if "form" in res else by_counter[counter]
 
     t_entries = time.perf_counter()
-    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 2048).tolist(), 1,   # prefill
+    profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, profile_prefill).tolist(), 1,
                   tuple(off_names) + tuple(prefill_off_names), prefill_on_names)
     profile_phase(eng, rng.integers(100, cfg.vocab_size - 100, 40).tolist(), profile_decode,
                   off_names)
@@ -1856,6 +1873,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
         spec(eng, cfg, results, rng)
     if offload is not None:
         offload(eng, cfg, results, rng)
+    if measure is not None:
+        measure(eng, cfg, results, rng)
     del eng, engines, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3040,7 +3059,8 @@ def serve_checkpoint_phase(path, quant):
 # --------------------------------------------------------------------------
 
 BATCH_PROMPTS = (40, 512, 2048, 2500, 40, 600)   # (b): six requests at once on 4 slots
-BATCH_NEW = 32
+BATCH_NEW = 8        # tokens a request of (b) and (d), cut to fit the time limit
+EIGHT_NEW = 8        # tokens a request of (c): one decode block
 GAP_NATS = 0.02     # a batched stream may leave its solo stream only under this top-2 gap
 STREAM_LP_TOL = 2e-2
 # A batched row against the batch-1 decode from the same state, on the steps
@@ -3526,7 +3546,7 @@ def batch_phase(eng, cfg, results, rng):
         wall_b = time.perf_counter() - t
         # a 3000-id request (two chunks) cancelled after its first chunk: a
         # request decoding beside it puts a decode block between the chunks
-        beside = sched.submit(ids(40), max_new_tokens=BATCH_NEW, sampling=greedy,
+        beside = sched.submit(ids(40), max_new_tokens=32, sampling=greedy,
                               stop_ids={-1})
         if beside.out_queue.get(timeout=600) is None:
             raise AssertionError("[batch] the request beside the cancelled one ended at once")
@@ -3633,7 +3653,7 @@ def batch_phase(eng, cfg, results, rng):
     del sched
     torch.cuda.empty_cache()
 
-    # --- (c) 8 slots: eight 40 + 16 requests at once; decode on K4, no K3
+    # --- (c) 8 slots: eight 40 + 8 requests at once (one decode block); decode on K4, no K3
     sched = BatchScheduler(cfg, eng.quant, eng.params, max_len=eng.max_len, num_slots=8,
                            decode_block=8, device=dev)
     try:
@@ -3641,7 +3661,7 @@ def batch_phase(eng, cfg, results, rng):
         prompts8 = [ids(40) for _ in range(8)]
         zero()
         t = time.perf_counter()
-        reqs = [sched.submit(p, max_new_tokens=16, sampling=greedy, stop_ids={-1},
+        reqs = [sched.submit(p, max_new_tokens=EIGHT_NEW, sampling=greedy, stop_ids={-1},
                              want_logprobs=True) for p in prompts8]
         outs = [drain(r) for r in reqs]
         wall_c = time.perf_counter() - t
@@ -3650,12 +3670,12 @@ def batch_phase(eng, cfg, results, rng):
         sched.shutdown()
     del sched
     torch.cuda.empty_cache()
-    print(f"[batch] 8 slots: eight 40 + 16 requests in {wall_c:.2f} s "
-          f"({8 * 16 / wall_c:.2f} tok/s); launches {json.dumps(counts_c)}; {card}", flush=True)
+    print(f"[batch] 8 slots: eight 40 + {EIGHT_NEW} requests in {wall_c:.2f} s "
+          f"({8 * EIGHT_NEW / wall_c:.2f} tok/s); launches {json.dumps(counts_c)}; {card}", flush=True)
     if on_card and (counts_c["K3"] != 0 or counts_c["K4"] <= 0):
         raise AssertionError(f"[batch] 8-slot decode must run K4 and no K3: {counts_c}")
     for i, (p, r, out) in enumerate(zip(prompts8, reqs, outs)):
-        check(f"8 slots, request {i}", p, out, r.logprobs, 16, 8)
+        check(f"8 slots, request {i}", p, out, r.logprobs, EIGHT_NEW, 8)
 
     diverged = [(label, step) for label, step, _ in checked if step is not None]
     print(f"[batch] served streams: {len(checked)}, each against the same request served "
@@ -3748,7 +3768,7 @@ def hybrid_scheduler_reference():
 
 
 SPEC_STEPS = 10         # forced verify steps a run
-SPEC_SCHED_NEW = 16     # tokens a scheduler stream
+SPEC_SCHED_NEW = 8      # tokens a scheduler stream
 REPEAT_BLOCK = 200      # the ngram request: a block of ids repeated four times
 
 
@@ -4226,7 +4246,7 @@ def spec_phase(eng, cfg, results, rng):
     causal mask that the check must refuse); forced acceptance and
     rejection at k = 1 and 3, teacher-forced against the batch-1 decode;
     launches a verify step and one profiled verify block; requests 2048 +
-    32 and 40 + 32 at k = 1 and 3 and prompt lookup at k = 3 on a repeated
+    16 and 40 + 16 at k = 1 and 3 and prompt lookup at k = 3 on a repeated
     block, each beside the vanilla path in this call; a 4-slot
     BatchScheduler under MTP k = 1 and prompt lookup k = 3 with six requests
     at once, each stream teacher-forced at the scheduler's shapes; one
@@ -4359,8 +4379,8 @@ def spec_phase(eng, cfg, results, rng):
     rates, counts, forms = [], {}, {}
     # one vanilla run a prompt, then the spec runs of that prompt at each k
     for label, e, ks, n, new, p in (
-            ("mtp", se, (1, 3), 2048, 32, None), ("mtp", se, (1, 3), 40, 32, None),
-            ("ngram", ng, (3,), 4 * REPEAT_BLOCK, 64, block * 4),
+            ("mtp", se, (1, 3), 2048, 16, None), ("mtp", se, (1, 3), 40, 16, None),
+            ("ngram", ng, (3,), 4 * REPEAT_BLOCK, 32, block * 4),
             ("mtp fp8 cache", fp8, (3,), 40, 16, None)):
         p = p or ids(n)
         e.spec_available = False
@@ -4856,8 +4876,8 @@ def offload_phase(eng, cfg, results, rng):
     ids against the resident prefill (K4's tolerance; bit-equality
     reported), with the H2D rate of one group alone and with overlap; then,
     with the launch counts set to 0 just before and read just after,
-    requests 2048 + 32 at n_hot 0, update_hot_cache from its heatmap (the
-    same device buffers), 40 + 32 at n_hot 16 (fewer host picks a token
+    requests 2048 + 16 at n_hot 0, update_hot_cache from its heatmap (the
+    same device buffers), 40 + 16 at n_hot 16 (fewer host picks a token
     than 40 + 16 at n_hot 0), 40 + 16 all hot (no host call) and 40 + 16 at
     n_hot 0; K1, K2 (both forms), K4 and K5 launched, K3, K6, K6a, K7, K7a
     not, no plain MoE form. A profiled 40 + 8 decode (busy share), the
@@ -5109,11 +5129,11 @@ def offload_phase(eng, cfg, results, rng):
                                                   **out}) + f"; {card}", flush=True)
         return res
 
-    request("2048 + 32, n_hot 0", off0, 2048, 32)
+    request("2048 + 16, n_hot 0", off0, 2048, 16)
     off16.update_hot_cache()
     if [off16.params["layers"][li]["hot_w13"].q.data_ptr() for li in store.layers] != ptrs:
         raise AssertionError("[offload] update_hot_cache reallocated the hot buffers")
-    request(f"40 + 32, n_hot {OFFLOAD_HOT}", off16, 40, 32)
+    request(f"40 + 16, n_hot {OFFLOAD_HOT}", off16, 40, 16)
     request(f"40 + 16, n_hot {E} (all)", off64, 40, 16)
     request("40 + 16, n_hot 0", off0, 40, 16)
     counts = {name: getattr(m, attr) for name, (m, attr) in C.items()}
@@ -5122,7 +5142,7 @@ def offload_phase(eng, cfg, results, rng):
           f"{json.dumps(by_form)}; MoE calls on a plain route {moe.plain_routes}", flush=True)
     if rates[f"40 + 16, n_hot {E} (all)"]["host_calls"] != 0:
         raise AssertionError("[offload] the all-hot request called the host")
-    if not (rates[f"40 + 32, n_hot {OFFLOAD_HOT}"]["picks_token"]
+    if not (rates[f"40 + 16, n_hot {OFFLOAD_HOT}"]["picks_token"]
             < rates["40 + 16, n_hot 0"]["picks_token"]):
         raise AssertionError(f"[offload] host picks a token did not fall at n_hot "
                              f"{OFFLOAD_HOT}: {rates}")
@@ -5142,7 +5162,7 @@ def offload_phase(eng, cfg, results, rng):
                             stop_ids={-1})
     print(f"[offload] decode tok/s at n_hot 0 / {OFFLOAD_HOT} / {E}: "
           f"{rates['40 + 16, n_hot 0']['decode_tok_s']:.2f} / "
-          f"{rates[f'40 + 32, n_hot {OFFLOAD_HOT}']['decode_tok_s']:.2f} / "
+          f"{rates[f'40 + 16, n_hot {OFFLOAD_HOT}']['decode_tok_s']:.2f} / "
           f"{rates[f'40 + 16, n_hot {E} (all)']['decode_tok_s']:.2f}, resident (its "
           f"{quant.expert_activation} expert activations) {res_rate.decode_tok_s:.2f}; {card}",
           flush=True)
@@ -5227,6 +5247,301 @@ def offload_phase(eng, cfg, results, rng):
         torch.cuda.empty_cache()
 
 
+MEASURE_DEVICE = "cuda"              # a CPU rehearsal at tiny widths sets "cpu"
+MEASURE_PREFILL = (2048, 8192)       # (a): run_engine_benchmark's timed prompts
+MEASURE_QUALITY_STEPS = 200          # (d): training steps (the tools run: 600)
+MEASURE_MTP_STEPS = 100
+MEASURE_QUALITY_TOKENS = 4096        # held-out ids a mode scores on the prefill path
+MEASURE_DECODE_TOKENS = 256          # and on the forced decode path,
+MEASURE_DECODE_SEGMENT = 128         # in two 128-id segments (the tools run: 512-id ones)
+QUALITY_PPL_RTOL = 1e-2              # a mode's card PPL against the CPU plain path
+FORCED_ATOL, FORCED_MEAN = 0.15, 0.01   # forced decode against prefill (tests/test_quality_matrix.py)
+
+
+CPU_MATRIX = """
+import json, sys
+import torch
+torch.set_num_threads(max(1, torch.get_num_threads() // 2))
+from krasis_tpu_torch import quality
+ck, n, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+res = quality.run_matrix(ck, shapes=((512, 256),), max_tokens=n, device="cpu",
+                         decode_path=False, spec_checks=False)
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def zero_counts():
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe
+
+    for m, attr in counters().values():
+        setattr(m, attr, 0)
+    fa.form_launches.clear()
+    moe.plain_routes.update(ragged_plain=0, gathered_plain=0)
+
+
+def read_counts(label, on_path, forms=()):
+    """The launch counts since zero_counts(); every kernel of `on_path` and
+    K2 form of `forms` must have launched, and no MoE call taken a plain form."""
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe
+
+    counts = {name: getattr(m, attr) for name, (m, attr) in counters().items()}
+    by_form = dict(fa.form_launches)
+    print(f"[launches] {label}: {json.dumps(counts)}; K2 by form {json.dumps(by_form)}; MoE "
+          f"calls on a plain route {moe.plain_routes}", flush=True)
+    for name in on_path:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: {name} was never launched")
+    for form in forms:
+        if by_form.get(form, 0) <= 0:
+            raise AssertionError(f"{label}: K2's {form} form was never launched")
+    if any(moe.plain_routes.values()):
+        raise AssertionError(f"{label}: MoE calls on a plain form {moe.plain_routes}")
+    return counts, by_form
+
+
+def quality_kernel_checks(results, ck, g, flush):
+    """The quality model's kernels at its own shapes (hidden 256, GQA 4 / 2
+    heads of 64, 8 experts of 128 top-2, gs 128, so K / gs = 2 and 1): K1 on
+    the int8 lm_head and K1s on an int8 q_proj stack at T = 1, K2's
+    one-launch form over a 512-id window and its split form at kv_len 511,
+    K3 and K5 at T = 1 and K4 at a window's T = 512, each against its plain
+    version."""
+    import torch
+    from krasis_tpu_torch import quality
+    from krasis_tpu_torch.config import ModelConfig
+    from krasis_tpu_torch.models.loader import load_params
+    from krasis_tpu_torch.ops import flash_attention as fa
+
+    qcfg = ModelConfig.from_model_path(ck)
+    p4 = load_params(qcfg, quality._quant_for("q4", 128), device="cuda")
+    p8 = load_params(qcfg, quality._quant_for("q4-attn-int8", 128), device="cuda")
+    q_proj = p8["layers"][0]["q_proj"]
+    qmm_checks(results, "quality/", (
+        ("qmm:lm_head", p4["lm_head"], None, torch.float32),
+        ("qmm:q_proj_int8", q_proj, 0 if q_proj.q.dim() == 3 else None, torch.bfloat16)),
+        g, flush)
+    d = qcfg.qk_head_dim
+    # score std = d^-0.5 * sqrt(d) * q_std = 3
+    attention_checks(results, "quality/", qcfg.num_attention_heads, qcfg.num_key_value_heads, d,
+                     128, d, True, d ** -0.5, 3.0, g, flush,
+                     cases=[("attention:prefill_512", 512, 0, 512, 512, fa.REPLACES),
+                            ("attention:decode_kv_511", 1, 510, 511, 512, fa.REPLACES_DECODE)])
+    moe = next(lp for lp in p4["layers"] if "w13" in lp)
+    moe_checks(results, "quality/", moe["w13"], moe["w2"], qcfg, g, flush, bf16_too=True,
+               T=512)
+    del p4, p8
+
+
+def measure_phase(eng, cfg, results, rng):
+    """14. The measurement entry points on phase 4's V2-Lite Q4 weights, each
+    with the launch counts set to 0 just before and read just after: (a)
+    benchmark.run_engine_benchmark on an engine at max_len 16384 (warm-up on
+    the warmup domain, prompts of 2048 and 8192 corpus ids, decode 3 x 32
+    tokens at 2048 context), printed as [bench] lines with median, IQR and
+    flagged runs, and K2 at the 8192 prompt's last chunk (2048 rows at
+    q_off 6144 over a 16384-row view) against its plain version; (b)
+    run_network_benchmark through start_temp_server on the native and the
+    stdlib transports, 512 + 32, whose streamed chunks must equal the
+    tokens of a direct generate on the served ids; (c)
+    run_slots_benchmark at 1 and 4 slots, 512 + 32; (d) the quality matrix
+    on the card: build_quality_checkpoint (hidden 256, 4 layers, 8 experts
+    top-2, MEASURE_QUALITY_STEPS steps on the card), train_mtp_head, and
+    run_matrix over the eight modes at window 512 / stride 256 on 4096
+    held-out ids, the forced decode path over 256 (two 128-id segments), and
+    the spec rows. Each
+    mode's prefill PPL is held to the CPU plain path's on the same
+    checkpoint and ids within 1e-2 relative (the CPU's matrix runs in a
+    subprocess beside the card's); the bf16 engine's forced-decode
+    log-probabilities to its prefill all-logits ones (atol 0.15, mean 0.01);
+    ngram and MTP spec must be exact; no quantized mode may take a plain MoE
+    form (bf16's unquantized experts take the reference's plain forms). The
+    verdicts are printed, not held: the reduced run cannot resolve them."""
+    import shutil
+    import tempfile
+
+    import torch
+    from krasis_tpu_torch import benchmark, quality
+    from krasis_tpu_torch.models.model import forced_decode
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops.rope import yarn_softmax_scale
+    from krasis_tpu_torch.ops.sampling import SamplingParams
+    from krasis_tpu_torch.runtime.engine import Engine
+    from krasis_tpu_torch.server import ServerState, prompt_ids, start_temp_server
+
+    dev = MEASURE_DEVICE
+    on_path = ("K1", "K2", "K3", "K4") if dev == "cuda" else ()    # the CPU counts no launch
+    t0 = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="krasis_measure_")
+    old_home = os.environ.get("KRASIS_TPU_HOME")
+    os.environ["KRASIS_TPU_HOME"] = home          # the corpus, weight cache and checkpoint
+    greedy = SamplingParams(temperature=0.0)
+    try:
+        # (a) the engine protocol
+        long = Engine(cfg, eng.quant, eng.params, max_len=16384, device=dev)
+        long.decode_block = 32
+        zero_counts()
+        rep = benchmark.run_engine_benchmark(long, prefill_lengths=MEASURE_PREFILL,
+                                             decode_runs=3, decode_tokens=32)
+        _, by_form = read_counts("measure (a) run_engine_benchmark", on_path,
+                                 ("one-launch", "split") if on_path else ())
+        for n, r in rep["prefill"].items():
+            print(f"[bench] prefill {n} ids ({r['domain']}): {r['tok_s']} tok/s, TTFT "
+                  f"{r['ttft_s']} s", flush=True)
+        d = rep["decode"]
+        print(f"[bench] decode at {d['context']} context, {d['tokens_per_run']} tokens a run: "
+              f"median {d['tok_s_median']} tok/s, IQR {d['tok_s_iqr']}, runs {d['tok_s_runs']}, "
+              f"flagged {d['flagged_runs']}", flush=True)
+        if dev == "cuda":
+            g = torch.Generator(device="cuda")
+            g.manual_seed(1414)
+            flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+            L, DR = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+            scale = yarn_softmax_scale((cfg.qk_nope_head_dim + DR) ** -0.5, cfg.rope_scaling)
+            attention_checks(results, "measure/", cfg.num_attention_heads, 1, L + DR, 640, L,
+                             False, scale, 1.0, g, flush,
+                             cases=[("attention:chunk_2048_at_6144", 2048, 6144, 8192, 16384,
+                                     fa.REPLACES)])
+            results[-1][1]["launches"] = by_form.get(results[-1][1]["form"], 0)
+            del flush
+        t_a = time.perf_counter()
+
+        # (b) through the HTTP server, both transports
+        msg = [{"role": "user", "content": "benchmark " * 512}]
+        ids = prompt_ids(ServerState(long, None, "synthetic/deepseek-v2-lite"), msg)
+        want = len(long.generate(ids, max_new_tokens=32, sampling=greedy).tokens)
+        for backend in ("native", "python"):
+            zero_counts()
+            httpd = start_temp_server(long, None, "synthetic/deepseek-v2-lite", port=0,
+                                      backend=backend)
+            try:
+                net = benchmark.run_network_benchmark(httpd.port, n_prompt_tokens=1024,
+                                                      decode_tokens=32)
+            finally:
+                httpd.shutdown()
+            read_counts(f"measure (b) network, {backend}", on_path)
+            over = (None if not net["network_decode_tok_s"] else
+                    round(100.0 * (1 - net["network_decode_tok_s"] / d["tok_s_median"]), 1))
+            print(f"[bench] network {backend} ({httpd.backend}), {len(ids)} + 32: "
+                  f"{json.dumps(net)}; against the engine's decode median: {over}%", flush=True)
+            if net["streamed_chunks"] != want:
+                raise AssertionError(f"measure (b) {backend}: {net['streamed_chunks']} streamed "
+                                     f"chunks, the engine gives {want} tokens")
+        del long
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+
+        # (c) continuous batching
+        zero_counts()
+        slots = benchmark.run_slots_benchmark(cfg, eng.quant, eng.params, slots_list=(1, 4),
+                                              max_len=2048, prompt_len=512, decode_tokens=32,
+                                              device=dev)
+        read_counts("measure (c) run_slots_benchmark", on_path)
+        for n, r in slots.items():
+            print(f"[bench] slots {n}, 512 + 32: {json.dumps(r)}", flush=True)
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+
+        # (d) the quality matrix on the card, against the CPU plain path
+        ck = quality.build_quality_checkpoint(steps=MEASURE_QUALITY_STEPS,
+                                              out_dir=os.path.join(home, "quality"),
+                                              device=dev)
+        quality.train_mtp_head(ck, steps=MEASURE_MTP_STEPS, device=dev)
+        with open(os.path.join(ck, "meta.json")) as f:
+            meta = json.load(f)
+        print(f"[quality] checkpoint: {MEASURE_QUALITY_STEPS} steps (reduced; the tools run "
+              f"takes 600), tokenizer {meta['tokenizer_s']} s, training {meta['train_s']} s on "
+              f"the card, loss {meta['final_train_loss']:.3f}, tail PPL "
+              f"{meta['tail_ppl_torch']:.2f}; MTP {MEASURE_MTP_STEPS} steps, loss "
+              f"{meta['mtp_final_loss']:.3f}", flush=True)
+        t_train = time.perf_counter()
+        # the CPU plain path's matrix in a process of its own, on the host's
+        # other cores while the card's runs
+        cpu_json = os.path.join(home, "cpu_matrix.json")
+        ref = subprocess.Popen(
+            [sys.executable, "-c", CPU_MATRIX, ck, str(MEASURE_QUALITY_TOKENS), cpu_json],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL)
+        try:
+            zero_counts()
+            card = quality.run_matrix(ck, shapes=((512, 256),),
+                                      max_tokens=MEASURE_QUALITY_TOKENS, device=dev,
+                                      decode_max_tokens=MEASURE_DECODE_TOKENS,
+                                      decode_segment=MEASURE_DECODE_SEGMENT)
+            q_counts = {name: getattr(m, attr) for name, (m, attr) in counters().items()}
+            q_forms = dict(fa.form_launches)
+            t_card = time.perf_counter()
+            rc = ref.wait(timeout=900)
+        finally:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+        if rc != 0:
+            raise AssertionError(f"quality: the CPU matrix exited {rc}")
+        with open(cpu_json) as f:
+            cpu = json.load(f)
+        for mode, e in card["modes"].items():
+            got, ref = e["shapes"]["512/256"]["ppl"], cpu["modes"][mode]["shapes"]["512/256"]["ppl"]
+            rel = abs(got - ref) / ref
+            launched = {k: v for k, v in e["launches"].items() if v}
+            print(f"[quality] {mode}: PPL card {got} CPU {ref} ({rel:.3g} relative, limit "
+                  f"{QUALITY_PPL_RTOL}), decode path {e['decode']['ppl']}, verdict "
+                  f"{e['verdict']}; launches {json.dumps(launched)}", flush=True)
+            if not rel <= QUALITY_PPL_RTOL:
+                raise AssertionError(f"quality {mode}: card PPL {got} against the CPU's {ref}")
+            plain = e["launches"]["ragged_plain"] + e["launches"]["gathered_plain"]
+            if mode != "bf16" and plain:
+                raise AssertionError(f"quality {mode}: {plain} MoE calls on a plain form")
+        print(f"[quality] verdicts (printed, not held): "
+              f"{json.dumps({m: e['verdict'] for m, e in card['modes'].items()})}; spec "
+              f"{json.dumps(card['spec'])}", flush=True)
+        for name in ("ngram", "mtp"):
+            if not card["spec"].get(name, {}).get("exact"):
+                raise AssertionError(f"quality: {name} spec is not exact: {card['spec']}")
+        print(f"[launches] measure (d) the card's matrix, every mode: {json.dumps(q_counts)}; "
+              f"K2 by form {json.dumps(q_forms)}", flush=True)
+        if dev == "cuda":
+            first = len(results)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(1919)
+            flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+            quality_kernel_checks(results, ck, g, flush)
+            del flush
+            by_counter = {counters()[name]: n for name, n in q_counts.items()}
+            for counter, res in results[first:]:
+                res["launches"] = (q_forms.get(res["form"], 0) if "form" in res
+                                   else by_counter[counter])
+
+        bf = quality._build_engine(ck, "bf16", 128, 512, dev)
+        ids = quality._eval_tokens(ck, 512)
+        lsm = torch.log_softmax(bf.forward_all_logits(ids).to(torch.float32), dim=-1)
+        tgt = torch.tensor(ids[1:], device=dev)
+        lp_pre = lsm[:-1].gather(1, tgt[:, None])[:, 0].cpu()
+        bf.reset(512)
+        with torch.inference_mode():
+            bf._prefill_prompt(ids[:1])
+            lp_dec = forced_decode(bf.params, bf.cache, tgt[None], cfg=bf.cfg, quant=bf.quant)[0]
+        diff = (lp_dec - lp_pre[1:]).abs()
+        print(f"[quality] bf16 forced decode against prefill over {len(diff)} positions: "
+              f"max|Δ| {float(diff.max()):.4g} (limit {FORCED_ATOL}), mean "
+              f"{float(diff.mean()):.4g} (limit {FORCED_MEAN})", flush=True)
+        if not (float(diff.max()) <= FORCED_ATOL and float(diff.mean()) < FORCED_MEAN):
+            raise AssertionError("quality: forced decode leaves the prefill log-probabilities")
+        del bf
+        torch.cuda.empty_cache()
+        print(f"[time] measure phase {time.perf_counter() - t0:.1f} s: (a) engine "
+              f"{t_a - t0:.1f} s, (b) network {t_b - t_a:.1f} s, (c) slots {t_c - t_b:.1f} s, "
+              f"(d) training {t_train - t_c:.1f} s, card matrix {t_card - t_train:.1f} s, the "
+              f"CPU matrix's wait and the checks {time.perf_counter() - t_card:.1f} s", flush=True)
+    finally:
+        if old_home is None:
+            os.environ.pop("KRASIS_TPU_HOME", None)
+        else:
+            os.environ["KRASIS_TPU_HOME"] = old_home
+        shutil.rmtree(home, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5269,13 +5584,14 @@ def main() -> int:
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "bf16")),
                ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=16,
                forms=("one-launch", "split", "one-launch+fp8", "split+fp8"),
-               batched=batch_phase, spec=spec_phase, offload=offload_phase)
+               batched=batch_phase, spec=spec_phase, offload=offload_phase,
+               measure=measure_phase)
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"), (40, 16, "bf16")),
-               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=4,
-               profile_bf16=8, spec=hybrid_spec_phase)
+               ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=2,
+               profile_bf16=4, spec=hybrid_spec_phase, profile_prefill=1024)
 
     run_family("DeepSeek-V2-Lite Q8 (two-stage expert class)", "deepseek-v2-lite",
                QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,
@@ -5300,8 +5616,8 @@ def main() -> int:
     # the default --offload auto must keep V2-Lite resident; then 13 (c), the
     # offload tier as a user starts it
     for server_args, new, expect, every_request in (
-            (SERVE_SYNTHETIC, 64, (("--offload auto:", "GiB: resident"),), True),
-            (SERVE_SYNTHETIC + ("--slots", "4"), 64, (), True),
+            (SERVE_SYNTHETIC, 32, (("--offload auto:", "GiB: resident"),), True),
+            (SERVE_SYNTHETIC + ("--slots", "4"), 32, (), True),
             (SERVE_OFFLOAD, 32, (("--offload experts:", "GB of routed experts in host RAM"),),
              False)):
         t0 = time.perf_counter()

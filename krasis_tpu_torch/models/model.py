@@ -411,6 +411,25 @@ def chosen_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     return torch.gather(lsm, -1, tok[:, None].to(torch.int64))[:, 0]
 
 
+@torch.inference_mode()
+def forced_decode(params: Dict[str, Any], cache: Dict[str, Any], toks: torch.Tensor,
+                  cfg: ModelConfig, quant: QuantConfig, offload=None) -> torch.Tensor:
+    """Teacher-forced decode (the reference's ``make_forced_decode_fn``):
+    toks [B, steps + 1] on the cache's device; step t feeds toks[:, t] through
+    the serving decode forward (T = 1: int8 expert activations where the
+    quant asks, the cache in its own dtype) and scores toks[:, t + 1]. The
+    cache advances in place. Returns log P [B, steps] f32 on the host: the
+    steps queue without a host sync, and the result is read back once."""
+    B, n = toks.shape
+    seq1 = torch.ones((B,), dtype=torch.int32, device=toks.device)
+    lps = []
+    for t in range(n - 1):
+        logits = forward(params, toks[:, t:t + 1], seq1, cache, cfg, quant, prefill=False,
+                         offload=offload)
+        lps.append(chosen_logprob(logits, toks[:, t + 1]))
+    return torch.stack(lps, dim=1).cpu()
+
+
 def decode_block_batched(params: Dict[str, Any], tok: torch.Tensor, cache: Dict[str, Any],
                          cfg: ModelConfig, quant: QuantConfig, steps: int,
                          generator: torch.Generator, seen: torch.Tensor,

@@ -278,6 +278,15 @@ def flash_attention(q: torch.Tensor, kv: torch.Tensor, q_offset: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, kv, q_offset, kv_len, scale, v_dim, v, qk, window,
                                      sinks)
+    if q.dtype == torch.float32:
+        # an f32 model: the kernel takes q and the keys in bf16, where the
+        # plain version rounds them too; its output is bf16, which comes
+        # back in f32 as the plain version's does
+        def bf16(t):
+            return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+        return flash_attention(bf16(q), bf16(kv), q_offset, kv_len, scale, v_dim,
+                               None if v is None else bf16(v), qk_dim, window,
+                               sinks).to(torch.float32)
     global launches
     key = (q.shape, q.stride(), kv.shape, kv.stride(), q.dtype, kv.dtype, q.device,
            kv.device, v_dim, qk,

@@ -75,7 +75,7 @@ def traced_kernels(prof) -> list:
     return rows
 
 
-def device_per_call(fn, name_part, flush=None, calls: int = 20, tries: int = 4):
+def device_per_call(fn, name_part, flush=None, calls: int = 20, tries: int = 8):
     """Device time of one call, from torch.profiler: for each kernel whose
     name contains `name_part` (a string, or a tuple of strings of which one
     must occur), its mean device time a launch over `calls` calls (with
