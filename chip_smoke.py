@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. card and toolchain: the card's name and power limit, torch and CUDA
    versions; TF32 off;
-2. build: the CUDA sources of krasis_tpu_torch/csrc with nvcc, in parallel;
+2. build: the CUDA sources of krasis_tpu_torch/csrc with nvcc, in parallel
+   (krasis_tpu_torch/build.py), in a thread while this one trains phase 14
+   (d)'s quality checkpoint on the card, which needs none of the kernels;
 3. reference: a tiny DeepSeek-V2-Lite (int4 experts, and int8 experts in
    the two-stage class), a tiny Qwen3-Coder-Next hybrid and a tiny GPT-OSS
    over an fp8 cache (top-4 of 8 biased experts: its decode MoE runs on K6
@@ -117,7 +119,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    request on each load through Engine.generate (finite, no plain MoE form,
    K1-K4 for V2-Lite and K1, K2, K6, K7 for GPT-OSS launched, the same
    tokens); then the division on f32 inputs, and the GGUF codecs on the
-   card against the CPU bit for bit.
+   card against the CPU bit for bit. Phase 10 (a)'s two servers and phase
+   13 (c)'s run as processes of their own beside phase 9 (serve_beside),
+   so the rates phase 9 prints are taken beside them.
 
 10. serving (krasis_tpu_torch/server.py): (b) inside phase 9, the V2-Lite
    checkpoint's engine with the committed test tokenizer
@@ -212,12 +216,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    (b) run_network_benchmark on both transports, whose streamed chunks must
    equal the engine's tokens; (c) run_slots_benchmark at 1 and 4 slots;
    (d) the quality matrix on the card (a tiny Qwen3-MoE trained there from
-   the corpus with a byte-level BPE trained there too, an MTP head), eight
-   modes' prefill PPL each within 1e-2 of the CPU plain path, the bf16
+   the corpus with a byte-level BPE trained there too, an MTP head, during
+   phase 2), eight modes' prefill PPL each within 1e-2 of the CPU plain
+   path (its matrix a process of its own from phase 4 on), the bf16
    forced decode against its prefill log-probabilities, exact ngram and MTP
    spec, no plain MoE form in a quantized mode; verdicts printed.
    ``python tools/measure_phases.py`` runs it alone and then the full
    protocols.
+
+15. the device mesh (krasis_tpu_torch/parallel/), after phase 14 on phase
+   4's V2-Lite Q4 weights (``mesh_phase``), its shards on distinct cards
+   where the host has them, else all on the first card (the device list is
+   printed): (a) a dp 1 x ep 2 mesh engine (32 experts a shard, 8 of 16
+   MLA heads a shard, the shared experts dense): a 2048-id prefill's
+   last-position logits within 3e-2 of the unsharded engine's with the
+   same argmax, generate(2048, 16) with the launch counts (K1, K2's two
+   forms, K3, K4; no plain MoE form), its decode teacher-forced against
+   the unsharded decode from one state, K1 / K2 / K3 / K4 at the shard
+   shapes against their plain versions (bounds over the live picks), and
+   one decode step profiled on both; (b) PP 2, SP 2 and SP 2 x EP 2 on a
+   512-id prefill against the unsharded logits; (c) a BatchScheduler on a
+   dp 2 x ep 2 mesh, 4 slots: three requests of + 8 tokens and a cancel,
+   each stream teacher-forced against the mesh engine; (d) a request
+   through the server's handler over the mesh engine, and --mesh 1,2
+   refused by the number of devices on a one-card host.
+   ``python tools/mesh_phases.py`` runs it alone.
 
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
@@ -869,10 +892,12 @@ def moe_checks(results, prefix, w13, w2, cfg, g, flush, bf16_too, T=2048):
     k4_checks(results, prefix, x, topk, w13, w2, cfg)
 
 
-def k4_checks(results, prefix, x, topk, w13, w2, cfg, iters=10):
+def k4_checks(results, prefix, x, topk, w13, w2, cfg, iters=10, pick_valid=None):
     """K4's two launches (w13 with the SwiGLU epilogue, w2 with the f32 one)
     on the main path's tile plan for the picks topk [T, k], against their
-    plain versions, with grouped_mm as the yardstick of each product."""
+    plain versions, with grouped_mm as the yardstick of each product. With
+    `pick_valid` (an ep shard's picks) the plan leaves the others out, and
+    the bounds count the live picks alone."""
     import torch
     from krasis_tpu_torch.ops import gmm_cuda
     from krasis_tpu_torch.quant import qtensor_bytes
@@ -881,10 +906,14 @@ def k4_checks(results, prefix, x, topk, w13, w2, cfg, iters=10):
     E_all = w13.q.shape[0]
     T, k = topk.shape
     Hd, I = cfg.hidden_size, cfg.moe_intermediate_size
-    M = T * k
-    plan = gmm_cuda.plan_tiles(topk, E_all, gmm_cuda.choose_tm(M, E_all))   # the main path's
+    plan = gmm_cuda.plan_tiles(topk, E_all, gmm_cuda.choose_tm(T * k, E_all),
+                               pick_valid)                                 # the main path's
     real = plan.row_src >= 0
-    hit = int((torch.bincount(topk.reshape(-1).long(), minlength=E_all) > 0).sum())
+    live = topk.reshape(-1).long()
+    if pick_valid is not None:
+        live = live[pick_valid.reshape(-1)]
+    M = live.numel()
+    hit = int((torch.bincount(live, minlength=E_all) > 0).sum())
     print(f"[kernel] {prefix}gmm: {plan.tm}-row tiles, {int(plan.tile_valid.sum())} of "
           f"{plan.n_tiles} computed, {hit} of {E_all} experts hit", flush=True)
     a_plain = gmm_cuda.gmm_plain(x, plan.row_src, w13, plan, True)
@@ -1667,25 +1696,30 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
     """Device time by kernel over one request, against the wall time of the
     same request run without the profiler. No kernel whose name holds one of
     `forbid` may run, and for each of `require` one whose name holds it
-    must."""
+    must. The decode runs in blocks of at most `new` steps, so that both
+    runs hold the steps asked for and no more."""
     import torch
     from krasis_tpu_torch.timing import recorded_step, traced_kernels
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    # the second step is recorded: the first, one small kernel, warms the
-    # tracer up. Device activity alone: the rows are device kernels, and
-    # host-side events of a 60,000-launch request only add tracing work
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        recorded_step(prof)
-        eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
+    block, eng.decode_block = eng.decode_block, min(eng.decode_block, new)
+    try:
         torch.cuda.synchronize()
-        prof.step()
+        t0 = time.perf_counter()
+        eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        # the second step is recorded: the first, one small kernel, warms the
+        # tracer up. Device activity alone: the rows are device kernels, and
+        # host-side events of a 60,000-launch request only add tracing work
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            recorded_step(prof)
+            eng.generate(prompt, max_new_tokens=new, stop_ids={-1})
+            torch.cuda.synchronize()
+            prof.step()
+    finally:
+        eng.decode_block = block
     rows = [(key, us / 1e3, count) for key, us, count in traced_kernels(prof) if us > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
@@ -1719,7 +1753,7 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
                prefill_off_names=(), prefill_on_names=(), profile_bf16=0, batched=None,
-               spec=None, offload=None, measure=None, profile_prefill=2048):
+               spec=None, offload=None, measure=None, mesh=None, profile_prefill=2048):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1740,8 +1774,9 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     one). Then `batched(eng, cfg, results, rng)`, the continuous-batching
     phase on the same weights, `spec(eng, cfg, results, rng)`, the
     speculative-decoding phase, `offload(eng, cfg, results, rng)`, the
-    offload tier's, and `measure(eng, cfg, results, rng)`, the measurement
-    entry points', when given."""
+    offload tier's, `measure(eng, cfg, results, rng)`, the measurement
+    entry points', and `mesh(eng, cfg, results, rng)`, the mesh's, when
+    given."""
     import gc
     from dataclasses import replace
 
@@ -1875,6 +1910,10 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
         offload(eng, cfg, results, rng)
     if measure is not None:
         measure(eng, cfg, results, rng)
+    if mesh is not None:
+        t_mesh = time.perf_counter()
+        mesh(eng, cfg, results, rng)
+        print(f"[time] {label}: mesh phase {time.perf_counter() - t_mesh:.1f} s", flush=True)
     del eng, engines, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2714,11 +2753,18 @@ def stream_usage(chunks):
 
 
 def free_port() -> int:
+    return free_ports(1)[0]
+
+
+def free_ports(n: int) -> list:
+    """n distinct free ports, their sockets bound together and then closed."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
 
 
 def serve_more_requests(port, req, ids, new, fail):
@@ -2786,7 +2832,7 @@ def serve_more_requests(port, req, ids, new, fail):
 
 
 def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
-                           every_request=True):
+                           every_request=True, port=None, procs=None):
     """10a. ``python -m krasis_tpu_torch.server`` at full width on the native
     transport, as a user starts it (with ``--slots N`` among `server_args`,
     through a BatchScheduler): health, models, a 404, a 512-id prompt
@@ -2796,7 +2842,9 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
     answered promptly), two requests at once; then SIGTERM and exit 0. Each
     tuple of `expect_log` must have all its strings in one line of the
     server's log, which is printed. Without `every_request`, only the unstreamed and
-    streamed 512-id requests run between the start and SIGTERM."""
+    streamed 512-id requests run between the start and SIGTERM. `port` is
+    the server's (a free one by default); the server's process is appended
+    to `procs` where given, so that a caller can stop it."""
     import os
     import shutil
     import signal
@@ -2804,7 +2852,7 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
 
     card = card_line()
     home = tempfile.mkdtemp(prefix="chip_smoke_serve_")
-    port = free_port()
+    port = port or free_port()
     log_path = os.path.join(home, "server.log")
     env = {**os.environ, "KRASIS_TPU_HOME": home}
     t0 = time.perf_counter()
@@ -2813,6 +2861,8 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
             [sys.executable, "-m", "krasis_tpu_torch.server", *server_args,
              "--server-backend", "native", "--port", str(port)],
             stdout=log, stderr=subprocess.STDOUT, env=env)
+    if procs is not None:
+        procs.append(proc)
 
     def fail(msg):
         with open(log_path) as f:
@@ -2892,7 +2942,7 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
             hits = [line for line in log_lines if all(part in line for part in want)]
             if not hits:
                 fail(f"no line of the server's log holds {want}")
-            print(f"[serve] server log: {hits[0]}", flush=True)
+            say(f"[serve] server log: {hits[0]}")
         # the single-request path reports its engine's timing; the scheduler's does not
         timing = full.get("timing")
         timing = (f"timing prefill {timing['prefill_tok_s']} tok/s, decode "
@@ -2901,16 +2951,65 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
                 f"stream the next 4-token request took {t_next:.2f} s (alone {t_short:.2f} s); "
                 f"two concurrent 16-token requests {t_pair:.2f} s, both answered; "
                 if every_request else "")
-        print(f"[serve] subprocess {' '.join(server_args)}, native transport: up in "
+        say(f"[serve] subprocess {' '.join(server_args)}, native transport: up in "
               f"{t_up:.1f} s; 512 + {new} greedy: unstreamed ids = streamed ids, usage right; "
               f"role chunk at {1e3 * t_role:.1f} ms, first content chunk at "
               f"{1e3 * t_content[0]:.1f} ms, [DONE] at {t_done:.2f} s; {timing}{more}exit 0 on "
-              f"SIGTERM; {card}", flush=True)
+              f"SIGTERM; {card}")
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
         shutil.rmtree(home, ignore_errors=True)
+
+
+def say(msg: str) -> None:
+    """One line in one write: for lines printed while other threads print."""
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
+
+
+def serve_beside(work):
+    """The servers of SERVE_RUNS, each as its own process driven from a
+    thread of this one, all started together and run while `work()` runs
+    here; then wait for them. A failure of `work` stops the servers; the
+    first failure raises. The servers share the card and the host with
+    `work`, so the rates either prints are taken beside the others."""
+    import threading
+
+    errors, procs = [], []
+
+    def run(args, port):
+        t0 = time.perf_counter()
+        try:
+            serve_subprocess_phase(*args, port=port, procs=procs)
+        except BaseException as e:         # serve_beside raises it
+            errors.append(e)
+            return
+        say(f"[time] serve phase, server subprocess {' '.join(args[0][2:])}: "
+            f"{time.perf_counter() - t0:.1f} s (beside the others)")
+
+    threads = [threading.Thread(target=run, args=(args, port), daemon=True)
+               for args, port in zip(SERVE_RUNS, free_ports(len(SERVE_RUNS)))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        work()
+    except BaseException:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        raise
+    finally:
+        for t in threads:
+            t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("[serve] a server's thread did not end within 900 s")
+    if errors:
+        raise errors[0]
+    say(f"[time] served subprocesses and the work beside them: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def long_message(tok, target=2000) -> str:
@@ -3134,14 +3233,20 @@ def teacher_forced(eng, prompt, toks, slots, chunk):
     import torch
     from krasis_tpu_torch.models import model as M
     from krasis_tpu_torch.ops.moe import use_grouped_path
+    from krasis_tpu_torch.parallel.mesh import cache_shardings, slot_layers
     from krasis_tpu_torch.runtime.kv_cache import init_cache, insert_slot
 
     cfg, quant, dev = eng.cfg, eng.quant, eng.device
     offload = getattr(eng, "offload", None)
-    # the folded shared experts (none under offload)
-    E = cfg.n_routed_experts if offload is not None else next(
-        lp["w13"] for lp in eng.params["layers"] if "w13" in lp).q.shape[0]
-    k = cfg.num_experts_per_tok + E - cfg.n_routed_experts
+    mesh = getattr(eng, "mesh", None)
+    moe_lp = next((lp for lp in eng.params["layers"] if "w13" in lp or "_ep" in lp), None)
+    if offload is not None:            # no folded shared experts under offload
+        E, k = cfg.n_routed_experts, cfg.num_experts_per_tok
+    elif "_ep" in moe_lp:              # nor under a mesh: a shard's local stack
+        E, k = moe_lp["_ep"][0]["w13"].q.shape[0], cfg.num_experts_per_tok
+    else:                              # the folded shared experts
+        E = moe_lp["w13"].q.shape[0]
+        k = cfg.num_experts_per_tok + E - cfg.n_routed_experts
     narrow_quant = (replace(quant, expert_activation="bf16")
                     if use_grouped_path(slots, k, E) and not use_grouped_path(1, k, E)
                     else quant)
@@ -3175,6 +3280,8 @@ def teacher_forced(eng, prompt, toks, slots, chunk):
                 eng.chunk = engine_chunk
             narrow = eng.cache
             wide = init_cache(cfg, quant, slots, eng.max_len, dev)
+            if mesh is not None:           # the scheduler's layout: slots over dp
+                wide = cache_shardings(wide, eng.params)
             insert_slot(wide, narrow, 0)
             cur_w = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
             cur_n = torch.zeros((1, 1), dtype=torch.int64, device=dev)
@@ -3185,9 +3292,12 @@ def teacher_forced(eng, prompt, toks, slots, chunk):
 
             def written(cache, at):
                 """What row 0's step wrote: each layer's cache row at `at`
-                (a DeltaNet state, the whole of it)."""
-                return [(buf[0] if name in ("state", "conv") else buf[0, :, at]).float()
-                        for lc in cache["layers"] for name, buf in lc.items()]
+                (a DeltaNet state, the whole of it; a mesh cache's row 0 in
+                its dp group, shard by shard)."""
+                layers, r = slot_layers(cache, 0)
+                return [(buf[r] if name in ("state", "conv") else buf[r, :, at]).float()
+                        for lc in layers for part in lc.get("shards", [lc])
+                        for name, buf in part.items()]
 
             for s in range(1, len(toks)):
                 cur_w[0, 0] = cur_n[0, 0] = toks[s - 1]
@@ -3205,8 +3315,8 @@ def teacher_forced(eng, prompt, toks, slots, chunk):
                                                         device=dev)[None],
                                         row[None].to(torch.float64)]))
                 # the forward may put new buffers in the cache: view them now
-                insert_slot(narrow, {"layers": [{name: buf[:1] for name, buf in lc.items()}
-                                                for lc in wide["layers"]],
+                layers, r = slot_layers(wide, 0)
+                insert_slot(narrow, {"layers": rows_of(layers, r),
                                      "length": wide["length"][:1]}, 0)
             rows = torch.stack(steps).tolist()
             del wide
@@ -3215,6 +3325,15 @@ def teacher_forced(eng, prompt, toks, slots, chunk):
     return narrow_quant.expert_activation, [
         {"wide": (int(r[0]), r[2], r[3], r[4]), "narrow": (int(r[5]), r[7], r[8], r[9]),
          "vocab_diff": r[10], "flips": int(r[11]), "row_diff": r[12]} for r in rows]
+
+
+def rows_of(tree, r):
+    """Row r of every buffer of a cache tree (dicts, lists), as [1, ...] views."""
+    if isinstance(tree, dict):
+        return {k: rows_of(v, r) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [rows_of(v, r) for v in tree]
+    return tree[r:r + 1]
 
 
 def hold_teacher_forced(label, toks, lps, steps):
@@ -5335,7 +5454,64 @@ def quality_kernel_checks(results, ck, g, flush):
     del p4, p8
 
 
-def measure_phase(eng, cfg, results, rng):
+@contextlib.contextmanager
+def krasis_home(path):
+    """KRASIS_TPU_HOME set to `path` inside the block, restored after it."""
+    old = os.environ.get("KRASIS_TPU_HOME")
+    os.environ["KRASIS_TPU_HOME"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("KRASIS_TPU_HOME", None)
+        else:
+            os.environ["KRASIS_TPU_HOME"] = old
+
+
+def quality_prepare(home):
+    """14 (d)'s checkpoint, which needs none of the port's kernels:
+    build_quality_checkpoint (hidden 256, 4 layers, 8 experts top-2,
+    MEASURE_QUALITY_STEPS steps) and train_mtp_head on MEASURE_DEVICE, in
+    `home`, the measure phase's KRASIS_TPU_HOME. main runs it while nvcc
+    builds the kernels. Returns the state measure_phase takes as `early`;
+    cpu_matrix_start starts its CPU matrix."""
+    from krasis_tpu_torch import quality
+
+    t0 = time.perf_counter()
+    with krasis_home(home):
+        ck = quality.build_quality_checkpoint(steps=MEASURE_QUALITY_STEPS,
+                                              out_dir=os.path.join(home, "quality"),
+                                              device=MEASURE_DEVICE)
+        quality.train_mtp_head(ck, steps=MEASURE_MTP_STEPS, device=MEASURE_DEVICE)
+    with open(os.path.join(ck, "meta.json")) as f:
+        meta = json.load(f)
+    print(f"[quality] checkpoint: {MEASURE_QUALITY_STEPS} steps (reduced; the tools run "
+          f"takes 600), tokenizer {meta['tokenizer_s']} s, training {meta['train_s']} s on "
+          f"the card, loss {meta['final_train_loss']:.3f}, tail PPL "
+          f"{meta['tail_ppl_torch']:.2f}; MTP {MEASURE_MTP_STEPS} steps, loss "
+          f"{meta['mtp_final_loss']:.3f}; {time.perf_counter() - t0:.1f} s in all", flush=True)
+    return {"home": home, "ck": ck, "ref": None, "cpu_json": os.path.join(home, "cpu_matrix.json")}
+
+
+def cpu_matrix_start(early):
+    """The CPU plain path's quality matrix over `early`'s checkpoint, in a
+    process of its own on the host's other cores: measure_phase reads it."""
+    with krasis_home(early["home"]):
+        early["ref"] = subprocess.Popen(
+            [sys.executable, "-c", CPU_MATRIX, early["ck"], str(MEASURE_QUALITY_TOKENS),
+             early["cpu_json"]],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL)
+
+
+def cpu_matrix_stop(early):
+    """Stop `early`'s CPU matrix if it still runs."""
+    ref = early.get("ref")
+    if ref is not None and ref.poll() is None:
+        ref.kill()
+        ref.wait()
+
+
+def measure_phase(eng, cfg, results, rng, early=None):
     """14. The measurement entry points on phase 4's V2-Lite Q4 weights, each
     with the launch counts set to 0 just before and read just after: (a)
     benchmark.run_engine_benchmark on an engine at max_len 16384 (warm-up on
@@ -5358,7 +5534,10 @@ def measure_phase(eng, cfg, results, rng):
     log-probabilities to its prefill all-logits ones (atol 0.15, mean 0.01);
     ngram and MTP spec must be exact; no quantized mode may take a plain MoE
     form (bf16's unquantized experts take the reference's plain forms). The
-    verdicts are printed, not held: the reduced run cannot resolve them."""
+    verdicts are printed, not held: the reduced run cannot resolve them.
+    With `early` (quality_prepare's state, its CPU matrix started) the
+    checkpoint was trained before and `early["home"]` is the phase's
+    KRASIS_TPU_HOME; without, (d) trains it here."""
     import shutil
     import tempfile
 
@@ -5374,7 +5553,7 @@ def measure_phase(eng, cfg, results, rng):
     dev = MEASURE_DEVICE
     on_path = ("K1", "K2", "K3", "K4") if dev == "cuda" else ()    # the CPU counts no launch
     t0 = time.perf_counter()
-    home = tempfile.mkdtemp(prefix="krasis_measure_")
+    home = early["home"] if early else tempfile.mkdtemp(prefix="krasis_measure_")
     old_home = os.environ.get("KRASIS_TPU_HOME")
     os.environ["KRASIS_TPU_HOME"] = home          # the corpus, weight cache and checkpoint
     greedy = SamplingParams(temperature=0.0)
@@ -5445,24 +5624,11 @@ def measure_phase(eng, cfg, results, rng):
         t_c = time.perf_counter()
 
         # (d) the quality matrix on the card, against the CPU plain path
-        ck = quality.build_quality_checkpoint(steps=MEASURE_QUALITY_STEPS,
-                                              out_dir=os.path.join(home, "quality"),
-                                              device=dev)
-        quality.train_mtp_head(ck, steps=MEASURE_MTP_STEPS, device=dev)
-        with open(os.path.join(ck, "meta.json")) as f:
-            meta = json.load(f)
-        print(f"[quality] checkpoint: {MEASURE_QUALITY_STEPS} steps (reduced; the tools run "
-              f"takes 600), tokenizer {meta['tokenizer_s']} s, training {meta['train_s']} s on "
-              f"the card, loss {meta['final_train_loss']:.3f}, tail PPL "
-              f"{meta['tail_ppl_torch']:.2f}; MTP {MEASURE_MTP_STEPS} steps, loss "
-              f"{meta['mtp_final_loss']:.3f}", flush=True)
+        if early is None:
+            early = quality_prepare(home)
+            cpu_matrix_start(early)
+        ck, ref, cpu_json = early["ck"], early["ref"], early["cpu_json"]
         t_train = time.perf_counter()
-        # the CPU plain path's matrix in a process of its own, on the host's
-        # other cores while the card's runs
-        cpu_json = os.path.join(home, "cpu_matrix.json")
-        ref = subprocess.Popen(
-            [sys.executable, "-c", CPU_MATRIX, ck, str(MEASURE_QUALITY_TOKENS), cpu_json],
-            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL)
         try:
             zero_counts()
             card = quality.run_matrix(ck, shapes=((512, 256),),
@@ -5474,9 +5640,7 @@ def measure_phase(eng, cfg, results, rng):
             t_card = time.perf_counter()
             rc = ref.wait(timeout=900)
         finally:
-            if ref.poll() is None:
-                ref.kill()
-                ref.wait()
+            cpu_matrix_stop(early)
         if rc != 0:
             raise AssertionError(f"quality: the CPU matrix exited {rc}")
         with open(cpu_json) as f:
@@ -5532,8 +5696,9 @@ def measure_phase(eng, cfg, results, rng):
         torch.cuda.empty_cache()
         print(f"[time] measure phase {time.perf_counter() - t0:.1f} s: (a) engine "
               f"{t_a - t0:.1f} s, (b) network {t_b - t_a:.1f} s, (c) slots {t_c - t_b:.1f} s, "
-              f"(d) training {t_train - t_c:.1f} s, card matrix {t_card - t_train:.1f} s, the "
-              f"CPU matrix's wait and the checks {time.perf_counter() - t_card:.1f} s", flush=True)
+              f"(d) training in this phase {t_train - t_c:.1f} s, card matrix "
+              f"{t_card - t_train:.1f} s, the CPU matrix's wait and the checks "
+              f"{time.perf_counter() - t_card:.1f} s", flush=True)
     finally:
         if old_home is None:
             os.environ.pop("KRASIS_TPU_HOME", None)
@@ -5542,33 +5707,549 @@ def measure_phase(eng, cfg, results, rng):
         shutil.rmtree(home, ignore_errors=True)
 
 
-def main() -> int:
-    import numpy as np
+MESH_PROMPT = 2048        # (a): the main mesh path's prefill ids
+MESH_NEW = 16             # and decode tokens
+MESH_PP_SP = 512          # (b): the PP / SP prefill ids
+MESH_SCHED_NEW = 8        # (c): tokens a scheduler request
+MESH_TOL = 3e-2           # tests/test_parallel.py's rtol and atol
+
+
+MESH_DEVICE = "cuda"      # a CPU rehearsal at tiny widths sets "cpu"
+
+
+def mesh_devices(n: int):
+    """n devices for a mesh: n distinct cards where the host has them, else
+    the first card n times (every line of the sharded path on one card)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from krasis_tpu_torch import build, timing
-    from krasis_tpu_torch.config import QuantConfig
-    from krasis_tpu_torch.device import set_exact_matmul_flags
-    from krasis_tpu_torch.ops import moe_cuda
+    if MESH_DEVICE == "cpu":
+        return ["cpu"] * n
+    return ([f"cuda:{i}" for i in range(n)] if torch.cuda.device_count() >= n
+            else ["cuda:0"] * n)
 
-    t_start = time.perf_counter()
-    card = card_line()
-    set_exact_matmul_flags()
-    print(f"[card] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+
+def logits_close(label, got, want, tol=MESH_TOL):
+    """Sharded logits against unsharded: |Δ| ≤ tol + tol·|want| element by
+    element (numpy's assert_allclose at rtol = atol = tol) and the same
+    argmax. Returns max|Δ|."""
+    import torch
+
+    got, want = got.float(), want.float().to(got.device)
+    diff = (got - want).abs()
+    worst = float((diff / (tol + tol * want.abs())).max())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    print(f"[mesh] {label}: max|Δ| {float(diff.max()):.4g} against max|logit| "
+          f"{float(want.abs().max()):.4g}, {worst:.3g} of the limit (rtol = atol = {tol}); "
+          f"argmax {'equal' if same else 'differs'}", flush=True)
+    if not (worst <= 1.0 and same):
+        raise AssertionError(f"{label}: sharded logits are not the unsharded ones")
+    return float(diff.max())
+
+
+def mesh_forced(eng, meng, prompt, toks):
+    """The mesh engine's stream `toks` teacher-forced through the mesh decode
+    and the unsharded one from one state: after each step the mesh cache's
+    rows (each layer's first head shard's latent cache: the whole cache on
+    its device) are copied over the unsharded cache. The unsharded path
+    runs the phase 4 weights with the folded shared-expert rows left out
+    (views), so its decode computes the shared experts densely as the mesh
+    does; the folded engine's logprob is read beside it. Per step: (mesh
+    token, its logprob, top-two gap), (unsharded token, logprob, gap), the
+    folded logprob, and how many MoE layers picked other experts."""
+    import torch
+    from krasis_tpu_torch.models import model as M
+    from krasis_tpu_torch.parallel.mesh import strip_virtual
+
+    cfg, quant = eng.cfg, eng.quant
+    E = cfg.n_routed_experts
+    dense = {**eng.params, "layers": [{k: (strip_virtual(v, E) if k in ("w13", "w2") else v)
+                                       for k, v in lp.items()} for lp in eng.params["layers"]]}
+    picks = []
+    real = M.compute_routing
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        picks.append(out.topk_idx[:1].sort(dim=-1).values)
+        return out
+
+    def read(logits, tok):
+        lsm = torch.log_softmax(logits[0].float(), -1)
+        top = torch.topk(lsm, 2)
+        return torch.stack([top.indices[0].double(), lsm[tok].double(),
+                            (top.values[0] - top.values[1]).double()])
+
+    L = meng._cache_len
+    one = torch.ones((1,), dtype=torch.int32, device=eng.device)
+    rows = []
+    M.compute_routing = recorded
+    try:
+        with torch.inference_mode():
+            eng.reset(L)
+            meng.reset(L)
+            meng._prefill_prompt(prompt)
+            for s in range(1, len(toks)):
+                cur = torch.tensor([[toks[s - 1]]], device=eng.device)
+                base = meng.cache["length"].clone()
+                picks.clear()
+                m = read(M.forward(meng.params, cur, one, meng.cache, cfg, quant, prefill=False),
+                         toks[s])
+                pm = list(picks)
+                out = []
+                for params in (dense, eng.params):
+                    # the step's state: the mesh cache (each layer's first head
+                    # shard holds its device's whole latent cache) before it
+                    for dst, lc in zip(eng.cache["layers"], meng.cache["layers"]):
+                        src = lc["shards"][0] if "shards" in lc else lc
+                        for name, buf in dst.items():
+                            buf.copy_(src[name])
+                    eng.cache["length"].copy_(base)
+                    picks.clear()
+                    out.append(read(M.forward(params, cur, one, eng.cache, cfg, quant,
+                                              prefill=False), toks[s]))
+                    if params is dense:
+                        flips = sum(bool((a != b).any()) for a, b in zip(pm, picks))
+                rows.append((torch.cat([m, out[0], out[1][1:2]]), flips))
+    finally:
+        M.compute_routing = real
+    return [dict(zip(("mesh_tok", "mesh_lp", "mesh_gap", "tok", "lp", "gap", "folded_lp"),
+                     r.tolist()), flips=flips) for r, flips in rows]
+
+
+def hold_mesh_forced(label, toks, lps, steps):
+    """The mesh path gives the stream's tokens and logprobs (it is the mesh
+    engine's own decode); on steps where every MoE layer picked the same
+    experts, the unsharded logprob of the stream's token is within
+    FORCED_LP_TOL of the mesh's (median FORCED_LP_MEDIAN) and its greedy
+    token the stream's unless its top-two gap is under twice that, as the
+    batch phase holds its streams."""
+    import statistics
+
+    held, flipped = [], []
+    for s, st in enumerate(steps, start=1):
+        if int(st["mesh_tok"]) != toks[s] or not abs(st["mesh_lp"] - lps[s]) <= STREAM_LP_TOL:
+            raise AssertionError(f"{label}: step {s}: the mesh forward gives token "
+                                 f"{int(st['mesh_tok'])} ({toks[s]}), logprob "
+                                 f"{st['mesh_lp']:.5f} ({lps[s]:.5f})")
+        if st["flips"]:
+            flipped.append((s, st["flips"]))
+            continue
+        held.append(abs(st["lp"] - st["mesh_lp"]))
+        if ((int(st["tok"]) != toks[s] and not st["gap"] < 2 * FORCED_LP_TOL)
+                or not held[-1] <= FORCED_LP_TOL):
+            raise AssertionError(f"{label}: step {s}, same experts in every layer: unsharded "
+                                 f"token {int(st['tok'])} (gap {st['gap']:.4f}), logprob "
+                                 f"{st['lp']:.5f} against the mesh's {st['mesh_lp']:.5f}")
+    med = statistics.median(held) if held else 0.0
+    folded = max(abs(st["folded_lp"] - st["mesh_lp"]) for st in steps)
+    print(f"[mesh] {label}: {len(steps)} steps forced, {len(held)} held (same experts in "
+          f"every MoE layer): unsharded logprob within {max(held, default=0.0):.4g} of the "
+          f"mesh's (median {med:.4g}); other picks at {flipped}; the folded engine's logprob "
+          f"within {folded:.4g} (its shared experts run through the routed kernel)",
+          flush=True)
+    if not held or not med <= FORCED_LP_MEDIAN:
+        raise AssertionError(f"{label}: median held logprob difference {med:.4g}")
+
+
+def sp_forced(eng, cfg, smesh, ids, want, label):
+    """SP (or SP x EP) prefill against the unsharded one, layer-forced: each
+    layer of both runs from the unsharded run's input, so a layer's
+    difference is that layer's. SP runs its MLP products at half the rows,
+    where cuBLAS takes other algorithms (the router's f32 product, the
+    shared experts' and the dense MLP's dequantized products), so the
+    random model's router near-ties pick other experts at some positions:
+    a position is held where every MoE layer picked the same experts for
+    it, its layer outputs within MESH_TOL · (|want| + rms(want)) of the
+    unsharded layer's. The whole SP prefill's last-position logits are
+    then held within the limit of ``logits_close`` where that position
+    picked the same experts in every layer of the two whole runs, and read
+    beside it otherwise."""
+    import torch
+    from krasis_tpu_torch.models import model as M
+    from krasis_tpu_torch.models.params import layer_specs
+    from krasis_tpu_torch.parallel.sp import make_sp_prefill_fns, sp_shard_params
+    from krasis_tpu_torch.runtime.kv_cache import init_cache
+
+    q, dev = eng.quant, eng.device
+    sp_params = sp_shard_params(eng.params, cfg, smesh)
+    picks = []
+    real = M.compute_routing
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        picks.append(out.topk_idx.sort(dim=-1).values)
+        return out
+
+    def one_run(params, cache, fn):
+        """fn(params, cache) with each MoE layer's picks of every row."""
+        picks.clear()
+        out = fn(params, cache)
+        # SP routes each row slice on its own: join a layer's slices
+        per = len(picks) // max(1, sum(1 for lp in params["layers"] if "gate_w" in lp))
+        return out, [torch.cat(picks[i:i + per]) for i in range(0, len(picks), per)]
+
+    S = ids.shape[1]
+    sl = torch.full((1,), S, dtype=torch.int32, device=dev)
+    M.compute_routing = recorded
+    try:
+        caches = [init_cache(cfg, q, 1, 1024, dev) for _ in range(2)]
+        positions, valid, kv_len, at = [], [], [], []
+        steps = []
+        for cache in caches:
+            p_, v_, k_, a_ = M.step_inputs(cache["length"], sl, S, cache["layers"], True)
+            steps.append(M.make_layer_step(cfg, prefill=True, positions=p_, valid=v_, kv_len=k_,
+                                           activation="bf16", fresh=True, at=a_))
+        x = eng.params["embed"][ids]
+        held = flipped_rows = 0
+        worst = 0.0
+        for i, spec in enumerate(layer_specs(cfg)):
+            picks.clear()
+            ya = steps[0](x, eng.params["layers"][i], caches[0]["layers"][i], spec, i)
+            pa = torch.cat(picks) if picks else None
+            picks.clear()
+            yb = steps[1](x, sp_params["layers"][i], caches[1]["layers"][i], spec, i)
+            pb = torch.cat(picks) if picks else None
+            same = (torch.ones(S, dtype=torch.bool, device=dev) if pa is None
+                    else (pa == pb).all(dim=-1))
+            flipped_rows += int((~same).sum())
+            if bool(same.any()):
+                _, ratio = max_err(yb[0][same], ya[0][same], MESH_TOL)
+                worst = max(worst, ratio)
+                held += int(same.sum())
+            x = ya
+        print(f"[mesh] {label}, layer-forced: {held} (position, layer) pairs held within "
+              f"{worst:.3g} of the limit (tol {MESH_TOL}), {flipped_rows} with other experts "
+              "picked", flush=True)
+        if not held or not worst <= 1.0:
+            raise AssertionError(f"{label}: a layer's output left the unsharded layer's")
+        sp_prefill, _ = make_sp_prefill_fns(cfg, q, smesh)
+        got, sp_picks = one_run(eng.params, init_cache(cfg, q, 1, 1024, dev),
+                                lambda p, c: sp_prefill(p, ids, sl, c))
+        _, un_picks = one_run(eng.params, init_cache(cfg, q, 1, 1024, dev),
+                              lambda p, c: M.forward(p, ids, sl, c, cfg, q, prefill=True))
+    finally:
+        M.compute_routing = real
+    last = sum(bool((a[-1] != b[-1]).any()) for a, b in zip(sp_picks, un_picks))
+    if last == 0:
+        logits_close(label, got, want)
+    else:
+        diff = float((got.float() - want.float()).abs().max())
+        print(f"[mesh] {label}: the last position picked other experts in {last} MoE layers of "
+              f"the whole runs; its logits {diff:.4g} from the unsharded ones (max|logit| "
+              f"{float(want.abs().max()):.4g}), argmax "
+              f"{'equal' if torch.equal(got.argmax(-1), want.argmax(-1)) else 'differs'}: not held",
+              flush=True)
+
+
+def profile_decode_step(eng, prompt, label):
+    """One decode step of `eng` after `prompt`: its wall time (unprofiled)
+    and device time, busy share and launches from the profiler."""
+    import torch
+    from krasis_tpu_torch.timing import recorded_step, traced_kernels
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    one = torch.ones((1,), dtype=torch.int32, device=eng.device)
+    with torch.inference_mode():
+        eng.reset(eng._cache_len)
+        logits = eng._prefill_prompt(prompt)
+        cur = logits.argmax(-1)[:, None]
+        base = eng.cache["length"].clone()
+
+        def step():
+            eng.cache["length"].copy_(base)
+            return eng._forward(cur, one, prefill=False)
+
+        step()
+        eng._sync()
+        t0 = time.perf_counter()
+        step()
+        eng._sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            recorded_step(prof)
+            step()
+            eng._sync()
+            prof.step()
+    rows = [(key, us / 1e3, count) for key, us, count in traced_kernels(prof) if us > 0]
+    busy, launches = sum(r[1] for r in rows), sum(r[2] for r in rows)
+    print(f"[mesh] profile {label}: one decode step, wall {wall:.2f} ms unprofiled, device "
+          f"kernels {busy:.2f} ms ({100 * busy / wall:.1f}% busy), {launches} launches",
+          flush=True)
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"[mesh]   {ms:8.3f} ms {count:5d}x  {key[:90]}")
+    return wall, busy, launches
+
+
+def mesh_kernel_checks(meng, cfg, results, g, flush):
+    """The kernels of the mesh path at the shard shapes, against their plain
+    versions: K1 at the shared experts' dense products (decode runs them
+    densely under a mesh), K2 at 8 of 16 MLA heads (a 2048-row prefill, and
+    decode's split form at R = 8 rows), K3 on shard 0's 32-expert stacks
+    with the EP id convention (3 live picks, 3 remote ones at weight 0 on
+    the last live id), K4 on those stacks with the pick_valid tile plan.
+    Bounds over the live picks alone."""
+    import torch
+    from krasis_tpu_torch.ops import flash_attention as fa
+    from krasis_tpu_torch.ops import moe_cuda
+    from krasis_tpu_torch.ops.rope import yarn_softmax_scale
+    from krasis_tpu_torch.parallel.ep import local_picks
+    from krasis_tpu_torch.quant import qtensor_bytes
+
+    dev = flush.device
+    lp = next(lp for lp in meng.params["layers"] if "_ep" in lp)
+    qmm_checks(results, "mesh/", (("qmm:shared_w13", lp["shared_w13"], None, torch.bfloat16),
+                                  ("qmm:shared_w2", lp["shared_w2"], None, torch.bfloat16)),
+               g, flush)
+    Hs = len(lp["_heads"])
+    L, DR = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    scale = yarn_softmax_scale((cfg.qk_nope_head_dim + DR) ** -0.5, cfg.rope_scaling)
+    view = meng._cache_len
+    kv = MESH_PROMPT + MESH_NEW
+    attention_checks(results, "mesh/", cfg.num_attention_heads // Hs, 1, L + DR, 640, L,
+                     False, scale, 1.0, g, flush, cases=[
+                         (f"attention:prefill_{MESH_PROMPT}", MESH_PROMPT, 0, MESH_PROMPT,
+                          MESH_PROMPT, fa.REPLACES),
+                         (f"attention:decode_kv_{kv}", 1, kv - 1, kv, view,
+                          fa.REPLACES_DECODE)])
+    sh = lp["_ep"][0]
+    w13, w2 = sh["w13"], sh["w2"]
+    E_l, E, k = w13.q.shape[0], cfg.n_routed_experts, cfg.num_experts_per_tok
+    Hd, I = cfg.hidden_size, cfg.moe_intermediate_size
+    x = torch.randn((1, Hd), generator=g, device=dev).to(torch.bfloat16)
+    mine = torch.randperm(E_l, generator=g, device=dev)[:k // 2]
+    other = E_l + torch.randperm(E - E_l, generator=g, device=dev)[:k - k // 2]
+    glob = torch.stack([mine, other], 1).reshape(1, -1)        # local and remote interleaved
+    gw = torch.rand((1, k), generator=g, device=dev) * 0.3 + 0.05
+    ids, wts, valid = local_picks(glob, gw, 0, E_l)
+    live = int(valid.sum())
+    per_pick = (qtensor_bytes(w13) + qtensor_bytes(w2)) // E_l
+    print(f"[kernel] mesh/moe_decode: global picks {glob.tolist()} → shard 0's ids "
+          f"{ids.tolist()}, {live} live", flush=True)
+    core_checks(results, "mesh/moe_decode_local", counters()["K3"], moe_cuda.K3_KERNELS,
+                moe_cuda.REPLACES, lambda w: moe_cuda.moe_w4a8(x, w13, w2, ids, w),
+                lambda w: moe_cuda.moe_w4a8_plain(x, w13, w2, ids, w), wts,
+                live * per_pick + Hd * 4, 2 * live * (Hd * 2 * I + I * Hd), flush,
+                controls=[(wts, [j for j in range(k) if bool(valid[0, j])])])
+    T = MESH_PROMPT
+    x = torch.randn((T, Hd), generator=g, device=dev).to(torch.bfloat16)
+    topk = torch.rand((T, E), generator=g, device=dev).topk(k, dim=-1).indices.to(torch.int32)
+    ids, _, valid = local_picks(topk, torch.ones((T, k), device=dev), 0, E_l)
+    k4_checks(results, "mesh/", x, ids, w13, w2, cfg, pick_valid=valid)
+
+
+def mesh_phase(eng, cfg, results, rng):
+    """Phase 15: the mesh on phase 4's V2-Lite Q4 weights (see the module
+    docstring)."""
+    import statistics
+    import types
+
+    import torch
+    from krasis_tpu_torch import server
+    from krasis_tpu_torch.budget import compute_budget
+    from krasis_tpu_torch.models.model import forward
+    from krasis_tpu_torch.models.params import pattern_info
+    from krasis_tpu_torch.ops.sampling import SamplingParams
+    from krasis_tpu_torch.parallel.mesh import make_mesh, position_bytes, shard_bytes
+    from krasis_tpu_torch.parallel.pp import (make_pp_forward_fns, make_pp_mesh, pp_shard_cache,
+                                              pp_shard_params)
+    from krasis_tpu_torch.parallel.sp import make_sp_mesh, make_sp_prefill_fns
+    from krasis_tpu_torch.runtime.engine import Engine, pick_cache_len
+    from krasis_tpu_torch.runtime.kv_cache import init_cache
+    from krasis_tpu_torch.runtime.scheduler import BatchScheduler
 
     t0 = time.perf_counter()
-    logs = build.build()
-    print(f"[build] {len(logs)} kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {name}: {line.strip()}")
+    vocab = cfg.vocab_size
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(2, devices=mesh_devices(2))
+    print(f"[mesh] {cards} card(s) on this host: {mesh}", flush=True)
+    before = torch.cuda.memory_allocated() if MESH_DEVICE == "cuda" else 0
+    meng = Engine(cfg, eng.quant, eng.params, max_len=eng.max_len, mesh=mesh)
+    held = shard_bytes(meng.params)
+    more = (torch.cuda.memory_allocated() if MESH_DEVICE == "cuda" else 0) - before
+    print(f"[mesh] sharded in {time.perf_counter() - t0:.1f} s, "
+          f"{more / 2**20:.1f} MiB more on the card (the caches included); "
+          f"held a device {json.dumps({k: round(v / 2**30, 3) for k, v in held.items()})} GiB; "
+          f"on cards of their own each shard would hold {position_bytes(meng.params) / 2**30:.3f}"
+          f" GiB, budget.py's per-card figure at ep 2 with head-sharded attention "
+          f"{compute_budget(cfg, eng.quant).per_chip(2, tp_shard_attention=True) / 2**30:.3f}"
+          " GiB", flush=True)
+    results_from = len(results)
+
+    # (a) prefill logits, then the main mesh path with the launch counts
+    prompt = rng.integers(100, vocab - 100, MESH_PROMPT).tolist()
+    L = pick_cache_len(MESH_PROMPT + MESH_NEW + meng.decode_block + 1, eng.max_len)
+    with torch.inference_mode():
+        eng.reset(L)
+        meng.reset(L)
+        want = eng._prefill_prompt(prompt)
+        got = meng._prefill_prompt(prompt)
+    logits_close(f"1 x 2 prefill of {MESH_PROMPT} ids, last position", got, want)
+    meng.generate(prompt[:256], max_new_tokens=4, stop_ids={-1})          # warm-up
+    zero_counts()
+    res = meng.generate(prompt, max_new_tokens=MESH_NEW, stop_ids={-1})
+    on_card = eng.device.type == "cuda"     # a CPU rehearsal launches no kernel
+    counts, by_form = read_counts(f"mesh 1 x 2 generate({MESH_PROMPT}, {MESH_NEW})",
+                                  ("K1", "K2", "K3", "K4") if on_card else (),
+                                  ("one-launch", "split") if on_card else ())
+    if not res.finite or len(res.tokens) != MESH_NEW:
+        raise AssertionError(f"mesh generate: {len(res.tokens)} tokens, finite {res.finite}")
+    steps = mesh_forced(eng, meng, prompt, res.tokens)
+    hold_mesh_forced("mesh 1 x 2 decode, teacher-forced", res.tokens, res.logprobs, steps)
+    if on_card:                            # the kernel checks and profiles
+        g = torch.Generator(device="cuda")
+        g.manual_seed(4321)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        mesh_kernel_checks(meng, cfg, results, g, flush)
+        del flush
+        by_counter = {counters()[name]: n for name, n in counts.items()}
+        for counter, entry in results[results_from:]:
+            entry["launches"] = (by_form.get(entry["form"], 0) if "form" in entry
+                                 else by_counter[counter])
+        short = prompt[:40]
+        w1, b1, n1 = profile_decode_step(eng, short, "unsharded (phase 4's engine)")
+        wm, bm, nm = profile_decode_step(meng, short, "mesh 1 x 2")
+        print(f"[mesh] one decode step: mesh {wm:.2f} ms wall / {bm:.2f} ms device / {nm} "
+              f"launches against unsharded {w1:.2f} / {b1:.2f} / {n1}: "
+              f"{nm / max(n1, 1):.2f}x the launches", flush=True)
+    t_a = time.perf_counter()
+
+    # (b) pipeline and sequence parallel prefill against the unsharded one
+    dev = eng.device
+    ids = torch.tensor([rng.integers(100, vocab - 100, MESH_PP_SP).tolist()], device=dev)
+    sl = torch.tensor([MESH_PP_SP], dtype=torch.int32, device=dev)
+    q = eng.quant
+    with torch.inference_mode():
+        want = forward(eng.params, ids, sl, init_cache(cfg, q, 1, 1024, dev), cfg, q,
+                       prefill=True)
+        pmesh = make_pp_mesh(2, devices=mesh_devices(2))
+        prefill_fn, _, _ = make_pp_forward_fns(cfg, q, pmesh)
+        got = prefill_fn(pp_shard_params(eng.params, cfg, pmesh), ids, sl,
+                         pp_shard_cache(init_cache(cfg, q, 1, 1024, dev), cfg, pmesh))
+        reps = pattern_info(cfg).reps
+        if not torch.equal(got, want):
+            raise AssertionError(f"PP 2: logits {float((got - want).abs().max())} from the "
+                                 "unsharded prefill's (the same kernels in the same order)")
+        print(f"[mesh] PP 2 ({reps} repetitions, {reps // 2} a stage) prefill of {MESH_PP_SP} "
+              "ids: logits equal to the unsharded prefill's bit for bit", flush=True)
+        for n, ep in ((2, 1), (4, 2)):
+            smesh = make_sp_mesh(n, ep=ep, devices=mesh_devices(n))
+            sp_forced(eng, cfg, smesh, ids, want,
+                      f"SP {n // ep}{f' x EP {ep}' if ep > 1 else ''} prefill of {MESH_PP_SP} ids")
+    t_b = time.perf_counter()
+
+    # (c) the scheduler on a dp 2 x ep 2 mesh: three requests and a cancel
+    dmesh = make_mesh(4, dp=2, devices=mesh_devices(4))
+    deng = Engine(cfg, q, eng.params, max_len=eng.max_len, mesh=dmesh)
+    sch = BatchScheduler(cfg, q, deng.params, max_len=eng.max_len, num_slots=4,
+                         decode_block=8, mesh=dmesh)
+    prompts = [rng.integers(100, vocab - 100, n).tolist() for n in (40, 300, 40)]
+    greedy = SamplingParams(temperature=0.0)
+    try:
+        victim = sch.submit(rng.integers(100, vocab - 100, 40).tolist(), max_new_tokens=64,
+                            sampling=greedy, stop_ids={-1})
+        reqs = [sch.submit(p, max_new_tokens=MESH_SCHED_NEW, sampling=greedy, stop_ids={-1},
+                           want_logprobs=True) for p in prompts]
+        if victim.out_queue.get(timeout=600) is None:
+            raise AssertionError("mesh scheduler: the victim ended before its first token")
+        victim.cancelled.set()
+        tail = 0
+        while victim.out_queue.get(timeout=600) is not None:
+            tail += 1
+        streams = []
+        for r in reqs:
+            toks = []
+            while (tok := r.out_queue.get(timeout=600)) is not None:
+                toks.append(tok)
+            if r.error is not None or len(toks) != MESH_SCHED_NEW:
+                raise AssertionError(f"mesh scheduler: {len(toks)} tokens, error {r.error!r}")
+            streams.append((toks, list(r.logprobs)))
+    finally:
+        sch.shutdown()
+    if victim.error is not None or tail >= 63:
+        raise AssertionError(f"mesh scheduler: the cancel was ignored ({tail} more tokens)")
+    print(f"[mesh] scheduler dp 2 x ep 2 ({dmesh}), 4 slots: three requests of "
+          f"+{MESH_SCHED_NEW}, the cancelled one ended {tail} tokens after its first", flush=True)
+    held = []
+    for p, (toks, lps) in zip(prompts, streams):
+        _, fsteps = teacher_forced(deng, p, toks, 4, deng.chunk)
+        n, hld, _, row, flipped = hold_teacher_forced(f"mesh scheduler stream of {len(p)} ids",
+                                                      toks, lps, fsteps)
+        held += hld
+        print(f"[mesh] scheduler stream of {len(p)} ids: {n} steps teacher-forced, {len(hld)} "
+              f"held within {max(hld, default=0.0):.4g} of the mesh engine's batch-1 decode, "
+              f"written cache rows within {row:.3g}; other picks at {flipped}", flush=True)
+    med = statistics.median(held) if held else None
+    print(f"[mesh] scheduler streams: {len(held)} steps held, median logprob difference "
+          f"{med} (limit {FORCED_LP_MEDIAN})", flush=True)
+    if med is None or not med <= FORCED_LP_MEDIAN:
+        raise AssertionError(f"mesh scheduler streams: median held difference {med}")
+    del deng
+    t_c = time.perf_counter()
+
+    # (d) a request through the server's handler over the mesh engine; --mesh
+    # with more shards than cards refused by the number of devices
+    msgs = [{"role": "user", "content": "Shard the experts over two devices."}]
+    sids = server.prompt_ids(types.SimpleNamespace(tokenizer=None, engine=meng), msgs)
+    direct = meng.generate(sids, max_new_tokens=8, stop_ids={-1})
+    httpd = server.start_temp_server(meng, None, "mesh", port=0, backend="python")
+    try:
+        status, _, body = http_call(httpd.port, "POST", "/v1/chat/completions", {
+            "messages": msgs, "max_tokens": 8, "temperature": 0.0, "logprobs": True})
+    finally:
+        httpd.shutdown()
+    obj = json.loads(body) if status == 200 else None
+    if obj is None:
+        raise AssertionError(f"[mesh] server: {status} {body[:300]!r}")
+    lps = [e["logprob"] for e in obj["choices"][0]["logprobs"]["content"]]
+    if (obj["usage"]["completion_tokens"] != 8 or len(lps) != 8
+            or not all(abs(a - b) <= 1e-6 for a, b in zip(lps, direct.logprobs))):
+        raise AssertionError(f"[mesh] served logprobs {lps} against generate's {direct.logprobs}")
+    print(f"[mesh] server handler over the 1 x 2 mesh engine: 8 tokens, logprobs within 1e-6 "
+          "of generate's (the JSON's 6 decimals)", flush=True)
+    if cards < 2 and MESH_DEVICE == "cuda":
+        def serve(*a, **kw):                 # a server that got this far was not refused
+            raise AssertionError("--mesh 1,2 on a one-card host was not refused")
+        real_serve, server.run_server = server.run_server, serve
+        try:
+            server.main(["--synthetic", "deepseek-v2-lite", "--mesh", "1,2", "--no-warmup"])
+        except ValueError as e:
+            if "need 2 devices, have 1" not in str(e):
+                raise
+            print(f"[mesh] --mesh 1,2 on this one-card host refused: {e}", flush=True)
+        finally:
+            server.run_server = real_serve
+    else:
+        print(f"[mesh] --mesh 1,2 refusal not checked: this host has {cards} cards", flush=True)
+    del meng
+    torch.cuda.empty_cache()
+    print(f"[time] mesh phase: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, "
+          f"(c) {t_c - t_b:.1f} s, (d) {time.perf_counter() - t_c:.1f} s", flush=True)
+
+
+# phase 10a's servers and 13 (c)'s: (server arguments, new tokens, log lines
+# expected, every request). The default --offload auto must keep V2-Lite
+# resident; the last is the offload tier as a user starts it
+SERVE_RUNS = (
+    (SERVE_SYNTHETIC, 32, (("--offload auto:", "GiB: resident"),), True),
+    (SERVE_SYNTHETIC + ("--slots", "4"), 32, (), True),
+    (SERVE_OFFLOAD, 32, (("--offload experts:", "GB of routed experts in host RAM"),), False))
+
+
+def run_phases(results, early, since):
+    """Phases 3-15 in order, with phase 9 and the served subprocesses
+    together; `early` is quality_prepare's state, `since` main's start."""
+    import functools
+
+    import numpy as np
+    from krasis_tpu_torch.config import QuantConfig
+    from krasis_tpu_torch.ops import moe_cuda
+
+    def mark(what):
+        print(f"[time] {time.perf_counter() - since:.1f} s: {what}", flush=True)
 
     budget_phase()
+    mark("references")
     reference_phases()
     hybrid_scheduler_reference()
     spec_reference()
@@ -5576,16 +6257,19 @@ def main() -> int:
     c2_phase()
     c3_phase()
 
-    results = []
+    # 14 (d)'s CPU matrix runs on the host's other cores from here on
+    cpu_matrix_start(early)
     rng = np.random.default_rng(0)
+    mark("DeepSeek-V2-Lite Q4")
     run_family("DeepSeek-V2-Lite Q4", "deepseek-v2-lite",
                QuantConfig(expert_bits=4, group_size=128), v2lite_kernel_phase,
                ((2048, 32, "int8"), (2500, 32, "int8"), (40, 32, "int8"),
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "bf16")),
-               ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=16,
+               ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=8,
                forms=("one-launch", "split", "one-launch+fp8", "split+fp8"),
                batched=batch_phase, spec=spec_phase, offload=offload_phase,
-               measure=measure_phase)
+               measure=functools.partial(measure_phase, early=early), mesh=mesh_phase)
+    mark("Qwen3-Coder-Next Q4")
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
                hybrid_kernel_phase,
@@ -5593,37 +6277,86 @@ def main() -> int:
                ("K1", "K1s", "K2", "K3", "K4", "K5"), results, rng, profile_decode=2,
                profile_bf16=4, spec=hybrid_spec_phase, profile_prefill=1024)
 
+    mark("DeepSeek-V2-Lite Q8")
     run_family("DeepSeek-V2-Lite Q8 (two-stage expert class)", "deepseek-v2-lite",
                QuantConfig(expert_bits=8, group_size=128), q8_kernel_phase,
                ((2048, 128, "int8"), (40, 32, "int8", 5), (40, 16, "bf16")),
-               ("K1", "K2", "K6", "K6a", "K7", "K7a"), results, rng, profile_decode=16,
+               ("K1", "K2", "K6", "K6a", "K7", "K7a"), results, rng, profile_decode=8,
                off_path=("K3", "K4", "K5"), entry_points=q8_entry_points,
                off_names=moe_cuda.K3_KERNELS + moe_cuda.K5_KERNELS)
     gptoss_forms = tuple(f"{form}{tags}+sinks{fp8}" for form in ("one-launch", "split")
                          for tags in ("+window", "") for fp8 in ("", "+fp8"))
+    mark("GPT-OSS-20B")
     run_family("GPT-OSS-20B (sliding window 128, sinks, biased experts)", "gpt-oss-20b",
                QuantConfig(expert_bits=4, group_size=32), gptoss_kernel_phase,
                ((2048, 32, "int8"), (2500, 16, "int8"), (40, 16, "int8"),
                 (2500, 16, "int8", 0, "fp8"), (40, 16, "int8", 0, ("auto", 131072))),
-               ("K1", "K2", "K6", "K7"), results, rng, profile_decode=16,
+               ("K1", "K2", "K6", "K7"), results, rng, profile_decode=8,
                off_path=("K1s", "K3", "K4", "K5", "K6a", "K6a product", "K7a"),
                forms=gptoss_forms,
                off_names=moe_cuda.K3_KERNELS + moe_cuda.K5_KERNELS + moe_cuda.K6A_KERNELS,
                prefill_off_names=K6_KERNELS + ("gmm_a8_kernel", moe_cuda.K6A_PRODUCT_KERNEL),
                prefill_on_names=("gmm_kernel",))
+    mark("probes")
     probe_phase(results)
-    load_phase()
-    # the default --offload auto must keep V2-Lite resident; then 13 (c), the
-    # offload tier as a user starts it
-    for server_args, new, expect, every_request in (
-            (SERVE_SYNTHETIC, 32, (("--offload auto:", "GiB: resident"),), True),
-            (SERVE_SYNTHETIC + ("--slots", "4"), 32, (), True),
-            (SERVE_OFFLOAD, 32, (("--offload experts:", "GB of routed experts in host RAM"),),
-             False)):
+    # phase 9 in this process while 10a's and 13 (c)'s servers run beside it
+    mark("checkpoints, with the served subprocesses beside them")
+    serve_beside(load_phase)
+    mark("done")
+
+
+def main() -> int:
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from krasis_tpu_torch import build, timing
+    from krasis_tpu_torch.device import set_exact_matmul_flags
+
+    t_start = time.perf_counter()
+    card = card_line()
+    set_exact_matmul_flags()
+    print(f"[card] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+
+    # nvcc builds the kernels in a thread while this one trains 14 (d)'s
+    # quality checkpoint on the card, which needs none of them
+    built = {}
+
+    def nvcc():
         t0 = time.perf_counter()
-        serve_subprocess_phase(server_args, new, expect, every_request)
-        print(f"[time] serve phase, server subprocess {' '.join(server_args[2:])}: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        try:
+            built["logs"] = build.build()
+        except BaseException as e:         # raised below, in this thread
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=nvcc)
+    builder.start()
+    early = {"home": tempfile.mkdtemp(prefix="krasis_measure_")}
+    results = []
+    try:
+        early = quality_prepare(early["home"])
+        builder.join()
+        if "error" in built:
+            raise built["error"]
+        logs = built["logs"]
+        print(f"[build] {len(logs)} kernels built in {built['s']:.1f} s (the quality "
+              "checkpoint trained beside it)", flush=True)
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[ptxas] {name}: {line.strip()}")
+        run_phases(results, early, t_start)
+    finally:
+        builder.join()
+        cpu_matrix_stop(early)
+        shutil.rmtree(early["home"], ignore_errors=True)
 
     print(f"[profiler] the tracer kept {timing.head_kept} of the {timing.head_made} throwaway "
           "launches that open its recorded steps")

@@ -89,6 +89,15 @@
 #include "int4.cuh"
 #include "mma.cuh"
 
+// build.py compiles this file in parts, in parallel (-DKRASIS_PART=0, 1),
+// and links them into one library; a part holds the blocks under
+// IN_PART(its number). Compiled whole, the file holds every block.
+#ifdef KRASIS_PART
+#define IN_PART(n) (KRASIS_PART == (n))
+#else
+#define IN_PART(n) 1
+#endif
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -771,6 +780,7 @@ int two_stages(const void* x, long x_stride, const void* idx, const void* wt, co
 
 }  // namespace
 
+#if IN_PART(0)
 // K3: out[T, H] (bf16) from x[T, H] (bf16, rows x_stride elements apart),
 // the picks idx / wt [T * k] (int32 / f32) and the expert stacks q13
 // [E, H(/2), 2I], s13 [E, H/gs13, 2I], q2 [E, I(/2), H], s2 [E, I/gs2, H]
@@ -789,6 +799,14 @@ extern "C" int moe_w4a8_launch(const void* x, long x_stride, const void* idx, co
                            limit, gpt_oss, nullptr, stream);
 }
 
+// The shared memory a CTA of `stage` (1 or 2) takes under a plan: what the
+// plan (ops/moe_cuda.py plan_w4a8) must fit in 227 KB.
+extern "C" int moe_w4a8_smem(int stage, int bits, int cols, int ks, int k, int H, int I, int gs) {
+  return smem_bytes(stage, bits, cols, ks, k, H, I, gs);
+}
+#endif
+
+#if IN_PART(1)
 // K6a's chain, moe_gathered_tiled(activation="int8"): K3's call with the
 // pick flags valid [T * k] (int32, or null for every pick).
 extern "C" int gq_a8_launch(const void* x, long x_stride, const void* idx, const void* wt,
@@ -820,9 +838,4 @@ extern "C" int gq_a8_product_launch(const void* xq, const void* sx, const void* 
   cudaStream_t st = (cudaStream_t)stream;
   return bits == 4 ? product_cols<4>(A, P, cols, ks, st) : product_cols<8>(A, P, cols, ks, st);
 }
-
-// The shared memory a CTA of `stage` (1 or 2) takes under a plan: what the
-// plan (ops/moe_cuda.py plan_w4a8) must fit in 227 KB.
-extern "C" int moe_w4a8_smem(int stage, int bits, int cols, int ks, int k, int H, int I, int gs) {
-  return smem_bytes(stage, bits, cols, ks, k, H, I, gs);
-}
+#endif

@@ -98,6 +98,15 @@
 #include "int4.cuh"
 #include "mma.cuh"
 
+// build.py compiles this file in parts, in parallel (-DKRASIS_PART=0, 1),
+// and links them into one library; a part holds the blocks under
+// IN_PART(its number). Compiled whole, the file holds every block.
+#ifdef KRASIS_PART
+#define IN_PART(n) (KRASIS_PART == (n))
+#else
+#define IN_PART(n) 1
+#endif
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -612,6 +621,27 @@ int launch_tt(int bits, int out_f32, const void* x, const void* q, const void* s
 
 }  // namespace
 
+// qmm_launch for T of 3 to 16, in part 1 of the build.
+int qmm_launch_wide(int bits, int out_f32, const void* x, const void* q, const void* s, void* out,
+                    int T, int K, int N, int gs, int unit, int ks, int pk, long ql, long sl,
+                    int layer, int x_vec, cudaStream_t st);
+
+#if IN_PART(1)
+int qmm_launch_wide(int bits, int out_f32, const void* x, const void* q, const void* s, void* out,
+                    int T, int K, int N, int gs, int unit, int ks, int pk, long ql, long sl,
+                    int layer, int x_vec, cudaStream_t st) {
+  if (T <= 4)
+    return launch_tt<4>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, ql, sl, layer,
+                        x_vec, st);
+  if (T <= 8)
+    return launch_tt<8>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, ql, sl, layer,
+                        x_vec, st);
+  return launch_tt<16>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, ql, sl, layer,
+                       x_vec, st);
+}
+#endif
+
+#if IN_PART(0)
 // out[T, N] (bf16, or f32 with out_f32) = x[T, K] @ dequant(layer `layer`
 // of the [L, K(/2), N] q and [L, K/gs, N] scales stacks, whose layers lie
 // q_lstride and s_lstride elements apart). The plan (ops/qmm_cuda.py plan)
@@ -629,14 +659,8 @@ extern "C" int qmm_launch(const void* x, const void* q, const void* s, void* out
   if (T <= 2)
     return launch_tt<2>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, q_lstride,
                         s_lstride, layer, x_vec, st);
-  if (T <= 4)
-    return launch_tt<4>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, q_lstride,
-                        s_lstride, layer, x_vec, st);
-  if (T <= 8)
-    return launch_tt<8>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, q_lstride,
-                        s_lstride, layer, x_vec, st);
-  return launch_tt<16>(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, q_lstride,
-                       s_lstride, layer, x_vec, st);
+  return qmm_launch_wide(bits, out_f32, x, q, s, out, T, K, N, gs, unit, ks, pk, q_lstride,
+                         s_lstride, layer, x_vec, st);
 }
 
 // K6: out[P, N] (f32) with out[p] = x[p] @ dequant(expert idx[p] of the
@@ -698,3 +722,4 @@ extern "C" int k5_launch(int stage, const void* x, const void* idx, const void* 
       x, q, s, out, 1, K, N, gs, unit, ks, pk, q_estride, s_estride, 0, x_vec, st, rows_y, ix,
       nullptr, kk, limit, gpt_oss, w);
 }
+#endif

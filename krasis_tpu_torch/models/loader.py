@@ -38,6 +38,7 @@ import torch
 
 from ..config import ModelConfig, QuantConfig
 from ..device import resolve_device
+from ..parallel.mesh import shard_params
 from ..quant import (QTensor, dequant_compressed_int4, dequant_fp8_block, dequant_mxfp4,
                      pick_group_size, quantize)
 from ..utils.safetensors_io import ShardedSafetensors
@@ -510,12 +511,16 @@ def build_cache(cfg: ModelConfig, quant: QuantConfig, cache_path: str,
 
 
 def place_params(tree: Dict[str, Any], cfg: ModelConfig, device,
-                 fold: bool = False) -> Dict[str, Any]:
+                 fold: bool = False, mesh=None) -> Dict[str, Any]:
     """The reference's stacked tree on the host (mmap-backed from the
     cache) → the port's parameters on `device`. With `fold`, a layer's
     expert stacks are placed into stacks with room for its virtual experts
     (one expert-dim block of the host stack at a time) and the shared
-    experts are folded into that room."""
+    experts are folded into that room. With a `mesh`, every leaf goes from
+    the host straight to its shard (``parallel/mesh.shard_params``): no
+    whole replica lands on one card, and nothing is folded."""
+    if mesh is not None:
+        return shard_params(params_from_stacked(tree), cfg, mesh)
     def put(leaf):
         if isinstance(leaf, QTensor):
             return QTensor(leaf.q.to(device), leaf.scales.to(device), leaf.bits, leaf.group_size)
@@ -580,14 +585,17 @@ def load_params(cfg: ModelConfig, quant: QuantConfig, dtype=torch.bfloat16,
     caller asks for the CPU), through the weight cache when `dtype` is bf16
     and `use_cache` holds. The shared experts are folded here, as the
     reference's load_params folds them before placement; Engine's own fold
-    then finds the stacks folded and keeps them."""
-    if mesh is not None:
-        raise NotImplementedError("loading onto a device mesh is ROADMAP A-10 (parallelism)")
-    dev = resolve_device(device)
-    fold = quant.fold_shared_decode and cfg.n_shared_experts > 0
+    then finds the stacks folded and keeps them. With a `mesh`
+    (``parallel/mesh.py``) the leaves are placed onto their shards, and
+    nothing is folded (the mesh computes the shared experts densely); a
+    checkpoint that does not go through the cache is loaded onto the mesh's
+    first device and sharded from there."""
+    dev = mesh.home(0) if mesh is not None else resolve_device(device)
+    fold = quant.fold_shared_decode and cfg.n_shared_experts > 0 and mesh is None
     if use_cache and dtype == torch.bfloat16:
-        return place_params(cached_tree(cfg, quant, dev), cfg, dev, fold=fold)
-    return WeightLoader(cfg, quant, dtype=dtype, device=dev).load(fold=fold)
+        return place_params(cached_tree(cfg, quant, dev), cfg, dev, fold=fold, mesh=mesh)
+    params = WeightLoader(cfg, quant, dtype=dtype, device=dev).load(fold=fold)
+    return params if mesh is None else shard_params(params, cfg, mesh)
 
 
 def load_params_offload(cfg: ModelConfig, quant: QuantConfig, dtype=torch.bfloat16,

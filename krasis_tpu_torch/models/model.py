@@ -23,6 +23,13 @@ weights go down in one pinned copy, the card runs the hot-expert cache's
 picks (``hot_w13`` / ``hot_w2`` / ``hot_remap``) and the shared expert
 meanwhile, then the host computes the cold picks and its result comes up and
 is added.
+
+Over a device mesh (``parallel/``) a layer's leaves carry its shards, each
+on its device: ``_ep`` (expert slices: ``_mlp``'s EP branch, the f32
+partials summed on the rows' device), ``_heads`` (head groups:
+``_sharded_attention``), ``_sp`` (a prefill's MLP rows split over sp). A
+cache whose slots split over dp runs each group's rows on its own devices
+(``forward`` through ``parallel/mesh.dp_groups``).
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ from ..ops.qmm import linear
 from ..ops.rope import apply_rope, rope_cos_sin, yarn_softmax_scale
 from ..ops.routing import compute_routing
 from ..ops.sampling import sample_batched
+from ..parallel.ep import ep_combine
+from ..parallel.mesh import dp_groups, shard_cfg
 from ..quant import QTensor
 from ..runtime.kv_cache import CacheRows, cache_rows, store_rows
 from .params import GATED_ATTENTION_TYPES, layer_specs
@@ -51,10 +60,13 @@ from .params import GATED_ATTENTION_TYPES, layer_specs
 def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor, kv_len: torch.Tensor,
                    cfg: ModelConfig, sliding: bool = False,
-                   fresh: bool = False, at: Optional[CacheRows] = None) -> torch.Tensor:
+                   fresh: bool = False, at: Optional[CacheRows] = None,
+                   project: bool = True) -> torch.Tensor:
     """`sliding`: the layer sees the last cfg.sliding_window keys only.
     `fresh`: the first prefill chunk, which attends to its own k / v. `at`:
-    where the new rows go in the cache (from `positions` when not given)."""
+    where the new rows go in the cache (from `positions` when not given).
+    Without `project`, returns the heads' output before ``o_proj`` (a head
+    shard's, whose product with its rows of ``o_proj`` is a partial sum)."""
     B, S, _ = x.shape
     d = cfg.qk_head_dim
     hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -102,6 +114,8 @@ def _gqa_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     out = out.reshape(B, S, hq * d)
     if gate is not None:
         out = out * torch.sigmoid(gate.to(torch.float32)).to(out.dtype)
+    if not project:
+        return out
     o = linear(out, lp["o_proj"], layer_idx=li)
     if "o_bias" in lp:
         o = o + lp["o_bias"].to(o.dtype)
@@ -179,10 +193,16 @@ def la_spec_commit(cache: Dict[str, Any], ncommit: torch.Tensor) -> None:
     The rejected tail is masked (g = beta = 0, exact no-ops), so the state
     is the one the committed tokens decoded one at a time give. A no-op for
     caches without DeltaNet layers."""
+    if "dp" in cache:                    # slots split over a mesh's dp groups
+        b = ncommit.shape[0] // len(cache["dp"])
+        for d, group in enumerate(cache["dp"]):
+            la_spec_commit(group, ncommit[d * b:(d + 1) * b])
+        return
     for lc in cache["layers"]:
         if "p_k" not in lc:
             continue
         p_k, p_v, p_g, p_b, p_x = (lc.pop(n) for n in ("p_k", "p_v", "p_g", "p_b", "p_x"))
+        ncommit = ncommit.to(p_x.device)
         S = p_x.shape[1]
         mask = (torch.arange(S, device=p_x.device)[None, :] < ncommit[:, None])[..., None]
         zero = torch.zeros((), dtype=torch.float32, device=p_x.device)
@@ -191,10 +211,33 @@ def la_spec_commit(cache: Dict[str, Any], ncommit: torch.Tensor) -> None:
         lc["conv"] = _conv_window(lc["conv"], p_x, ncommit)
 
 
+def _mla_latent(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
+                positions: torch.Tensor, cfg: ModelConfig,
+                at: Optional[CacheRows] = None, rope=None) -> torch.Tensor:
+    """MLA's latent row [B, S, Dp] ``[ckv ; kpe ; 0]`` of each position,
+    written into the layer's cache, which every head reads. `rope`: the
+    positions' (cos, sin), when the caller has them."""
+    L, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kv_a = linear(x, lp["kv_a_proj"], layer_idx=lp.get("_layer_idx"))   # [B, S, L + dr]
+    ckv = rms_norm(kv_a[..., :L], lp["kv_a_norm"], cfg.rms_norm_eps)
+    cos, sin = rope or rope_cos_sin(positions, dr, cfg.rope_theta, cfg.rope_scaling)
+    # DeepSeek checkpoints store rope dims pair-interleaved
+    kpe = apply_rope(kv_a[..., L:][:, :, None, :], cos, sin, interleaved=True)[:, :, 0, :]
+    cache = lc["kv"]                                         # [B, 1, Smax, Dp]
+    row = F.pad(torch.cat([ckv, kpe], dim=-1), (0, cache.shape[-1] - (L + dr)))
+    store_rows(cache, at if at is not None else cache_rows(positions, cache.shape[2]), row,
+               head=0)
+    return row
+
+
 def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor, kv_len: torch.Tensor,
                    cfg: ModelConfig, fresh: bool = False,
-                   at: Optional[CacheRows] = None) -> torch.Tensor:
+                   at: Optional[CacheRows] = None, row: Optional[torch.Tensor] = None,
+                   project: bool = True) -> torch.Tensor:
+    """`row`: the latent rows ``_mla_latent`` already wrote (a head shard
+    sharing its device's cache with another); without `project`, the heads'
+    output before ``o_proj``."""
     B, S, _ = x.shape
     hq = cfg.num_attention_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -208,20 +251,12 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
         q = linear(x, lp["q_proj"], layer_idx=li)
     q = q.reshape(B, S, hq, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
-    kv_a = linear(x, lp["kv_a_proj"], layer_idx=li)          # [B, S, L + dr]
-    ckv = rms_norm(kv_a[..., :L], lp["kv_a_norm"], cfg.rms_norm_eps)
-    kpe = kv_a[..., L:]
-
     cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta, cfg.rope_scaling)
-    # DeepSeek checkpoints store rope dims pair-interleaved
-    q_pe = apply_rope(q_pe, cos, sin, interleaved=True)
-    kpe = apply_rope(kpe[:, :, None, :], cos, sin, interleaved=True)[:, :, 0, :]
-
-    cache = lc["kv"]                                         # [B, 1, Smax, Dp]
+    if row is None:
+        row = _mla_latent(lp, lc, x, positions, cfg, at, (cos, sin))
+    cache = lc["kv"]
     Dp = cache.shape[-1]
-    row = F.pad(torch.cat([ckv, kpe], dim=-1), (0, Dp - (L + dr)))
-    store_rows(cache, at if at is not None else cache_rows(positions, cache.shape[2]), row,
-               head=0)
+    q_pe = apply_rope(q_pe, cos, sin, interleaved=True)
 
     scale = yarn_softmax_scale((dn + dr) ** -0.5, cfg.rope_scaling)
     # absorbed MQA form: q_nope @ w_kc joins q_pe against the single-head
@@ -233,8 +268,41 @@ def _mla_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor,
     ctx = flash_attention(q_cat, row[:, None] if fresh else cache, positions[:, 0], kv_len,
                           scale, v_dim=L, qk_dim=L + dr)
     out = torch.einsum("bshl,hlv->bshv", ctx.to(torch.float32),
-                       lp["w_vc"].to(torch.float32)).to(x.dtype)
-    return linear(out.reshape(B, S, -1), lp["o_proj"], layer_idx=li)
+                       lp["w_vc"].to(torch.float32)).to(x.dtype).reshape(B, S, -1)
+    return linear(out, lp["o_proj"], layer_idx=li) if project else out
+
+
+def _sharded_attention(lp: Dict[str, Any], lc: Dict[str, Any], x: torch.Tensor, spec,
+                       cfg: ModelConfig, cfg_s: ModelConfig, on, fresh: bool) -> torch.Tensor:
+    """Attention split by head over the layer's shards (``lp["_heads"]``, the
+    cache's ``lc["shards"]``): each shard runs its heads on its device with a
+    configuration of its head counts, its output times its rows of
+    ``o_proj`` in f32; the partials are summed on x's device, rounded once
+    to x's dtype, and ``o_bias`` added. MLA's latent row is computed and
+    written once a device. `cfg_s` is a shard's configuration
+    (``parallel/mesh.shard_cfg``); `on(dev)` gives (positions, kv_len,
+    where the rows go) on a device."""
+    shards = lp["_heads"]
+    rows: Dict[torch.device, torch.Tensor] = {}
+    total = None
+    for sh, slc in zip(shards, lc["shards"]):
+        dev = sh["_device"]
+        xe = x.to(dev)
+        positions, kv_len, at = on(dev)
+        if spec.attn_kind == "mla":
+            if dev not in rows:
+                rows[dev] = _mla_latent(sh, slc, xe, positions, cfg, at)
+            ctx = _mla_attention(sh, slc, xe, positions, kv_len, cfg_s, fresh, at,
+                                 row=rows[dev], project=False)
+        else:
+            ctx = _gqa_attention(sh, slc, xe, positions, kv_len, cfg_s, spec.sliding, fresh,
+                                 at, project=False)
+        part = linear(ctx, sh["o_proj"], out_dtype=torch.float32).to(x.device)
+        total = part if total is None else total + part
+    o = total.to(x.dtype)
+    if "o_bias" in lp:
+        o = o + lp["o_bias"].to(o.dtype)
+    return o
 
 
 def _shared_gate(lp: Dict[str, Any], x2d: torch.Tensor) -> torch.Tensor:
@@ -293,10 +361,25 @@ def _mlp(lp: Dict[str, Any], x2d: torch.Tensor, cfg: ModelConfig,
          prefill: bool, activation: str, offload=None, layer: int = -1) -> torch.Tensor:
     gpt_oss = cfg.model_type == "gpt_oss"
     act = dict(swiglu_limit=cfg.swiglu_limit, gpt_oss=gpt_oss)
+    sp = lp.get("_sp")
+    if sp is not None and len(sp) > 1 and x2d.shape[0] % len(sp) == 0:
+        # sequence parallel (parallel/sp.py): each shard its slice of the
+        # rows, on its device; rows that do not split run whole below
+        n = x2d.shape[0] // len(sp)
+        return torch.cat([_mlp(sh, x2d[i * n:(i + 1) * n].to(sh["_device"]), cfg, prefill,
+                               activation).to(x2d.device) for i, sh in enumerate(sp)])
     if "mlp_w13" in lp:
         return mlp_forward(x2d, lp["mlp_w13"], lp["mlp_w2"], **act)
     routing = compute_routing(x2d, lp["gate_w"], cfg, lp.get("gate_bias"),
                               logit_bias=lp.get("gate_logit_bias"))
+    if "_ep" in lp:
+        # expert parallel (parallel/ep.py): every shard its slice of the
+        # experts on its device, the partials summed here in f32; the shared
+        # experts are a dense product, as under the reference's mesh
+        out = ep_combine(x2d, lp["_ep"], routing.topk_idx, routing.topk_weights,
+                         activation=activation, **act)
+        shared = _shared_expert(lp, x2d)
+        return out if shared is None else out + shared
     if "w13" not in lp:
         return _offload_mlp(lp, x2d, cfg, routing, offload, layer)
     w13 = lp["w13"]
@@ -332,14 +415,34 @@ def make_layer_step(cfg: ModelConfig, *, prefill: bool, positions: torch.Tensor,
                     offload=None):
     """One layer as a function, ``step(x, lp, lc, spec, layer) → x`` (norm →
     attention → norm → MLP, the cache updated in place): the body of
-    ``forward``'s layer loop, which the MTP module (``models/mtp.py``) runs
-    on its own layer too. The reference's ``make_layer_step``. `layer`, the
-    absolute index, names the host store's entry of an offloaded MoE layer."""
+    ``forward``'s layer loop, which the MTP module (``models/mtp.py``) and
+    the pipeline stages (``parallel/pp.py``) run too. The reference's
+    ``make_layer_step``. `layer`, the absolute index, names the host store's
+    entry of an offloaded MoE layer. A layer sharded over a mesh
+    (``parallel/mesh.py``) carries its shards in its leaves (``_heads``,
+    ``_ep``, ``_sp``), each with its device: the reference's `mesh`,
+    `sp_axis` and `ep_axis` arguments are read from there."""
+    moved = {positions.device: (positions, kv_len, at)}
+    shard_cfgs: Dict[int, ModelConfig] = {}
+
+    def on(dev: torch.device):
+        """(positions, kv_len, where the rows go) on a head shard's device."""
+        if dev not in moved:
+            moved[dev] = (positions.to(dev), kv_len.to(dev),
+                          None if at is None else CacheRows(*(
+                              None if t is None else t.to(dev) for t in at)))
+        return moved[dev]
+
     def step(x: torch.Tensor, lp: Dict[str, Any], lc: Dict[str, Any], spec,
              layer: int = -1) -> torch.Tensor:
         B, S = x.shape[:2]
         normed = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
-        if spec.attn_kind == "gqa":
+        if "_heads" in lp:
+            n = len(lp["_heads"])
+            if n not in shard_cfgs:
+                shard_cfgs[n] = shard_cfg(cfg, n)
+            attn = _sharded_attention(lp, lc, normed, spec, cfg, shard_cfgs[n], on, fresh)
+        elif spec.attn_kind == "gqa":
             attn = _gqa_attention(lp, lc, normed, positions, kv_len, cfg, spec.sliding, fresh, at)
         elif spec.attn_kind == "mla":
             attn = _mla_attention(lp, lc, normed, positions, kv_len, cfg, fresh, at)
@@ -353,6 +456,13 @@ def make_layer_step(cfg: ModelConfig, *, prefill: bool, positions: torch.Tensor,
     return step
 
 
+def _cache_rows_of(lc: Dict[str, Any]) -> Optional[int]:
+    """The rows S of a layer's attention buffers (of its first head shard's
+    when the layer is head-sharded), None without them."""
+    lc = lc["shards"][0] if "shards" in lc else lc
+    return next((lc[k].shape[2] for k in ("kv", "k") if k in lc), None)
+
+
 def step_inputs(length: torch.Tensor, seq_lens: torch.Tensor, S: int, buffers, prefill: bool):
     """(positions [B, S], valid [B, S], kv_len [B], where the rows go) of a
     pass over S tokens after `length` cached ones, `seq_lens` of them valid,
@@ -362,7 +472,7 @@ def step_inputs(length: torch.Tensor, seq_lens: torch.Tensor, S: int, buffers, p
     positions = length.to(torch.int64)[:, None] + steps
     valid = steps[None, :] < seq_lens[:, None]
     kv_len = length + seq_lens.to(length.dtype)
-    S_cache = next((lc[k].shape[2] for lc in buffers for k in ("kv", "k") if k in lc), None)
+    S_cache = next((n for n in map(_cache_rows_of, buffers) if n is not None), None)
     at = None if S_cache is None else cache_rows(positions, S_cache, decode=not prefill)
     return positions, valid, kv_len, at
 
@@ -371,7 +481,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
             cache: Dict[str, Any], cfg: ModelConfig, quant: QuantConfig,
             prefill: bool, return_all_logits: bool = False,
             history: int = 0, return_hidden: bool = False, spec_la: bool = False,
-            offload=None):
+            offload=None, mesh=None):
     """One pass over tokens [B, S] with seq_lens [B] valid tokens per row,
     after cache["length"] cached ones. Writes the new cache rows, advances
     cache["length"], and returns f32 logits [B, V] at each row's last valid
@@ -382,7 +492,18 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Tensor
     With `return_hidden`, returns (logits, the final-norm hidden [B, S, H]
     at every position: the MTP module's input). `spec_la` (a verify step)
     leaves the DeltaNet layers' state for ``la_spec_commit``. `offload`: the
-    host store of a model whose routed experts are offloaded."""
+    host store of a model whose routed experts are offloaded. `mesh`: the
+    mesh the parameters are sharded over (``parallel/mesh.shard_params``;
+    read from them when not given), the cache laid out by
+    ``cache_shardings``: a cache whose slots split over dp runs each group's
+    rows on its devices, and the logits come back to group 0's home."""
+    if mesh is not None and params.get("mesh") is not mesh:
+        raise ValueError("forward(mesh=): shard the parameters over that mesh first "
+                         "(parallel.mesh.shard_params)")
+    if "dp" in cache:
+        return dp_groups(params, cache, lambda gp, gc, tok, sl: forward(
+            gp, tok, sl, gc, cfg, quant, prefill, return_all_logits, history, return_hidden,
+            spec_la, offload), (tokens, seq_lens))
     B, S = tokens.shape
     positions, valid, kv_len, at = step_inputs(cache["length"], seq_lens, S, cache["layers"],
                                                prefill)

@@ -33,6 +33,7 @@ from ..config import ModelConfig, QuantConfig
 from ..ops.norm import rms_norm
 from ..ops.qmm import linear
 from ..ops.sampling import sample_batched
+from ..parallel.mesh import dp_groups
 from .model import chosen_logprob, forward, la_spec_commit, make_layer_step, step_inputs
 from .params import mtp_layer_spec
 
@@ -70,7 +71,13 @@ def mtp_forward(params: Dict[str, Any], tokens: torch.Tensor, seq_lens: torch.Te
     S, V]) and with `return_hidden` also the module's final-norm hidden [B,
     S, H], which feeds the next depth of a draft chain. Its layer runs with
     the decode expert activation in decode and bf16 in prefill, and on the
-    first prefill chunk (`history` 0) attends to its own fresh rows."""
+    first prefill chunk (`history` 0) attends to its own fresh rows. A
+    cache whose slots split over a mesh's dp groups runs each group's rows
+    on its devices (``parallel/mesh.dp_groups``)."""
+    if "dp" in cache:
+        return dp_groups(params, cache, lambda gp, gc, tok, sl, hid: mtp_forward(
+            gp, tok, sl, hid, gc, cfg, quant, prefill, history, return_all_logits,
+            return_hidden), (tokens, seq_lens, hidden))
     mtp = params["mtp"]
     B, S = tokens.shape
     positions, valid, kv_len, at = step_inputs(cache["length"], seq_lens, S, [cache["layer"]],

@@ -40,7 +40,7 @@ def tiny_config(preset: str = "deepseek-v2-lite", **overrides) -> ModelConfig:
 def build_synthetic_engine(cfg: ModelConfig, quant: Optional[QuantConfig] = None,
                            max_len: int = 4096, seed: int = 0, device=None,
                            offload: bool = False, offload_engine: bool = False,
-                           hot_experts: int = 0) -> Engine:
+                           hot_experts: int = 0, mesh=None) -> Engine:
     """Random weights made on the card (or on `device`) from `seed`.
 
     `offload`: the same weights, the routed experts copied into a host store
@@ -50,9 +50,10 @@ def build_synthetic_engine(cfg: ModelConfig, quant: Optional[QuantConfig] = None
     prefill, `hot_experts` on the card) over a store filled on the host
     (``offload.build_synthetic_store``, the reference's bytes for `seed`), so
     the expert weights never touch the card at build time; its experts
-    differ from the `offload` path's."""
+    differ from the `offload` path's. `mesh`: the weights made on the mesh's
+    first device and sharded over it (``Engine(mesh=)``)."""
     quant = quant or QuantConfig()
-    dev = resolve_device(device)
+    dev = mesh.home(0) if mesh is not None else resolve_device(device)
     pin = dev.type == "cuda"
     if offload_engine:
         from ..offload import build_synthetic_store
@@ -68,4 +69,4 @@ def build_synthetic_engine(cfg: ModelConfig, quant: Optional[QuantConfig] = None
         from ..offload import store_from_params
 
         params, store = store_from_params(cfg, quant, params, pin=pin)
-    return Engine(cfg, quant, params, max_len=max_len, device=dev, offload=store)
+    return Engine(cfg, quant, params, max_len=max_len, device=dev, offload=store, mesh=mesh)

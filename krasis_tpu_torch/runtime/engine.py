@@ -25,6 +25,12 @@ engine (``models/model.py`` ``_offload_mlp``), prefill included. The shared
 experts are not folded and speculative decoding is off, as in the
 reference. ``runtime/offload_engine.py`` ``OffloadEngine`` streams the
 expert weights through the card for prefill instead.
+
+``Engine(..., mesh=mesh)`` runs over a device mesh (``parallel/mesh.py``):
+the parameters sharded (experts over ep, attention by head where it
+splits), the shared experts not folded, the cache laid out by
+``cache_shardings``; speculative decoding runs on the mesh as well. The
+engine's one slot does not split over dp: its row runs on dp group 0.
 """
 
 from __future__ import annotations
@@ -38,12 +44,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..config import ModelConfig, QuantConfig
-from ..device import resolve_device
 from ..models.model import chosen_logprob, forward
 from ..models.mtp import first_draft, spec_config, spec_decode_block, spec_prefill
 from ..models.params import fold_shared_experts
 from ..models.spec_ngram import ngram_decode_block
 from ..ops.sampling import SamplingParams, sample, sample_batched
+from ..parallel.mesh import cache_shardings, placed
 from .kv_cache import init_cache, init_mtp_cache, resolve_kv_quant
 
 CHUNK = 2048
@@ -150,13 +156,16 @@ class Engine:
     is ``runtime/scheduler.py``)."""
 
     def __init__(self, cfg: ModelConfig, quant: QuantConfig, params: Dict[str, Any],
-                 max_len: int = 4096, device=None, offload=None):
-        self.device = resolve_device(device)
+                 max_len: int = 4096, device=None, offload=None, mesh=None):
         self.cfg = cfg
         self.quant = quant = resolve_kv_quant(cfg, quant, 1, max_len)
         # the host store of an offloaded model's routed experts
         self.offload = offload
-        if quant.fold_shared_decode and offload is None:
+        # a device mesh (parallel/mesh.py): the parameters sharded over it,
+        # the cache laid out to match
+        self.mesh = mesh
+        params, self.device = placed(params, cfg, mesh, device, offload)
+        if quant.fold_shared_decode and offload is None and mesh is None:
             params = fold_shared_experts(params, cfg, quant)
         self.params = params
         self.max_len = max_len
@@ -175,10 +184,14 @@ class Engine:
 
     def reset(self, cache_len: Optional[int] = None):
         self._cache_len = cache_len or self.max_len
-        self.cache = init_cache(self.cfg, self.quant, 1, self._cache_len, self.device)
+        self.cache = self._placed(init_cache(self.cfg, self.quant, 1, self._cache_len,
+                                             self.device))
         if self.spec_mode == "mtp":
-            self.mtp_cache = init_mtp_cache(self.cfg, self.quant, 1, self._cache_len,
-                                            self.device)
+            self.mtp_cache = self._placed(init_mtp_cache(self.cfg, self.quant, 1,
+                                                         self._cache_len, self.device))
+
+    def _placed(self, cache: Dict[str, Any]) -> Dict[str, Any]:
+        return cache if self.mesh is None else cache_shardings(cache, self.params)
 
     def _forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
                  prefill: bool, return_all_logits: bool = False,
@@ -455,5 +468,6 @@ class Engine:
                                 decode_s=t3 - t2, logprobs=out_lps, finite=bool(finite))
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.mesh.distinct() if self.mesh is not None else (self.device,):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)

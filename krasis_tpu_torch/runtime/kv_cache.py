@@ -25,6 +25,7 @@ import torch
 
 from ..config import ModelConfig, QuantConfig
 from ..models.params import layer_specs, mtp_layer_spec
+from ..parallel.mesh import copy_row, slot_layers
 
 # "auto" kv dtype: bf16 caches up to this many bytes (KRASIS_TPU_KV_BYTES
 # overrides), fp8 beyond.
@@ -147,23 +148,22 @@ def store_rows(buf: torch.Tensor, at: CacheRows, rows: torch.Tensor,
 
 
 def insert_slot(decode_cache: Dict[str, Any], prefill_cache: Dict[str, Any],
-                slot: int) -> None:
+                slot: int, key: str = "layers") -> None:
     """Copy the batch-1 `prefill_cache` into row `slot` of `decode_cache`, in
     place: every layer's buffers (MLA kv, GQA k / v, DeltaNet state and
     conv) and the slot's length. The counterpart of the reference's
-    ``krasis_tpu/runtime/scheduler.py`` ``insert_slot``."""
-    for dlc, plc in zip(decode_cache["layers"], prefill_cache["layers"]):
-        for name, buf in dlc.items():
-            buf[slot].copy_(plc[name][0])
+    ``krasis_tpu/runtime/scheduler.py`` ``insert_slot``. Caches laid out
+    over a mesh (``parallel/mesh.cache_shardings``) copy into the slot's dp
+    group, shard by shard."""
+    layers, row = slot_layers(decode_cache, slot, key)
+    copy_row(layers, prefill_cache[key], row)
     decode_cache["length"][slot] = prefill_cache["length"][0]
 
 
 def insert_mtp_slot(decode_mtp: Dict[str, Any], prefill_mtp: Dict[str, Any],
                     slot: int) -> None:
     """``insert_slot`` for the MTP module's cache (``init_mtp_cache``)."""
-    for name, buf in decode_mtp["layer"].items():
-        buf[slot].copy_(prefill_mtp["layer"][name][0])
-    decode_mtp["length"][slot] = prefill_mtp["length"][0]
+    insert_slot(decode_mtp, prefill_mtp, slot, key="layer")
 
 
 def _layer_cache(cfg: ModelConfig, spec, kdt: torch.dtype, batch: int, max_len: int,

@@ -21,7 +21,10 @@ The port of ``krasis_tpu/runtime/scheduler.py``:
   ``_offload_mlp``; hot-expert leaves in `params` run on the card), and
   each admission chunk streams the expert weights through the card
   (``offload_engine.WeightStreamer``). The shared experts are not folded
-  and speculative decoding is off, as in the reference.
+  and speculative decoding is off, as in the reference;
+* with ``mesh`` (``parallel/mesh.py``), the parameters sharded over it and
+  the slots split over its dp groups when they divide, each group's rows
+  decoding on its own devices.
 
 One scheduler thread owns the device; request threads submit and read their
 tokens from per-request queues. A fault in that thread ends every waiting
@@ -41,13 +44,13 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..config import ModelConfig, QuantConfig
-from ..device import resolve_device
 from ..models.model import chosen_logprob, decode_block_batched
 from ..models.mtp import first_draft, spec_config, spec_decode_block
 from ..models.params import fold_shared_experts, pattern_info
 from ..models.spec_ngram import ngram_decode_block
 from ..ops.sampling import SamplingParams, sample_batched
 from .engine import CHUNK, halved_chunk, prefill_rows, spec_prefill_rows
+from ..parallel.mesh import cache_shardings, placed
 from .kv_cache import (init_cache, init_mtp_cache, insert_mtp_slot, insert_slot,
                        resolve_kv_quant)
 
@@ -82,9 +85,8 @@ class BatchScheduler:
     def __init__(self, cfg: ModelConfig, quant: QuantConfig, params: Dict[str, Any],
                  max_len: int = 4096, num_slots: int = 4, decode_block: int = 8,
                  device=None, mesh=None, offload=None):
-        if mesh is not None:
-            raise NotImplementedError("a mesh: parallelism is ROADMAP A-10")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        params, self.device = placed(params, cfg, mesh, device, offload)
         self.cfg = cfg
         self.quant = quant = resolve_kv_quant(cfg, quant, num_slots, max_len)
         self.offload = offload
@@ -93,7 +95,7 @@ class BatchScheduler:
             from .offload_engine import WeightStreamer
 
             self.streamer = WeightStreamer(cfg, offload, self.device)
-        if quant.fold_shared_decode and offload is None:
+        if quant.fold_shared_decode and offload is None and mesh is None:
             params = fold_shared_experts(params, cfg, quant)
         self.params = params
         self.max_len = max_len
@@ -102,10 +104,10 @@ class BatchScheduler:
         self.chunk = CHUNK
 
         dev = self.device
-        self.decode_cache = init_cache(cfg, quant, num_slots, max_len, dev)
+        self.decode_cache = self._new_cache(num_slots)
         # one reusable batch-1 prefill cache: rows past its length are
         # masked and later overwritten
-        self.prefill_cache = init_cache(cfg, quant, 1, max_len, dev)
+        self.prefill_cache = self._new_cache(1)
         # speculative decoding, gated as the engine is
         self.spec_mode, self.spec_k = spec_config(cfg, params)
         if offload is not None:
@@ -117,8 +119,8 @@ class BatchScheduler:
             # each slot's token history, on the device
             self._hist = torch.zeros((num_slots, max_len), dtype=torch.int64, device=dev)
         if self.spec:
-            self.mtp_decode_cache = init_mtp_cache(cfg, quant, num_slots, max_len, dev)
-            self.mtp_prefill_cache = init_mtp_cache(cfg, quant, 1, max_len, dev)
+            self.mtp_decode_cache = self._new_cache(num_slots, mtp=True)
+            self.mtp_prefill_cache = self._new_cache(1, mtp=True)
             self._drafts = torch.zeros((num_slots, self.spec_k), dtype=torch.int64, device=dev)
         self._active: List[Optional[Request]] = [None] * num_slots
         self._tokens = [0] * num_slots
@@ -142,6 +144,14 @@ class BatchScheduler:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="krasis-scheduler")
         self._thread.start()
+
+    def _new_cache(self, batch: int, mtp: bool = False) -> Dict[str, Any]:
+        """A zeroed cache of `batch` slots (the MTP module's with `mtp`),
+        laid out over the mesh when there is one: its slots split over dp
+        when they divide."""
+        make = init_mtp_cache if mtp else init_cache
+        cache = make(self.cfg, self.quant, batch, self.max_len, self.device)
+        return cache if self.mesh is None else cache_shardings(cache, self.params)
 
     # ------------------------------------------------------------------
 
@@ -305,10 +315,9 @@ class BatchScheduler:
                 raise
         # out of the handler, so the failed chunk's tensors are released
         self.chunk = chunk
-        self.prefill_cache = init_cache(self.cfg, self.quant, 1, self.max_len, self.device)
+        self.prefill_cache = self._new_cache(1)
         if self.spec:
-            self.mtp_prefill_cache = init_mtp_cache(self.cfg, self.quant, 1, self.max_len,
-                                                    self.device)
+            self.mtp_prefill_cache = self._new_cache(1, mtp=True)
         self._pc_tokens = []
         p = self._pending
         self._pending = {"req": p["req"], "ids": p["ids"], "pos": 0, "logits": None}

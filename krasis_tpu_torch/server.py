@@ -45,7 +45,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 from .chat import registry_dir
 from .ops.sampling import SamplingParams
@@ -623,23 +623,17 @@ def warmup(engine, scheduler=None):
     print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
 
 
-def _not_ported(args) -> Optional[str]:
-    """The ROADMAP item a requested flag waits for, if any."""
-    if args.mesh:
-        return "--mesh: parallelism is ROADMAP A-10"
-    return None
-
-
 AUTO_OFFLOAD_FRACTION = 0.92     # of the card's memory, for the resident weights
 
 
-def choose_offload(args, cfg, quant, device) -> bool:
+def choose_offload(args, cfg, quant, device, mesh=None) -> bool:
     """--offload: experts → True, none → False; auto → True when the
     model's resident weight bytes pass AUTO_OFFLOAD_FRACTION of the card's
-    memory (the CPU is never short of it: resident)."""
+    memory (the CPU is never short of it, and a mesh keeps the model
+    resident, as the reference's auto does: resident)."""
     if args.offload != "auto":
         return args.offload == "experts"
-    if device.type != "cuda":
+    if device.type != "cuda" or mesh is not None:
         return False
     from .budget import card_memory, compute_budget
 
@@ -674,7 +668,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dense-mlp-quant", default="int8", choices=("bf16", "int8"))
     ap.add_argument("--lm-head-quant", default="int8", choices=("bf16", "int8"))
     ap.add_argument("--mesh", default=None, metavar="DP,EP",
-                    help="shard over the local devices (not ported: ROADMAP A-10)")
+                    help="shard over a dp x ep device mesh (parallel/mesh.py): experts and "
+                         "attention heads over ep, batch slots over dp; needs dp * ep cards, "
+                         "or runs every shard on the CPU with --device cpu")
     ap.add_argument("--slots", type=int, default=0,
                     help="continuous-batching slots (BatchScheduler); 0 = one request at a "
                          "time through Engine.generate")
@@ -711,9 +707,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if bool(args.model) == bool(args.synthetic):
         ap.error("give one of --model and --synthetic")
-    missing = _not_ported(args)
-    if missing:
-        raise NotImplementedError(missing)
     # the engine and the scheduler read these when they are built
     if args.spec_k is not None:
         if args.spec_k <= 0:
@@ -733,6 +726,17 @@ def main(argv=None) -> int:
     from .device import resolve_device
 
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import OFFLOAD_MESH_ERROR, make_mesh
+
+        dp, ep = (int(x) for x in args.mesh.split(","))
+        # the CPU has one device: every shard goes there; on the card each
+        # shard needs a card of its own, as the reference's mesh does
+        mesh = make_mesh(dp * ep, dp=dp, devices=[dev] * (dp * ep) if dev.type == "cpu" else None)
+        if args.offload == "experts":
+            ap.error(OFFLOAD_MESH_ERROR)
+        print(f"--mesh {args.mesh}: {mesh}", flush=True)
     if args.synthetic:
         from .models.synthetic import build_synthetic_engine, tiny_config
 
@@ -740,9 +744,10 @@ def main(argv=None) -> int:
             cfg, quant = tiny_config("qwen3-moe"), make_quant(group_size=32)
         else:
             cfg, quant = preset_config(args.synthetic), make_quant()
-        offload = choose_offload(args, cfg, quant, dev)
+        offload = choose_offload(args, cfg, quant, dev, mesh)
         engine = build_synthetic_engine(cfg, quant, max_len=args.max_len, device=dev,
-                                        offload_engine=offload, hot_experts=args.hot_experts)
+                                        offload_engine=offload, hot_experts=args.hot_experts,
+                                        mesh=mesh)
         tok = None
         name = f"synthetic/{args.synthetic}"
     else:
@@ -752,15 +757,15 @@ def main(argv=None) -> int:
 
         cfg = ModelConfig.from_model_path(args.model)
         quant = make_quant()
-        if choose_offload(args, cfg, quant, dev):
+        if choose_offload(args, cfg, quant, dev, mesh):
             from .runtime.offload_engine import OffloadEngine
 
             params, store = load_params_offload(cfg, quant, device=dev)
             engine = OffloadEngine(cfg, quant, params, store, hot_experts=args.hot_experts,
                                    max_len=args.max_len, device=dev)
         else:
-            params = load_params(cfg, quant, device=dev)
-            engine = Engine(cfg, quant, params, max_len=args.max_len, device=dev)
+            params = load_params(cfg, quant, device=dev, mesh=mesh)
+            engine = Engine(cfg, quant, params, max_len=args.max_len, device=dev, mesh=mesh)
         tok_files = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")
         if os.path.isdir(args.model) and not any(
                 os.path.exists(os.path.join(args.model, f)) for f in tok_files):
@@ -783,7 +788,7 @@ def main(argv=None) -> int:
 
         sched = BatchScheduler(cfg, quant, engine.params, max_len=args.max_len,
                                num_slots=args.slots, decode_block=args.decode_block,
-                               device=engine.device, offload=engine.offload)
+                               device=engine.device, offload=engine.offload, mesh=mesh)
     try:
         if not args.no_warmup:
             warmup(engine, sched)

@@ -47,6 +47,9 @@ def test_scan_covers_the_package():
             "krasis_tpu_torch/quality.py", "krasis_tpu_torch/runtime/bpe_train.py",
             "krasis_tpu_torch/models/train_qwen3moe.py"} <= names
     assert {"chip_smoke.py", "tools/sass_compare.py", "tools/measure_phases.py"} <= names
+    assert {"krasis_tpu_torch/parallel/mesh.py", "krasis_tpu_torch/parallel/ep.py",
+            "krasis_tpu_torch/parallel/pp.py", "krasis_tpu_torch/parallel/sp.py",
+            "tools/mesh_phases.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -84,14 +84,30 @@ def test_gpt_oss_mxfp4_gate_up_deinterleaved(root):
 
 
 def test_mesh_and_offload_name_their_roadmap_items(root, tmp_path, monkeypatch):
-    """A mesh stays refused (ROADMAP A-10); the offload load (A-9, ported)
-    gives a device tree without routed stacks and a store holding them
-    (tests/test_torch_offload_engine.py holds both against the reference)."""
+    """A mesh load (A-10) places each leaf on its shard, through the cache
+    and directly: each ep shard's experts are its slice of the unsharded
+    load's stacks, nothing is folded, and the replicated leaves are the
+    same; the offload load (A-9) gives a device tree without routed stacks
+    and a store holding them (tests/test_torch_offload_engine.py holds both
+    against the reference)."""
+    from krasis_tpu_torch.parallel.mesh import make_mesh
+
     monkeypatch.setenv("KRASIS_TPU_HOME", str(tmp_path / "home"))
     path = write_checkpoint("qwen3_moe", root)
     cfg = ModelConfig.from_model_path(path)
-    with pytest.raises(NotImplementedError, match="A-10"):
-        load_params(cfg, QuantConfig(), mesh=object(), device="cpu")
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    whole = load_params(cfg, QuantConfig(), device="cpu")
+    for use_cache in (True, False):
+        sharded = load_params(cfg, QuantConfig(), mesh=mesh, use_cache=use_cache)
+        assert sharded["mesh"] is mesh
+        for lp, slp in zip(whole["layers"], sharded["layers"]):
+            assert "w13" not in slp and len(slp["_ep"]) == 2
+            E = cfg.n_routed_experts // 2
+            for e, sh in enumerate(slp["_ep"]):
+                for k in ("w13", "w2"):
+                    assert torch.equal(sh[k].q, lp[k].q[e * E:(e + 1) * E])
+                    assert torch.equal(sh[k].scales, lp[k].scales[e * E:(e + 1) * E])
+            assert torch.equal(slp["gate_w"], lp["gate_w"])
     params, store = load_params_offload(cfg, QuantConfig(), device="cpu")
     assert store.layers == [i for i in range(cfg.num_hidden_layers) if cfg.layer_is_moe(i)]
     assert all("w13" not in lp for lp in params["layers"])

@@ -13,6 +13,7 @@ Every queue read has a timeout, so a hang fails instead of eating the clock.
 """
 
 import queue
+import re
 import sys
 import threading
 import time
@@ -498,19 +499,31 @@ def test_fault_during_concurrent_submits_ends_every_request(models, monkeypatch)
     assert len(ended) + len(refused) == 64 and all(ended) and refused
 
 
-@pytest.mark.parametrize("kw,item", [({"offload": object(), "mesh": object()}, "A-10"),
+@pytest.mark.parametrize("kw,item", [({"offload": object(), "mesh": 2}, "A-10"),
                                      ({"offload": object()}, "A-9"),
-                                     ({"mesh": object()}, "A-10")])
+                                     ({"mesh": 2}, "A-10")])
 def test_branches_not_ported_raise(models, kw, item):
-    """A mesh stays refused (ROADMAP A-10). The offload branch (A-9) is
-    ported: it takes the store, folds nothing and turns spec decoding off
-    (tests/test_torch_offload_engine.py drives it)."""
-    if item == "A-9":
-        sch = scheduler(models, "qwen3-moe", **kw)
-        try:
-            assert sch.offload is kw["offload"] and sch.spec_mode is None
-        finally:
-            sch.shutdown()
+    """The offload branch (A-9) takes the store, folds nothing and turns spec
+    decoding off (tests/test_torch_offload_engine.py drives it). A mesh
+    (A-10, a 1 x 2 mesh on the CPU here) shards the parameters, splits the
+    experts over ep and keeps the shared experts unfolded
+    (tests/test_torch_scheduler_mesh.py drives it); with offload it stays
+    refused in the reference server's words."""
+    from krasis_tpu_torch.parallel.mesh import OFFLOAD_MESH_ERROR, make_mesh
+
+    if "mesh" in kw:
+        kw = {**kw, "mesh": make_mesh(kw["mesh"], devices=["cpu"] * kw["mesh"])}
+    if item == "A-10" and "offload" in kw:
+        with pytest.raises(ValueError, match=re.escape(OFFLOAD_MESH_ERROR)):
+            scheduler(models, "qwen3-moe", **kw)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        scheduler(models, "qwen3-moe", **kw)
+    sch = scheduler(models, "qwen3-moe", **kw)
+    try:
+        if item == "A-9":
+            assert sch.offload is kw["offload"] and sch.spec_mode is None
+        else:
+            assert sch.mesh is kw["mesh"] and sch.params["mesh"] is kw["mesh"]
+            assert all(len(lp["_ep"]) == 2 for lp in sch.params["layers"])
+            assert sch.device == torch.device("cpu")
+    finally:
+        sch.shutdown()

@@ -350,15 +350,44 @@ def test_channel_filter_matches_reference(stream):
     (["--offload", "experts"], "A-9"), (["--hot-experts", "4"], "A-9"),
     (["--spec-k", "2", "--mesh", "1,8"], "A-10"),
     (["--spec-mode", "mtp", "--offload", "experts"], "A-9")])
-def test_main_raises_for_flags_not_ported(flags, item, monkeypatch):
-    """--mesh stays refused (ROADMAP A-10). The offload flags (A-9) are
-    ported: main builds an OffloadEngine, with spec decoding off."""
+def test_main_raises_for_flags_not_ported(flags, item, monkeypatch, capsys):
+    """The offload flags (A-9): main builds an OffloadEngine, with spec
+    decoding off. --mesh (A-10): with --device cpu, main builds the engine
+    over a 1 x 8 CPU mesh (the tiny model's 8 experts one a shard), which
+    answers a request through the server's handler; --offload experts beside
+    --mesh stays refused in the reference's words."""
+    for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
+        monkeypatch.setenv(name, "")        # main sets them: restored afterwards
+        monkeypatch.delenv(name)
+    if item == "A-10":
+        from krasis_tpu_torch.parallel.mesh import OFFLOAD_MESH_ERROR
+
+        seen = {}
+        monkeypatch.setattr(server, "run_server",
+                            lambda engine, *a, **kw: seen.update(engine=engine))
+        assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
+                            *flags]) == 0
+        eng = seen["engine"]
+        assert eng.mesh.shape == {"dp": 1, "ep": 8} and eng.params["mesh"] is eng.mesh
+        assert all(len(lp["_ep"]) == 8 for lp in eng.params["layers"])
+        want = eng.generate([5, 6, 7], max_new_tokens=3, stop_ids={-1}).tokens
+        httpd = server.start_temp_server(eng, None, "tiny", port=0, backend="python")
+        try:
+            status, _, body = _post(httpd.port, {"messages": [{"role": "user", "content": "hi"}],
+                                                 "max_tokens": 3, "temperature": 0.0})
+        finally:
+            httpd.shutdown()
+        assert status == 200 and json.loads(body)["usage"]["completion_tokens"] == 3
+        assert len(want) == 3
+        capsys.readouterr()
+        with pytest.raises(SystemExit):
+            server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup", *flags,
+                         "--offload", "experts"])
+        assert OFFLOAD_MESH_ERROR in capsys.readouterr().err
+        return
     if item == "A-9":
         from krasis_tpu_torch.runtime.offload_engine import OffloadEngine
 
-        for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
-            monkeypatch.setenv(name, "")        # main sets them: restored afterwards
-            monkeypatch.delenv(name)
         seen = {}
         monkeypatch.setattr(server, "run_server",
                             lambda engine, *a, **kw: seen.update(engine=engine))
@@ -368,9 +397,6 @@ def test_main_raises_for_flags_not_ported(flags, item, monkeypatch):
         assert eng.spec_mode is None
         # --hot-experts alone keeps the model resident (--offload auto, on the CPU)
         assert isinstance(eng, OffloadEngine) == ("--offload" in flags)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        server.main(["--synthetic", "tiny", "--device", "cpu", *flags])
 
 
 def test_main_runs_on_the_card_unless_asked(monkeypatch):

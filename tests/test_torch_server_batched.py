@@ -28,6 +28,7 @@ import torch
 from krasis_tpu_torch import server
 from krasis_tpu_torch.config import QuantConfig, preset_config
 from krasis_tpu_torch.models.params import init_synthetic_params
+from krasis_tpu_torch.ops.sampling import SamplingParams
 from krasis_tpu_torch.runtime import scheduler as sched_mod
 from krasis_tpu_torch.runtime.engine import Engine
 from krasis_tpu_torch.runtime.scheduler import BatchScheduler
@@ -286,22 +287,35 @@ def test_module_entry_point_with_slots(tmp_path):
     (["--spec-k", "2", "--offload", "experts"], "A-9"), (["--offload", "experts"], "A-9"),
     (["--mesh", "1,8"], "A-10")])
 def test_slots_with_flags_not_ported_raise(flags, item, monkeypatch):
-    """--mesh stays refused (ROADMAP A-10). --offload experts (A-9) is
-    ported: the scheduler shares the OffloadEngine's store, spec off."""
-    if item == "A-9":
-        for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
-            monkeypatch.setenv(name, "")        # main sets them: restored afterwards
-            monkeypatch.delenv(name)
-        seen = {}
+    """--offload experts (A-9): the scheduler shares the OffloadEngine's
+    store, spec off. --mesh (A-10, a 1 x 8 CPU mesh here): the scheduler
+    runs over the engine's mesh and answers a request as the mesh engine
+    does."""
+    for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
+        monkeypatch.setenv(name, "")        # main sets them: restored afterwards
+        monkeypatch.delenv(name)
+    seen = {}
 
-        def serve(engine, tok, name, host, port, backend="auto", scheduler=None):
-            seen.update(engine=engine, scheduler=scheduler)
-        monkeypatch.setattr(server, "run_server", serve)
-        assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
-                            "--slots", "2", *flags]) == 0
-        eng, sch = seen["engine"], seen["scheduler"]
+    def serve(engine, tok, name, host, port, backend="auto", scheduler=None):
+        seen.update(engine=engine, scheduler=scheduler)
+        if item == "A-10":               # main shuts the scheduler down after this
+            greedy = SamplingParams(temperature=0.0)
+            want = engine.generate([3, 4, 5], max_new_tokens=4, sampling=greedy,
+                                   stop_ids={-1})
+            req = scheduler.submit([3, 4, 5], max_new_tokens=4, sampling=greedy,
+                                   stop_ids={-1})
+            got = []
+            while (t := req.out_queue.get(timeout=120)) is not None:
+                got.append(t)
+            seen.update(want=want.tokens, got=got, error=req.error)
+    monkeypatch.setattr(server, "run_server", serve)
+    assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
+                        "--slots", "2", *flags]) == 0
+    eng, sch = seen["engine"], seen["scheduler"]
+    if item == "A-9":
         assert eng.offload is not None and sch.offload is eng.offload
         assert eng.spec_mode is None and sch.spec_mode is None
         return
-    with pytest.raises(NotImplementedError, match=item):
-        server.main(["--synthetic", "tiny", "--device", "cpu", "--slots", "2", *flags])
+    assert sch.mesh is eng.mesh and eng.mesh.shape == {"dp": 1, "ep": 8}
+    assert sch.params is eng.params
+    assert seen["error"] is None and seen["got"] == seen["want"] and len(seen["got"]) == 4

@@ -69,22 +69,27 @@ def test_main_accepts_spec_flags(monkeypatch, flags, mode, k, slots):
     (["--spec-mode", "ngram", "--spec-k", "3", "--mesh", "1,8"], "A-10"),
     (["--spec-mode", "ngram", "--offload", "experts"], "A-9")])
 def test_spec_flags_with_flags_not_ported_raise(flags, item, monkeypatch):
-    """--mesh stays refused (ROADMAP A-10). Under --offload experts (A-9,
-    ported) spec decoding is off, as in the reference."""
+    """Under --offload experts (A-9) spec decoding is off, as in the
+    reference. Under --mesh (A-10, a 1 x 8 CPU mesh here) it stays on: the
+    engine's prompt-lookup stream equals its vanilla one."""
+    for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
+        monkeypatch.setenv(name, "")        # main sets them: restored afterwards
+        monkeypatch.delenv(name)
+    seen = {}
+    monkeypatch.setattr(server, "run_server",
+                        lambda engine, *a, **kw: seen.update(engine=engine))
+    assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
+                        *flags]) == 0
+    eng = seen["engine"]
     if item == "A-9":
-        for name in ("KRASIS_TPU_SPEC_MODE", "KRASIS_TPU_SPEC_K", "KRASIS_TPU_NO_SPEC"):
-            monkeypatch.setenv(name, "")        # main sets them: restored afterwards
-            monkeypatch.delenv(name)
-        seen = {}
-        monkeypatch.setattr(server, "run_server",
-                            lambda engine, *a, **kw: seen.update(engine=engine))
-        assert server.main(["--synthetic", "tiny", "--device", "cpu", "--no-warmup",
-                            *flags]) == 0
-        assert seen["engine"].offload is not None
-        assert (seen["engine"].spec_mode, seen["engine"].spec_available) == (None, False)
+        assert eng.offload is not None
+        assert (eng.spec_mode, eng.spec_available) == (None, False)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        server.main(["--synthetic", "tiny", "--device", "cpu", *flags])
+    assert eng.mesh.shape == {"dp": 1, "ep": 8} and (eng.spec_mode, eng.spec_k) == ("ngram", 3)
+    ids = [9, 10, 11, 9, 10, 11, 9, 10]
+    spec = eng.generate(ids, max_new_tokens=8, stop_ids={-1}).tokens
+    eng.spec_available = False
+    assert spec == eng.generate(ids, max_new_tokens=8, stop_ids={-1}).tokens
 
 
 @pytest.mark.parametrize("name,mode", [("v2-lite", "mtp"), ("hybrid", "ngram")])
