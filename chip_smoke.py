@@ -119,9 +119,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    request on each load through Engine.generate (finite, no plain MoE form,
    K1-K4 for V2-Lite and K1, K2, K6, K7 for GPT-OSS launched, the same
    tokens); then the division on f32 inputs, and the GGUF codecs on the
-   card against the CPU bit for bit. Phase 10 (a)'s two servers and phase
-   13 (c)'s run as processes of their own beside phase 9 (serve_beside),
-   so the rates phase 9 prints are taken beside them.
+   card against the CPU bit for bit. Phase 10 (a)'s two servers, phase
+   13 (c)'s, the launcher and the suite (16 (c), (d)) run as processes of
+   their own beside phase 9 (serve_beside), so the rates phase 9 prints are
+   taken beside them.
 
 10. serving (krasis_tpu_torch/server.py): (b) inside phase 9, the V2-Lite
    checkpoint's engine with the committed test tokenizer
@@ -132,9 +133,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    and in turns with direct generate calls; usage.prompt_tokens must equal
    the template's length, the served text and logprobs Engine.generate's on
    the same ids, and the served requests must launch K1, K2 (one-launch and
-   split), K3 and K4 with no plain MoE route; (a) after phase 9, python -m krasis_tpu_torch.server
-   --synthetic deepseek-v2-lite (27 layers, int4 gs 128, int8 expert
-   activations) on the native transport as a subprocess: /health,
+   split), K3 and K4 with no plain MoE route; (a) beside phase 9, python -m
+   krasis_tpu_torch.cli serve --synthetic deepseek-v2-lite (27 layers, int4
+   gs 128, int8 expert activations; part of the flags from a config file,
+   16 (b)) on the native transport as a subprocess: /health,
    /v1/models, a 404, a 512-id prompt + 32 greedy tokens unstreamed and
    streamed (the same ids, logprobs, usage), a stop string across two
    tokens that ends a stream where it first occurs, a stream the client drops (the next request must be
@@ -242,6 +244,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    refused by the number of devices on a one-card host.
    ``python tools/mesh_phases.py`` runs it alone.
 
+16. the tooling entry points (krasis_tpu_torch/cli.py, syscheck.py,
+   runlog.py, tracing.py, the timing flags, stress_test.py, suite.py,
+   fused_moe.py, auto_optimise.py, launcher.py), after phase 15 on phase
+   4's V2-Lite Q4 engine (``tooling_phase``): (a) cli check names the card
+   and its memory, run_startup_checks accepts V2-Lite Q4 and refuses
+   Qwen3-235B at Q4 resident and, with offload, against the host's RAM, and
+   cli budget runs without --hbm-gb; (e) KrasisTpuMoE on one layer's 64
+   experts at T = 1 (K5) and 2048 (K4), a third of the picks masked with -1,
+   and forward_routed from the layer's gate, within 3e-2 of the plain
+   gathered / ragged forms, no plain route; (f) capture_trace around a
+   40 + 8 request under annotate("prefill") / annotate("decode"): the trace
+   names both and K1, K2 (one-launch and split), K3 and K4; (g)
+   KRASIS_TPU_DIAG: one [diag] line a layer in layer order, finite; (i)
+   auto_optimise over decode blocks 8 and 16, the winner set on a fresh
+   engine by apply_tuning. Beside phase 9: (h) the stress battery, in a
+   process of its own on phase 4's engine built again from seed 0 (prompts
+   and the sampling sweep at 8 tokens, the contract edges on an engine at
+   max_len 160, the scheduler churn: 8 requests of 32 tokens on 4 slots,
+   one cancelled), holding what holds whatever the weights (determinism,
+   logprobs, the stop token, the room, the streams, the cancel) and
+   printing the degeneracy verdicts; (b) phase 10 (a)'s two servers start as
+   python -m krasis_tpu_torch.cli serve in one working directory, from a
+   --config file with one flag overridden on the command line, --note and
+   --min-free-ram-gb 2; the run log must begin with the second's note, hold
+   the file's values and the override, and the first's be archived under
+   logs/; (c) cli launch --non-interactive serves the phase 9 V2-Lite
+   checkpoint named by its config_torch, answers a chat request and stops
+   with its server on SIGTERM; (d) python -m krasis_tpu_torch.suite runs
+   one combo (the tiny Qwen3-MoE on the card), its row rc 0 with numbers.
+   ``python tools/tooling_phases.py`` runs it alone.
+
 In every family every logit must be finite and every kernel (and K2 form)
 of the path must have been launched by the requests. The last two lines are the card's
 name and power limit and the JSON result; the line before them lists the
@@ -258,6 +291,7 @@ import sys
 import time
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
+ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12             # dense tensor-core rates, H100 SXM data sheet
 PEAK_INT8 = 1979e12
 PEAK_CUDA_CORES = 67e12        # f32 outside the tensor cores; the probes' integer adds run there
@@ -1753,7 +1787,8 @@ def profile_phase(eng, prompt, new: int, forbid=(), require=()):
 def run_family(label, preset, quant, kernel_phase, requests, on_path, results, rng,
                profile_decode, off_path=(), entry_points=None, forms=(), off_names=(),
                prefill_off_names=(), prefill_on_names=(), profile_bf16=0, batched=None,
-               spec=None, offload=None, measure=None, mesh=None, profile_prefill=2048):
+               spec=None, offload=None, measure=None, mesh=None, tooling=None,
+               profile_prefill=2048):
     """One model family at full width: build the engine, hold its kernels to
     their plain versions, answer `requests` ((prompt tokens, new tokens,
     expert activation[, top_logprobs[, kv cache]]), the kv cache None for
@@ -1775,8 +1810,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
     phase on the same weights, `spec(eng, cfg, results, rng)`, the
     speculative-decoding phase, `offload(eng, cfg, results, rng)`, the
     offload tier's, `measure(eng, cfg, results, rng)`, the measurement
-    entry points', and `mesh(eng, cfg, results, rng)`, the mesh's, when
-    given."""
+    entry points', `mesh(eng, cfg, results, rng)`, the mesh's, and
+    `tooling(eng, cfg, results, rng)`, the tooling's, when given."""
     import gc
     from dataclasses import replace
 
@@ -1914,6 +1949,8 @@ def run_family(label, preset, quant, kernel_phase, requests, on_path, results, r
         t_mesh = time.perf_counter()
         mesh(eng, cfg, results, rng)
         print(f"[time] {label}: mesh phase {time.perf_counter() - t_mesh:.1f} s", flush=True)
+    if tooling is not None:
+        tooling(eng, cfg, results, rng)
     del eng, engines, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2647,7 +2684,8 @@ def load_phase():
     """9. Checkpoints on disk: DeepSeek-V2-Lite in bf16 safetensors (3
     layers) and GPT-OSS-20B in its MXFP4 layout (2 layers), at full width,
     written into a temporary directory that also holds the weight cache
-    (KRASIS_TPU_HOME), removed at the end; then the GGUF codecs."""
+    (KRASIS_TPU_HOME), removed at the end; then the GGUF codecs. Beside
+    10b, the launcher serves the V2-Lite checkpoint (16 (c))."""
     import os
     import shutil
     import tempfile
@@ -2665,10 +2703,19 @@ def load_phase():
         load_family("DeepSeek-V2-Lite bf16 safetensors (3 layers)", "deepseek-v2-lite",
                     V2LITE_CONFIG, v2lite_tensors, quant, root, ("K1", "K2", "K3", "K4"), rng)
         t_serve = time.perf_counter()
-        serve_checkpoint_phase(os.path.join(root, "deepseek-v2-lite"), quant)
-        print(f"[time] serve phase, in process: {time.perf_counter() - t_serve:.1f} s",
-              flush=True)
-        offload_load_check(os.path.join(root, "deepseek-v2-lite"), quant, rng)
+        path = os.path.join(root, "deepseek-v2-lite")
+        src = os.path.join(ROOT, SERVE_TOKENIZER)
+        for f in os.listdir(src):
+            shutil.copy(os.path.join(src, f), path)
+        # 16 (c): the launcher serves this checkpoint from a process beside 10b
+        launched = in_thread(launcher_check, path, os.environ["KRASIS_TPU_HOME"])
+        try:
+            serve_checkpoint_phase(path, quant)
+            print(f"[time] serve phase, in process: {time.perf_counter() - t_serve:.1f} s",
+                  flush=True)
+            offload_load_check(path, quant, rng)
+        finally:
+            launched()
         for done in ("deepseek-v2-lite", "home"):
             shutil.rmtree(os.path.join(root, done))
         load_family("GPT-OSS-20B MXFP4 (2 layers)", "gpt-oss-20b", GPTOSS_CONFIG,
@@ -2832,7 +2879,7 @@ def serve_more_requests(port, req, ids, new, fail):
 
 
 def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
-                           every_request=True, port=None, procs=None):
+                           every_request=True, port=None, procs=None, run_log=None):
     """10a. ``python -m krasis_tpu_torch.server`` at full width on the native
     transport, as a user starts it (with ``--slots N`` among `server_args`,
     through a BatchScheduler): health, models, a 404, a 512-id prompt
@@ -2844,7 +2891,10 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
     server's log, which is printed. Without `every_request`, only the unstreamed and
     streamed 512-id requests run between the start and SIGTERM. `port` is
     the server's (a free one by default); the server's process is appended
-    to `procs` where given, so that a caller can stop it."""
+    to `procs` where given, so that a caller can stop it. The server runs in
+    its own temporary directory, where it opens its run log, unless
+    `run_log` (phase 16 (b), ``cli_serve_command``) starts it through the
+    CLI in a directory it shares with another server."""
     import os
     import shutil
     import signal
@@ -2854,13 +2904,15 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
     home = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     port = port or free_port()
     log_path = os.path.join(home, "server.log")
-    env = {**os.environ, "KRASIS_TPU_HOME": home}
+    if run_log is None:
+        cmd, cwd = ["-m", "krasis_tpu_torch.server", *server_args, "--server-backend",
+                    "native"], home
+    else:
+        cmd, cwd = cli_serve_command(server_args, run_log), run_log["dir"]
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "krasis_tpu_torch.server", *server_args,
-             "--server-backend", "native", "--port", str(port)],
-            stdout=log, stderr=subprocess.STDOUT, env=env)
+        proc = subprocess.Popen([sys.executable, *cmd, "--port", str(port)], stdout=log,
+                                stderr=subprocess.STDOUT, env=subprocess_env(home), cwd=cwd)
     if procs is not None:
         procs.append(proc)
 
@@ -2951,7 +3003,8 @@ def serve_subprocess_phase(server_args=SERVE_SYNTHETIC, new=64, expect_log=(),
                 f"stream the next 4-token request took {t_next:.2f} s (alone {t_short:.2f} s); "
                 f"two concurrent 16-token requests {t_pair:.2f} s, both answered; "
                 if every_request else "")
-        say(f"[serve] subprocess {' '.join(server_args)}, native transport: up in "
+        say(f"[serve] subprocess {'cli serve ' if run_log else ''}{' '.join(server_args)}, "
+            f"native transport: up in "
               f"{t_up:.1f} s; 512 + {new} greedy: unstreamed ids = streamed ids, usage right; "
               f"role chunk at {1e3 * t_role:.1f} ms, first content chunk at "
               f"{1e3 * t_content[0]:.1f} ms, [DONE] at {t_done:.2f} s; {timing}{more}exit 0 on "
@@ -2969,45 +3022,63 @@ def say(msg: str) -> None:
     sys.stdout.flush()
 
 
-def serve_beside(work):
-    """The servers of SERVE_RUNS, each as its own process driven from a
-    thread of this one, all started together and run while `work()` runs
-    here; then wait for them. A failure of `work` stops the servers; the
-    first failure raises. The servers share the card and the host with
-    `work`, so the rates either prints are taken beside the others."""
-    import threading
+def serve_beside(work, runs=None, beside=()):
+    """The servers of `runs` (default SERVE_RUNS), each as its own process
+    driven from a thread of this one, and the callables of `beside`, each
+    in a thread, all started together and run while `work()` runs here;
+    then wait for them. A failure of `work` stops the servers; the first
+    failure raises. The servers share the card and the host with `work`, so
+    the rates either prints are taken beside the others. The runs through
+    the CLI start one after another in one working directory, from one
+    config file, and their run logs are checked at the end (16 (b))."""
+    import shutil
+    import tempfile
 
-    errors, procs = [], []
+    runs = SERVE_RUNS if runs is None else runs
+    procs = []
+    shared = tempfile.mkdtemp(prefix="chip_smoke_cli_serve_")
+    config = os.path.join(shared, "serve.cfg")
+    with open(config, "w") as f:
+        f.write(RUN_LOG_CONFIG)
+    notes, logs = [], []
+    for args in runs:
+        run_log = None
+        if args[4]:
+            notes.append(f"chip_smoke 16 (b), server {len(notes) + 1}: {' '.join(args[0])}")
+            run_log = {"dir": shared, "config": config, "note": notes[-1],
+                       "after": notes[-2] if len(notes) > 1 else None}
+        logs.append(run_log)
 
-    def run(args, port):
+    def serve_run(args, port, run_log):
         t0 = time.perf_counter()
-        try:
-            serve_subprocess_phase(*args, port=port, procs=procs)
-        except BaseException as e:         # serve_beside raises it
-            errors.append(e)
-            return
+        serve_subprocess_phase(*args[:4], port=port, procs=procs, run_log=run_log)
         say(f"[time] serve phase, server subprocess {' '.join(args[0][2:])}: "
             f"{time.perf_counter() - t0:.1f} s (beside the others)")
 
-    threads = [threading.Thread(target=run, args=(args, port), daemon=True)
-               for args, port in zip(SERVE_RUNS, free_ports(len(SERVE_RUNS)))]
     t0 = time.perf_counter()
-    for t in threads:
-        t.start()
+    waits = [in_thread(serve_run, args, port, run_log)
+             for args, port, run_log in zip(runs, free_ports(len(runs)), logs)]
+    waits += [in_thread(fn) for fn in beside]
     try:
-        work()
-    except BaseException:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        raise
+        failed = None
+        try:
+            work()
+        except BaseException as e:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            failed = e
+        for wait in waits:                 # every thread ends before the first failure raises
+            try:
+                wait()
+            except BaseException as e:
+                failed = failed or e
+        if failed is not None:
+            raise failed
+        if len(notes) > 1:
+            run_log_check(shared, notes)
     finally:
-        for t in threads:
-            t.join(timeout=900)
-    if any(t.is_alive() for t in threads):
-        raise AssertionError("[serve] a server's thread did not end within 900 s")
-    if errors:
-        raise errors[0]
+        shutil.rmtree(shared, ignore_errors=True)
     say(f"[time] served subprocesses and the work beside them: "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3024,7 +3095,8 @@ def long_message(tok, target=2000) -> str:
 
 def serve_checkpoint_phase(path, quant):
     """10b. The engine over the checkpoint at `path` (its weight cache warm)
-    with the committed test tokenizer, served in process on each transport:
+    with the committed test tokenizer (copied in by the caller), served in
+    process on each transport:
     a chat message that templates to about 2048 ids (a whole prefill chunk)
     and a short one, 16 greedy tokens each with logprobs, and the short one
     with 64 tokens streamed. usage.prompt_tokens must be the template's
@@ -3050,9 +3122,6 @@ def serve_checkpoint_phase(path, quant):
     from krasis_tpu_torch.runtime.tokenizer import Tokenizer
 
     card = card_line()
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), SERVE_TOKENIZER)
-    for f in os.listdir(src):
-        shutil.copy(os.path.join(src, f), path)
     cfg = ModelConfig.from_model_path(path)
     eng = Engine(cfg, quant, load_params(cfg, quant, device=SERVE_DEVICE), max_len=4096,
                  device=SERVE_DEVICE)
@@ -6212,7 +6281,8 @@ def mesh_phase(eng, cfg, results, rng):
             raise AssertionError("--mesh 1,2 on a one-card host was not refused")
         real_serve, server.run_server = server.run_server, serve
         try:
-            server.main(["--synthetic", "deepseek-v2-lite", "--mesh", "1,2", "--no-warmup"])
+            with run_log_dir():
+                server.main(["--synthetic", "deepseek-v2-lite", "--mesh", "1,2", "--no-warmup"])
         except ValueError as e:
             if "need 2 devices, have 1" not in str(e):
                 raise
@@ -6227,17 +6297,588 @@ def mesh_phase(eng, cfg, results, rng):
           f"(c) {t_c - t_b:.1f} s, (d) {time.perf_counter() - t_c:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# 16. [tooling]: the operator's entry points around the engine and server
+# --------------------------------------------------------------------------
+
+TOOLING_TOL = 3e-2        # (e): KrasisTpuMoE against the plain MoE forms
+TOOLING_T = (1, 2048)     # (e): rows, one decode step and one prefill chunk
+TOOLING_BLOCKS = (8, 16)  # (i): the decode blocks auto_optimise measures
+TOOLING_EDGE_LEN = 160    # (h): the contract edges' engine max_len
+
+
+def subprocess_env(home):
+    """The environment of a process this script starts outside the repo:
+    the package importable from any working directory, KRASIS_TPU_HOME at
+    `home`."""
+    path = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
+    return {**os.environ, "KRASIS_TPU_HOME": home, "PYTHONPATH": path}
+
+
+@contextlib.contextmanager
+def run_log_dir():
+    """server.main in process: its run log (runlog.setup_run_logging) opens
+    in the working directory and hooks the root logger and sys.excepthook.
+    A temporary working directory inside the block, removed after it, the
+    hooks put back: the script leaves no file in the repo."""
+    import logging
+    import shutil
+    import tempfile
+
+    root = logging.getLogger()
+    handlers, hook, cwd = list(root.handlers), sys.excepthook, os.getcwd()
+    path = tempfile.mkdtemp(prefix="chip_smoke_runlog_")
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(cwd)
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+                h.close()
+        sys.excepthook = hook
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def captured(fn, *args, **kw):
+    """(fn's result, what it printed)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args, **kw)
+    return res, out.getvalue()
+
+
+def tooling_checks(cfg):
+    """16 (a): cli check names the card and its memory; run_startup_checks
+    accepts V2-Lite Q4 and refuses Qwen3-235B at Q4 resident and, with
+    offload, against the host's RAM, in the reference's words; cli budget
+    runs without --hbm-gb."""
+    import torch
+    from krasis_tpu_torch import cli, syscheck
+    from krasis_tpu_torch.budget import card_memory, format_budget
+    from krasis_tpu_torch.config import QuantConfig, preset_config
+
+    rc, out = captured(cli.main, ["check"])
+    rep = json.loads(out.split("[syscheck]", 1)[1])
+    name, mem = torch.cuda.get_device_name(0), card_memory(0)
+    dev = rep["devices"][0]
+    if (rc != 0 or rep["backend"] != "cuda" or dev["kind"] != name
+            or abs(dev["memory_gb"] - mem / 2**30) > 0.01):
+        raise AssertionError(f"[tooling] cli check reported {rep['devices']}, want {name} with "
+                             f"{mem / 2**30:.2f} GiB")
+    q4 = QuantConfig(expert_bits=4, group_size=128)
+    fit = syscheck.run_startup_checks(cfg, q4, verbose=False)
+    refusals = []
+    for offload, want in ((False, "GiB/chip but HBM is"), (True, "RAM but host has")):
+        try:
+            syscheck.run_startup_checks(preset_config("qwen3-235b"), q4, verbose=False,
+                                        offload=offload)
+        except RuntimeError as e:
+            if want not in str(e) or "refusing to start" not in str(e):
+                raise
+            refusals.append(str(e))
+        else:
+            raise AssertionError(f"[tooling] Qwen3-235B Q4 (offload={offload}) was not refused")
+    rc, out = captured(cli.main, ["budget", "deepseek-v2-lite"])
+    if rc != 0 or out.strip() != format_budget(preset_config("deepseek-v2-lite"),
+                                               QuantConfig(expert_bits=4), 1, mem).strip():
+        raise AssertionError(f"[tooling] cli budget printed {out!r}")
+    print(f"[tooling] (a) cli check: {dev['kind']}, {dev['memory_gb']} GiB; V2-Lite Q4 fits "
+          f"({fit['per_chip_gb']} GiB a card, max context {fit['max_context']}); Qwen3-235B Q4 "
+          f"refused: {refusals[0]!r}; with offload: {refusals[1]!r}; cli budget without "
+          f"--hbm-gb: {out.strip().splitlines()[0]!r}", flush=True)
+
+
+def fused_moe_check(eng, cfg, g):
+    """16 (e): KrasisTpuMoE over one MoE layer's routed experts at T = 1
+    (K5) and 2048 (K4), a third of the picks masked with -1, against the
+    plain gathered / ragged forms on the same picks (masked: expert 0 at
+    weight 0, the reference's clamp-and-zero); forward_routed from the
+    layer's gate against the plain form on compute_routing's picks."""
+    import torch
+    from krasis_tpu_torch.fused_moe import KrasisTpuMoE
+    from krasis_tpu_torch.ops.moe import moe_forward_gathered, moe_forward_ragged
+    from krasis_tpu_torch.ops.routing import compute_routing
+
+    lp = next(lp for lp in eng.params["layers"] if "w13" in lp)
+    layer = KrasisTpuMoE(lp["w13"], lp["w2"], cfg.num_experts_per_tok)
+    k, dev = cfg.num_experts_per_tok, lp["gate_w"].device
+    lines = []
+    zero_counts()
+    for T in TOOLING_T:
+        plain = moe_forward_gathered if T == 1 else moe_forward_ragged
+        x = torch.randn(T, cfg.hidden_size, generator=g, device=dev).to(torch.bfloat16)
+        r = compute_routing(x, lp["gate_w"], cfg, lp.get("gate_bias"))
+        masked = (torch.arange(T * k, device=dev) % 3 == 0).view(T, k)
+        idx = torch.where(masked, -1, r.topk_idx)
+        got = layer(x, idx, r.topk_weights)
+        want = plain(x, lp["w13"], lp["w2"], torch.where(masked, 0, r.topk_idx),
+                     torch.where(masked, 0.0, r.topk_weights.float()))
+        err, over = max_err(got, want, TOOLING_TOL)
+        routed = layer.forward_routed(x, lp["gate_w"], cfg, lp.get("gate_bias"))
+        rerr, rover = max_err(routed, plain(x, lp["w13"], lp["w2"], r.topk_idx,
+                                            r.topk_weights), TOOLING_TOL)
+        if over > 1 or rover > 1:
+            raise AssertionError(f"[tooling] KrasisTpuMoE at T = {T}: masked {err:.3g} "
+                                 f"({over:.2f} of the limit), routed {rerr:.3g} ({rover:.2f})")
+        lines.append(f"T = {T}: masked max|d| {err:.3g} ({over:.2f} of the limit), "
+                     f"forward_routed {rerr:.3g} ({rover:.2f})")
+    counts, _ = read_counts("[tooling] KrasisTpuMoE", ("K4", "K5"))
+    print(f"[tooling] (e) KrasisTpuMoE on a layer's {cfg.n_routed_experts} routed experts (a "
+          f"stack of {lp['w13'].q.shape[0]}, the shared folded in) top-{k}, a third of the picks "
+          f"masked: {'; '.join(lines)}; K5 {counts['K5']}, K4 {counts['K4']} launches, no plain "
+          "route", flush=True)
+
+
+# 16 (f): the kernels the trace must name, by their kernel records' names
+TRACE_KERNELS = {
+    "K1": lambda n: "qmm_kernel" in n and not is_k5(n) and not is_k6(n),
+    "K2 one-launch": lambda n: "attention_kernel" in n,
+    "K2 split": lambda n: "combine_kernel" in n,
+    "K3": lambda n: "w4a8_stage" in n,
+    "K4": lambda n: "gmm_kernel" in n,
+}
+
+
+def trace_check(eng, cfg, rng):
+    """16 (f): capture_trace around one 40 + 8 request, its prefill under
+    annotate("prefill") and its decode steps under annotate("decode"); the
+    trace must name both and K1, K2 (one-launch and split + combine), K3
+    and K4."""
+    import shutil
+    import tempfile
+
+    from krasis_tpu_torch import tracing
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    prefill, forward = eng._prefill_prompt, eng._forward
+
+    def annotated_prefill(*a, **kw):
+        with tracing.annotate("prefill"):
+            return prefill(*a, **kw)
+
+    def annotated_forward(*a, prefill=False, **kw):
+        if prefill:
+            return forward(*a, prefill=prefill, **kw)
+        with tracing.annotate("decode"):
+            return forward(*a, prefill=prefill, **kw)
+
+    prompt = rng.integers(100, cfg.vocab_size - 100, 40).tolist()
+    eng._prefill_prompt, eng._forward = annotated_prefill, annotated_forward
+    t0 = time.perf_counter()
+    try:
+        with tracing.capture_trace(out):
+            res = eng.generate(prompt, max_new_tokens=8, stop_ids={-1})
+            t_run = time.perf_counter()
+        t_export = time.perf_counter()
+        path = os.path.join(out, tracing.TRACE_NAME)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        del eng._prefill_prompt, eng._forward
+        shutil.rmtree(out, ignore_errors=True)
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    want = {"prefill": "prefill" in names, "decode": "decode" in names}
+    want.update({name: any(map(hit, kernels)) for name, hit in TRACE_KERNELS.items()})
+    missing = [name for name, hit in want.items() if not hit]
+    if missing or len(res.tokens) != 8:
+        raise AssertionError(f"[tooling] the trace names no {missing} ({len(kernels)} kernel "
+                             f"names, {len(res.tokens)} tokens)")
+    print(f"[tooling] (f) capture_trace of 40 + 8: {len(events)} events ({size / 1e6:.1f} MB), "
+          f"{len(kernels)} kernel names; it names {', '.join(want)}; the request traced "
+          f"{t_run - t0:.1f} s, the export {t_export - t_run:.1f} s, the read "
+          f"{time.perf_counter() - t_export:.1f} s", flush=True)
+
+
+def diag_check(eng, cfg):
+    """16 (g): KRASIS_TPU_DIAG's lines for one 8-id prefill: one a layer, in
+    the model's layer order, each finite; none with the flag off."""
+    import math
+
+    import torch
+    from krasis_tpu_torch.models.model import forward
+    from krasis_tpu_torch.models.params import layer_specs
+    from krasis_tpu_torch.runtime.kv_cache import init_cache
+    from krasis_tpu_torch.timing import TIMING
+
+    dev = eng.device
+    ids = torch.zeros((1, 128), dtype=torch.int64, device=dev)     # 8 ids in a 128-row chunk
+    ids[0, :8] = torch.arange(100, 108)
+    n = torch.tensor([8], dtype=torch.int32, device=dev)
+
+    def run():
+        with torch.inference_mode():
+            forward(eng.params, ids, n, init_cache(cfg, eng.quant, 1, 256, dev), cfg,
+                    eng.quant, prefill=True)
+
+    TIMING.diag = True
+    try:
+        _, out = captured(run)
+    finally:
+        TIMING.diag = False
+    _, off = captured(run)
+    lines = [line.split() for line in out.splitlines() if line.startswith("[diag] ")]
+    kinds = [spec.attn_kind for spec in layer_specs(cfg)]
+    rms = [float(parts[2].split("=")[1]) for parts in lines]
+    if ([parts[1] for parts in lines] != kinds or not all(map(math.isfinite, rms))
+            or "[diag]" in off):
+        raise AssertionError(f"[tooling] diag lines {lines}, want kinds {kinds}; with the "
+                             f"flag off: {off[:200]!r}")
+    print(f"[tooling] (g) KRASIS_TPU_DIAG: {len(lines)} [diag] lines in layer order, in_rms "
+          f"{min(rms):.4f}-{max(rms):.4f}; none with the flag off", flush=True)
+
+
+def stress_check(eng, cfg):
+    """16 (h): the stress battery on phase 4's engine. Held: greedy and
+    seeded determinism, finite logprobs at most 0, the stop token, the
+    near-max_len room, churn streams that end whole, the cancel. The
+    degeneracy verdicts judge trained weights and are printed only."""
+    from krasis_tpu_torch import stress_test
+    from krasis_tpu_torch.runtime.engine import Engine
+
+    prompts = stress_test.run_stress(eng, None, max_new_tokens=8)
+    sweep = stress_test.run_sampling_sweep(eng, None, n_tokens=8)
+    edge_eng = Engine(cfg, eng.quant, eng.params, max_len=TOOLING_EDGE_LEN, device=eng.device)
+    edges = stress_test.run_contract_edges(edge_eng, None)
+    del edge_eng
+    churn = stress_test.run_scheduler_churn(cfg, eng.quant, eng.params)
+    held = {
+        "greedy determinism": sweep["greedy_deterministic"]["ok"],
+        "seeded determinism": sweep["seeded_sampling_deterministic"]["ok"],
+        "logprobs": not any("bad_logprob" in v["issues"] for v in sweep.values()),
+        "stop token": edges.get("stop_token", {}).get("ok", False),
+        "near max_len": edges["near_max_len"]["ok"],
+        "churn": all(v["n"] == 32 and not any(i.startswith("error") for i in v["issues"])
+                     for name, v in churn.items() if name != "req1_cancelled"),
+        "cancel": churn["req1_cancelled"]["ok"] and not churn["req1_cancelled"]["issues"]}
+    failed = [name for name, ok in held.items() if not ok]
+    if failed:
+        raise AssertionError(f"[tooling] stress battery: {failed}; sweep {sweep}, edges "
+                             f"{edges}, churn {churn}")
+    rates = sorted(v["decode_tok_s"] for k, v in prompts.items() if not k.startswith("_"))
+    verdicts = {f"{section}.{name}": v["issues"]
+                for section, cases in (("prompts", prompts), ("sampling", sweep),
+                                       ("contracts", edges), ("scheduler", churn))
+                for name, v in cases.items() if isinstance(v, dict) and v.get("issues")}
+    print(f"[tooling] (h) stress battery: held {', '.join(held)}; {len(rates)} prompts x 8 "
+          f"tokens at {rates[len(rates) // 2]} tok/s median decode ({rates[0]}-{rates[-1]}); "
+          f"near-max_len {edges['near_max_len']['n']} tokens, cancelled stream "
+          f"{churn['req1_cancelled']['n']} of 32; {card_line()}", flush=True)
+    print(f"[stress] degeneracy verdicts (random weights, not held): "
+          f"{json.dumps(verdicts) if verdicts else 'none'}", flush=True)
+
+
+def auto_optimise_check(eng, cfg):
+    """16 (i): tune_engine over two decode blocks with KRASIS_TPU_HOME
+    temporary; apply_tuning sets the winner on a fresh Engine."""
+    import shutil
+    import tempfile
+
+    from krasis_tpu_torch import auto_optimise
+    from krasis_tpu_torch.runtime.engine import Engine
+
+    home = tempfile.mkdtemp(prefix="chip_smoke_auto_")
+    block = eng.decode_block
+    try:
+        with krasis_home(home):
+            res = auto_optimise.tune_engine(eng, blocks=TOOLING_BLOCKS, runs=1, prompt_len=256)
+            fresh = Engine(cfg, eng.quant, eng.params, device=eng.device)
+            fresh.decode_block = 0
+            applied = auto_optimise.apply_tuning(fresh)
+        stored = os.listdir(os.path.join(home, auto_optimise.STORE_DIR))
+    finally:
+        eng.decode_block = block
+        shutil.rmtree(home, ignore_errors=True)
+    if (not applied or fresh.decode_block != res["best_decode_block"]
+            or sorted(res["decode_blocks"]) != sorted(map(str, TOOLING_BLOCKS))):
+        raise AssertionError(f"[tooling] auto_optimise {res}; applied {applied}, block "
+                             f"{fresh.decode_block}")
+    print(f"[tooling] (i) auto_optimise decode tok/s by block {res['decode_blocks']}, winner "
+          f"{res['best_decode_block']} (stored as {stored}), set on a fresh engine by "
+          f"apply_tuning; {card_line()}", flush=True)
+
+
+def tooling_phase(eng, cfg, results, rng):
+    """Phase 16 in this process, on phase 4's V2-Lite Q4 engine: (a), (e)-(g)
+    and (i) of the module docstring. (b)-(d) and (h) run beside phase 9."""
+    import torch
+
+    t = [time.perf_counter()]
+    g = torch.Generator(device=eng.device)
+    g.manual_seed(16)
+    for step in (lambda: tooling_checks(cfg), lambda: fused_moe_check(eng, cfg, g),
+                 lambda: trace_check(eng, cfg, rng), lambda: diag_check(eng, cfg),
+                 lambda: auto_optimise_check(eng, cfg)):
+        step()
+        t.append(time.perf_counter())
+    spans = ", ".join(f"({p}) {b - a:.1f} s" for p, a, b in zip("aefgi", t, t[1:]))
+    print(f"[time] tooling phase {t[-1] - t[0]:.1f} s: {spans}", flush=True)
+
+
+def stress_process():
+    """16 (h)'s process: phase 4's engine built again (DeepSeek-V2-Lite Q4 from
+    seed 0: the same weights) and the stress battery on it."""
+    from krasis_tpu_torch.config import QuantConfig, preset_config
+    from krasis_tpu_torch.models.synthetic import build_synthetic_engine
+
+    cfg = preset_config("deepseek-v2-lite")
+    stress_check(build_synthetic_engine(cfg, QuantConfig(expert_bits=4, group_size=128),
+                                        seed=0), cfg)
+
+
+def stress_beside():
+    """16 (h) beside phase 9, in a process of its own (``stress_process``),
+    whose lines are printed here: the battery decodes some 350 tokens on a
+    host-bound path, which would hold up this process."""
+    import shutil
+    import tempfile
+
+    home = tempfile.mkdtemp(prefix="chip_smoke_stress_")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.stress_process()"], cwd=home,
+            env=subprocess_env(home), capture_output=True, text=True, timeout=900)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"[tooling] the stress battery's process exited "
+                             f"{proc.returncode}: {proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    say("\n".join(line for line in proc.stdout.splitlines()
+                  if line.startswith(("[tooling]", "[stress]")))
+        + f"\n[time] (h) stress battery, a process beside phase 9: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# 16 (b): phase 10 (a)'s V2-Lite servers start through the CLI, in one
+# working directory, part of their flags from this config file; the command
+# line's --expert-activation overrides the file's
+RUN_LOG_CONFIG = ("# phase 10 (a)'s V2-Lite servers, through the CLI\n"
+                  "synthetic=deepseek-v2-lite\nexpert-activation=bf16\nserver-backend=native\n")
+RUN_LOG_OVERRIDE = ("--expert-activation", "int8")
+
+
+def cli_serve_command(server_args, run_log):
+    """16 (b): ``-m krasis_tpu_torch.cli serve`` for phase 10 (a)'s
+    `server_args` (SERVE_SYNTHETIC and more): the model, the expert
+    activation and the transport from `run_log`'s config file, the
+    activation again on the command line (RUN_LOG_OVERRIDE), the rest of
+    `server_args` as they are, the server's note and the RAM watchdog's
+    floor. With `run_log["after"]`, waits until the run log of the
+    directory begins with that note, so that this start archives that
+    server's log."""
+    if tuple(server_args[:4]) != SERVE_SYNTHETIC:
+        raise ValueError(f"the config file holds {SERVE_SYNTHETIC}, not {server_args[:4]}")
+    after = run_log.get("after")
+    if after is not None:
+        path = os.path.join(run_log["dir"], "krasis_tpu_torch.log")
+        deadline = time.perf_counter() + 300
+        while True:
+            try:
+                with open(path) as f:
+                    if f.readline().startswith(f"=== RUN NOTE: {after} ==="):
+                        break
+            except OSError:
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"[serve] no run log from the server noted {after!r}")
+            time.sleep(0.2)
+    return ["-m", "krasis_tpu_torch.cli", "serve", "--config", run_log["config"],
+            *RUN_LOG_OVERRIDE, *server_args[4:], "--note", run_log["note"],
+            "--min-free-ram-gb", "2"]
+
+
+def run_log_check(path, notes):
+    """16 (b), after both servers ended: the run log in `path` begins with
+    the second server's note and holds the config file's values and the
+    command line's override; the first server's log, archived under logs/
+    by the second start, begins with its note."""
+    with open(os.path.join(path, "krasis_tpu_torch.log")) as f:
+        text = f.read()
+    archived = sorted(os.listdir(os.path.join(path, "logs")))
+    first = ""
+    if len(archived) == 1 and archived[0].startswith("krasis_tpu_torch_"):
+        with open(os.path.join(path, "logs", archived[0])) as f:
+            first = f.read()
+    lines = text.splitlines()
+    config = [line for line in lines if "config file" in line
+              and "'expert_activation': 'bf16'" in line and "'server_backend': 'native'" in line]
+    args = [line for line in lines if "arguments: " in line
+            and "'expert_activation': 'int8'" in line and "'min_free_ram_gb': 2.0" in line]
+    if (not text.startswith(f"=== RUN NOTE: {notes[1]} ===") or not config or not args
+            or not first.startswith(f"=== RUN NOTE: {notes[0]} ===")):
+        raise AssertionError(f"[tooling] run log: {text[:2000]!r}; archived {archived}: "
+                             f"{first[:300]!r}")
+    say(f"[tooling] (b) cli serve x 2 in one directory: krasis_tpu_torch.log begins with "
+        f"{notes[1]!r}, holds the config file's values ({config[0].split(': ', 1)[1][:160]}) "
+        f"and the command line's {' '.join(RUN_LOG_OVERRIDE)}; the first server's log archived "
+        f"as logs/{archived[0]} ({len(first.splitlines())} lines)")
+
+
+LAUNCH_SETTINGS = "expert_activation=int8\n"     # (c): config_torch beside the model and port
+SUITE_TOML = """[suite]
+prefill_lengths = [256]
+
+[[combo]]
+name = "tiny"
+synthetic = "tiny"
+max_len = 1024
+"""
+
+
+def suite_check():
+    """16 (d): ``python -m krasis_tpu_torch.suite`` on one combo, the tiny
+    Qwen3-MoE on the card, in a temporary directory that is also its
+    KRASIS_TPU_HOME: the summary row must have rc 0 and numbers."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_suite_")
+    try:
+        toml = os.path.join(d, "suite.toml")
+        with open(toml, "w") as f:
+            f.write(SUITE_TOML)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "krasis_tpu_torch.suite", toml, "--out-dir",
+                               os.path.join(d, "out")], cwd=d, env=subprocess_env(d),
+                              capture_output=True, text=True, timeout=600)
+        rows = [line for line in proc.stdout.splitlines() if line.startswith("| tiny |")]
+        cells = [c.strip() for c in rows[0].strip().strip("|").split("|")] if rows else []
+
+        def number(c):
+            try:
+                return float(c) > 0
+            except ValueError:
+                return False
+        if proc.returncode != 0 or len(cells) != 5 or cells[4] != "0" or not (
+                number(cells[1]) and number(cells[2])):
+            log = os.path.join(d, "out", "suite_logs", "tiny.log")
+            tail = open(log).read()[-3000:] if os.path.exists(log) else ""
+            raise AssertionError(f"[tooling] suite: rc {proc.returncode}, rows {rows}; "
+                                 f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}{tail}")
+        say(f"[tooling] (d) suite, one combo (synthetic tiny on the card): {rows[0]} in "
+            f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def launcher_check(model, home):
+    """16 (c): ``python -m krasis_tpu_torch.cli launch --non-interactive``
+    with KRASIS_TPU_HOME at `home`, whose config_torch names the checkpoint
+    at `model`: the launcher starts krasis_tpu_torch.server, which answers
+    one chat request; SIGTERM to the launcher stops both, exit 0."""
+    import shutil
+    import signal
+    import tempfile
+
+    port = free_port()
+    with open(os.path.join(home, "config_torch"), "w") as f:
+        f.write(f"model={model}\nport={port}\n{LAUNCH_SETTINGS}")
+    cwd = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    log_path = os.path.join(cwd, "launcher.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "krasis_tpu_torch.cli", "launch", "--non-interactive"],
+            stdout=log, stderr=subprocess.STDOUT, env=subprocess_env(home), cwd=cwd,
+            start_new_session=True)    # its group: the launcher and the server it starts
+
+    def fail(msg):
+        with open(log_path) as f:
+            raise AssertionError(f"[tooling] launcher: {msg}; its log:\n{f.read()[-4000:]}")
+
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"exited with {proc.returncode} before its server answered")
+            try:
+                if http_call(port, "GET", "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 600:
+                fail("no /health within 600 s")
+            time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        status, _, body = http_call(port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Hello from the launcher."}],
+            "max_tokens": 8, "temperature": 0.0})
+        usage = json.loads(body).get("usage", {}) if status == 200 else {}
+        if not 1 <= usage.get("completion_tokens", 0) <= 8:
+            fail(f"the chat request answered {status} {body[:300]!r}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        alive = alive_group(proc.pid)
+        with open(log_path) as f:
+            launched = [line for line in f.read().splitlines() if line.startswith("launching:")]
+        if rc != 0 or alive:
+            fail(f"exit {rc} on SIGTERM, a process of its group alive: {alive}")
+        if not launched or f"-m krasis_tpu_torch.server --model {model} " not in launched[0]:
+            fail(f"it launched {launched}")
+        say(f"[tooling] (c) cli launch --non-interactive: {launched[0][len('launching: '):][:200]}"
+            f"; up in {t_up:.1f} s, a chat request answered ({usage}), launcher and server "
+            f"stopped by SIGTERM, exit 0; {card_line()}")
+    finally:
+        if proc.poll() is None or alive_group(proc.pid):
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(cwd, ignore_errors=True)
+
+
+def alive_group(pgid) -> bool:
+    try:
+        os.killpg(pgid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+def beside_error(fn, *args):
+    """fn(*args) in a thread beside other work: None, or what it raised."""
+    try:
+        fn(*args)
+    except BaseException as e:             # the caller raises it
+        return e
+    return None
+
+
+def in_thread(fn, *args, timeout=900):
+    """fn(*args) started in a thread; returns a function that waits for it
+    and raises what it raised."""
+    import threading
+
+    out = []
+    t = threading.Thread(target=lambda: out.append(beside_error(fn, *args)), daemon=True)
+    t.start()
+
+    def join():
+        t.join(timeout)
+        if not out:
+            raise AssertionError(f"{fn.__name__} did not end within {timeout} s")
+        if out[0] is not None:
+            raise out[0]
+    return join
+
+
 # phase 10a's servers and 13 (c)'s: (server arguments, new tokens, log lines
-# expected, every request). The default --offload auto must keep V2-Lite
-# resident; the last is the offload tier as a user starts it
+# expected, every request, through the CLI). The default --offload auto must
+# keep V2-Lite resident; the last is the offload tier as a user starts it.
+# Those through the CLI share a working directory and a config file (16 (b))
 SERVE_RUNS = (
-    (SERVE_SYNTHETIC, 32, (("--offload auto:", "GiB: resident"),), True),
-    (SERVE_SYNTHETIC + ("--slots", "4"), 32, (), True),
-    (SERVE_OFFLOAD, 32, (("--offload experts:", "GB of routed experts in host RAM"),), False))
+    (SERVE_SYNTHETIC, 32, (("--offload auto:", "GiB: resident"),), True, True),
+    (SERVE_SYNTHETIC + ("--slots", "4"), 32, (), True, True),
+    (SERVE_OFFLOAD, 32, (("--offload experts:", "GB of routed experts in host RAM"),), False,
+     False))
 
 
 def run_phases(results, early, since):
-    """Phases 3-15 in order, with phase 9 and the served subprocesses
+    """Phases 3-16 in order, with phase 9 and the served subprocesses
     together; `early` is quality_prepare's state, `since` main's start."""
     import functools
 
@@ -6268,7 +6909,8 @@ def run_phases(results, early, since):
                ("K1", "K2", "K3", "K4", "K5"), results, rng, profile_decode=8,
                forms=("one-launch", "split", "one-launch+fp8", "split+fp8"),
                batched=batch_phase, spec=spec_phase, offload=offload_phase,
-               measure=functools.partial(measure_phase, early=early), mesh=mesh_phase)
+               measure=functools.partial(measure_phase, early=early), mesh=mesh_phase,
+               tooling=tooling_phase)
     mark("Qwen3-Coder-Next Q4")
     run_family("Qwen3-Coder-Next Q4, int8 projections", "qwen3-coder-next",
                QuantConfig(expert_bits=4, group_size=128, attention="int8"),
@@ -6299,9 +6941,10 @@ def run_phases(results, early, since):
                prefill_on_names=("gmm_kernel",))
     mark("probes")
     probe_phase(results)
-    # phase 9 in this process while 10a's and 13 (c)'s servers run beside it
+    # phase 9 in this process while 10a's and 13 (c)'s servers and 16 (d)'s
+    # suite and (h)'s stress battery run beside it
     mark("checkpoints, with the served subprocesses beside them")
-    serve_beside(load_phase)
+    serve_beside(load_phase, beside=(suite_check, stress_beside))
     mark("done")
 
 

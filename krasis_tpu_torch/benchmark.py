@@ -306,7 +306,7 @@ def network_benchmark(engine, model_name: str, port: int, eng_decode: Optional[f
     return out
 
 
-def main(argv=None) -> Dict:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m krasis_tpu_torch.benchmark")
     ap.add_argument("--model", help="checkpoint path")
     ap.add_argument("--synthetic", help="synthetic preset name (tiny: a tiny Qwen3-MoE)")
@@ -329,6 +329,11 @@ def main(argv=None) -> Dict:
                     help="continuous-batching aggregate decode throughput at these slot "
                          "counts (skips the single-request protocol)")
     ap.add_argument("--port", type=int, default=8398, help="0 takes a free port")
+    return ap
+
+
+def main(argv=None) -> Dict:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if bool(args.model) == bool(args.synthetic):
         ap.error("give one of --model and --synthetic")

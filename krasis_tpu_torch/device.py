@@ -13,14 +13,12 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    if device is None:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "krasis_tpu_torch runs on a CUDA device and none is available; "
                 "pass device='cpu' to run the plain PyTorch versions")
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type == "cuda":
         set_exact_matmul_flags()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")

@@ -54,6 +54,7 @@ from ..parallel.ep import ep_combine
 from ..parallel.mesh import dp_groups, shard_cfg
 from ..quant import QTensor
 from ..runtime.kv_cache import CacheRows, cache_rows, store_rows
+from ..timing import TIMING
 from .params import GATED_ATTENTION_TYPES, layer_specs
 
 
@@ -436,6 +437,10 @@ def make_layer_step(cfg: ModelConfig, *, prefill: bool, positions: torch.Tensor,
     def step(x: torch.Tensor, lp: Dict[str, Any], lc: Dict[str, Any], spec,
              layer: int = -1) -> torch.Tensor:
         B, S = x.shape[:2]
+        if TIMING.diag:
+            # the reference's KRASIS_TPU_DIAG: each layer's input RMS
+            r = float(torch.sqrt(torch.mean(torch.square(x.to(torch.float32)))))
+            print(f"[diag] {spec.attn_kind} in_rms={r:.4f}", flush=True)
         normed = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.norm_plus_one)
         if "_heads" in lp:
             n = len(lp["_heads"])

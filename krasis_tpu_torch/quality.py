@@ -675,6 +675,34 @@ def write_markdown(results: Sequence[Dict], path: str) -> None:
         f.write("\n".join(lines) + "\n")
 
 
+def spec_only(args, out_dir: str) -> None:
+    """``--spec-only``: the spec-exactness rows on the first seed's
+    checkpoint (built if absent, the MTP head trained if absent), spliced
+    into that seed's newest saved matrix; QUALITY.md rewritten from each
+    seed's newest matrix."""
+    import glob
+
+    ckpt = build_quality_checkpoint(steps=args.steps, seed=args.seeds[0], device=args.device)
+    train_mtp_head(ckpt, steps=args.mtp_steps, device=args.device)
+    spec = run_spec_exactness(ckpt, group_size=args.group_size, device=args.device)
+    print(json.dumps(spec, indent=2))
+    results = []
+    for seed in args.seeds:
+        found = sorted(glob.glob(os.path.join(out_dir, f"matrix_s{seed}_*.json")))
+        if not found:
+            continue
+        with open(found[-1]) as f:
+            res = json.load(f)
+        if seed == args.seeds[0]:
+            res["spec"] = spec
+            with open(found[-1], "w") as f:
+                json.dump(res, f, indent=2)
+        results.append(res)
+    if results:
+        write_markdown(results, os.path.join(out_dir, "QUALITY.md"))
+        print("wrote", os.path.join(out_dir, "QUALITY.md"))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m krasis_tpu_torch.quality",
                                  description=__doc__.split("\n")[0])
@@ -688,6 +716,10 @@ def main(argv=None) -> None:
     ap.add_argument("--force-train", action="store_true")
     ap.add_argument("--train-only", action="store_true",
                     help="build the checkpoints and exit")
+    ap.add_argument("--spec-only", action="store_true",
+                    help="re-run only the spec-exactness rows on the first seed's "
+                         "checkpoint (training the MTP head if absent), splice them into "
+                         "the newest saved matrix JSONs and rewrite QUALITY.md")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="the card (default) or, when asked, the CPU")
     ap.add_argument("--out", default=None,
@@ -696,6 +728,9 @@ def main(argv=None) -> None:
 
     out_dir = args.out or os.path.join(_home(), "quality_torch", "results")
     os.makedirs(out_dir, exist_ok=True)
+    if args.spec_only:
+        spec_only(args, out_dir)
+        return
     results = []
     for seed in args.seeds:
         ckpt = build_quality_checkpoint(steps=args.steps, seed=seed, force=args.force_train,

@@ -30,6 +30,12 @@ tokenizer: message text is hashed into token ids and tokens come back as
 the host engine for decode, ``--hot-experts N`` of each MoE layer on the
 card); ``--offload auto`` (the default) takes it only when the model's
 resident bytes (``budget.compute_budget``) pass 0.92 of the card's memory.
+
+``main`` takes ``--config FILE`` (KEY=VALUE lines whose values are defaults
+that the flags override), opens the run log ``krasis_tpu_torch.log`` in the
+working directory (the previous one archived under ``logs/``; ``--note``
+heads the new one) and starts the host RAM watchdog (``--min-free-ram-gb``,
+0 turns it off): ``runlog.py``, ``syscheck.py``.
 """
 
 from __future__ import annotations
@@ -696,15 +702,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "a layer group at a time, decode computes them on the host). auto "
                          "(default): resident when the model fits the card, else experts")
     ap.add_argument("--no-warmup", action="store_true", help="skip the pre-serve warmup")
+    ap.add_argument("--note", default=None,
+                    help="run note written at the top of the log file (runlog.py)")
+    ap.add_argument("--min-free-ram-gb", type=float, default=2.0,
+                    help="host RAM watchdog floor, GiB; 0 turns it off (syscheck.py)")
     return ap
 
 
 def main(argv=None) -> int:
-    from .config import ModelConfig, QuantConfig, preset_config
+    from .runlog import apply_config_precedence, setup_run_logging
 
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     ap = build_parser()
-    args = ap.parse_args(argv)
+    # --config FILE: its values are defaults that the flags override
+    args = apply_config_precedence(ap, argv)
     if bool(args.model) == bool(args.synthetic):
         ap.error("give one of --model and --synthetic")
     # the engine and the scheduler read these when they are built
@@ -715,6 +726,27 @@ def main(argv=None) -> int:
             os.environ["KRASIS_TPU_SPEC_K"] = str(args.spec_k)
     if args.spec_mode is not None:
         os.environ["KRASIS_TPU_SPEC_MODE"] = args.spec_mode
+
+    setup_run_logging(note=args.note)
+    if args.config:
+        log.info("config file %s: %s", args.config, args.config_values)
+    log.info("arguments: %s", vars(args))
+    stop_watchdog = None
+    if args.min_free_ram_gb > 0:
+        from .syscheck import start_ram_watchdog
+
+        stop_watchdog = start_ram_watchdog(min_free_gb=args.min_free_ram_gb)
+    try:
+        return _serve(args, ap)
+    finally:
+        if stop_watchdog is not None:
+            stop_watchdog()
+
+
+def _serve(args, ap) -> int:
+    """main's body after the flags, the log and the watchdog: build the
+    engine (and the scheduler), warm up, serve."""
+    from .config import ModelConfig, QuantConfig, preset_config
 
     def make_quant(group_size=128):
         return QuantConfig(expert_bits=args.expert_bits, group_size=group_size,

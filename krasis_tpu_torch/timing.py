@@ -1,14 +1,30 @@
-"""Kernel times on the card, for chip_smoke.py and the probes.
+"""Kernel times on the card, for chip_smoke.py and the probes, and the
+reference's timing and diagnostics flags.
 
 ``timeit_ms`` is the median of CUDA-event times around single launches
 after a warm-up, with a buffer rewritten before each launch when the launch
 must find the 50 MB L2 cache cold. ``device_per_call`` is device time a
 call from ``torch.profiler``.
+
+``TIMING`` holds the diagnostics flag of ``krasis_tpu/timing.py``, read
+from the environment at import, off by default:
+  KRASIS_TPU_DIAG=1 — per-layer activation RMS diagnostics, printed by the
+  layer step (``models/model.py``)
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+class _Timing:
+    def __init__(self):
+        self.diag = os.environ.get("KRASIS_TPU_DIAG", "") == "1"
+
+
+TIMING = _Timing()
 
 # After large profiles earlier in a process, the tracer on the card leaves
 # out the first kernel records of a recorded profiler step: none at first,

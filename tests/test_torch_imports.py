@@ -50,6 +50,10 @@ def test_scan_covers_the_package():
     assert {"krasis_tpu_torch/parallel/mesh.py", "krasis_tpu_torch/parallel/ep.py",
             "krasis_tpu_torch/parallel/pp.py", "krasis_tpu_torch/parallel/sp.py",
             "tools/mesh_phases.py"} <= names
+    assert {f"krasis_tpu_torch/{m}.py" for m in (
+        "syscheck", "runlog", "tracing", "cli", "stress_test", "suite", "fused_moe",
+        "auto_optimise", "debug_tokenizer", "launcher", "launcher_tui")} | {
+        "tools/tooling_phases.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -44,7 +44,7 @@ from krasis_tpu_torch.runtime.offload_engine import OffloadEngine
 from krasis_tpu_torch.runtime.scheduler import BatchScheduler
 
 from torch_ckpt_util import assert_same_leaves, write_checkpoint
-from torch_port_util import GPTOSS_TINY, hybrid_cfgs, port_params
+from torch_port_util import GPTOSS_TINY, hybrid_cfgs, port_params, run_log_dir  # noqa: F401
 from torch_spec_util import calm
 
 MLA_KW = dict(kv_lora_rank=64, q_lora_rank=None, qk_nope_head_dim=32,
@@ -521,6 +521,7 @@ def _chat(eng, sch):
 
 
 @pytest.mark.parametrize("slots", [0, 2])
+@pytest.mark.usefixtures("run_log_dir")
 def test_server_offload_answers_a_chat(monkeypatch, slots):
     """--offload experts --hot-experts 2 builds an OffloadEngine (and an
     offloaded scheduler with --slots) that answers a chat request."""
@@ -535,6 +536,7 @@ def test_server_offload_answers_a_chat(monkeypatch, slots):
     assert eng.offload.host_calls > 0
 
 
+@pytest.mark.usefixtures("run_log_dir")
 def test_server_offload_auto_is_resident_on_the_cpu(monkeypatch):
     eng, _ = _serve(monkeypatch, ["--offload", "auto"])
     assert eng.offload is None and not isinstance(eng, OffloadEngine)

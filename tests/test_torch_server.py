@@ -39,7 +39,7 @@ from krasis_tpu_torch.models.synthetic import tiny_config
 from krasis_tpu_torch.runtime.engine import Engine
 from krasis_tpu_torch.runtime.tokenizer import Tokenizer
 
-from torch_port_util import port_params
+from torch_port_util import port_params, run_log_dir  # noqa: F401
 from torch_tokenizer_util import COMMITTED
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -350,6 +350,7 @@ def test_channel_filter_matches_reference(stream):
     (["--offload", "experts"], "A-9"), (["--hot-experts", "4"], "A-9"),
     (["--spec-k", "2", "--mesh", "1,8"], "A-10"),
     (["--spec-mode", "mtp", "--offload", "experts"], "A-9")])
+@pytest.mark.usefixtures("run_log_dir")
 def test_main_raises_for_flags_not_ported(flags, item, monkeypatch, capsys):
     """The offload flags (A-9): main builds an OffloadEngine, with spec
     decoding off. --mesh (A-10): with --device cpu, main builds the engine
@@ -399,6 +400,7 @@ def test_main_raises_for_flags_not_ported(flags, item, monkeypatch, capsys):
         assert isinstance(eng, OffloadEngine) == ("--offload" in flags)
 
 
+@pytest.mark.usefixtures("run_log_dir")
 def test_main_runs_on_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -431,7 +433,8 @@ def test_module_entry_point_serves_and_exits_cleanly(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "krasis_tpu_torch.server", "--synthetic", "tiny", "--device",
          "cpu", "--port", "0", "--server-backend", "native", "--max-len", "512"],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)     # the run log goes into the working directory
     try:
         reg = tmp_path / "servers"
         deadline = time.time() + 120

@@ -33,6 +33,8 @@ from krasis_tpu_torch.runtime import scheduler as sched_mod
 from krasis_tpu_torch.runtime.engine import Engine
 from krasis_tpu_torch.runtime.scheduler import BatchScheduler
 
+from torch_port_util import run_log_dir  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = preset_config("deepseek-v2-lite", hidden_size=64, intermediate_size=128,
                     moe_intermediate_size=32, num_hidden_layers=2, num_attention_heads=4,
@@ -253,7 +255,8 @@ def test_module_entry_point_with_slots(tmp_path):
         [sys.executable, "-m", "krasis_tpu_torch.server", "--synthetic", "tiny", "--device",
          "cpu", "--port", "0", "--server-backend", "python", "--max-len", "512",
          "--slots", "2", "--decode-block", "4"],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)     # the run log goes into the working directory
     try:
         reg = tmp_path / "servers"
         deadline = time.time() + TIMEOUT
@@ -286,6 +289,7 @@ def test_module_entry_point_with_slots(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--spec-k", "2", "--offload", "experts"], "A-9"), (["--offload", "experts"], "A-9"),
     (["--mesh", "1,8"], "A-10")])
+@pytest.mark.usefixtures("run_log_dir")
 def test_slots_with_flags_not_ported_raise(flags, item, monkeypatch):
     """--offload experts (A-9): the scheduler shares the OffloadEngine's
     store, spec off. --mesh (A-10, a 1 x 8 CPU mesh here): the scheduler

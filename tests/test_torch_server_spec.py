@@ -14,6 +14,7 @@ import pytest
 
 from krasis_tpu_torch import server
 
+from torch_port_util import run_log_dir  # noqa: F401
 from torch_spec_util import Models, min_top2_gap
 
 # synthetic messages whose greedy steps keep a top-two gap over 0.02
@@ -43,6 +44,7 @@ def _post(port, obj, timeout=120):
     (["--spec-mode", "mtp"], None, 1),          # the tiny preset has no MTP module
     (["--spec-k", "2"], None, 2)])
 @pytest.mark.parametrize("slots", [0, 2])
+@pytest.mark.usefixtures("run_log_dir")
 def test_main_accepts_spec_flags(monkeypatch, flags, mode, k, slots):
     """The flags reach the engine and the scheduler through the reference's
     environment names; serving itself is replaced by a stand-in."""
@@ -68,6 +70,7 @@ def test_main_accepts_spec_flags(monkeypatch, flags, mode, k, slots):
 @pytest.mark.parametrize("flags,item", [
     (["--spec-mode", "ngram", "--spec-k", "3", "--mesh", "1,8"], "A-10"),
     (["--spec-mode", "ngram", "--offload", "experts"], "A-9")])
+@pytest.mark.usefixtures("run_log_dir")
 def test_spec_flags_with_flags_not_ported_raise(flags, item, monkeypatch):
     """Under --offload experts (A-9) spec decoding is off, as in the
     reference. Under --mesh (A-10, a 1 x 8 CPU mesh here) it stays on: the

@@ -1,8 +1,12 @@
 """Helpers for the tests that compare the PyTorch port with the JAX package:
 moving JAX arrays, QTensors and parameter trees into the port via numpy."""
 
+import logging
+import sys
+
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from krasis_tpu.config import QuantConfig as JaxQuantConfig
@@ -24,6 +28,24 @@ from krasis_tpu_torch.quant import QTensor
 # 31 s with one thread (8 cores). Every worker imports every collected test
 # module, this one included, so the whole run takes the setting.
 torch.set_num_threads(1)
+
+
+@pytest.fixture
+def run_log_dir(monkeypatch, tmp_path):
+    """For a test that calls the port's ``server.main``: main opens its run
+    log (``runlog.setup_run_logging``) in the working directory and hooks
+    sys.excepthook and the root logger. Run it in a temporary directory and
+    put the hook, the handlers and the package logger's level back after."""
+    monkeypatch.chdir(tmp_path)
+    root, pkg = logging.getLogger(), logging.getLogger("krasis_tpu_torch")
+    handlers, level, hook = list(root.handlers), pkg.level, sys.excepthook
+    yield tmp_path
+    for h in root.handlers[:]:
+        if h not in handlers:
+            root.removeHandler(h)
+            h.close()
+    pkg.setLevel(level)
+    sys.excepthook = hook
 
 
 def to_numpy_tree(tree):
